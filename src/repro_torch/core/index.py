@@ -1,0 +1,278 @@
+"""JasperIndex — thin host-side layer over one IndexCore (PyTorch port).
+
+The subset of `repro.core.index.JasperIndex` this slice carries: bulk
+build, exact and RaBitQ-quantized search through `searcher(spec)`, brute
+force, recall, memory statistics, and save/load in the JAX package's
+`.npz` + `.meta.json` format (an index either package saved loads in the
+other). Streaming insert, delete, consolidate, grow, the host rows tier
+and PQ are not ported yet (ROADMAP queue A).
+
+The index lives on the card unless `device="cpu"` is given; with no GPU
+and no explicit CPU device the constructor raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import asdict
+
+import numpy as np
+import torch
+
+from repro_torch.core.construction import ConstructionParams
+from repro_torch.core.distances import mips_augment_query
+from repro_torch.core.index_core import (
+    IndexCore,
+    attach_quantizer,
+    core_brute_force,
+    core_build,
+    core_from_arrays,
+    core_search,
+    core_set_labels,
+    core_size,
+    core_to_arrays,
+    init_core,
+)
+from repro_torch.core.mutations import pack_label_rows
+from repro_torch.core.rabitq import packed_bytes_per_vector, rabitq_train
+from repro_torch.core.search_spec import SearchSpec, Searcher, measure_recall
+from repro_torch.core.vamana import VamanaGraph
+from repro_torch.device import resolve_device
+
+
+class JasperIndex:
+    """Updatable ANNS index (Vamana graph + optional RaBitQ) on one card."""
+
+    def __init__(self, dims: int, capacity: int, *, metric: str = "l2",
+                 quantization: str | None = None, bits: int = 4,
+                 construction: ConstructionParams | None = None,
+                 seed: int = 0, device=None):
+        if metric not in ("l2", "mips"):
+            raise ValueError(f"metric must be l2|mips, got {metric!r}")
+        if quantization == "pq":
+            raise NotImplementedError(
+                "quantization='pq' (the paper's deprecated PQ baseline) is "
+                "not ported: use quantization='rabitq'")
+        if quantization not in (None, "rabitq"):
+            raise ValueError(
+                f"quantization must be None or 'rabitq', got {quantization!r}")
+        self.device = resolve_device(device)
+        self.dims = dims
+        self.metric = metric
+        # MIPS reduces to L2 with one augmented dimension (paper §6.3)
+        self.store_dims = dims + 1 if metric == "mips" else dims
+        self.quantization = quantization
+        self.bits = bits
+        self.params = construction or ConstructionParams()
+        self.seed = seed
+        self.core: IndexCore = init_core(capacity, self.store_dims,
+                                         self.params.degree_bound,
+                                         self.device)
+        self._mips_max_sqnorm: float | None = None
+
+    # -------------------------------------------------------- core delegation
+    @property
+    def capacity(self) -> int:
+        return self.core.capacity
+
+    @property
+    def vectors(self) -> torch.Tensor:
+        return self.core.vectors
+
+    @property
+    def graph(self) -> VamanaGraph:
+        return self.core.graph
+
+    @property
+    def rows_tier(self) -> str:
+        """Where the f32 rows live; only "device" is ported."""
+        return "device"
+
+    @property
+    def size(self) -> int:
+        """Number of LIVE rows."""
+        return core_size(self.core)
+
+    @property
+    def generation(self) -> int:
+        """Monotonic mutation counter."""
+        return self.core.mut.generation
+
+    @property
+    def _filter_tombstones(self) -> bool:
+        """False while no bit can be set (nothing tombstoned or freed)."""
+        return self.core.mut.n_deleted != 0 or self.core.mut.n_free != 0
+
+    def _as_tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(x, dtype=np.float32),
+                               device=self.device)
+
+    def _prep_data(self, x) -> torch.Tensor:
+        x = self._as_tensor(x)
+        if self.metric == "mips":
+            # a build rewrites every row, so the global max norm is simply
+            # this batch's (streaming inserts, which would re-augment
+            # earlier rows, are not ported)
+            sq = (x * x).sum(dim=-1)
+            self._mips_max_sqnorm = float(sq.max())
+            extra = torch.sqrt(torch.clamp(self._mips_max_sqnorm - sq,
+                                           min=0.0))
+            x = torch.cat([x, extra[:, None]], dim=-1)
+        return x
+
+    def _prep_query(self, q) -> torch.Tensor:
+        q = self._as_tensor(q)
+        if self.metric == "mips":
+            q = mips_augment_query(q)
+        return q
+
+    def _ensure_quantizer(self, rows: torch.Tensor) -> None:
+        """Lazy quantizer training on the first written batch."""
+        if self.quantization == "rabitq" and self.core.rq_params is None:
+            gen = torch.Generator().manual_seed(self.seed)
+            self.core = attach_quantizer(
+                self.core, rabitq_train(gen, rows, bits=self.bits))
+
+    # ------------------------------------------------------------- build
+    def build(self, data, *, labels=None, refine: bool = False,
+              progress_fn=None) -> "JasperIndex":
+        """Bulk construction over `data` (rows 0..N). Resets the graph and
+        all mutation state. `labels`: optional per-row label ids (scalar
+        or per-row sets) for filtered search."""
+        x = self._prep_data(data)
+        self._ensure_quantizer(x)
+        self.core = core_build(self.core, x, params=self.params,
+                               refine=refine, progress_fn=progress_fn)
+        if labels is not None:
+            self.set_labels(np.arange(x.shape[0], dtype=np.int32), labels)
+        return self
+
+    def set_labels(self, ids, labels) -> None:
+        """Assign per-row label bitsets (filtered search)."""
+        ids = np.atleast_1d(np.asarray(ids)).astype(np.int32).ravel()
+        self.core = core_set_labels(self.core, ids,
+                                    pack_label_rows(labels, ids.size))
+
+    # ------------------------------------------------------------ search
+    def searcher(self, spec: SearchSpec | None = None, **kw) -> Searcher:
+        """Open a search session; the spec is resolved once."""
+        spec = SearchSpec(**kw) if spec is None else \
+            (spec.with_(**kw) if kw else spec)
+        return Searcher(self, spec)
+
+    def _run_search(self, rspec, queries, filter_bytes) -> tuple:
+        q = self._prep_query(queries)
+        return core_search(self.core, q, spec=rspec,
+                           filter_tombstones=self._filter_tombstones,
+                           filter_bytes=filter_bytes)
+
+    def search(self, queries, k: int = 10, *, beam_width: int | None = None,
+               max_iters: int | None = None, expand: int = 1,
+               use_kernels: bool = False, merge: str = "topk",
+               traverse_deleted: bool = True):
+        """Exact-distance beam search; returns (ids (Q,k), dists (Q,k))."""
+        res = self.searcher(SearchSpec(
+            k=k, beam_width=beam_width, max_iters=max_iters, expand=expand,
+            use_kernels=use_kernels, merge=merge,
+            traverse_deleted=traverse_deleted)).search(queries)
+        return res.ids, res.dists
+
+    def search_rabitq(self, queries, k: int = 10, *,
+                      beam_width: int | None = None,
+                      max_iters: int | None = None, rerank: bool = True,
+                      expand: int = 1, use_kernels: bool = False,
+                      merge: str = "topk", traverse_deleted: bool = True):
+        """RaBitQ estimated-distance beam search (the paper's §5.1 path)."""
+        if self.core.codes is None:
+            raise RuntimeError("index was not built with quantization='rabitq'")
+        res = self.searcher(SearchSpec(
+            k=k, beam_width=beam_width, max_iters=max_iters, expand=expand,
+            quantized=True, rerank=rerank, use_kernels=use_kernels,
+            merge=merge, traverse_deleted=traverse_deleted)).search(queries)
+        return res.ids, res.dists
+
+    def brute_force(self, queries, k: int = 10):
+        """Exact top-k by full scan over LIVE rows (recall ground truth)."""
+        return core_brute_force(self.core, self._prep_query(queries), k=k)
+
+    def recall(self, queries, k: int = 10, *, beam_width: int | None = None,
+               quantized: bool = False, use_kernels: bool = False,
+               expand: int = 1, spec: SearchSpec | None = None) -> float:
+        """Recall@k vs brute force at the exact served configuration."""
+        spec = spec or SearchSpec(k=k, beam_width=beam_width,
+                                  quantized=quantized,
+                                  use_kernels=use_kernels, expand=expand)
+        return measure_recall(self, queries, spec)
+
+    # ------------------------------------------------------------ memory
+    def memory_stats(self) -> dict[str, float]:
+        full = self.store_dims * 4
+        mut = self.core.mut
+        stats = {
+            "vector_bytes_per_row": float(full),
+            "graph_bytes_per_row": float(self.params.degree_bound * 4),
+            "tombstone_bitmap_bytes": float(mut.tombstone_bits.numel()),
+            "free_pool_bytes": float(mut.free_ids.numel() * 4),
+        }
+        if self.quantization == "rabitq":
+            stats["rabitq_bytes_per_row"] = float(
+                packed_bytes_per_vector(self.store_dims, self.bits))
+            stats["compression_ratio"] = full / stats["rabitq_bytes_per_row"]
+            c = self.core.codes
+            if c is not None:
+                resident = sum(t.numel() * t.element_size()
+                               for t in (c.packed, c.data_add,
+                                         c.data_rescale))
+                stats["rabitq_resident_bytes"] = float(resident)
+                stats["rabitq_resident_bytes_per_row"] = (
+                    resident / self.capacity)
+        return stats
+
+    # --------------------------------------------------------- save/load
+    def _meta(self) -> dict:
+        return {
+            "dims": self.dims, "metric": self.metric,
+            "capacity": self.capacity,
+            "quantization": self.quantization, "bits": self.bits,
+            "seed": self.seed, "construction": asdict(self.params),
+            "mips_max_sqnorm": self._mips_max_sqnorm,
+            "rows_tier": self.rows_tier,
+        }
+
+    def save(self, path: str) -> None:
+        """Atomic checkpoint (tmp + rename) in the JAX package's format."""
+        save_npz_atomic(path, core_to_arrays(self.core), self._meta())
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "JasperIndex":
+        """Load a checkpoint either package saved, onto `device`."""
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+        if meta.get("rows_tier", "device") != "device":
+            raise NotImplementedError(
+                "host-tier checkpoints need core/storage.py, which is not "
+                "ported yet: ROADMAP queue A")
+        idx = cls(meta["dims"], meta["capacity"], metric=meta["metric"],
+                  quantization=meta["quantization"], bits=meta["bits"],
+                  construction=ConstructionParams(**meta["construction"]),
+                  seed=meta["seed"], device=device)
+        idx._mips_max_sqnorm = meta["mips_max_sqnorm"]
+        with np.load(path) as data:
+            idx.core = core_from_arrays(
+                data, bits=meta["bits"], store_dims=idx.store_dims,
+                quantized=meta["quantization"] == "rabitq",
+                device=idx.device)
+        return idx
+
+
+def save_npz_atomic(path: str, arrays: dict, meta: dict) -> None:
+    """Atomic .npz + .meta.json checkpoint write (tmp + rename)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f)

@@ -1,0 +1,158 @@
+"""RaBitQ search step: the CUDA `rabitq_search_step` kernel and its plain
+version.
+
+Replaces `rabitq_search_step_pallas` (`repro/kernels/rabitq_dot/
+rabitq_kernel.py:131`) together with the packed-row gather of
+`make_rabitq_kernel_scorer` (`repro/kernels/rabitq_dot/ops.py:152-169`):
+given raw beam ids, the kernel reads each candidate's packed code row,
+metadata, tombstone bit and label row itself, unpacks, takes the
+estimator and masks:
+
+    out[q, k] = max(add + qa + rescale * (<codes, q_rot> - qsum), 0)
+              = +inf where id < 0, id >= n_valid, tombstoned, or (with a
+                filter) the row's labels miss the filter mask
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.mutations import bitmap_gather, label_match_gather
+from repro_torch.core.rabitq import RaBitQCodes, RaBitQQuery, unpack_codes
+from repro_torch.kernels import build
+
+_INF = float("inf")
+
+
+def filter_word(filter_bytes: torch.Tensor) -> int:
+    """uint8[4] filter byte mask -> the little-endian uint32 the kernels
+    AND against a row's 4 label bytes read as one word."""
+    fb = [int(b) for b in filter_bytes.to("cpu").reshape(-1).tolist()]
+    if len(fb) != 4:
+        raise ValueError(f"filter mask must have 4 bytes, got {len(fb)}")
+    return fb[0] | (fb[1] << 8) | (fb[2] << 16) | (fb[3] << 24)
+
+
+def rabitq_search_step_plain(ids: torch.Tensor, packed: torch.Tensor,
+                             data_add: torch.Tensor,
+                             data_rescale: torch.Tensor, n_valid: int,
+                             q_rot: torch.Tensor, query_add: torch.Tensor,
+                             query_sumq: torch.Tensor, *, bits: int,
+                             tombstone_bits: torch.Tensor | None = None,
+                             labels: torch.Tensor | None = None,
+                             filter_bytes: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version (any device): gather packed rows, unpack,
+    estimator, mask."""
+    safe = torch.clamp(ids.long(), min=0)
+    dims = q_rot.shape[1]
+    codes = unpack_codes(packed[safe], bits, dims).to(torch.float32)
+    dot = torch.einsum("qkd,qd->qk", codes, q_rot.to(torch.float32))
+    est = data_add[safe] + query_add[:, None] + data_rescale[safe] * (
+        dot - query_sumq[:, None])
+    valid = (ids >= 0) & (ids < n_valid)
+    if tombstone_bits is not None:
+        valid &= ~bitmap_gather(tombstone_bits, safe)
+    if labels is not None:
+        valid &= label_match_gather(labels, filter_bytes, safe)
+    return torch.where(valid, torch.clamp(est, min=0.0),
+                       torch.full_like(est, _INF))
+
+
+def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
+                       data_add: torch.Tensor, data_rescale: torch.Tensor,
+                       n_valid: int, q_rot: torch.Tensor,
+                       query_add: torch.Tensor, query_sumq: torch.Tensor, *,
+                       bits: int, tombstone_bits: torch.Tensor | None = None,
+                       labels: torch.Tensor | None = None,
+                       filter_bytes: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """(Q, K) int32 raw beam ids over an (N, P) uint8 packed table ->
+    (Q, K) f32 masked estimates. q_rot is (Q, D) with D <= P * 8/bits
+    (padding dims read as zero). CUDA tensors launch the kernel (or
+    raise); CPU tensors take the plain version."""
+    dev = ids.device
+    if dev.type == "cpu":
+        return rabitq_search_step_plain(
+            ids, packed, data_add, data_rescale, n_valid, q_rot, query_add,
+            query_sumq, bits=bits, tombstone_bits=tombstone_bits,
+            labels=labels, filter_bytes=filter_bytes)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"rabitq_search_step runs on cuda or cpu tensors, got {dev}")
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
+    qn, k = ids.shape
+    n, p = packed.shape
+    d_need = p * (8 // bits)
+    if q_rot.shape[0] != qn or q_rot.shape[1] > d_need:
+        raise ValueError(f"q_rot {tuple(q_rot.shape)} does not fit ids "
+                         f"{tuple(ids.shape)} / packed width {p}")
+    q = q_rot.to(torch.float32)
+    if q.shape[1] < d_need:   # unpacked padding dims x zero q = inert
+        q = torch.nn.functional.pad(q, (0, d_need - q.shape[1]))
+    q = q.contiguous()
+    for t, name, dt, nd in ((ids, "ids", torch.int32, 2),
+                            (q, "q_rot", torch.float32, 2),
+                            (packed, "packed", torch.uint8, 2),
+                            (data_add, "data_add", torch.float32, 1),
+                            (data_rescale, "data_rescale", torch.float32, 1),
+                            (query_add, "query_add", torch.float32, 1),
+                            (query_sumq, "query_sumq", torch.float32, 1)):
+        build.require(t, name, dt, nd, dev)
+    if tombstone_bits is not None:
+        build.require(tombstone_bits, "tombstone_bits", torch.uint8, 1, dev)
+        if tombstone_bits.shape[0] * 8 < n:
+            raise ValueError("tombstone bitmap shorter than the table")
+    fb = 0
+    if labels is not None:
+        build.require(labels, "labels", torch.uint8, 2, dev)
+        if labels.shape != (n, 4) or labels.data_ptr() % 4:
+            raise ValueError("labels must be a 4-byte aligned (N, 4) plane")
+        fb = filter_word(filter_bytes)
+    out = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    if qn == 0 or k == 0:
+        return out
+    fn = build.entry("rabitq_search_step", "rabitq_search_step_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p] * 2 + [ctypes.c_uint32]
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p] * 2)
+    err = fn(build.ptr(ids), build.ptr(packed), build.ptr(data_add),
+             build.ptr(data_rescale), qn, k, p, n,
+             build.ptr(tombstone_bits), build.ptr(labels), fb,
+             build.ptr(q), build.ptr(query_add), build.ptr(query_sumq),
+             int(n_valid), bits, build.ptr(out),
+             ctypes.c_void_p(build.stream_handle()))
+    build.check(err, "rabitq_search_step")
+    rabitq_search_step.launches += 1
+    return out
+
+
+rabitq_search_step.launches = 0
+
+
+def make_rabitq_kernel_scorer(codes: RaBitQCodes, query: RaBitQQuery, *,
+                              n_valid: int,
+                              tombstone_bits: torch.Tensor | None = None,
+                              labels: torch.Tensor | None = None,
+                              filter_bytes: torch.Tensor | None = None):
+    """Beam-search ScoreFn over the canonical packed codes: one
+    `rabitq_search_step` launch per call, masking in its epilogue (the
+    scorer is self-masking). tombstone_bits / labels+filter_bytes: the
+    exclude-mode liveness and label tests, read per candidate in-kernel."""
+    q_rot = query.q_rot.to(torch.float32).contiguous()
+    qa = query.query_add.to(torch.float32).contiguous()
+    qs = query.query_sumq.to(torch.float32).contiguous()
+
+    def score(ids: torch.Tensor) -> torch.Tensor:
+        return rabitq_search_step(
+            ids.to(torch.int32).contiguous(), codes.packed, codes.data_add,
+            codes.data_rescale, n_valid, q_rot, qa, qs, bits=codes.bits,
+            tombstone_bits=tombstone_bits, labels=labels,
+            filter_bytes=filter_bytes)
+
+    score.self_masking = True
+    return score

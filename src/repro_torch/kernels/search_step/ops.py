@@ -1,0 +1,290 @@
+"""The fused whole-search megakernel: CUDA `fused_search`, its plain
+version, and `fused_beam_search`, the entry `core_search` routes to when
+`spec.fusion == "megakernel"`.
+
+Replaces `fused_search_pallas` (`repro/kernels/search_step/
+search_step_kernel.py:352`). One launch runs the whole greedy beam search,
+one thread block per query, frontier in shared memory throughout; only the
+final (Q, L) frontier, the hop counts and (with telemetry) the counters go
+to device memory. The plain version is the oracle loop
+(`ref.search_loop`) over the same operands.
+
+`fused_beam_search` prepares the operands, runs the kernel (or, for CPU
+tensors, the plain version) and finishes through the shared
+`finalize_frontier` epilogue, like every search path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.beam_search import (
+    BeamSearchResult,
+    SearchTelemetry,
+    expand_schedule,
+    finalize_frontier,
+    make_exact_scorer,
+    make_rabitq_scorer,
+)
+from repro_torch.core.rabitq import RaBitQCodes, RaBitQQuery
+from repro_torch.core.vamana import VamanaGraph
+from repro_torch.kernels import build
+from repro_torch.kernels.rabitq_dot.ops import filter_word
+from repro_torch.kernels.search_step.ref import init_frontier, search_loop
+
+_INF = float("inf")
+
+
+def _operand_scorer(q, qa, qb, data, meta0, meta1, n_valid, *, quantized,
+                    bits):
+    """The plain scorer over the kernel's operands (estimator or exact L2,
+    clamped at 0), as the unfused loop scores."""
+    if quantized:
+        return make_rabitq_scorer(
+            RaBitQCodes(packed=data, data_add=meta0, data_rescale=meta1,
+                        bits=bits, dims=q.shape[1]),
+            RaBitQQuery(q_rot=q, query_add=qa, query_sumq=qb))
+    return make_exact_scorer(data, q, n_valid, vec_sqnorm=meta0,
+                             query_sqnorm=qa)
+
+
+def fused_search_plain(f_ids, f_dists, f_vis, schedule, q, qa, qb,
+                       adjacency, data, meta0, meta1, tomb, labels, fb,
+                       n_valid: int, *, quantized: bool, bits: int,
+                       max_iters: int, telemetry: bool = False):
+    """Plain PyTorch version of `fused_search` (any device): the oracle
+    loop over the same operands. Same arguments and outputs."""
+    score = _operand_scorer(q, qa, qb, data, meta0, meta1, n_valid,
+                            quantized=quantized, bits=bits)
+    sched = [int(w) for w in schedule.tolist()]
+    ids, dists, hops, tel = search_loop(
+        f_ids, f_dists, f_vis.to(torch.bool), score_fn=score,
+        adjacency=adjacency, n_valid=n_valid, schedule=sched,
+        max_iters=max_iters, tombstone_bits=tomb, labels=labels,
+        filter_bytes=fb, telemetry=telemetry)
+    if telemetry:
+        counters = torch.stack(tel[:3], dim=1)
+        return ids, dists, hops, counters, tel[3]
+    return ids, dists, hops
+
+
+def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
+                 data, meta0, meta1, tomb, labels, fb, n_valid: int, *,
+                 quantized: bool, bits: int, max_iters: int,
+                 telemetry: bool = False):
+    """The megakernel: whole search, one launch.
+
+    f_ids/f_dists/f_vis: (Q, L) int32/f32/int32 initial frontier (sorted);
+    schedule: (max_iters,) int32 per-hop widths; q: (Q, Dq) f32 (rotated
+    query zero-padded to P*8/bits dims when quantized, else the query);
+    qa/qb: (Q,) f32 (query_add/query_sumq, or |q|^2 and unused);
+    adjacency: (cap, R) int32; data: (cap, P) uint8 packed codes or
+    (cap, D) f32 rows; meta0/meta1: (cap,) f32 data_add/data_rescale, or
+    squared norms and None; tomb: exclude-mode tombstone bitmap or None;
+    labels/fb: exclude-mode label plane (cap, 4) uint8 + uint8[4] mask, or
+    None. Returns (ids (Q, L), dists (Q, L), n_hops (Q,)) — plus
+    (counters (Q, 3) [scored, masked, dups], occupancy (Q, max_iters))
+    with telemetry. CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
+    dev = f_ids.device
+    if dev.type == "cpu":
+        return fused_search_plain(
+            f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency, data,
+            meta0, meta1, tomb, labels, fb, n_valid, quantized=quantized,
+            bits=bits, max_iters=max_iters, telemetry=telemetry)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_search runs on cuda or cpu tensors, got {dev}")
+    qn, l_width = f_ids.shape
+    cap, r = adjacency.shape
+    checks = [(f_ids, "f_ids", torch.int32, 2),
+              (f_dists, "f_dists", torch.float32, 2),
+              (f_vis, "f_vis", torch.int32, 2),
+              (schedule, "schedule", torch.int32, 1),
+              (q, "q", torch.float32, 2), (qa, "qa", torch.float32, 1),
+              (qb, "qb", torch.float32, 1),
+              (adjacency, "adjacency", torch.int32, 2),
+              (meta0, "meta0", torch.float32, 1)]
+    if quantized:
+        if bits not in (1, 2, 4, 8):
+            raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
+        checks += [(data, "data", torch.uint8, 2),
+                   (meta1, "meta1", torch.float32, 1)]
+        row_width = data.shape[1]
+        dq = row_width * (8 // bits)
+    else:
+        checks += [(data, "data", torch.float32, 2)]
+        row_width = dq = data.shape[1]
+    if tomb is not None:
+        checks.append((tomb, "tomb", torch.uint8, 1))
+    if labels is not None:
+        checks.append((labels, "labels", torch.uint8, 2))
+    for t, name, dt, nd in checks:
+        build.require(t, name, dt, nd, dev)
+    if (f_dists.shape != (qn, l_width) or f_vis.shape != (qn, l_width)
+            or schedule.shape[0] < max_iters or q.shape != (qn, dq)
+            or qa.shape[0] != qn or qb.shape[0] != qn
+            or data.shape[0] != cap or meta0.shape[0] != cap
+            or (meta1 is not None and meta1.shape[0] != cap)):
+        raise ValueError("fused_search: operand shapes disagree")
+    if tomb is not None and tomb.shape[0] * 8 < cap:
+        raise ValueError("tombstone bitmap shorter than the table")
+    fbw = 0
+    if labels is not None:
+        if labels.shape != (cap, 4) or labels.data_ptr() % 4:
+            raise ValueError("labels must be a 4-byte aligned (cap, 4) plane")
+        fbw = filter_word(fb)
+    out_ids = torch.empty((qn, l_width), dtype=torch.int32, device=dev)
+    out_dists = torch.empty((qn, l_width), dtype=torch.float32, device=dev)
+    out_hops = torch.empty((qn,), dtype=torch.int32, device=dev)
+    counters = occ = None
+    if telemetry:
+        counters = torch.empty((qn, 3), dtype=torch.int32, device=dev)
+        occ = torch.empty((qn, max_iters), dtype=torch.int32, device=dev)
+    if qn > 0:
+        fn = build.entry("search_step", "fused_search_launch", (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2          # frontier, Q, L
+            + [ctypes.c_void_p, ctypes.c_int]                   # sched, iters
+            + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
+            + [ctypes.c_void_p] * 3                             # qa, qb, adj
+            + [ctypes.c_int] * 3                                # R, cap, nvalid
+            + [ctypes.c_void_p, ctypes.c_int]                   # data, width
+            + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+            + [ctypes.c_int] * 3                                # q, bits, tel
+            + [ctypes.c_void_p] * 6))                           # outs, stream
+        err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
+                 qn, l_width, build.ptr(schedule), max_iters,
+                 build.ptr(q), dq, build.ptr(qa), build.ptr(qb),
+                 build.ptr(adjacency), r, cap, int(n_valid),
+                 build.ptr(data), row_width, build.ptr(meta0),
+                 build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
+                 int(quantized), int(bits), int(telemetry),
+                 build.ptr(out_ids), build.ptr(out_dists),
+                 build.ptr(out_hops), build.ptr(counters), build.ptr(occ),
+                 ctypes.c_void_p(build.stream_handle()))
+        build.check(err, "fused_search")
+        fused_search.launches += 1
+    if telemetry:
+        return out_ids, out_dists, out_hops, counters, occ
+    return out_ids, out_dists, out_hops
+
+
+fused_search.launches = 0
+
+
+def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
+                   beam_schedule: tuple | None = None,
+                   queries: torch.Tensor | None = None,
+                   vectors: torch.Tensor | None = None,
+                   vec_sqnorm: torch.Tensor | None = None,
+                   codes: RaBitQCodes | None = None,
+                   rq_query: RaBitQQuery | None = None,
+                   tombstone_bits: torch.Tensor | None = None,
+                   traverse_deleted: bool = True,
+                   labels: torch.Tensor | None = None,
+                   filter_bytes: torch.Tensor | None = None,
+                   filter_exclude: bool = False) -> dict:
+    """The keyword arguments of `fused_search` for one search: the initial
+    frontier (medoid in slot 0, scored with the plain scorer as the
+    unfused loop scores it), the per-hop schedule, the query operands and
+    the table operands. Quantized when `codes` is given, else exact."""
+    quantized = codes is not None
+    adj = graph.adjacency
+    dev = adj.device
+    if quantized:
+        num_q = rq_query.q_rot.shape[0]
+        init_ids = torch.full((num_q, 1), graph.medoid, dtype=torch.int32,
+                              device=dev)
+        d0 = make_rabitq_scorer(codes, rq_query)(init_ids)
+        bits = codes.bits
+        d_need = codes.packed.shape[1] * (8 // bits)
+        q = rq_query.q_rot.to(torch.float32)
+        if q.shape[1] < d_need:   # unpacked padding dims x zero q = inert
+            q = torch.nn.functional.pad(q, (0, d_need - q.shape[1]))
+        qa = rq_query.query_add.to(torch.float32)
+        qb = rq_query.query_sumq.to(torch.float32)
+        data, meta0, meta1 = codes.packed, codes.data_add, codes.data_rescale
+    else:
+        num_q = queries.shape[0]
+        init_ids = torch.full((num_q, 1), graph.medoid, dtype=torch.int32,
+                              device=dev)
+        d0 = make_exact_scorer(vectors, queries, graph.n_valid,
+                               vec_sqnorm)(init_ids)
+        bits = 0
+        q = queries.to(torch.float32)
+        qa = (q * q).sum(dim=-1)
+        qb = torch.zeros_like(qa)
+        data, meta0, meta1 = vectors, vec_sqnorm, None
+
+    # exclude-mode liveness / label filter ride the kernel epilogue;
+    # traverse mode filters only the final frontier (shared epilogue)
+    tomb = (tombstone_bits if tombstone_bits is not None
+            and not traverse_deleted else None)
+    use_filt = labels is not None and filter_exclude
+
+    f_ids, f_dists, f_vis = init_frontier(graph.medoid, d0, num_q,
+                                          beam_width)
+    sched = torch.tensor(expand_schedule(beam_schedule, beam_width,
+                                         max_iters), dtype=torch.int32,
+                         device=dev)
+    return dict(f_ids=f_ids, f_dists=f_dists, f_vis=f_vis.to(torch.int32),
+                schedule=sched,
+                q=q.contiguous(), qa=qa.contiguous(), qb=qb.contiguous(),
+                adjacency=adj, data=data, meta0=meta0, meta1=meta1,
+                tomb=tomb, labels=labels if use_filt else None,
+                fb=filter_bytes if use_filt else None, n_valid=graph.n_valid,
+                quantized=quantized, bits=bits, max_iters=max_iters)
+
+
+def fused_beam_search(graph: VamanaGraph, *, mode: str, beam_width: int,
+                      max_iters: int, beam_schedule: tuple | None = None,
+                      queries: torch.Tensor | None = None,
+                      vectors: torch.Tensor | None = None,
+                      vec_sqnorm: torch.Tensor | None = None,
+                      codes: RaBitQCodes | None = None,
+                      rq_query: RaBitQQuery | None = None,
+                      tombstone_bits: torch.Tensor | None = None,
+                      traverse_deleted: bool = True,
+                      labels: torch.Tensor | None = None,
+                      filter_bytes: torch.Tensor | None = None,
+                      filter_exclude: bool = False,
+                      telemetry: bool = False) -> BeamSearchResult:
+    """Fused greedy beam search — exact (vectors) or quantized (codes).
+
+    mode: "megakernel" (one launch, frontier on-chip throughout). "hop"
+    (one launch per hop) is not ported yet. Returns the standard
+    `BeamSearchResult`; visited logs are not kept by the fused path and
+    come back as -1/+inf fills.
+    """
+    if mode == "hop":
+        raise NotImplementedError(
+            "fusion='hop' needs the per-hop kernel (fused_hop_pallas), which "
+            "is not ported yet: ROADMAP queue B, kernel #4")
+    if mode != "megakernel":
+        raise ValueError(f"mode must be 'hop' or 'megakernel', got {mode!r}")
+    ops = fused_operands(
+        graph, beam_width=beam_width, max_iters=max_iters,
+        beam_schedule=beam_schedule, queries=queries, vectors=vectors,
+        vec_sqnorm=vec_sqnorm, codes=codes, rq_query=rq_query,
+        tombstone_bits=tombstone_bits, traverse_deleted=traverse_deleted,
+        labels=labels, filter_bytes=filter_bytes,
+        filter_exclude=filter_exclude)
+    out = fused_search(**ops, telemetry=telemetry)
+    f_ids, f_dists, hops = out[:3]
+    tel = None
+    if telemetry:
+        counters, occ_log = out[3:]
+        tel = SearchTelemetry(counters[:, 0], counters[:, 1], counters[:, 2],
+                              occ_log)
+    f_ids, f_dists = finalize_frontier(f_ids, f_dists, tombstone_bits,
+                                       labels=labels,
+                                       filter_bytes=filter_bytes)
+    num_q, dev = f_ids.shape[0], f_ids.device
+    return BeamSearchResult(
+        frontier_ids=f_ids, frontier_dists=f_dists,
+        visited_ids=torch.full((num_q, max_iters), -1, dtype=torch.int32,
+                               device=dev),
+        visited_dists=torch.full((num_q, max_iters), _INF,
+                                 dtype=torch.float32, device=dev),
+        n_hops=hops, telemetry=tel)

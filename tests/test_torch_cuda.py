@@ -1,0 +1,208 @@
+"""The CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU (and `nvcc`, which builds the kernels
+at first use): each is marked `cuda` and skips without a CUDA device. The
+file imports torch and the port only, so it runs on a machine without
+JAX:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: on integer-valued operands every float sum is exact in any
+order, so kernel and plain version must agree BIT for bit (ids, dists,
+hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99.
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import rabitq as tr
+from repro_torch.core.mutations import pack_bitmap
+from repro_torch.core.vamana import VamanaGraph
+
+N, D, R, Q = 512, 32, 16, 24
+
+FUSED_VARIANTS = [
+    # name, quantized, bits, beam, masks, telemetry, schedule
+    ("quant4", True, 4, 16, "none", False, None),
+    ("quant4-tel", True, 4, 16, "none", True, None),
+    ("quant2-tel", True, 2, 16, "none", True, None),
+    ("quant1-tel", True, 1, 16, "none", True, None),
+    ("quant8-tel", True, 8, 16, "none", True, None),
+    ("exact-tel", False, 4, 16, "none", True, None),
+    ("quant4-tomb-tel", True, 4, 16, "tomb", True, None),
+    ("quant4-labels-tel", True, 4, 16, "labels", True, None),
+    ("exact-both-tel", False, 4, 16, "both", True, None),
+    ("quant4-schedule-tel", True, 4, 24, "none", True, (24, 16, 12)),
+    ("quant4-L40-tel", True, 4, 40, "none", True, None),   # L > R + 1
+    ("exact-L40-tomb", False, 4, 40, "tomb", False, None),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+class Case:
+    """Integer-valued operands on the card (numpy-seeded)."""
+
+    def __init__(self, seed, device, bits=4):
+        rng = np.random.default_rng(seed)
+
+        def t(x):
+            return torch.as_tensor(x).to(device)
+
+        self.rng = rng
+        adj = rng.integers(-1, N, (N, R)).astype(np.int32)  # dups, pads, self
+        self.graph = VamanaGraph(adjacency=t(adj), n_valid=N - 7,
+                                 medoid=int(rng.integers(0, N - 7)))
+        vec = rng.integers(-5, 6, (N, D)).astype(np.float32)
+        self.vectors, self.sqnorm = t(vec), t((vec ** 2).sum(-1))
+        self.queries = t(rng.integers(-5, 6, (Q, D)).astype(np.float32))
+        p = tr.packed_dim(D, bits)
+        self.codes = tr.RaBitQCodes(
+            packed=t(rng.integers(0, 256, (N, p)).astype(np.uint8)),
+            data_add=t(rng.integers(0, 4000, N).astype(np.float32)),
+            data_rescale=t(rng.choice([-2., -1., 1., 2.], N)
+                           .astype(np.float32)),
+            bits=bits, dims=D)
+        self.rq = tr.RaBitQQuery(
+            q_rot=t(rng.integers(-3, 4, (Q, D)).astype(np.float32)),
+            query_add=t(rng.integers(0, 500, Q).astype(np.float32)),
+            query_sumq=t(rng.integers(-50, 50, Q).astype(np.float32)))
+        self.tomb = pack_bitmap(t(rng.random(N) < 0.15))
+        self.labels = t((rng.integers(0, 16, (N, 4))
+                         * np.array([1, 0, 0, 0])).astype(np.uint8))
+        self.fb = t(np.array([0x05, 0, 0, 0], np.uint8))
+
+
+def _operands(variant, device):
+    from repro_torch.kernels.search_step.ops import fused_operands
+    name, quantized, bits, beam, masks, telemetry, schedule = variant
+    c = Case(zlib.crc32(name.encode()), device, bits=bits)
+    kw = {}
+    if masks in ("tomb", "both"):
+        kw.update(tombstone_bits=c.tomb, traverse_deleted=False)
+    if masks in ("labels", "both"):
+        kw.update(labels=c.labels, filter_bytes=c.fb, filter_exclude=True)
+    table = (dict(codes=c.codes, rq_query=c.rq) if quantized else
+             dict(queries=c.queries, vectors=c.vectors,
+                  vec_sqnorm=c.sqnorm))
+    return fused_operands(c.graph, beam_width=beam, max_iters=60,
+                          beam_schedule=schedule, **table, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", FUSED_VARIANTS,
+                         ids=[v[0] for v in FUSED_VARIANTS])
+def test_fused_search_bit_exact_vs_plain(cuda_device, variant):
+    from repro_torch.kernels.search_step.ops import (fused_search,
+                                                     fused_search_plain)
+    ops = _operands(variant, cuda_device)
+    telemetry = variant[5]
+    before = fused_search.launches
+    got = fused_search(**ops, telemetry=telemetry)
+    want = fused_search_plain(**ops, telemetry=telemetry)
+    torch.cuda.synchronize()
+    assert fused_search.launches == before + 1
+    assert len(got) == len(want) == (5 if telemetry else 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(g.dtype))
+    assert float(got[2].float().mean()) > 3       # the walks did work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("masks", ["none", "tomb", "labels", "both"])
+def test_rabitq_search_step_bit_exact_vs_plain(cuda_device, bits, masks):
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_search_step, rabitq_search_step_plain)
+    c = Case(bits, cuda_device, bits=bits)
+    ids = torch.as_tensor(c.rng.integers(-1, N, (Q, 40)).astype(np.int32)
+                          ).to(cuda_device)
+    kw = {}
+    if masks in ("tomb", "both"):
+        kw["tombstone_bits"] = c.tomb
+    if masks in ("labels", "both"):
+        kw.update(labels=c.labels, filter_bytes=c.fb)
+    args = (ids, c.codes.packed, c.codes.data_add, c.codes.data_rescale,
+            c.graph.n_valid, c.rq.q_rot, c.rq.query_add, c.rq.query_sumq)
+    got = rabitq_search_step(*args, bits=bits, **kw)
+    want = rabitq_search_step_plain(*args, bits=bits, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 33, 128])
+def test_gather_l2_vs_plain(cuda_device, d):
+    """Bit-exact on integer rows; rtol 1e-4 (+ float32 ulps of the
+    cancelled terms) on float rows; odd widths take the scalar path."""
+    from repro_torch.kernels.distance.ops import gather_l2, gather_l2_plain
+    rng = np.random.default_rng(d)
+    ids = torch.as_tensor(rng.integers(-1, N, (Q, 50)).astype(np.int32)
+                          ).to(cuda_device)
+    for integer in (True, False):
+        x = (rng.integers(-9, 10, (N, d)) if integer
+             else rng.normal(size=(N, d))).astype(np.float32)
+        q = (rng.integers(-9, 10, (Q, d)) if integer
+             else rng.normal(size=(Q, d))).astype(np.float32)
+        x, q = torch.as_tensor(x).to(cuda_device), \
+            torch.as_tensor(q).to(cuda_device)
+        sq = (x * x).sum(-1)
+        got = gather_l2(q, x, sq, ids)
+        want = gather_l2_plain(q, x, sq, ids)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            fin = torch.isfinite(want)
+            assert torch.equal(torch.isfinite(got), fin)
+            terms = (q * q).sum(-1, keepdim=True) + sq[ids.clamp(min=0).long()]
+            tol = 1e-4 * want.abs() + 1e-6 * terms
+            assert bool(((got - want).abs()[fin] <= tol[fin]).all())
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_operands(cuda_device):
+    from repro_torch.kernels.distance.ops import gather_l2
+    x = torch.zeros((8, 4), device=cuda_device)
+    sq = torch.zeros((8,), device=cuda_device)
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_l2(x[:2], x, sq, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_l2(x[:2], x.t().contiguous().t(), sq, ids.to(torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        gather_l2(x[:2, :3].contiguous(), x, sq, ids.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_index_on_the_card_end_to_end(cuda_device):
+    """Build and search a small index on the card: the megakernel path
+    launches its kernels and matches the plain path's recall."""
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.kernels.distance.ops import gather_l2
+    from repro_torch.kernels.search_step.ops import fused_search
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(4096, 32)).astype(np.float32)
+    q = rng.normal(size=(128, 32)).astype(np.float32)
+    idx = JasperIndex(32, 4096, quantization="rabitq", construction=
+                      ConstructionParams(degree_bound=24, beam_width=32,
+                                         max_iters=48, rev_cap=24))
+    idx.build(data)
+    assert idx.core.vectors.is_cuda
+    before = (fused_search.launches, gather_l2.launches)
+    mk = idx.recall(q, 10, spec=SearchSpec(
+        k=10, beam_width=48, quantized=True, use_kernels=True,
+        fusion="megakernel"))
+    assert fused_search.launches == before[0] + 1
+    assert gather_l2.launches == before[1] + 1
+    plain = idx.recall(q, 10, spec=SearchSpec(k=10, beam_width=48,
+                                              quantized=True))
+    assert mk >= plain - 0.01 and mk >= 0.75

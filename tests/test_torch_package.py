@@ -1,0 +1,223 @@
+"""Guards of the PyTorch/CUDA port (`src/repro_torch`).
+
+  * the package imports neither JAX nor the JAX package: every submodule
+    imports in a subprocess whose import system refuses `jax`, `jaxlib`
+    and `repro`;
+  * `chip_smoke.py` imports neither;
+  * no silent CPU fallback: with no GPU, entry points raise unless
+    `device="cpu"` is given, and kernel wrappers run their plain version
+    only for CPU tensors (any other device raises).
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small tensors gain nothing from intra-op threads; one thread keeps
+    this file from competing with the other test workers for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _submodules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_package_has_the_slice_modules():
+    mods = set(_submodules())
+    for name in ("core.rabitq", "core.vamana", "core.medoid",
+                 "core.distances", "core.mutations", "core.robust_prune",
+                 "core.beam_search", "core.construction", "core.search_spec",
+                 "core.index_core", "core.index", "data.synthetic",
+                 "kernels.build", "kernels.distance.ops",
+                 "kernels.rabitq_dot.ops", "kernels.search_step.ops",
+                 "kernels.search_step.ref"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+def test_imports_without_jax_or_repro():
+    """Every submodule imports with jax, jaxlib and repro blocked."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+        BLOCKED = ("jax", "jaxlib", "repro")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        for mod in {_submodules()!r}:
+            importlib.import_module(mod)
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("ok", len({_submodules()!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "src/repro_torch"])
+def test_no_jax_or_repro_import_statements(path):
+    """No import statement of jax/jaxlib/repro anywhere in the port or in
+    chip_smoke.py (static check, including function-local imports)."""
+    full = os.path.join(REPO, path)
+    files = ([full] if full.endswith(".py") else
+             [os.path.join(d, f) for d, _, fs in os.walk(full)
+              for f in fs if f.endswith(".py")])
+    assert files
+    for fname in files:
+        tree = ast.parse(open(fname).read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{fname} imports {n}"
+
+
+def test_tf32_is_off():
+    import repro_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Alone in a directory (and, here, with no CUDA device) the script
+    exits non-zero and prints no result line."""
+    import shutil
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+# ------------------------------------------------------------ no fallback
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.core.index_core import core_from_arrays, init_core
+    from repro_torch.device import resolve_device
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        JasperIndex(8, 16)
+    with pytest.raises(RuntimeError):
+        init_core(16, 8, 4)
+    arrays = {"vectors": np.zeros((16, 8), np.float32),
+              "adjacency": np.full((16, 4), -1, np.int32),
+              "n_valid": np.int32(0), "medoid": np.int32(0)}
+    with pytest.raises(RuntimeError):
+        core_from_arrays(arrays, bits=4, store_dims=8, quantized=False)
+    # explicit CPU works
+    idx = JasperIndex(8, 16, device="cpu")
+    assert idx.core.vectors.device.type == "cpu"
+    assert init_core(16, 8, 4, device="cpu").adjacency.shape == (16, 4)
+
+
+def test_kernel_build_refuses_without_gpu(monkeypatch):
+    from repro_torch.kernels import build
+    _no_cuda(monkeypatch)
+    build._libs.clear()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        build.load("gather_l2")
+
+
+def _wrapper_inputs(device):
+    rng = np.random.default_rng(0)
+    n, d, q, k, bits = 64, 16, 3, 5, 4
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    packed = t(rng.integers(0, 256, (n, d * bits // 8), dtype=np.uint8))
+    table = t(rng.normal(size=(n, d)).astype(np.float32))
+    ids = t(rng.integers(-1, n, (q, k)).astype(np.int32))
+    qv = t(rng.normal(size=(q, d)).astype(np.float32))
+    vec = t(rng.normal(size=(n,)).astype(np.float32))
+    qs = t(rng.normal(size=(q,)).astype(np.float32))
+    return dict(packed=packed, table=table, ids=ids, q=qv, vec=vec, qs=qs,
+                n=n, bits=bits)
+
+
+def _call_wrappers(x):
+    from repro_torch.kernels.distance.ops import gather_l2
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.search_step.ops import fused_search
+    out = {}
+    out["gather_l2"] = lambda: gather_l2(x["q"], x["table"],
+                                         x["vec"].abs(), x["ids"])
+    out["rabitq_search_step"] = lambda: rabitq_search_step(
+        x["ids"], x["packed"], x["vec"], x["vec"], x["n"], x["q"], x["qs"],
+        x["qs"], bits=x["bits"])
+    q, k = x["ids"].shape
+    dev = x["ids"].device
+    f_ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    f_ids[:, 0] = 0
+    f_d = torch.full((q, k), float("inf"), device=dev)
+    f_d[:, 0] = 1.0
+    adj = x["ids"].new_zeros((x["n"], 4)) - 1
+    out["fused_search"] = lambda: fused_search(
+        f_ids, f_d, torch.zeros_like(f_ids),
+        torch.full((4,), k, dtype=torch.int32, device=dev), x["q"],
+        x["qs"], x["qs"], adj, x["packed"], x["vec"], x["vec"], None, None,
+        None, x["n"], quantized=True, bits=x["bits"], max_iters=4)
+    return out
+
+
+@pytest.mark.parametrize("name", ["gather_l2", "rabitq_search_step",
+                                  "fused_search"])
+def test_wrappers_plain_only_on_cpu(name, monkeypatch):
+    """CPU tensors take the plain version (no build, no launch counted);
+    tensors on any other non-CUDA device raise rather than fall back."""
+    _no_cuda(monkeypatch)
+    from repro_torch.kernels import build
+    build._libs.clear()
+    fn = _call_wrappers(_wrapper_inputs("cpu"))[name]
+    wrapper = {"gather_l2": "repro_torch.kernels.distance.ops",
+               "rabitq_search_step": "repro_torch.kernels.rabitq_dot.ops",
+               "fused_search": "repro_torch.kernels.search_step.ops"}[name]
+    mod = __import__(wrapper, fromlist=[name])
+    before = getattr(mod, name).launches
+    out = fn()
+    assert getattr(mod, name).launches == before
+    assert not build._libs
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.device.type == "cpu"
+    meta_fn = _call_wrappers(_wrapper_inputs("meta"))[name]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        meta_fn()
