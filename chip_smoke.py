@@ -6,10 +6,12 @@
 
 Phases:
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — compile the three CUDA kernels from `src/repro_torch/csrc`
-                (one nvcc per source, in parallel); print the seconds.
+  2. build    — compile the CUDA kernels from `src/repro_torch/csrc` (one
+                nvcc per source, in parallel); print the seconds.
   3. selfcheck — each kernel against its plain PyTorch version on a small
-                synthetic index, every template variant, exact arithmetic.
+                synthetic index, every template variant, exact arithmetic
+                (`fused_hop` hop by hop over whole walks; `topk` on ties,
+                all-+inf tails and widths that are not a multiple of 32).
   4. main path — bigann-shaped synthetic data; `JasperIndex.build` (Vamana
                 construction + RaBitQ 4-bit codes); search with the
                 megakernel + exact rerank, with the unfused loop over the
@@ -21,13 +23,24 @@ Phases:
                 (integer-valued operands: bit-equal ids, dists, hops and
                 telemetry) and realistic mode (id agreement >= 0.99, hops
                 equal on >= 99% of queries, dists rtol 1e-4); times of each
-                kernel, its plain version, its bound and, for gather_l2, the
-                index_select + bmm yardstick.
+                kernel, its plain version, its bound and, where one PyTorch
+                call computes the same function, that call's time.
+  6. churn round ("built for change") on the same index: delete 1% of the
+                rows; search on the megakernel, hop (`fused_hop`) and
+                merge-kernel (`rabitq_search_step` + `topk`) lanes with
+                tombstones traversed and excluded; consolidate; insert 2%
+                new rows (freed slots first, then past the capacity, which
+                auto-grows to twice by copy-extension); search again. Checks
+                zero tombstoned ids, recall@10, exact per-lane launch counts,
+                hop lane == megakernel lane and merge-kernel lane ==
+                topk-merge lane bit for bit, slot reuse, the resident prefix
+                of every buffer byte-identical across the grow, and that the
+                reused rows find themselves.
 
 Prints the kernel JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, if
 there is no CUDA device, a kernel fails to build, launch or agree, a path
-skips its kernel, or recall misses its floor.
+skips its kernel, recall misses its floor, or a churn check fails.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ RECALL_FLOOR = 0.85
 RECALL_SLACK = 0.01
 SEED = 0                       # data, queries, the RaBitQ rotation
 PRUNE_CHUNK = 16384            # RobustPrune rows per batch: memory only
+SELF_HIT_FLOOR = 0.9           # reused rows found by their own vector, k=1
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +208,53 @@ def compare_fused_exact(cases) -> None:
             f"{float(got[2].float().mean()):.2f})")
 
 
+def compare_hop_exact(cases) -> None:
+    """fused_hop against fused_hop_plain over every hop of whole walks,
+    bit-equal on integer operands; the walk goes on from the kernel's
+    output."""
+    from repro_torch.kernels.search_step.ops import (
+        fused_hop, fused_hop_plain, hop_operands)
+    labels = ("ids", "dists", "visited", "increment", "counters")
+    for name, ops, tel in cases:
+        f, hop_ops = hop_operands(ops)
+        sched = ops["schedule"].tolist()
+        hops = iters = 0
+        for t in range(ops["max_iters"]):
+            got = fused_hop(*f, sched[t], **hop_ops, telemetry=tel)
+            want = fused_hop_plain(*f, sched[t], **hop_ops, telemetry=tel)
+            for lab, g, w in zip(labels, got, want):
+                if not torch.equal(g, w):
+                    bad = (g != w).reshape(g.shape[0], -1).any(1)
+                    raise SmokeFailure(
+                        f"fused_hop {name} hop {t}: {lab} differ on "
+                        f"{int(bad.sum())} queries")
+            n = int(got[3].sum())
+            if n == 0:
+                break
+            hops, iters, f = hops + n, t + 1, got[:3]
+        log(f"  fused_hop {name}: bit-equal over {iters} hops "
+            f"({hops / f[0].shape[0]:.2f} per query)")
+
+
+def compare_topk_exact(gen) -> None:
+    """topk against topk_plain, bit-equal: integer dists with ties, 30 %
+    +inf entries, rows whose second half is all +inf, and widths that are
+    not a multiple of 32."""
+    from repro_torch.kernels.topk.ops import topk, topk_plain
+    for q, c, k in ((512, 6, 4), (10_000, 128, 64), (300, 45, 9),
+                    (64, 1000, 100)):
+        d = torch.randint(0, 8, (q, c), generator=gen).float()
+        d[torch.rand((q, c), generator=gen) < 0.3] = float("inf")
+        d[: q // 4, c // 2:] = float("inf")
+        ids = torch.randint(-1, 10**6, (q, c), generator=gen,
+                            dtype=torch.int32)
+        d, ids = d.cuda(), ids.cuda()
+        got, want = topk(d, ids, k), topk_plain(d, ids, k)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topk ({q}, {c}) k={k}: differs from topk_plain")
+    log("  topk: bit-equal on ties and +inf tails, C in {6, 128, 45, 1000}")
+
+
 def compare_step_exact(core, rq, gen, n_q) -> None:
     """rabitq_search_step and gather_l2, integer operands, bit-equal."""
     from repro_torch.kernels.distance.ops import gather_l2, gather_l2_plain
@@ -231,6 +292,23 @@ def compare_step_exact(core, rq, gen, n_q) -> None:
     log(f"  gather_l2: bit-equal on integer rows, ({n_q}, {r})")
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its
+    launches in `.launches`)."""
+    from repro_torch.kernels.distance.ops import gather_l2
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.search_step.ops import fused_hop, fused_search
+    from repro_torch.kernels.topk.ops import topk
+    return {"fused_search": fused_search, "gather_l2": gather_l2,
+            "rabitq_search_step": rabitq_search_step,
+            "fused_hop": fused_hop, "topk": topk}
+
+
+def counts(**nonzero) -> dict:
+    """Expected launch counts of one search: 0 for every kernel not named."""
+    return {name: nonzero.get(name, 0) for name in kernel_wrappers()}
+
+
 # --------------------------------------------------------------- phases
 def build_index(data, params, seed=0):
     from repro_torch.core.index import JasperIndex
@@ -257,9 +335,11 @@ def selfcheck(gen) -> None:
     log(f"  selfcheck index: 8192 x 128 built in {secs:.2f} s")
     core = idx.core
     rq = rabitq_preprocess_query(core.rq_params, queries)
-    compare_fused_exact(fused_cases(core, queries, rq, gen, beam=64,
-                                    max_iters=140))
+    cases = fused_cases(core, queries, rq, gen, beam=64, max_iters=140)
+    compare_fused_exact(cases)
+    compare_hop_exact(cases)
     compare_step_exact(core, rq, gen, 512)
+    compare_topk_exact(gen)
 
 
 def recall_at(ids, gt) -> float:
@@ -305,12 +385,7 @@ def main_path(args):
     from repro_torch.core.search_spec import SearchSpec
     from repro_torch.data.synthetic import (ANNS_DATASETS, make_anns_dataset,
                                             make_queries)
-    from repro_torch.kernels.distance.ops import gather_l2
-    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
-    from repro_torch.kernels.search_step.ops import fused_search
-
-    wrappers = {"fused_search": fused_search, "gather_l2": gather_l2,
-                "rabitq_search_step": rabitq_search_step}
+    wrappers = kernel_wrappers()
     ds = ANNS_DATASETS["bigann"]
     t0 = time.perf_counter()
     data = make_anns_dataset(ds, n=args.n, seed=SEED)
@@ -354,14 +429,15 @@ def main_path(args):
         res = searcher.search(q_dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {k: w.launches for k, w in wrappers.items()}
+        launched = {k: w.launches for k, w in wrappers.items()}
         rec = recall_at(res.ids, gt)
         hops = float(res.n_hops.float().mean())
         results[name] = dict(recall=rec, qps=args.queries / secs, secs=secs,
                              hops=hops, max_hops=int(res.n_hops.max()),
-                             launches=counts)
+                             launches=launched)
         log(f"  search {name}: {args.queries / secs:.0f} QPS ({secs:.3f} s),"
-            f" recall@10 {rec:.4f}, mean hops {hops:.2f}, launches {counts}")
+            f" recall@10 {rec:.4f}, mean hops {hops:.2f}, launches "
+            f"{launched}")
     profile_search(idx.searcher(paths["megakernel"]), q_dev)
 
     mk, uk, pl = (results["megakernel"], results["unfused+kernel"],
@@ -370,10 +446,10 @@ def main_path(args):
     # plus one launch per loop iteration (the loop runs until the longest
     # query stops, so max hops iterations), one rerank. Plain: none.
     expected = {
-        "megakernel": dict(fused_search=1, gather_l2=1, rabitq_search_step=0),
-        "unfused+kernel": dict(fused_search=0, gather_l2=1,
-                               rabitq_search_step=1 + uk["max_hops"]),
-        "plain": dict(fused_search=0, gather_l2=0, rabitq_search_step=0),
+        "megakernel": counts(fused_search=1, gather_l2=1),
+        "unfused+kernel": counts(gather_l2=1,
+                                 rabitq_search_step=1 + uk["max_hops"]),
+        "plain": counts(),
     }
     for name, want in expected.items():
         got = results[name]["launches"]
@@ -391,7 +467,7 @@ def main_path(args):
                     gather_l2=mk["launches"]["gather_l2"],
                     rabitq_search_step=uk["launches"]["rabitq_search_step"])
     log(f"  launches per path's search: {launches}")
-    return idx, q_dev, launches
+    return idx, q_dev, launches, mk["recall"]
 
 
 def kernels_at_main_shapes(idx, q_dev, launches, gen):
@@ -525,7 +601,293 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
         replaces="src/repro/kernels/distance/distance_kernel.py:130",
         launches=launches["gather_l2"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    records += hop_and_topk_at_main_shapes(core, ops, rq)
     return records
+
+
+def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
+    """Phase 5, the churn slice's kernels: `fused_hop` on the real
+    frontier of hops 0, 10, 20, ... of a hop-mode walk over the real codes
+    (realistic mode: increments and counters equal, id agreement >= 0.99,
+    dists rtol 1e-4; times and bounds averaged over those hops), and
+    `topk` on the merge operands of hop 10 (frontier ++ the estimates of
+    its first slot's neighbours: Q x (L + R), k = L), bit-equal. Their
+    `launches` are filled in from the churn round's searches."""
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.search_step.ops import (
+        fused_hop, fused_hop_plain, hop_operands)
+    from repro_torch.kernels.topk.ops import topk, topk_plain
+    f, hop_ops = hop_operands(ops)
+    sched = ops["schedule"].tolist()
+    n_q, beam = ops["f_ids"].shape
+    r = core.degree_bound
+    p = core.codes.packed.shape[1]
+    dq = ops["q"].shape[1]
+    d = core.store_dims
+    ms, plain, bounds, err, agree, f10 = [], [], [], 0.0, [], None
+    for t in range(ops["max_iters"]):
+        if t % 10:
+            got = fused_hop(*f, sched[t], **hop_ops)
+        else:
+            got = fused_hop(*f, sched[t], **hop_ops, telemetry=True)
+            want = fused_hop_plain(*f, sched[t], **hop_ops, telemetry=True)
+            torch.cuda.synchronize()
+            check(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
+                  f"fused_hop hop {t}: increments or counters differ")
+            same = got[0] == want[0]
+            agree.append(float(same.float().mean()))
+            check(agree[-1] >= 0.99, f"fused_hop hop {t}: id agreement "
+                  f"{agree[-1]:.4f}")
+            fin = same & torch.isfinite(want[1])
+            if fin.any():
+                err = max(err, float((got[1][fin] - want[1][fin]).abs().max()))
+                check(torch.allclose(got[1][fin], want[1][fin], rtol=1e-4,
+                                     atol=1e-3), f"fused_hop hop {t}: dists")
+            fi = f
+            ms.append(cuda_ms(lambda: fused_hop(*fi, sched[t], **hop_ops), 5))
+            plain.append(cuda_ms(
+                lambda: fused_hop_plain(*fi, sched[t], **hop_ops), 1))
+            active = float(got[3].sum())
+            scored = float(got[4][:, 0].sum())
+            # frontier in and out (ids, dists, visited: 12 B each way), the
+            # expanded rows' adjacency, each scored candidate's code row and
+            # metadata, the query operands, the increments
+            h_bytes = (n_q * beam * 24 + active * r * 4 + scored * (p + 8)
+                       + n_q * (dq * 4 + 8) + n_q * 4)
+            bounds.append(bound(h_bytes, scored * 2 * d)[0])
+            if t == 10:
+                f10 = f
+        if int(got[3].sum()) == 0:
+            break
+        f = got[:3]
+    check(f10 is not None, "the hop walk ended before hop 10")
+    hop_ms, hop_plain = float(np.mean(ms)), float(np.mean(plain))
+    hop_bound = float(np.mean(bounds))
+    log(f"  fused_hop ({n_q}, L={beam}) over hops 0, 10, ..., "
+        f"{10 * (len(ms) - 1)}: {hop_ms:.4f} ms per launch, plain "
+        f"{hop_plain:.4f} ms, bound {hop_bound:.4f} ms (bytes), id agreement "
+        f"min {min(agree):.4f}, max |err| {err:.3g}")
+    records = [dict(
+        name="fused_hop", route="cuda",
+        source="src/repro_torch/csrc/search_step.cu",
+        replaces="src/repro/kernels/search_step/search_step_kernel.py:309",
+        launches=None, max_abs_err=err, ms=hop_ms, plain_ms=hop_plain,
+        bound_ms=hop_bound, bound_by="bytes", library_ms=None)]
+
+    # ---- topk on hop 10's merge operands
+    cand = core.adjacency[f10[0][:, 0].long()].contiguous()
+    c_d = rabitq_search_step(cand, core.codes.packed, core.codes.data_add,
+                             core.codes.data_rescale, core.n_valid, rq.q_rot,
+                             rq.query_add, rq.query_sumq, bits=core.codes.bits)
+    all_d = torch.cat([f10[1], c_d], dim=1).contiguous()
+    c = all_d.shape[1]
+    pos = torch.arange(c, dtype=torch.int32, device=all_d.device).expand(
+        n_q, c).contiguous()
+    got, want = topk(all_d, pos, beam), topk_plain(all_d, pos, beam)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "topk at the merge's shape differs from topk_plain")
+    ms = cuda_ms(lambda: topk(all_d, pos, beam), 20)
+    plain_ms = cuda_ms(lambda: topk_plain(all_d, pos, beam), 20)
+    lib_ms = cuda_ms(lambda: torch.topk(all_d, beam, dim=1, largest=False,
+                                        sorted=True), 20)
+    # read dists + ids once, write the k smallest; C*C rank compares per row
+    b_ms, b_by = bound(n_q * c * 8 + n_q * beam * 8, n_q * c * c)
+    log(f"  topk ({n_q}, {c}) k={beam}: {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" torch.topk {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{float(torch.isinf(all_d).float().mean()):.3f} of the entries +inf")
+    records.append(dict(
+        name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
+        replaces="src/repro/kernels/topk/topk_kernel.py:49",
+        launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return records
+
+
+# ------------------------------------------------------------ churn round
+CHURN_LANES = {
+    "megakernel": dict(fusion="megakernel"),
+    "hop": dict(fusion="hop"),
+    "merge-kernel": dict(fusion="none", merge="kernel"),
+    # the merge-kernel lane's twin with the stable-sort merge: same scorer,
+    # so the two must agree bit for bit
+    "topk-merge": dict(fusion="none", merge="topk"),
+}
+
+
+def churn_searches(idx, q_dev, gt, stage: str) -> dict:
+    """Every churn lane in both traversal modes, each search between
+    zeroed and read launch counters. Checks recall, zero tombstoned ids,
+    exact launch counts and the two bit-equalities; returns {lane:
+    launches} of the traverse_deleted=True searches."""
+    from repro_torch.core.search_spec import SearchSpec
+    wrappers = kernel_wrappers()
+    first = {}
+    for traverse in (True, False):
+        res = {}
+        for lane, kw in CHURN_LANES.items():
+            searcher = idx.searcher(SearchSpec(
+                k=10, beam_width=64, quantized=True, use_kernels=True,
+                traverse_deleted=traverse, **kw))
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            out = searcher.search(q_dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = {k: w.launches for k, w in wrappers.items()}
+            ids = out.ids.cpu().numpy()
+            dead = int(idx.tombstoned(ids[ids >= 0]).sum())
+            rec = recall_at(out.ids, gt)
+            iters = int(out.n_hops.max())
+            log(f"    {stage} {lane:12s} traverse_deleted={traverse!s:5}: "
+                f"{secs:.3f} s ({q_dev.shape[0] / secs:.0f} QPS), recall@10 "
+                f"{rec:.4f}, mean hops {float(out.n_hops.float().mean()):.2f}"
+                f", tombstoned ids {dead}, launches {launched}")
+            check(dead == 0, f"{lane} returned {dead} tombstoned ids")
+            check(rec >= RECALL_FLOOR, f"{lane} recall {rec:.4f} < "
+                  f"{RECALL_FLOOR}")
+            want = {
+                "megakernel": counts(fused_search=1, gather_l2=1),
+                "hop": counts(fused_hop=iters, gather_l2=1),
+                "merge-kernel": counts(topk=iters, gather_l2=1,
+                                       rabitq_search_step=iters + 1),
+                "topk-merge": counts(gather_l2=1,
+                                     rabitq_search_step=iters + 1),
+            }[lane]
+            check(launched == want, f"{lane} launched {launched}, expected "
+                  f"{want}")
+            res[lane] = out
+            if traverse:
+                first[lane] = launched
+        for a, b in (("hop", "megakernel"), ("merge-kernel", "topk-merge")):
+            x, y = res[a], res[b]
+            same = (torch.equal(x.ids, y.ids) and torch.equal(x.dists, y.dists)
+                    and torch.equal(x.n_hops, y.n_hops))
+            check(same, f"{stage}: {a} lane differs from the {b} lane (ids "
+                  f"agree {float((x.ids == y.ids).float().mean()):.4f})")
+        log(f"    {stage}: hop == megakernel and merge-kernel == topk-merge "
+            f"bit for bit (traverse_deleted={traverse})")
+    return first
+
+
+def grow_checker(idx) -> dict:
+    """Wrap `idx.grow` (the insert's auto-grow calls it) so that it checks
+    the resident prefix of every buffer byte-identical and the new tail
+    at its fill value, and times the copy. Returns the record it fills."""
+    info = {}
+    orig = idx.grow
+
+    def grow(new_capacity=None):
+        old = idx.core
+        t0 = time.perf_counter()
+        orig(new_capacity)
+        torch.cuda.synchronize()
+        info["secs"] = time.perf_counter() - t0
+        new = idx.core
+        info["capacity"] = (old.capacity, new.capacity)
+        for name, a, b, fill in (
+                ("vectors", old.vectors, new.vectors, 0),
+                ("vec_sqnorm", old.vec_sqnorm, new.vec_sqnorm, 0),
+                ("adjacency", old.adjacency, new.adjacency, -1),
+                ("packed codes", old.codes.packed, new.codes.packed, 0),
+                ("data_add", old.codes.data_add, new.codes.data_add, 0),
+                ("data_rescale", old.codes.data_rescale,
+                 new.codes.data_rescale, 0),
+                ("tombstone bits", old.mut.tombstone_bits,
+                 new.mut.tombstone_bits, 0),
+                ("labels", old.mut.labels, new.mut.labels, 0),
+                ("free ids", old.mut.free_ids, new.mut.free_ids, -1)):
+            n = a.shape[0]
+            check(torch.equal(b[:n], a), f"grow changed the prefix of {name}")
+            check(bool((b[n:] == fill).all()),
+                  f"grow's new tail of {name} is not {fill}")
+        return idx
+
+    idx.grow = grow
+    return info
+
+
+def churn_round(idx, q_dev, n_rows: int, recall_before: float) -> dict:
+    """Phase 6: delete 1 % -> search -> consolidate -> insert 2 % (slot
+    reuse + auto-grow) -> search. Returns {lane: launches} of the first
+    search of each lane."""
+    from repro_torch.core.vamana import validate_graph
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    gen = torch.Generator().manual_seed(SEED + 3)
+    core = idx.core
+    n_del = n_rows // 100
+    perm = torch.randperm(n_rows, generator=gen)
+    dead = torch.sort(perm[:n_del]).values.numpy()
+    keep = perm[n_del:n_del + 1000].to(core.device)    # untouched live rows
+    kept = (core.codes.packed[keep].clone(), core.codes.data_add[keep].clone(),
+            core.vectors[keep].clone())
+
+    t0 = time.perf_counter()
+    n = idx.delete(dead)
+    torch.cuda.synchronize()
+    log(f"  delete {n_del} rows: {time.perf_counter() - t0:.3f} s; size "
+        f"{idx.size}, n_deleted {idx.n_deleted}")
+    check(n == n_del and idx.n_deleted == n_del
+          and idx.size == n_rows - n_del, "delete counts disagree")
+    gt, _ = idx.brute_force(q_dev, 10)
+    launches = churn_searches(idx, q_dev, gt, "after delete")
+
+    t0 = time.perf_counter()
+    stats = idx.consolidate()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  consolidate (refine=True): {secs:.2f} s, {stats}")
+    check(stats["n_freed"] == n_del, f"consolidate freed {stats['n_freed']}")
+    live = torch.as_tensor(idx.live_mask()).to(core.device)
+    checks = {k: bool(v) for k, v in validate_graph(idx.graph, live).items()}
+    check(all(checks.values()), f"validate_graph after consolidate: {checks}")
+    rec = idx.recall(q_dev, 10, spec=_mk_spec())
+    log(f"  recall@10 (megakernel lane) after consolidate {rec:.4f}, before "
+        f"the delete {recall_before:.4f}; validate_graph {checks}")
+    check(rec >= RECALL_FLOOR, f"recall after consolidate {rec:.4f}")
+
+    new = make_anns_dataset(ANNS_DATASETS["bigann"], n=2 * n_del,
+                            seed=SEED + 2)
+    grown = grow_checker(idx)
+    t0 = time.perf_counter()
+    ids = idx.insert(new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  insert {2 * n_del} rows: {secs:.2f} s ({2 * n_del / secs:.0f} "
+        f"rows/s), of which the grow {grown.get('secs', 0):.3f} s "
+        f"(capacity {grown.get('capacity')}); size {idx.size}")
+    want_ids = np.concatenate([dead, np.arange(n_rows, n_rows + n_del)])
+    check(np.array_equal(ids, want_ids),
+          "insert did not reuse the freed slots in ascending order, then "
+          "the fresh tail")
+    check(idx.capacity == 2 * n_rows and "capacity" in grown,
+          f"capacity {idx.capacity}: the insert did not auto-grow")
+    check(idx.size == n_rows + n_del, f"size {idx.size} after insert")
+    core = idx.core
+    check(torch.equal(core.codes.packed[keep], kept[0])
+          and torch.equal(core.codes.data_add[keep], kept[1])
+          and torch.equal(core.vectors[keep], kept[2]),
+          "codes or rows of untouched live rows changed")
+    log("  1,000 untouched live rows: packed codes, metadata and rows "
+        "byte-equal across the round; every buffer's resident prefix "
+        "byte-identical across the grow")
+    self_q = torch.as_tensor(new[:n_del]).to(core.device)
+    res = idx.searcher(_mk_spec(k=1)).search(self_q)
+    hit = float((res.ids[:, 0].cpu().numpy() == dead).mean())
+    log(f"  self-queries of the {n_del} reused-slot rows: {hit:.4f} find "
+        "themselves at k=1")
+    check(hit >= SELF_HIT_FLOOR, f"reused rows found themselves on {hit:.4f}")
+    gt, _ = idx.brute_force(q_dev, 10)
+    churn_searches(idx, q_dev, gt, "after insert")
+    return launches
+
+
+def _mk_spec(k: int = 10):
+    from repro_torch.core.search_spec import SearchSpec
+    return SearchSpec(k=k, beam_width=64, quantized=True, use_kernels=True,
+                      fusion="megakernel")
 
 
 def main() -> int:
@@ -569,10 +931,19 @@ def main() -> int:
     selfcheck(gen)
 
     log(f"[4] main path: N={args.n}, {args.queries} queries")
-    idx, q_dev, launches = main_path(args)
+    idx, q_dev, launches, recall_before = main_path(args)
 
     log("[5] kernels vs plain at main-path shapes")
     records = kernels_at_main_shapes(idx, q_dev, launches, gen)
+
+    log(f"[6] churn round: delete {args.n // 100}, search, consolidate, "
+        f"insert {2 * (args.n // 100)}, search")
+    churn = churn_round(idx, q_dev, args.n, recall_before)
+    for rec in records:
+        if rec["name"] == "fused_hop":
+            rec["launches"] = churn["hop"]["fused_hop"]
+        elif rec["name"] == "topk":
+            rec["launches"] = churn["merge-kernel"]["topk"]
 
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))

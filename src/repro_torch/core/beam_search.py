@@ -8,9 +8,10 @@ state), a full merge every step, squared distances.
 
 The distance computation is pluggable via `score_fn`, so the exact path,
 the RaBitQ estimator path and the CUDA kernel scorers share one loop.
-Merges are stable sorts: `torch.topk` does not promise the tie order of
-`lax.top_k` (ties to the lower position, i.e. frontier before
-candidates), `torch.sort(stable=True)` does.
+Merges keep the tie order of `lax.top_k` (ties to the lower position,
+i.e. frontier before candidates): "topk"/"sort" through a stable sort
+(`torch.topk` does not promise that order), "kernel" through the CUDA
+`topk` kernel, which selects the same stable order.
 """
 
 from __future__ import annotations
@@ -118,9 +119,19 @@ def merge_frontier_topk(f_ids, f_dists, f_vis, c_ids, c_dists, beam_width):
 
 
 def merge_frontier_kernel(f_ids, f_dists, f_vis, c_ids, c_dists, beam_width):
-    raise NotImplementedError(
-        "merge='kernel' needs the min-extraction top-k kernel (topk_pallas), "
-        "which is not ported yet: ROADMAP queue B, kernel #9")
+    """Partial top-L merge through the CUDA `topk` kernel (its plain
+    version on CPU tensors). Positions go in as the ids; the kernel
+    returns the L smallest with their positions (ties to the lower
+    position, every position once), and ids + visited bits ride along
+    through the positions. Same result as `merge_frontier_topk`."""
+    from repro_torch.kernels.topk.ops import topk
+
+    all_i, all_d, all_v = _concat(f_ids, f_dists, f_vis, c_ids, c_dists)
+    pos_in = torch.arange(all_d.shape[1], dtype=torch.int32,
+                          device=all_d.device).expand(all_d.shape)
+    sd, pos = topk(all_d.contiguous(), pos_in.contiguous(), beam_width)
+    pos = pos.long()
+    return (torch.gather(all_i, 1, pos), sd, torch.gather(all_v, 1, pos))
 
 
 MERGE_FNS = {

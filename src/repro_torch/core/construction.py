@@ -22,6 +22,12 @@ The adjacency is updated in place (the JAX version's `.at[].set` returns
 a new array): at a million rows the graph is 256 MB, and a copy per batch
 buys nothing — the snapshot that step 1 searches is complete before any
 row is written.
+
+Step 1 searches at most `_SEARCH_CHUNK` rows at a time. Each row's walk
+over the read-only snapshot is independent of the others, so chunking
+changes no result; it bounds the (chunk, R, D) candidate gather of the
+exact scorer when `consolidate` re-links hundreds of thousands of rows in
+one batch. Build batches (<= 100,000 rows) never chunk.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ from repro_torch.core.robust_prune import robust_prune_batch
 from repro_torch.core.vamana import VamanaGraph, init_graph
 
 _INF = float("inf")
+
+# rows per snapshot-search chunk in batch_insert_at (above the build's
+# max_batch, so bulk construction searches each batch in one piece)
+_SEARCH_CHUNK = 131072
 
 
 @dataclass(frozen=True)
@@ -153,15 +163,20 @@ def batch_insert_at(vectors: torch.Tensor, graph: VamanaGraph,
         live = ~unpack_bitmap(tombstone_bits, adj.shape[0])
 
     # ---- Step 1: snapshot beam search ------------------------------------
-    score = make_exact_scorer(vectors, queries, n_old, vec_sqnorm)
-    res = beam_search(graph, score, batch_size,
-                      beam_width=params.beam_width,
-                      max_iters=params.max_iters)
-
     # candidate edges: visited set ∪ final frontier
-    cand_ids = torch.cat([res.visited_ids, res.frontier_ids], dim=1)
-    cand_dists = torch.cat([res.visited_dists, res.frontier_dists], dim=1)
-    del res
+    cand_ids, cand_dists = [], []
+    for s in range(0, batch_size, _SEARCH_CHUNK):
+        qs = queries[s:s + _SEARCH_CHUNK]
+        score = make_exact_scorer(vectors, qs, n_old, vec_sqnorm)
+        res = beam_search(graph, score, qs.shape[0],
+                          beam_width=params.beam_width,
+                          max_iters=params.max_iters)
+        cand_ids.append(torch.cat([res.visited_ids, res.frontier_ids], dim=1))
+        cand_dists.append(torch.cat([res.visited_dists, res.frontier_dists],
+                                    dim=1))
+        del res
+    cand_ids = torch.cat(cand_ids)
+    cand_dists = torch.cat(cand_dists)
 
     # ---- Step 2: forward prune -------------------------------------------
     fwd = robust_prune_batch(vectors, new_ids, cand_ids, cand_dists, n_old,

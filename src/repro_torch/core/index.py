@@ -1,11 +1,16 @@
 """JasperIndex — thin host-side layer over one IndexCore (PyTorch port).
 
-The subset of `repro.core.index.JasperIndex` this slice carries: bulk
-build, exact and RaBitQ-quantized search through `searcher(spec)`, brute
-force, recall, memory statistics, and save/load in the JAX package's
-`.npz` + `.meta.json` format (an index either package saved loads in the
-other). Streaming insert, delete, consolidate, grow, the host rows tier
-and PQ are not ported yet (ROADMAP queue A).
+The subset of `repro.core.index.JasperIndex` the port carries: bulk
+build, the mutation lifecycle ("built for change": streaming insert with
+slot reuse and auto-grow, tombstone delete, consolidate, grow), exact and
+RaBitQ-quantized search through `searcher(spec)`, brute force, recall,
+memory statistics, and save/load in the JAX package's `.npz` +
+`.meta.json` format (an index either package saved loads in the other).
+The host rows tier and PQ are not ported yet (ROADMAP queue A).
+
+    build/insert -> LIVE -> delete (tombstone) -> consolidate (graph
+    repair, slot freed) -> insert reuses the slot; capacity doubles by
+    copy-extension when the tail runs out.
 
 The index lives on the card unless `device="cpu"` is given; with no GPU
 and no explicit CPU device the constructor raises.
@@ -26,16 +31,29 @@ from repro_torch.core.index_core import (
     IndexCore,
     attach_quantizer,
     core_brute_force,
+    bitmap_test_np,
     core_build,
+    core_consolidate,
+    core_delete,
+    core_encode_rows,
     core_from_arrays,
+    core_grow,
+    core_insert_at,
+    core_live_mask,
     core_search,
     core_set_labels,
     core_size,
+    core_take_free_slots,
     core_to_arrays,
     init_core,
+    tombstoned_lookup,
 )
-from repro_torch.core.mutations import pack_label_rows
-from repro_torch.core.rabitq import packed_bytes_per_vector, rabitq_train
+from repro_torch.core.mutations import MutationState, pack_label_rows
+from repro_torch.core.rabitq import (
+    RaBitQCodes,
+    packed_bytes_per_vector,
+    rabitq_train,
+)
 from repro_torch.core.search_spec import SearchSpec, Searcher, measure_recall
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.device import resolve_device
@@ -85,6 +103,14 @@ class JasperIndex:
         return self.core.graph
 
     @property
+    def mut(self) -> MutationState:
+        return self.core.mut
+
+    @property
+    def rabitq_codes(self) -> RaBitQCodes | None:
+        return self.core.codes
+
+    @property
     def rows_tier(self) -> str:
         """Where the f32 rows live; only "device" is ported."""
         return "device"
@@ -100,6 +126,27 @@ class JasperIndex:
         return self.core.mut.generation
 
     @property
+    def n_deleted(self) -> int:
+        """Tombstoned-but-not-yet-consolidated rows."""
+        return self.core.mut.n_deleted
+
+    @property
+    def deleted_fraction(self) -> float:
+        """Tombstone load factor — serving layers consolidate past a bound."""
+        n = self.core.n_valid - self.core.mut.n_free
+        return self.core.mut.n_deleted / n if n else 0.0
+
+    def live_mask(self) -> np.ndarray:
+        """bool[capacity] of currently live rows (host copy)."""
+        return core_live_mask(self.core)
+
+    def tombstoned(self, ids) -> np.ndarray:
+        """Host-side per-id deadness test (serving-contract check): True
+        where an id is tombstoned/freed or past the high-water mark."""
+        return tombstoned_lookup(self.core.mut.tombstone_bits.cpu().numpy(),
+                                 self.core.n_valid, ids)
+
+    @property
     def _filter_tombstones(self) -> bool:
         """False while no bit can be set (nothing tombstoned or freed)."""
         return self.core.mut.n_deleted != 0 or self.core.mut.n_free != 0
@@ -113,15 +160,37 @@ class JasperIndex:
     def _prep_data(self, x) -> torch.Tensor:
         x = self._as_tensor(x)
         if self.metric == "mips":
-            # a build rewrites every row, so the global max norm is simply
-            # this batch's (streaming inserts, which would re-augment
-            # earlier rows, are not ported)
+            # a fixed global max-norm keeps streaming inserts consistent;
+            # when a later batch RAISES it, every written row is
+            # re-augmented in place (_reaugment_mips)
             sq = (x * x).sum(dim=-1)
-            self._mips_max_sqnorm = float(sq.max())
+            m2 = float(sq.max())
+            if self._mips_max_sqnorm is None:
+                self._mips_max_sqnorm = m2
+            elif m2 > self._mips_max_sqnorm:
+                old = self._mips_max_sqnorm
+                self._mips_max_sqnorm = m2
+                self._reaugment_mips(old, m2)
             extra = torch.sqrt(torch.clamp(self._mips_max_sqnorm - sq,
                                            min=0.0))
             x = torch.cat([x, extra[:, None]], dim=-1)
         return x
+
+    def _reaugment_mips(self, old_m2: float, new_m2: float) -> None:
+        """Re-augment all written rows, in place, after the global
+        max-norm rose: e' = sqrt(e^2 + delta), |row'|^2 = |row|^2 + delta,
+        codes re-encoded from the updated rows (the quantizer itself is
+        untouched)."""
+        core = self.core
+        n = core.n_valid
+        if n == 0:
+            return
+        delta = new_m2 - old_m2
+        last = core.vectors[:n, -1]
+        core.vectors[:n, -1] = torch.sqrt(last * last + delta)
+        core.vec_sqnorm[:n] += delta
+        core_encode_rows(core, torch.arange(n, device=self.device),
+                         core.vectors[:n])
 
     def _prep_query(self, q) -> torch.Tensor:
         q = self._as_tensor(q)
@@ -150,11 +219,109 @@ class JasperIndex:
             self.set_labels(np.arange(x.shape[0], dtype=np.int32), labels)
         return self
 
+    def _grow_to_fit(self, n_rows: int) -> None:
+        """Double capacity until n_rows fit (no-op when they already do)."""
+        if n_rows <= self.capacity:
+            return
+        new_cap = self.capacity
+        while n_rows > new_cap:
+            new_cap *= 2
+        self.grow(new_cap)
+
+    def _allocate_slots(self, b: int) -> np.ndarray:
+        """Claim b slot ids: freed slots first (ascending), then fresh tail
+        ids past the high-water mark; the capacity auto-doubles when the
+        tail runs out. Popped slots' tombstone bits are cleared."""
+        self.core, reused = core_take_free_slots(self.core, b)
+        fresh_needed = b - reused.size
+        hw = self.core.n_valid
+        self._grow_to_fit(hw + fresh_needed)
+        fresh = np.arange(hw, hw + fresh_needed, dtype=np.int32)
+        return np.concatenate([reused, fresh])
+
+    def insert(self, data, *, labels=None) -> np.ndarray:
+        """Streaming batch insertion ("built for change").
+
+        Freed slots are reused before the tail advances; the index grows
+        by buffer doubling if the batch would overflow capacity. Returns
+        the assigned row ids, int32[B] (the ids searches will report).
+        `labels`: optional label ids for the batch (scalar = every row, or
+        one entry/set per row), set with the rows.
+        """
+        if np.shape(data)[0] == 0:       # empty tick from a stream: no-op
+            return np.empty((0,), np.int32)
+        x = self._prep_data(data)
+        b = x.shape[0]
+        if self.size == 0:
+            # empty index (fresh, or everything was deleted): a clean
+            # build over this batch beats stitching onto a dead graph
+            self._grow_to_fit(b)
+            self._ensure_quantizer(x)
+            self.core = core_build(self.core, x, params=self.params)
+            ids = np.arange(b, dtype=np.int32)
+        else:
+            ids = self._allocate_slots(b)
+            self.core = core_insert_at(
+                self.core, torch.as_tensor(ids, device=self.device), x,
+                params=self.params)
+        if labels is not None:
+            self.set_labels(ids, labels)
+        return ids
+
     def set_labels(self, ids, labels) -> None:
         """Assign per-row label bitsets (filtered search)."""
         ids = np.atleast_1d(np.asarray(ids)).astype(np.int32).ravel()
         self.core = core_set_labels(self.core, ids,
                                     pack_label_rows(labels, ids.size))
+
+    # ------------------------------------------------------ delete/repair
+    def delete(self, ids) -> int:
+        """Batched tombstone delete. Returns the number of rows deleted.
+
+        No graph work: rows are tombstoned in the packed bitmap, stay
+        traversable but are never returned by any search; `consolidate()`
+        later repairs the graph and recycles the slots. Raises on ids that
+        are not currently live (checked against a host copy of the packed
+        bytes; the bitmap never unpacks on this path).
+        """
+        ids_np = np.atleast_1d(np.asarray(ids)).astype(np.int64).ravel()
+        if ids_np.size == 0:
+            return 0
+        hw = self.core.n_valid
+        bad = ids_np[(ids_np < 0) | (ids_np >= hw)]
+        if bad.size:
+            raise ValueError(f"ids out of range [0, {hw}): {bad[:8].tolist()}")
+        bits = self.core.mut.tombstone_bits.cpu().numpy()
+        dead = ids_np[bitmap_test_np(bits, ids_np)]
+        if dead.size:
+            raise ValueError(
+                f"ids already deleted or freed: {dead[:8].tolist()}")
+        self.core, n = core_delete(self.core,
+                                   torch.as_tensor(ids_np, device=self.device))
+        return n
+
+    def consolidate(self, *, refine: bool = True) -> dict:
+        """Batched graph repair over neighbourhoods touched by deleted rows.
+
+        refine=True (default) re-links every touched row by snapshot beam
+        search against the tombstoned graph; refine=False does the cheaper
+        one-hop local repair. Deleted rows then lose their adjacency, their
+        slots join the free pool, and the medoid refreshes over live rows.
+        Returns {"n_freed", "n_repaired"}.
+        """
+        self.core, stats = core_consolidate(self.core, params=self.params,
+                                            refine=refine)
+        return stats
+
+    def grow(self, new_capacity: int | None = None) -> "JasperIndex":
+        """Grow capacity by copy-extension (default: doubling). Nothing
+        re-encodes: the resident prefix of every buffer is byte-identical
+        after the grow."""
+        new_cap = new_capacity or 2 * self.capacity
+        if new_cap < self.capacity:
+            raise ValueError(f"cannot shrink {self.capacity} -> {new_cap}")
+        self.core = core_grow(self.core, new_cap)
+        return self
 
     # ------------------------------------------------------------ search
     def searcher(self, spec: SearchSpec | None = None, **kw) -> Searcher:

@@ -1,10 +1,13 @@
 """IndexCore — the state of one Jasper index and the ops over it.
 
-Port of `repro.core.index_core` (the search and build subset). One
-capacity-allocated frozen dataclass of tensors holds everything a search
-needs — f32 rows, packed RaBitQ codes, adjacency, tombstone bitmap, label
-plane, medoid — and plain functions (`core_build`, `core_search`,
-`core_brute_force`) operate on it. `JasperIndex` is a thin host-side layer
+Port of `repro.core.index_core`. One capacity-allocated frozen dataclass
+of tensors holds everything a search needs — f32 rows, packed RaBitQ
+codes, adjacency, tombstone bitmap, label plane, medoid — and plain
+functions operate on it: `core_build`, `core_search`, `core_brute_force`
+and the mutation lifecycle `core_insert_at`, `core_delete`,
+`core_consolidate`, `core_take_free_slots`, `core_grow`. Rows, codes and
+adjacency are written in place; `core_grow` allocates the larger buffers
+and copies the resident prefix. `JasperIndex` is a thin host-side layer
 over one core.
 
 `core_to_arrays` / `core_from_arrays` are the `.npz` checkpoint form,
@@ -26,11 +29,20 @@ from repro_torch.core.beam_search import (
     make_exact_scorer,
     rerank_frontier,
 )
-from repro_torch.core.construction import ConstructionParams, build_graph
+from repro_torch.core.construction import (
+    ConstructionParams,
+    batch_insert_at,
+    build_graph,
+)
 from repro_torch.core.mutations import (
     N_LABEL_BYTES,
     MutationState,
+    consolidate as consolidate_graph,
+    delete_rows,
+    grow_rows,
+    grow_state,
     init_mutation_state,
+    take_free_slots,
     unpack_bitmap,
 )
 from repro_torch.core.rabitq import (
@@ -139,15 +151,23 @@ def core_write_rows(core: IndexCore, ids: torch.Tensor,
     rows = rows.to(device=core.device, dtype=torch.float32)
     core.vectors[ids] = rows
     core.vec_sqnorm[ids] = (rows * rows).sum(dim=-1)
-    codes = core.codes
-    if codes is not None:
-        for s in range(0, rows.shape[0], _ENCODE_CHUNK):
-            enc = rabitq_encode(core.rq_params, rows[s:s + _ENCODE_CHUNK])
-            sl = ids[s:s + _ENCODE_CHUNK]
-            codes.packed[sl] = enc.packed
-            codes.data_add[sl] = enc.data_add
-            codes.data_rescale[sl] = enc.data_rescale
+    core_encode_rows(core, ids, rows)
     return core
+
+
+def core_encode_rows(core: IndexCore, ids: torch.Tensor,
+                     rows: torch.Tensor) -> None:
+    """Encode `rows` into the packed code buffer at `ids`, in place
+    (no-op without a quantizer)."""
+    codes = core.codes
+    if codes is None:
+        return
+    for s in range(0, rows.shape[0], _ENCODE_CHUNK):
+        enc = rabitq_encode(core.rq_params, rows[s:s + _ENCODE_CHUNK])
+        sl = ids[s:s + _ENCODE_CHUNK]
+        codes.packed[sl] = enc.packed
+        codes.data_add[sl] = enc.data_add
+        codes.data_rescale[sl] = enc.data_rescale
 
 
 def core_set_labels(core: IndexCore, ids, label_rows) -> IndexCore:
@@ -159,6 +179,24 @@ def core_set_labels(core: IndexCore, ids, label_rows) -> IndexCore:
                                            dtype=torch.uint8,
                                            device=core.device)
     return core
+
+
+def core_insert_at(core: IndexCore, ids: torch.Tensor, rows: torch.Tensor,
+                   *, params: ConstructionParams) -> IndexCore:
+    """Write + graph-link a batch of (already slot-allocated) rows.
+
+    ids need not be contiguous (`JasperIndex.insert` reuses freed
+    slots). n_valid advances to the high-water mark; the generation
+    counter bumps once.
+    """
+    ids = ids.to(device=core.device, dtype=torch.int32)
+    core = core_write_rows(core, ids, rows)
+    graph = batch_insert_at(core.vectors, core.graph, ids, params=params,
+                            vec_sqnorm=core.vec_sqnorm,
+                            tombstone_bits=core.mut.tombstone_bits)
+    core = with_graph(core, graph)
+    return replace(core, mut=replace(core.mut,
+                                     generation=core.mut.generation + 1))
 
 
 def core_build(core: IndexCore, data: torch.Tensor, *,
@@ -315,9 +353,65 @@ def core_brute_force(core: IndexCore, queries: torch.Tensor, *, k: int,
     return torch.cat(ids_out), torch.cat(d_out)
 
 
+def core_delete(core: IndexCore, ids: torch.Tensor
+                ) -> tuple[IndexCore, int]:
+    """Tombstone a batch of row ids (-1 = ignored). No graph work."""
+    mut, n_new = delete_rows(core.mut, ids, core.n_valid)
+    return replace(core, mut=mut), n_new
+
+
+def core_consolidate(core: IndexCore, *, params: ConstructionParams,
+                     refine: bool = True) -> tuple[IndexCore, dict]:
+    """Graph repair around tombstoned rows; frees their slots."""
+    graph, mut, stats = consolidate_graph(
+        core.vectors, core.graph, core.mut, params=params, refine=refine,
+        vec_sqnorm=core.vec_sqnorm)
+    return replace(with_graph(core, graph), mut=mut), stats
+
+
+def core_take_free_slots(core: IndexCore, want: int
+                         ) -> tuple[IndexCore, np.ndarray]:
+    """Pop up to `want` reusable slots (ascending host ids)."""
+    mut, taken = take_free_slots(core.mut, want)
+    return replace(core, mut=mut), taken
+
+
+def core_grow(core: IndexCore, new_capacity: int) -> IndexCore:
+    """Copy-extend every buffer to a larger capacity. Nothing re-encodes:
+    all tensors are capacity-major, so the resident prefix (packed codes
+    included) is byte-identical after the grow."""
+    if new_capacity == core.capacity:
+        return core
+    codes = core.codes
+    if codes is not None:
+        codes = RaBitQCodes(
+            packed=grow_rows(codes.packed, new_capacity, 0),
+            data_add=grow_rows(codes.data_add, new_capacity, 0.0),
+            data_rescale=grow_rows(codes.data_rescale, new_capacity, 0.0),
+            bits=codes.bits, dims=codes.dims)
+    return replace(
+        core,
+        vectors=grow_rows(core.vectors, new_capacity, 0.0),
+        vec_sqnorm=grow_rows(core.vec_sqnorm, new_capacity, 0.0),
+        adjacency=grow_rows(core.adjacency, new_capacity, -1),
+        mut=grow_state(core.mut, new_capacity),
+        codes=codes)
+
+
 def core_size(core: IndexCore) -> int:
     """Number of LIVE rows (high-water mark minus tombstoned/freed)."""
     return core.n_valid - core.mut.n_deleted - core.mut.n_free
+
+
+def core_live_mask(core: IndexCore) -> np.ndarray:
+    """bool[capacity] of currently live rows (host copy)."""
+    dense = unpack_bitmap(core.mut.tombstone_bits, core.capacity).cpu()
+    return (np.arange(core.capacity) < core.n_valid) & ~dense.numpy()
+
+
+def core_live_locals(core: IndexCore) -> np.ndarray:
+    """Ascending local ids of the live rows (host copy)."""
+    return np.where(core_live_mask(core))[0].astype(np.int64)
 
 
 def bitmap_test_np(tombstone_bits: np.ndarray, ids: np.ndarray) -> np.ndarray:
@@ -329,6 +423,15 @@ def bitmap_test_np(tombstone_bits: np.ndarray, ids: np.ndarray) -> np.ndarray:
     in_domain = (ids >= 0) & (ids < n_bits)
     safe = np.clip(ids, 0, max(n_bits - 1, 0))
     return (((bits[safe >> 3] >> (safe & 7)) & 1) == 1) & in_domain
+
+
+def tombstoned_lookup(tombstone_bits: np.ndarray, n_valid: int,
+                      ids: np.ndarray) -> np.ndarray:
+    """Host-side per-id deadness test: True where an id is tombstoned or
+    freed, past the high-water mark, or not a real row at all (negative
+    sentinel). The bitmap never unpacks densely."""
+    ids = np.asarray(ids)
+    return bitmap_test_np(tombstone_bits, ids) | (ids >= n_valid) | (ids < 0)
 
 
 # ---------------------------------------------------------------------------

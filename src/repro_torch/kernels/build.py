@@ -29,7 +29,7 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 
 # one shared library per source; every .cu may include common.cuh
-SOURCES = ("search_step", "gather_l2", "rabitq_search_step")
+SOURCES = ("search_step", "gather_l2", "rabitq_search_step", "topk")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

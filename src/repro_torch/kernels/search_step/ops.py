@@ -1,16 +1,19 @@
-"""The fused whole-search megakernel: CUDA `fused_search`, its plain
-version, and `fused_beam_search`, the entry `core_search` routes to when
-`spec.fusion == "megakernel"`.
+"""The fused search kernels: CUDA `fused_search` (the whole-search
+megakernel) and `fused_hop` (one hop per launch), their plain versions,
+and `fused_beam_search`, the entry `core_search` routes to when
+`spec.fusion` is "megakernel" or "hop".
 
-Replaces `fused_search_pallas` (`repro/kernels/search_step/
-search_step_kernel.py:352`). One launch runs the whole greedy beam search,
+`fused_search` replaces `fused_search_pallas` (`repro/kernels/search_step/
+search_step_kernel.py:352`): one launch runs the whole greedy beam search,
 one thread block per query, frontier in shared memory throughout; only the
 final (Q, L) frontier, the hop counts and (with telemetry) the counters go
-to device memory. The plain version is the oracle loop
-(`ref.search_loop`) over the same operands.
+to device memory. `fused_hop` replaces `fused_hop_pallas` (`:309`): the
+same hop body (`csrc/search_step.cu` `hop`) once per launch, the frontier
+loaded from and stored to device memory around it. The plain versions are
+the oracle (`ref.search_loop`, `ref.fused_hop_ref`) over the same operands.
 
-`fused_beam_search` prepares the operands, runs the kernel (or, for CPU
-tensors, the plain version) and finishes through the shared
+`fused_beam_search` prepares the operands, runs the kernels (or, for CPU
+tensors, the plain versions) and finishes through the shared
 `finalize_frontier` epilogue, like every search path.
 """
 
@@ -32,7 +35,11 @@ from repro_torch.core.rabitq import RaBitQCodes, RaBitQQuery
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.kernels import build
 from repro_torch.kernels.rabitq_dot.ops import filter_word
-from repro_torch.kernels.search_step.ref import init_frontier, search_loop
+from repro_torch.kernels.search_step.ref import (
+    fused_hop_ref,
+    init_frontier,
+    search_loop,
+)
 
 _INF = float("inf")
 
@@ -48,6 +55,56 @@ def _operand_scorer(q, qa, qb, data, meta0, meta1, n_valid, *, quantized,
             RaBitQQuery(q_rot=q, query_add=qa, query_sumq=qb))
     return make_exact_scorer(data, q, n_valid, vec_sqnorm=meta0,
                              query_sqnorm=qa)
+
+
+def _check_operands(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
+                    meta0, meta1, tomb, labels, fb, *, quantized: bool,
+                    bits: int):
+    """The argument checks `fused_search` and `fused_hop` share: device,
+    dtype, rank, contiguity and agreeing shapes. Returns (Q, L, R, cap,
+    Dq, row width, filter word)."""
+    dev = f_ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {dev}")
+    qn, l_width = f_ids.shape
+    cap, r = adjacency.shape
+    checks = [(f_ids, "f_ids", torch.int32, 2),
+              (f_dists, "f_dists", torch.float32, 2),
+              (f_vis, "f_vis", torch.int32, 2),
+              (q, "q", torch.float32, 2), (qa, "qa", torch.float32, 1),
+              (qb, "qb", torch.float32, 1),
+              (adjacency, "adjacency", torch.int32, 2),
+              (meta0, "meta0", torch.float32, 1)]
+    if quantized:
+        if bits not in (1, 2, 4, 8):
+            raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
+        checks += [(data, "data", torch.uint8, 2),
+                   (meta1, "meta1", torch.float32, 1)]
+        row_width = data.shape[1]
+        dq = row_width * (8 // bits)
+    else:
+        checks += [(data, "data", torch.float32, 2)]
+        row_width = dq = data.shape[1]
+    if tomb is not None:
+        checks.append((tomb, "tomb", torch.uint8, 1))
+    if labels is not None:
+        checks.append((labels, "labels", torch.uint8, 2))
+    for t, name, dt, nd in checks:
+        build.require(t, name, dt, nd, dev)
+    if (f_dists.shape != (qn, l_width) or f_vis.shape != (qn, l_width)
+            or q.shape != (qn, dq)
+            or qa.shape[0] != qn or qb.shape[0] != qn
+            or data.shape[0] != cap or meta0.shape[0] != cap
+            or (meta1 is not None and meta1.shape[0] != cap)):
+        raise ValueError(f"{what}: operand shapes disagree")
+    if tomb is not None and tomb.shape[0] * 8 < cap:
+        raise ValueError("tombstone bitmap shorter than the table")
+    fbw = 0
+    if labels is not None:
+        if labels.shape != (cap, 4) or labels.data_ptr() % 4:
+            raise ValueError("labels must be a 4-byte aligned (cap, 4) plane")
+        fbw = filter_word(fb)
+    return qn, l_width, r, cap, dq, row_width, fbw
 
 
 def fused_search_plain(f_ids, f_dists, f_vis, schedule, q, qa, qb,
@@ -94,47 +151,12 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
             f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency, data,
             meta0, meta1, tomb, labels, fb, n_valid, quantized=quantized,
             bits=bits, max_iters=max_iters, telemetry=telemetry)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_search runs on cuda or cpu tensors, got {dev}")
-    qn, l_width = f_ids.shape
-    cap, r = adjacency.shape
-    checks = [(f_ids, "f_ids", torch.int32, 2),
-              (f_dists, "f_dists", torch.float32, 2),
-              (f_vis, "f_vis", torch.int32, 2),
-              (schedule, "schedule", torch.int32, 1),
-              (q, "q", torch.float32, 2), (qa, "qa", torch.float32, 1),
-              (qb, "qb", torch.float32, 1),
-              (adjacency, "adjacency", torch.int32, 2),
-              (meta0, "meta0", torch.float32, 1)]
-    if quantized:
-        if bits not in (1, 2, 4, 8):
-            raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
-        checks += [(data, "data", torch.uint8, 2),
-                   (meta1, "meta1", torch.float32, 1)]
-        row_width = data.shape[1]
-        dq = row_width * (8 // bits)
-    else:
-        checks += [(data, "data", torch.float32, 2)]
-        row_width = dq = data.shape[1]
-    if tomb is not None:
-        checks.append((tomb, "tomb", torch.uint8, 1))
-    if labels is not None:
-        checks.append((labels, "labels", torch.uint8, 2))
-    for t, name, dt, nd in checks:
-        build.require(t, name, dt, nd, dev)
-    if (f_dists.shape != (qn, l_width) or f_vis.shape != (qn, l_width)
-            or schedule.shape[0] < max_iters or q.shape != (qn, dq)
-            or qa.shape[0] != qn or qb.shape[0] != qn
-            or data.shape[0] != cap or meta0.shape[0] != cap
-            or (meta1 is not None and meta1.shape[0] != cap)):
+    qn, l_width, r, cap, dq, row_width, fbw = _check_operands(
+        "fused_search", f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
+        meta0, meta1, tomb, labels, fb, quantized=quantized, bits=bits)
+    build.require(schedule, "schedule", torch.int32, 1, dev)
+    if schedule.shape[0] < max_iters:
         raise ValueError("fused_search: operand shapes disagree")
-    if tomb is not None and tomb.shape[0] * 8 < cap:
-        raise ValueError("tombstone bitmap shorter than the table")
-    fbw = 0
-    if labels is not None:
-        if labels.shape != (cap, 4) or labels.data_ptr() % 4:
-            raise ValueError("labels must be a 4-byte aligned (cap, 4) plane")
-        fbw = filter_word(fb)
     out_ids = torch.empty((qn, l_width), dtype=torch.int32, device=dev)
     out_dists = torch.empty((qn, l_width), dtype=torch.float32, device=dev)
     out_hops = torch.empty((qn,), dtype=torch.int32, device=dev)
@@ -171,6 +193,82 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
 
 
 fused_search.launches = 0
+
+
+def fused_hop_plain(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency,
+                    data, meta0, meta1, tomb, labels, fb, n_valid: int, *,
+                    quantized: bool, bits: int, telemetry: bool = False):
+    """Plain PyTorch version of `fused_hop` (any device): the oracle's one
+    hop (`ref.fused_hop_ref`) over the same operands. Same arguments and
+    outputs."""
+    score = _operand_scorer(q, qa, qb, data, meta0, meta1, n_valid,
+                            quantized=quantized, bits=bits)
+    out = fused_hop_ref(f_ids, f_dists, f_vis.to(torch.bool), score_fn=score,
+                        adjacency=adjacency, n_valid=n_valid, width=width,
+                        tombstone_bits=tomb, labels=labels, filter_bytes=fb,
+                        telemetry=telemetry)
+    ids, dists, vis, picked = out[:4]
+    res = (ids, dists, vis.to(torch.int32), picked.to(torch.int32))
+    if telemetry:
+        return res + (torch.stack(out[4], dim=1),)
+    return res
+
+
+def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
+              meta0, meta1, tomb, labels, fb, n_valid: int, *,
+              quantized: bool, bits: int, telemetry: bool = False):
+    """One hop of the fused search for every query, one launch.
+
+    Operands as `fused_search`, with the hop's frontier `width` in place
+    of the schedule. Returns (ids, dists, visited (Q, L) int32, increment
+    (Q,) int32: 1 where the row expanded a node) — plus a (Q, 4) int32
+    [scored, masked, dups, occupancy] block with telemetry. A row with no
+    unvisited slot comes back unchanged with increment 0. CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    dev = f_ids.device
+    if dev.type == "cpu":
+        return fused_hop_plain(
+            f_ids, f_dists, f_vis, width, q, qa, qb, adjacency, data, meta0,
+            meta1, tomb, labels, fb, n_valid, quantized=quantized, bits=bits,
+            telemetry=telemetry)
+    qn, l_width, r, cap, dq, row_width, fbw = _check_operands(
+        "fused_hop", f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
+        meta0, meta1, tomb, labels, fb, quantized=quantized, bits=bits)
+    if width < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    out_ids = torch.empty((qn, l_width), dtype=torch.int32, device=dev)
+    out_dists = torch.empty((qn, l_width), dtype=torch.float32, device=dev)
+    out_vis = torch.empty((qn, l_width), dtype=torch.int32, device=dev)
+    out_inc = torch.empty((qn,), dtype=torch.int32, device=dev)
+    counters = (torch.empty((qn, 4), dtype=torch.int32, device=dev)
+                if telemetry else None)
+    if qn > 0:
+        fn = build.entry("search_step", "fused_hop_launch", (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3          # frontier, Q, L, width
+            + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
+            + [ctypes.c_void_p] * 3                             # qa, qb, adj
+            + [ctypes.c_int] * 3                                # R, cap, nvalid
+            + [ctypes.c_void_p, ctypes.c_int]                   # data, width
+            + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+            + [ctypes.c_int] * 3                                # q, bits, tel
+            + [ctypes.c_void_p] * 6))                           # outs, stream
+        err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
+                 qn, l_width, int(width), build.ptr(q), dq, build.ptr(qa),
+                 build.ptr(qb), build.ptr(adjacency), r, cap, int(n_valid),
+                 build.ptr(data), row_width, build.ptr(meta0),
+                 build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
+                 int(quantized), int(bits), int(telemetry),
+                 build.ptr(out_ids), build.ptr(out_dists), build.ptr(out_vis),
+                 build.ptr(out_inc), build.ptr(counters),
+                 ctypes.c_void_p(build.stream_handle()))
+        build.check(err, "fused_hop")
+        fused_hop.launches += 1
+    if telemetry:
+        return out_ids, out_dists, out_vis, out_inc, counters
+    return out_ids, out_dists, out_vis, out_inc
+
+
+fused_hop.launches = 0
 
 
 def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
@@ -237,6 +335,47 @@ def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
                 quantized=quantized, bits=bits, max_iters=max_iters)
 
 
+def hop_operands(ops: dict) -> tuple[tuple, dict]:
+    """Split `fused_operands`' dict into the (f_ids, f_dists, f_vis)
+    frontier and the keyword operands `fused_hop` takes beside it."""
+    skip = ("f_ids", "f_dists", "f_vis", "schedule", "max_iters")
+    return ((ops["f_ids"], ops["f_dists"], ops["f_vis"]),
+            {k: v for k, v in ops.items() if k not in skip})
+
+
+def hop_loop(ops: dict, schedule: tuple, *, telemetry: bool = False):
+    """The hop-mode search from `fused_operands`' initial frontier: a host
+    loop that launches one `fused_hop` per iteration while any row has an
+    unvisited slot, up to `max_iters`, adding each hop's increments and
+    counters and writing its occupancy column at hop t.
+
+    Each iteration's `any()` is a device-to-host sync, by design (the
+    JAX version's `while_loop` condition): a search of h loop iterations
+    makes h + 1 syncs, or h when it stops at max_iters. Returns (f_ids,
+    f_dists, n_hops, telemetry (scored, masked, dups, occ_log) or None),
+    unfinalized, like `ref.search_loop`."""
+    (f_ids, f_dists, f_vis), hop_ops = hop_operands(ops)
+    max_iters = ops["max_iters"]
+    q, dev = f_ids.shape[0], f_ids.device
+    hops = torch.zeros((q,), dtype=torch.int32, device=dev)
+    if telemetry:
+        counts = torch.zeros((q, 3), dtype=torch.int32, device=dev)
+        occ_log = torch.zeros((q, max_iters), dtype=torch.int32, device=dev)
+    for it in range(max_iters):
+        if not bool(((f_ids >= 0) & (f_vis == 0)).any()):
+            break
+        out = fused_hop(f_ids, f_dists, f_vis, schedule[it], **hop_ops,
+                        telemetry=telemetry)
+        f_ids, f_dists, f_vis, inc = out[:4]
+        hops += inc
+        if telemetry:
+            counts += out[4][:, :3]
+            occ_log[:, it] = out[4][:, 3]
+    tel = ((counts[:, 0], counts[:, 1], counts[:, 2], occ_log)
+           if telemetry else None)
+    return f_ids, f_dists, hops, tel
+
+
 def fused_beam_search(graph: VamanaGraph, *, mode: str, beam_width: int,
                       max_iters: int, beam_schedule: tuple | None = None,
                       queries: torch.Tensor | None = None,
@@ -252,16 +391,14 @@ def fused_beam_search(graph: VamanaGraph, *, mode: str, beam_width: int,
                       telemetry: bool = False) -> BeamSearchResult:
     """Fused greedy beam search — exact (vectors) or quantized (codes).
 
-    mode: "megakernel" (one launch, frontier on-chip throughout). "hop"
-    (one launch per hop) is not ported yet. Returns the standard
-    `BeamSearchResult`; visited logs are not kept by the fused path and
+    mode: "megakernel" (one `fused_search` launch, frontier on-chip
+    throughout) or "hop" (`hop_loop`: one `fused_hop` launch per hop,
+    host-side convergence check). Both run the same hop body, so they
+    return the same frontier, hops and telemetry. Returns the standard
+    `BeamSearchResult`; visited logs are not kept by the fused paths and
     come back as -1/+inf fills.
     """
-    if mode == "hop":
-        raise NotImplementedError(
-            "fusion='hop' needs the per-hop kernel (fused_hop_pallas), which "
-            "is not ported yet: ROADMAP queue B, kernel #4")
-    if mode != "megakernel":
+    if mode not in ("hop", "megakernel"):
         raise ValueError(f"mode must be 'hop' or 'megakernel', got {mode!r}")
     ops = fused_operands(
         graph, beam_width=beam_width, max_iters=max_iters,
@@ -270,13 +407,20 @@ def fused_beam_search(graph: VamanaGraph, *, mode: str, beam_width: int,
         tombstone_bits=tombstone_bits, traverse_deleted=traverse_deleted,
         labels=labels, filter_bytes=filter_bytes,
         filter_exclude=filter_exclude)
-    out = fused_search(**ops, telemetry=telemetry)
-    f_ids, f_dists, hops = out[:3]
     tel = None
-    if telemetry:
-        counters, occ_log = out[3:]
-        tel = SearchTelemetry(counters[:, 0], counters[:, 1], counters[:, 2],
-                              occ_log)
+    if mode == "megakernel":
+        out = fused_search(**ops, telemetry=telemetry)
+        f_ids, f_dists, hops = out[:3]
+        if telemetry:
+            counters, occ_log = out[3:]
+            tel = SearchTelemetry(counters[:, 0], counters[:, 1],
+                                  counters[:, 2], occ_log)
+    else:
+        f_ids, f_dists, hops, t = hop_loop(
+            ops, expand_schedule(beam_schedule, beam_width, max_iters),
+            telemetry=telemetry)
+        if telemetry:
+            tel = SearchTelemetry(*t)
     f_ids, f_dists = finalize_frontier(f_ids, f_dists, tombstone_bits,
                                        labels=labels,
                                        filter_bytes=filter_bytes)

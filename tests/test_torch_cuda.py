@@ -9,7 +9,8 @@ JAX:
 
 Tolerances: on integer-valued operands every float sum is exact in any
 order, so kernel and plain version must agree BIT for bit (ids, dists,
-hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99.
+hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99. The
+`topk` selection does no arithmetic: bit-equal on any input.
 """
 
 import zlib
@@ -117,6 +118,59 @@ def test_fused_search_bit_exact_vs_plain(cuda_device, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", FUSED_VARIANTS,
+                         ids=[v[0] for v in FUSED_VARIANTS])
+def test_fused_hop_bit_exact_vs_plain(cuda_device, variant):
+    """Every hop of a whole search: the kernel and the plain version from
+    the same frontier, bit-equal, the walk continuing from the kernel's
+    output."""
+    from repro_torch.kernels.search_step.ops import (
+        fused_hop, fused_hop_plain, hop_operands)
+    ops = _operands(variant, cuda_device)
+    telemetry = variant[5]
+    sched = ops["schedule"].tolist()
+    f, hop_ops = hop_operands(ops)
+    hops = 0
+    for t in range(ops["max_iters"]):
+        before = fused_hop.launches
+        got = fused_hop(*f, sched[t], **hop_ops, telemetry=telemetry)
+        want = fused_hop_plain(*f, sched[t], **hop_ops, telemetry=telemetry)
+        torch.cuda.synchronize()
+        assert fused_hop.launches == before + 1
+        assert len(got) == len(want) == (5 if telemetry else 4)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), t
+        hops += int(got[3].sum())
+        if int(got[3].sum()) == 0:
+            break
+        f = got[:3]
+    assert hops > 3 * Q                              # the walks did work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 6, 4), (300, 128, 64), (64, 45, 9),
+                                   (7, 1000, 100)])
+def test_topk_bit_exact_vs_plain(cuda_device, shape):
+    """Rows with ties, all-+inf tails, C not a multiple of 32."""
+    from repro_torch.kernels.topk.ops import topk, topk_plain
+    q, c, k = shape
+    rng = np.random.default_rng(c)
+    d = rng.integers(0, 8, (q, c)).astype(np.float32)
+    d[rng.random(d.shape) < 0.3] = np.inf
+    d[: q // 4, c // 2:] = np.inf
+    d = torch.as_tensor(d).to(cuda_device)
+    ids = torch.as_tensor(rng.integers(-1, 10**6, (q, c)).astype(np.int32)
+                          ).to(cuda_device)
+    before = topk.launches
+    got = topk(d, ids, k)
+    want = topk_plain(d, ids, k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("masks", ["none", "tomb", "labels", "both"])
 def test_rabitq_search_step_bit_exact_vs_plain(cuda_device, bits, masks):
@@ -206,3 +260,78 @@ def test_index_on_the_card_end_to_end(cuda_device):
     plain = idx.recall(q, 10, spec=SearchSpec(k=10, beam_width=48,
                                               quantized=True))
     assert mk >= plain - 0.01 and mk >= 0.75
+
+
+def _search(idx, q, **kw):
+    from repro_torch.core.search_spec import SearchSpec
+    return idx.searcher(SearchSpec(k=10, beam_width=48, quantized=True,
+                                   use_kernels=True, **kw)).search(q)
+
+
+@pytest.mark.cuda
+def test_churn_round_on_the_card(cuda_device):
+    """delete -> search (three lanes, both traversal modes) -> consolidate
+    -> insert into freed slots + auto-grow -> search again, on the card:
+    zero tombstoned ids, recall, exact per-lane launch counts, hop lane ==
+    megakernel lane, merge-kernel lane == topk-merge lane."""
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.kernels.distance.ops import gather_l2
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.search_step.ops import fused_hop, fused_search
+    from repro_torch.kernels.topk.ops import topk
+    wrappers = (fused_search, fused_hop, topk, rabitq_search_step, gather_l2)
+    rng = np.random.default_rng(1)
+    data = rng.normal(size=(4096, 32)).astype(np.float32)
+    q = torch.as_tensor(rng.normal(size=(128, 32)).astype(np.float32)
+                        ).to(cuda_device)
+    idx = JasperIndex(32, 4096, quantization="rabitq", construction=
+                      ConstructionParams(degree_bound=24, beam_width=32,
+                                         max_iters=48, rev_cap=24))
+    idx.build(data)
+    dead = np.sort(rng.choice(4096, 400, replace=False))
+    assert idx.delete(dead) == 400 and idx.size == 3696
+
+    def lanes(traverse):
+        out = {}
+        for name, kw in (("megakernel", dict(fusion="megakernel")),
+                         ("hop", dict(fusion="hop")),
+                         ("merge-kernel", dict(merge="kernel")),
+                         ("topk-merge", dict(merge="topk"))):
+            for w in wrappers:
+                w.launches = 0
+            res = _search(idx, q, traverse_deleted=traverse, **kw)
+            torch.cuda.synchronize()
+            out[name] = (res, [w.launches for w in wrappers])
+        return out
+
+    gt, _ = idx.brute_force(q, 10)
+    for traverse in (True, False):
+        out = lanes(traverse)
+        mk, hop, mg, tk = (out[n][0] for n in
+                           ("megakernel", "hop", "merge-kernel", "topk-merge"))
+        for res in (mk, hop, mg):
+            assert not np.isin(res.ids.cpu().numpy(), dead).any()
+            hit = (res.ids[:, :, None] == gt[:, None, :]).any(2)
+            assert float(hit.float().mean()) >= 0.8
+        for a, b in ((hop, mk), (mg, tk)):
+            assert torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            assert torch.equal(a.n_hops, b.n_hops)
+        iters = int(hop.n_hops.max())
+        assert out["megakernel"][1] == [1, 0, 0, 0, 1]
+        assert out["hop"][1] == [0, iters, 0, 0, 1]
+        iters = int(mg.n_hops.max())
+        assert out["merge-kernel"][1] == [0, 0, iters, iters + 1, 1]
+    stats = idx.consolidate()
+    assert stats["n_freed"] == 400
+    new = rng.normal(size=(800, 32)).astype(np.float32)
+    ids = idx.insert(new)                         # 400 reused + 400 fresh
+    assert (ids[:400] == dead).all()
+    assert (ids[400:] == np.arange(4096, 4496)).all()
+    assert idx.capacity == 8192 and idx.size == 4496
+    self_hit = _search(idx, torch.as_tensor(new[:400]).to(cuda_device),
+                       fusion="hop").ids[:, 0].cpu().numpy() == dead
+    assert self_hit.mean() >= 0.9
+    mk = _search(idx, q, fusion="megakernel")
+    hop = _search(idx, q, fusion="hop")
+    assert torch.equal(mk.ids, hop.ids) and torch.equal(mk.n_hops, hop.n_hops)

@@ -1,4 +1,4 @@
-"""Port parity of the three kernel modules of the search slice.
+"""Port parity of the kernel modules of the search and churn slices.
 
 Each wrapper, called with CPU tensors, runs its plain PyTorch version —
 held here against the JAX wrapper it replaces (JAX's Pallas kernels run in
@@ -15,7 +15,13 @@ interpret mode off a TPU, as the JAX package's own tests run them):
     schedule, and L > R + 1;
   * `fused_beam_search(mode="megakernel")` vs the JAX megakernel:
     bit-exact on integer-valued inputs at L = R (where the JAX kernel's
-    merge agrees with its oracle, see ROADMAP queue C).
+    merge agrees with its oracle, see ROADMAP queue C);
+  * the hop loop (`fused_beam_search(mode="hop")`, one plain `fused_hop`
+    per hop) vs `fused_search_ref` and vs the megakernel's plain path:
+    BIT-EXACT, telemetry included, over the same variants;
+  * `topk` vs `topk_ref` and `merge_frontier_kernel` vs
+    `merge_frontier_topk`: BIT-EXACT on ties and +inf tails (the JAX
+    `topk_pallas` repeats an entry into such a tail; pinned below).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py.
@@ -335,13 +341,137 @@ def test_merge_keeps_the_inf_tail_empty():
     assert _np(got[2]).tolist() == [[True, False, False, False]]
 
 
-def test_unported_modes_raise():
-    c = Case(9)
+# ------------------------------------------------------ hop loop (#4)
+@pytest.mark.parametrize("variant", FUSED_VARIANTS,
+                         ids=[v[0] for v in FUSED_VARIANTS])
+def test_hop_loop_bit_exact_vs_ref_and_megakernel(variant):
+    """One plain `fused_hop` per hop, driven by the host loop, equals the
+    JAX oracle and the port's megakernel path bit for bit — ids, dists,
+    hops and telemetry."""
+    c, want, mega, _, tmask, table = _fused_both(*variant)
+    name, quantized, bits, beam, masks, telemetry, schedule = variant
     graph = TGraph(adjacency=_t(c.adj), n_valid=c.n_valid, medoid=c.medoid)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tops.fused_beam_search(graph, mode="hop", beam_width=16,
-                               max_iters=4, queries=_t(c.queries),
-                               vectors=_t(c.vectors),
-                               vec_sqnorm=_t(c.sqnorm))
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tbs.merge_frontier_kernel(None, None, None, None, None, 4)
+    before = tops.fused_hop.launches
+    got = tops.fused_beam_search(
+        graph, mode="hop", beam_width=beam, max_iters=48,
+        beam_schedule=schedule, telemetry=telemetry, **table, **tmask)
+    assert tops.fused_hop.launches == before      # CPU: the plain version
+    _assert_result_equal(got, want, telemetry)
+    _assert_result_equal(got, (mega.frontier_ids, mega.frontier_dists,
+                               mega.n_hops, mega.telemetry), telemetry)
+
+
+def test_hop_plain_leaves_converged_rows_alone():
+    """A row with no unvisited slot: frontier unchanged, increment 0,
+    counters 0 — as `fused_hop_ref` leaves it."""
+    c = Case(12)
+    graph = TGraph(adjacency=_t(c.adj), n_valid=c.n_valid, medoid=c.medoid)
+    tcodes, tq = c.torch_codes()
+    ops = tops.fused_operands(graph, beam_width=16, max_iters=8,
+                              codes=tcodes, rq_query=tq)
+    ops["f_vis"][:3, 0] = 1                  # rows 0-2: converged
+    f, hop_ops = tops.hop_operands(ops)
+    ids, dists, vis, inc, cnt = tops.fused_hop(*f, 16, **hop_ops,
+                                               telemetry=True)
+    assert torch.equal(ids[:3], ops["f_ids"][:3])
+    assert torch.equal(dists[:3], ops["f_dists"][:3])
+    assert torch.equal(vis[:3], ops["f_vis"][:3])
+    assert inc[:3].tolist() == [0, 0, 0] and (inc[3:] == 1).all()
+    assert (cnt[:3] == 0).all() and (cnt[3:, 0] > 0).all()
+
+
+# ----------------------------------------------------------- topk (#9)
+TOPK_CASES = {
+    "ties": ([[3., 1., 3., 1., 2., 1.]], [[10, 11, 12, 13, 14, 15]], 4),
+    "inf-tail": ([[1., np.inf, 2., np.inf]], [[5, -1, 7, -1]], 4),
+    "all-inf": ([[np.inf] * 5], [[4, 3, 2, 1, 0]], 5),
+    "c-not-32": (None, None, 9),     # random ties, C = 45
+}
+
+
+@pytest.mark.parametrize("case", list(TOPK_CASES))
+def test_topk_plain_matches_topk_ref(case):
+    from repro.kernels.topk.ref import topk_ref
+    from repro_torch.kernels.topk.ops import topk
+    d, ids, k = TOPK_CASES[case]
+    if d is None:
+        rng = np.random.default_rng(5)
+        d = rng.integers(0, 6, (7, 45)).astype(np.float32)
+        d[rng.random(d.shape) < 0.3] = np.inf
+        ids = rng.integers(-1, 1000, (7, 45))
+    d, ids = np.asarray(d, np.float32), np.asarray(ids, np.int32)
+    wd, wi = topk_ref(jnp.asarray(d), jnp.asarray(ids), k)
+    gd, gi = topk(_t(d), _t(ids), k)
+    assert np.array_equal(_np(gd), np.asarray(wd))
+    assert np.array_equal(_np(gi), np.asarray(wi))
+
+
+MERGE_INPUT = dict(f_ids=[[5, -1]], f_d=[[1.0, np.inf]], f_v=[[True, False]],
+                   c_ids=[[7, -1]], c_d=[[2.0, np.inf]], width=4)
+
+
+def test_merge_frontier_kernel_matches_topk_merge():
+    """The port's kernel merge equals JAX's `merge_frontier_topk` bit for
+    bit: on the +inf-tail input and on random ties."""
+    m = MERGE_INPUT
+    rng = np.random.default_rng(9)
+    cases = [(m["f_ids"], m["f_d"], m["f_v"], m["c_ids"], m["c_d"], 4)]
+    f_d = np.sort(rng.integers(0, 5, (6, 16)).astype(np.float32), axis=1)
+    f_d[:, 12:] = np.inf
+    cases.append((rng.integers(-1, 99, (6, 16)), f_d, rng.random((6, 16)) < 0.5,
+                  rng.integers(-1, 99, (6, 16)),
+                  rng.integers(0, 5, (6, 16)).astype(np.float32), 16))
+    for f_ids, f_d, f_v, c_ids, c_d, w in cases:
+        args = (np.asarray(f_ids, np.int32), np.asarray(f_d, np.float32),
+                np.asarray(f_v, bool), np.asarray(c_ids, np.int32),
+                np.asarray(c_d, np.float32))
+        want = jbs.merge_frontier_topk(*map(jnp.asarray, args), w)
+        got = tbs.merge_frontier_kernel(*map(_t, args), w)
+        for g, x in zip(got, want):
+            assert np.array_equal(_np(g), np.asarray(x))
+    assert _np(got[0]).shape == (6, 16)
+
+
+def test_jax_topk_pallas_repeats_into_the_inf_tail():
+    """Pins the JAX `topk_pallas` fault (ROADMAP queue C, entry 2): its
+    min-extraction takes an already-taken position again once only +inf
+    remains. The port's `topk` follows `topk_ref`, which does not."""
+    from repro.kernels.topk.ops import topk as jtopk
+    from repro.kernels.topk.ref import topk_ref
+    from repro_torch.kernels.topk.ops import topk
+    d = jnp.asarray([[1.0, np.inf, 2.0, np.inf]], jnp.float32)
+    ids = jnp.asarray([[5, -1, 7, -1]], jnp.int32)
+    _, pallas_ids = jtopk(d, ids, 4)
+    _, ref_ids = topk_ref(d, ids, 4)
+    assert np.asarray(pallas_ids).tolist() == [[5, 7, 5, 5]]
+    assert np.asarray(ref_ids).tolist() == [[5, 7, -1, -1]]
+    _, port_ids = topk(_t(np.asarray(d)), _t(np.asarray(ids)), 4)
+    assert _np(port_ids).tolist() == [[5, 7, -1, -1]]
+    m = MERGE_INPUT
+    args = [jnp.asarray(np.asarray(x)) for x in
+            (m["f_ids"], m["f_d"], m["f_v"], m["c_ids"], m["c_d"])]
+    jk = jbs.merge_frontier_kernel(*args, 4)
+    assert np.asarray(jk[0]).tolist() == [[5, 7, 5, 5]]
+    assert np.asarray(jk[2]).tolist() == [[True, False, True, True]]
+
+
+def test_unported_modes_raise():
+    """What the port still leaves out raises: the host rows tier
+    (`rerank_source="host"`) and the PQ baseline."""
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.core.index_core import core_search
+    from repro_torch.core.search_spec import ResolvedSearchSpec, SearchSpec
+    c = Case(9)
+    idx = JasperIndex(D, N, quantization="rabitq", device="cpu",
+                      construction=ConstructionParams(
+                          degree_bound=R, beam_width=16, max_iters=16,
+                          rev_cap=R, prune_chunk=64))
+    idx.build(c.vectors[:64])
+    host = ResolvedSearchSpec(**{
+        **SearchSpec(quantized=True, fusion="hop").resolve().__dict__,
+        "rerank_source": "host"})
+    with pytest.raises(NotImplementedError, match="queue A"):
+        core_search(idx.core, _t(c.queries), spec=host)
+    with pytest.raises(NotImplementedError, match="PQ"):
+        JasperIndex(D, N, quantization="pq", device="cpu")

@@ -48,7 +48,7 @@ def test_package_has_the_slice_modules():
                  "core.index_core", "core.index", "data.synthetic",
                  "kernels.build", "kernels.distance.ops",
                  "kernels.rabitq_dot.ops", "kernels.search_step.ops",
-                 "kernels.search_step.ref"):
+                 "kernels.search_step.ref", "kernels.topk.ops"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -177,7 +177,8 @@ def _wrapper_inputs(device):
 def _call_wrappers(x):
     from repro_torch.kernels.distance.ops import gather_l2
     from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
-    from repro_torch.kernels.search_step.ops import fused_search
+    from repro_torch.kernels.search_step.ops import fused_hop, fused_search
+    from repro_torch.kernels.topk.ops import topk
     out = {}
     out["gather_l2"] = lambda: gather_l2(x["q"], x["table"],
                                          x["vec"].abs(), x["ids"])
@@ -196,11 +197,16 @@ def _call_wrappers(x):
         torch.full((4,), k, dtype=torch.int32, device=dev), x["q"],
         x["qs"], x["qs"], adj, x["packed"], x["vec"], x["vec"], None, None,
         None, x["n"], quantized=True, bits=x["bits"], max_iters=4)
+    out["fused_hop"] = lambda: fused_hop(
+        f_ids, f_d, torch.zeros_like(f_ids), k, x["q"], x["qs"], x["qs"], adj,
+        x["packed"], x["vec"], x["vec"], None, None, None, x["n"],
+        quantized=True, bits=x["bits"])
+    out["topk"] = lambda: topk(f_d, f_ids, 2)
     return out
 
 
 @pytest.mark.parametrize("name", ["gather_l2", "rabitq_search_step",
-                                  "fused_search"])
+                                  "fused_search", "fused_hop", "topk"])
 def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     """CPU tensors take the plain version (no build, no launch counted);
     tensors on any other non-CUDA device raise rather than fall back."""
@@ -210,7 +216,9 @@ def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     fn = _call_wrappers(_wrapper_inputs("cpu"))[name]
     wrapper = {"gather_l2": "repro_torch.kernels.distance.ops",
                "rabitq_search_step": "repro_torch.kernels.rabitq_dot.ops",
-               "fused_search": "repro_torch.kernels.search_step.ops"}[name]
+               "fused_search": "repro_torch.kernels.search_step.ops",
+               "fused_hop": "repro_torch.kernels.search_step.ops",
+               "topk": "repro_torch.kernels.topk.ops"}[name]
     mod = __import__(wrapper, fromlist=[name])
     before = getattr(mod, name).launches
     out = fn()

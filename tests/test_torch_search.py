@@ -3,8 +3,10 @@
 One JAX-built index (N=2048, D=32, R=16, 4-bit RaBitQ — the conformance
 suite's shape) crosses into the port through `core_to_arrays` ->
 `core_from_arrays`, so both packages search the same graph, codes and
-rotation. `core_search` then runs in both over {megakernel, none} x
-{quantized, exact} x {kernels, plain}, held to the conformance bars
+rotation. `core_search` then runs in both over {megakernel, hop, none,
+merge-kernel} x {quantized, exact} x {kernels, plain} (the conformance
+suite's lanes; "merge-kernel" is the unfused loop at merge="kernel"),
+clean and with tombstones, held to the conformance bars
 (tests/test_conformance.py): id agreement >= 0.95, dists rtol 1e-3 /
 atol 1e-2, recall >= 0.75 at beam 48 and k=10, and zero tombstoned ids.
 
@@ -42,8 +44,11 @@ DIST_RTOL, DIST_ATOL = 1e-3, 1e-2
 PARAMS = dict(degree_bound=16, alpha=1.2, beam_width=16, max_iters=24,
               rev_cap=16, prune_chunk=256)
 
-CELLS = [(fusion, quantized, kernels)
-         for fusion in ("megakernel", "none")
+LANES = {"megakernel": dict(fusion="megakernel"), "hop": dict(fusion="hop"),
+         "none": dict(fusion="none"),
+         "merge-kernel": dict(fusion="none", merge="kernel")}
+CELLS = [(lane, quantized, kernels)
+         for lane in LANES
          for quantized in (True, False)
          for kernels in (True, False)]
 CELL_IDS = [f"{f}-{'rabitq' if q else 'exact'}-{'kernel' if k else 'plain'}"
@@ -95,15 +100,15 @@ def slice_runs():
         out[("core", tomb)] = core
         gt, _ = jidx.brute_force(queries, K)
         out[("gt", tomb)] = np.asarray(gt)
-        for fusion, quantized, kernels in CELLS:
+        for lane, quantized, kernels in CELLS:
             spec = jss.SearchSpec(k=K, beam_width=BEAM, quantized=quantized,
-                                  use_kernels=kernels, fusion=fusion)
+                                  use_kernels=kernels, **LANES[lane])
             rj = j_core_search(jidx.core, jnp.asarray(queries),
                                spec=spec.resolve(), filter_tombstones=tomb)
             rt = core_search(core, torch.as_tensor(queries),
                              spec=tss.SearchSpec(**spec.__dict__).resolve(),
                              filter_tombstones=tomb)
-            out[(fusion, quantized, kernels, tomb)] = (
+            out[(lane, quantized, kernels, tomb)] = (
                 [np.asarray(x) for x in rj], [_np(x) for x in rt])
     return out
 
