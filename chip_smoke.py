@@ -36,6 +36,32 @@ Phases:
                 topk-merge lane bit for bit, slot reuse, the resident prefix
                 of every buffer byte-identical across the grow, and that the
                 reused rows find themselves.
+  7. exact lanes and full scans — runs between phases 5 and 6, on phase 4's
+                index before the churn round changes it. Exact-vector search
+                (10,000 queries, k=10, beam 64) on five lanes: megakernel,
+                hop, unfused with the chunked scorer (`gather_l2` per hop),
+                unfused with the tiled scorer (`gather_l2_tiled` per hop) and
+                plain; checks recall@10 >= 0.85 and exact launch counts on
+                each, tiled == chunked == plain and hop == megakernel bit for
+                bit (the bigann stand-in is integer-valued, so f32 is exact),
+                and prints whether the exact megakernel equals the unfused
+                lane, and its QPS and recall beside the quantized one's.
+                Exact full scan (`pairwise_l2`, all queries x all rows in
+                chunks of 131,072, the last ragged, a running top-10): every
+                chunk bit-equal to `pairwise_l2_plain`, the top-10 distances
+                bit-equal to `brute_force`'s and the ids equal below the cut.
+                Estimated full scan (`rabitq_distance` on the 4-bit codes, a
+                running top-64, exact rerank through `gather_l2`): recall@10
+                code-only and after the rerank (>= 0.85).
+                `rabitq_gather_distance` on the megakernel's final frontier:
+                bit-equal to its plain version (integer operands) and to
+                `rabitq_search_step` with every row live. `rabitq_distance`
+                chunks bit-equal to the plain version and to
+                `rabitq_gather_distance` at the frontier ids (integer
+                operands), and within rtol 1e-4 plus float32 ulps of the
+                terms on the real codes. Times of the four kernels beside
+                their plain versions, bounds and library calls
+                (`gather_l2_tiled` beside `gather_l2` on the same inputs).
 
 Prints the kernel JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, if
@@ -295,18 +321,37 @@ def compare_step_exact(core, rq, gen, n_q) -> None:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each counts its
     launches in `.launches`)."""
-    from repro_torch.kernels.distance.ops import gather_l2
-    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_tiled,
+                                                  pairwise_l2)
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
     from repro_torch.kernels.topk.ops import topk
     return {"fused_search": fused_search, "gather_l2": gather_l2,
             "rabitq_search_step": rabitq_search_step,
-            "fused_hop": fused_hop, "topk": topk}
+            "fused_hop": fused_hop, "topk": topk,
+            "gather_l2_tiled": gather_l2_tiled, "pairwise_l2": pairwise_l2,
+            "rabitq_distance": rabitq_distance,
+            "rabitq_gather_distance": rabitq_gather_distance}
 
 
 def counts(**nonzero) -> dict:
     """Expected launch counts of one search: 0 for every kernel not named."""
     return {name: nonzero.get(name, 0) for name in kernel_wrappers()}
+
+
+def counted(fn):
+    """Run fn() between zeroed and read launch counters; returns (its
+    result, the seconds to a synchronised finish, {kernel: launches})."""
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, {k: w.launches for k, w in wrappers.items()}
 
 
 # --------------------------------------------------------------- phases
@@ -379,8 +424,9 @@ def profile_search(searcher, q_dev, top=8) -> None:
 
 def main_path(args):
     """Phase 4: build + the three search paths, counters around each.
-    Returns the index, the queries on the card, and each path's launch
-    counts."""
+    Returns the index, the queries on the card, each kernel's launches
+    from the path that runs it, the brute-force (ids, dists) and the
+    megakernel path's numbers."""
     from repro_torch.core.construction import ConstructionParams
     from repro_torch.core.search_spec import SearchSpec
     from repro_torch.data.synthetic import (ANNS_DATASETS, make_anns_dataset,
@@ -409,7 +455,7 @@ def main_path(args):
         f"{stats['rabitq_resident_bytes'] / 1e6:.0f} MB")
 
     q_dev = torch.as_tensor(queries).cuda()
-    gt, _ = idx.brute_force(q_dev, 10)
+    gt, gt_d = idx.brute_force(q_dev, 10)
     torch.cuda.synchronize()
     paths = {
         "megakernel": SearchSpec(k=10, beam_width=64, quantized=True,
@@ -422,14 +468,7 @@ def main_path(args):
     results = {}
     for name, spec in paths.items():
         searcher = idx.searcher(spec)
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        res = searcher.search(q_dev)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launched = {k: w.launches for k, w in wrappers.items()}
+        res, secs, launched = counted(lambda: searcher.search(q_dev))
         rec = recall_at(res.ids, gt)
         hops = float(res.n_hops.float().mean())
         results[name] = dict(recall=rec, qps=args.queries / secs, secs=secs,
@@ -467,7 +506,7 @@ def main_path(args):
                     gather_l2=mk["launches"]["gather_l2"],
                     rabitq_search_step=uk["launches"]["rabitq_search_step"])
     log(f"  launches per path's search: {launches}")
-    return idx, q_dev, launches, mk["recall"]
+    return idx, q_dev, launches, (gt, gt_d), mk
 
 
 def kernels_at_main_shapes(idx, q_dev, launches, gen):
@@ -704,6 +743,435 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     return records
 
 
+# ------------------------------------- exact lanes and full scans (phase 7)
+SCAN_CHUNK = 131_072           # rows per full-scan launch
+RERANK_DEPTH = 64              # estimated top-64, reranked exactly
+EXACT_LANES = {
+    "megakernel": dict(use_kernels=True, fusion="megakernel"),
+    "hop": dict(use_kernels=True, fusion="hop"),
+    "chunked": dict(use_kernels=True, fusion="none"),
+    "tiled": None,   # beam_search over make_kernel_scorer(strategy="tiled")
+    "plain": dict(use_kernels=False, fusion="none"),
+}
+
+
+def exact_lanes(idx, q_dev, gt, quant) -> dict:
+    """The exact-vector search lanes on phase 4's index: recall, exact
+    launch counts, tiled == chunked == plain and hop == megakernel bit for
+    bit. Returns each lane's launches."""
+    from repro_torch.core.beam_search import beam_search
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.kernels.distance.ops import make_kernel_scorer
+    core = idx.core
+    n_q = q_dev.shape[0]
+    rs = SearchSpec(k=10, beam_width=64).resolve()
+    res, launched = {}, {}
+    for lane, kw in EXACT_LANES.items():
+        if kw is None:
+            def search():
+                scorer = make_kernel_scorer(core.vectors, q_dev, core.n_valid,
+                                            core.vec_sqnorm, strategy="tiled")
+                r = beam_search(core.graph, scorer, n_q,
+                                beam_width=rs.beam_width,
+                                max_iters=rs.max_iters,
+                                expand_per_iter=rs.expand,
+                                merge_strategy=rs.merge,
+                                beam_schedule=rs.beam_schedule)
+                return (r.frontier_ids[:, :10], r.frontier_dists[:, :10],
+                        r.n_hops)
+        else:
+            searcher = idx.searcher(SearchSpec(k=10, beam_width=64,
+                                               quantized=False, **kw))
+
+            def search():
+                r = searcher.search(q_dev)
+                return r.ids, r.dists, r.n_hops
+        out, secs, got = counted(search)
+        rec = recall_at(out[0], gt)
+        hops = out[2]
+        iters = int(hops.max())
+        want = {"megakernel": counts(fused_search=1),
+                "hop": counts(fused_hop=iters),
+                "chunked": counts(gather_l2=1 + iters),
+                "tiled": counts(gather_l2_tiled=1 + iters),
+                "plain": counts()}[lane]
+        log(f"  exact {lane:10s}: {n_q / secs:.0f} QPS ({secs:.3f} s), "
+            f"recall@10 {rec:.4f}, mean hops {float(hops.float().mean()):.2f}"
+            f", launches {got}")
+        check(got == want, f"exact {lane} launched {got}, expected {want}")
+        check(rec >= RECALL_FLOOR, f"exact {lane} recall {rec:.4f} < "
+              f"{RECALL_FLOOR}")
+        res[lane] = dict(out=out, secs=secs, recall=rec)
+        launched[lane] = got
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(res[a]["out"],
+                                                      res[b]["out"]))
+    for a, b in (("tiled", "chunked"), ("chunked", "plain"),
+                 ("hop", "megakernel")):
+        check(same(a, b), f"exact {a} lane differs from the {b} lane (ids "
+              f"agree {float((res[a]['out'][0] == res[b]['out'][0]).float().mean()):.4f})")
+    log("  exact lanes: tiled == chunked == plain and hop == megakernel, bit "
+        "for bit (ids, dists, hops)")
+    mk_same = same("megakernel", "chunked")
+    agree = float((res["megakernel"]["out"][0]
+                   == res["chunked"]["out"][0]).float().mean())
+    log(f"  exact megakernel == unfused lane: {mk_same} (id agreement "
+        f"{agree:.4f})")
+    mk = res["megakernel"]
+    log(f"  megakernel exact vs quantized (+ rerank): {n_q / mk['secs']:.0f}"
+        f" vs {quant['qps']:.0f} QPS, recall@10 {mk['recall']:.4f} vs "
+        f"{quant['recall']:.4f}")
+    return launched
+
+
+def top_merge(best, chunk_d, s, k):
+    """Running top-k: the chunk's k smallest (ids offset by s) merged with
+    the best so far."""
+    cd, ci = torch.topk(chunk_d, k, dim=1, largest=False, sorted=True)
+    ci = ci.to(torch.int32) + s
+    if best is None:
+        return cd, ci
+    d = torch.cat([best[0], cd], 1)
+    i = torch.cat([best[1], ci], 1)
+    d, order = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    return d, torch.gather(i, 1, order)
+
+
+def chunks(n):
+    return [(s, min(s + SCAN_CHUNK, n)) for s in range(0, n, SCAN_CHUNK)]
+
+
+def within(got, want, terms, rtol=1e-4, ulps=1e-6):
+    """|got - want| <= rtol |want| + ulps * terms elementwise (terms: the
+    magnitude of what the sums cancel), in row blocks. Returns (ok, max
+    |err|)."""
+    ok, err = True, 0.0
+    for r in range(0, got.shape[0], 1024):
+        g, w = got[r:r + 1024], want[r:r + 1024]
+        t = terms(r, r + g.shape[0])
+        e = (g - w).abs()
+        ok &= bool((e <= rtol * w.abs() + ulps * t).all())
+        err = max(err, float(e.max()))
+    return ok, err
+
+
+def same_topk(d, i, ref_d, ref_i) -> tuple[bool, float]:
+    """Top-k distances bit-equal, and the ids below each row's k-th
+    distance equal as sets (ids tied at the cut may differ). Returns (ok,
+    the share of rows whose ids match position for position)."""
+    if not torch.equal(d, ref_d):
+        return False, 0.0
+    below = d < d[:, -1:]
+    big = torch.iinfo(torch.int32).max
+    a = torch.sort(torch.where(below, i, big), 1).values
+    b = torch.sort(torch.where(below, ref_i, big), 1).values
+    return torch.equal(a, b), float((i == ref_i).all(1).float().mean())
+
+
+def full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen):
+    """Exact (pairwise_l2) and estimated (rabitq_distance) full scans of
+    phase 4's index, and rabitq_gather_distance on the megakernel's final
+    frontier. Returns the launches of each counted step and the max
+    errors against the plain versions on the real codes."""
+    from repro_torch.kernels.distance.ops import (gather_l2, pairwise_l2,
+                                                  pairwise_l2_plain)
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_distance, rabitq_distance_plain, rabitq_gather_distance,
+        rabitq_gather_distance_plain, rabitq_search_step)
+    core = idx.core
+    n = core.n_valid
+    n_q = q_dev.shape[0]
+    spans = chunks(n)
+    bits = core.codes.bits
+    launched = {}
+
+    # ---- exact full scan: the counted pass, then kernel vs plain
+    def exact_scan():
+        best = None
+        for s, e in spans:
+            best = top_merge(best, pairwise_l2(q_dev, core.vectors[s:e]), s,
+                             10)
+        return best
+    (sd, si), secs, launched["pairwise_l2"] = counted(exact_scan)
+    check(launched["pairwise_l2"] == counts(pairwise_l2=len(spans)),
+          f"exact scan launched {launched['pairwise_l2']}")
+    ok, rows_same = same_topk(sd, si, gt_d, gt)
+    check(ok, "exact scan top-10 differs from brute_force's (distances, or "
+          "ids below the 10th distance)")
+    rec = recall_at(si, gt)
+    log(f"  exact scan, {len(spans)} chunks of <= {SCAN_CHUNK} rows (last "
+        f"{spans[-1][1] - spans[-1][0]}): {secs:.3f} s ({n_q / secs:.0f} "
+        f"QPS), recall@10 {rec:.4f}; top-10 distances bit-equal to "
+        f"brute_force, ids equal below the cut ({rows_same:.4f} of rows "
+        f"equal position for position)")
+    for s, e in spans:
+        got = pairwise_l2(q_dev, core.vectors[s:e])
+        check(torch.equal(got, pairwise_l2_plain(q_dev, core.vectors[s:e])),
+              f"pairwise_l2 chunk [{s}, {e}) not bit-equal to its plain "
+              "version")
+        del got
+    log(f"  pairwise_l2: every chunk bit-equal to pairwise_l2_plain "
+        f"(integer rows and queries)")
+
+    # ---- estimated full scan: counted pass (top-64 -> exact rerank)
+    c = core.codes
+
+    def est_args(codes, q, s, e):
+        return (codes.packed[s:e], codes.data_add[s:e],
+                codes.data_rescale[s:e], q.q_rot, q.query_add, q.query_sumq)
+
+    def est_scan():
+        best = None
+        for s, e in spans:
+            best = top_merge(best, rabitq_distance(*est_args(c, rq, s, e),
+                                                   bits=bits),
+                             s, RERANK_DEPTH)
+        exact = gather_l2(q_dev, core.vectors, core.vec_sqnorm, best[1])
+        order = torch.sort(exact, dim=1, stable=True).indices[:, :10]
+        return best[1][:, :10], torch.gather(best[1], 1, order)
+    (code_top, reranked), secs, launched["rabitq_distance"] = counted(
+        est_scan)
+    check(launched["rabitq_distance"]
+          == counts(rabitq_distance=len(spans), gather_l2=1),
+          f"estimated scan launched {launched['rabitq_distance']}")
+    rec_code = recall_at(code_top, gt)
+    rec_rr = recall_at(reranked, gt)
+    log(f"  estimated scan ({bits}-bit codes): {secs:.3f} s ({n_q / secs:.0f}"
+        f" QPS), recall@10 code-only {rec_code:.4f}, after the exact rerank "
+        f"of the top {RERANK_DEPTH} {rec_rr:.4f}")
+    check(rec_rr >= RECALL_FLOOR, f"estimate-then-rerank recall {rec_rr:.4f}"
+          f" < {RECALL_FLOOR}")
+
+    # ---- rabitq_gather_distance on the megakernel's final frontier
+    check(bool(((frontier >= 0) & (frontier < n)).all()),
+          "the megakernel frontier holds ids out of range")
+    fl = frontier.long()
+
+    def gathered(codes, q):
+        return (codes.packed[fl].contiguous(), codes.data_add[fl],
+                codes.data_rescale[fl], q.q_rot, q.query_add, q.query_sumq)
+
+    g_real, _, launched["rabitq_gather_distance"] = counted(
+        lambda: rabitq_gather_distance(*gathered(c, rq), bits=bits))
+    check(launched["rabitq_gather_distance"]
+          == counts(rabitq_gather_distance=1),
+          f"frontier re-estimate launched {launched['rabitq_gather_distance']}")
+    step = rabitq_search_step(frontier, c.packed, c.data_add, c.data_rescale,
+                              n, rq.q_rot, rq.query_add, rq.query_sumq,
+                              bits=bits)
+    check(torch.equal(g_real, step), "rabitq_gather_distance differs from "
+          "rabitq_search_step on the live frontier (real codes)")
+    want = rabitq_gather_distance_plain(*gathered(c, rq), bits=bits)
+    err5 = float((g_real - want).abs().max())
+    check(torch.allclose(g_real, want, rtol=1e-4, atol=1e-3),
+          f"rabitq_gather_distance realistic: max |err| {err5}")
+    iq = int_query(rq, gen)
+    ic = int_codes(c, gen)
+    g_int = rabitq_gather_distance(*gathered(ic, iq), bits=bits)
+    check(torch.equal(g_int, rabitq_gather_distance_plain(
+        *gathered(ic, iq), bits=bits)),
+        "rabitq_gather_distance not bit-equal to its plain version on "
+        "integer operands")
+    check(torch.equal(g_int, rabitq_search_step(
+        frontier, ic.packed, ic.data_add, ic.data_rescale, n, iq.q_rot,
+        iq.query_add, iq.query_sumq, bits=bits)),
+        "rabitq_gather_distance differs from rabitq_search_step on integer "
+        "operands")
+    log(f"  rabitq_gather_distance ({n_q}, {frontier.shape[1]}): bit-equal "
+        f"to its plain version (integer operands) and to rabitq_search_step "
+        f"(integer and real operands), real max |err| vs plain {err5:.3g}; "
+        "0 launches on every search lane")
+
+    # ---- rabitq_distance vs plain: exact mode (and == #5), realistic mode
+    err6 = 0.0
+    for s, e in spans:
+        got = rabitq_distance(*est_args(ic, iq, s, e), bits=bits)
+        check(torch.equal(got, rabitq_distance_plain(*est_args(ic, iq, s, e),
+                                                     bits=bits)),
+              f"rabitq_distance chunk [{s}, {e}) not bit-equal to its plain "
+              "version on integer operands")
+        hit = (frontier >= s) & (frontier < e)
+        at = torch.gather(got, 1, (frontier - s).clamp(0, e - s - 1).long())
+        check(torch.equal(at[hit], g_int[hit]), f"rabitq_distance chunk "
+              f"[{s}, {e}) differs from rabitq_gather_distance at the "
+              "frontier ids")
+        del got, at
+        got = rabitq_distance(*est_args(c, rq, s, e), bits=bits)
+        want = rabitq_distance_plain(*est_args(c, rq, s, e), bits=bits)
+        qmag = rq.q_rot.abs().sum(1) * (2 ** bits - 1) + rq.query_sumq.abs()
+        ok, err = within(got, want, lambda a, b: (
+            c.data_add[s:e].abs()[None, :] + rq.query_add[a:b, None].abs()
+            + c.data_rescale[s:e].abs()[None, :] * qmag[a:b, None]))
+        check(ok, f"rabitq_distance chunk [{s}, {e}) realistic: max |err| "
+              f"{err}")
+        err6 = max(err6, err)
+        del got, want
+    log(f"  rabitq_distance: every chunk bit-equal to its plain version and "
+        f"to rabitq_gather_distance at the frontier ids (integer operands); "
+        f"real codes max |err| {err6:.3g}")
+    torch.cuda.empty_cache()
+    return launched, dict(err5=err5, err6=err6)
+
+
+def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
+                                gen):
+    """Times and bounds of the four kernels of phase 7 (#7 and #6 on one
+    full chunk, #5 on the frontier, #8 at the rerank's shape beside #2);
+    returns their kernel JSON records."""
+    from repro_torch.kernels.distance.ops import (
+        gather_l2, gather_l2_plain, gather_l2_tiled, pairwise_l2,
+        pairwise_l2_plain)
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_distance, rabitq_distance_plain, rabitq_gather_distance,
+        rabitq_gather_distance_plain)
+    n_q, d = q_dev.shape
+    c_n = min(SCAN_CHUNK, core.n_valid)
+    x = core.vectors[:c_n]
+    codes = core.codes
+    bits, p = codes.bits, codes.packed.shape[1]
+    k = frontier.shape[1]
+    records = []
+
+    # ---- pairwise_l2: noisy queries too (realistic mode), then times
+    noisy_q = q_dev + 0.37 * torch.randn(q_dev.shape, generator=gen).to(
+        q_dev.device)
+    got = pairwise_l2(noisy_q, x)
+    want = pairwise_l2_plain(noisy_q, x)
+    qsq = (noisy_q * noisy_q).sum(1)
+    ok, err7 = within(got, want, lambda a, b: (
+        qsq[a:b, None] + core.vec_sqnorm[None, :c_n]))
+    check(ok, f"pairwise_l2 realistic: max |err| {err7}")
+    del got, want
+    ms = cuda_ms(lambda: pairwise_l2(q_dev, x), 5)
+    plain_ms = cuda_ms(lambda: pairwise_l2_plain(q_dev, x), 2)
+    lib_ms = cuda_ms(lambda: torch.cdist(
+        q_dev, x, compute_mode="use_mm_for_euclid_dist"), 2)
+    b_ms, b_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
+                       2.0 * n_q * c_n * d)
+    log(f"  pairwise_l2 ({n_q}, {c_n}, {d}): {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, torch.cdist (mm, returns the square root) "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), noisy-query max "
+        f"|err| {err7:.3g}; {launches['pairwise_l2']['pairwise_l2']} launches"
+        " per exact scan")
+    records.append(dict(
+        name="pairwise_l2", route="cuda",
+        source="src/repro_torch/csrc/pairwise_l2.cu",
+        replaces="src/repro/kernels/distance/distance_kernel.py:58",
+        launches=launches["pairwise_l2"]["pairwise_l2"], max_abs_err=err7,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms))
+    torch.cuda.empty_cache()
+
+    # ---- rabitq_distance on one chunk of the real codes
+    args6 = (codes.packed[:c_n], codes.data_add[:c_n],
+             codes.data_rescale[:c_n], rq.q_rot, rq.query_add, rq.query_sumq)
+    ms = cuda_ms(lambda: rabitq_distance(*args6, bits=bits), 5)
+    plain_ms = cuda_ms(lambda: rabitq_distance_plain(*args6, bits=bits), 2)
+    b_ms, b_by = bound(c_n * (p + 8) + n_q * (d * 4 + 8) + n_q * c_n * 4,
+                       2.0 * n_q * c_n * d)
+    log(f"  rabitq_distance ({n_q}, {c_n}, {bits} bits): {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+        f"{launches['rabitq_distance']['rabitq_distance']} launches per "
+        "estimated scan")
+    records.append(dict(
+        name="rabitq_distance", route="cuda",
+        source="src/repro_torch/csrc/rabitq_distance.cu",
+        replaces="src/repro/kernels/rabitq_dot/rabitq_kernel.py:172",
+        launches=launches["rabitq_distance"]["rabitq_distance"],
+        max_abs_err=errs["err6"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
+    torch.cuda.empty_cache()
+
+    # ---- rabitq_gather_distance on the frontier's gathered codes
+    fl = frontier.long()
+    args5 = (codes.packed[fl].contiguous(), codes.data_add[fl],
+             codes.data_rescale[fl], rq.q_rot, rq.query_add, rq.query_sumq)
+    ms = cuda_ms(lambda: rabitq_gather_distance(*args5, bits=bits), 20)
+    plain_ms = cuda_ms(lambda: rabitq_gather_distance_plain(*args5,
+                                                            bits=bits), 5)
+    b_ms, b_by = bound(n_q * k * (p + 8) + n_q * (d * 4 + 8) + n_q * k * 4,
+                       2.0 * n_q * k * d)
+    log(f"  rabitq_gather_distance ({n_q}, {k}, P={p}): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no search lane "
+        "launches it (1 launch in the counted frontier re-estimate)")
+    records.append(dict(
+        name="rabitq_gather_distance", route="cuda",
+        source="src/repro_torch/csrc/rabitq_distance.cu",
+        replaces="src/repro/kernels/rabitq_dot/rabitq_kernel.py:97",
+        launches=launches["rabitq_gather_distance"]["rabitq_gather_distance"],
+        max_abs_err=errs["err5"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None))
+
+    # ---- gather_l2_tiled at the rerank's shape, beside gather_l2
+    real_q = q_dev
+    got = gather_l2_tiled(real_q, core.vectors, core.vec_sqnorm, frontier)
+    check(torch.equal(got, gather_l2_plain(real_q, core.vectors,
+                                           core.vec_sqnorm, frontier))
+          and torch.equal(got, gather_l2(real_q, core.vectors,
+                                         core.vec_sqnorm, frontier)),
+          "gather_l2_tiled not bit-equal to gather_l2_plain and gather_l2 "
+          "on integer rows")
+    got = gather_l2_tiled(noisy_q, core.vectors, core.vec_sqnorm, frontier)
+    want = gather_l2_plain(noisy_q, core.vectors, core.vec_sqnorm, frontier)
+    terms = ((noisy_q * noisy_q).sum(-1, keepdim=True)
+             + core.vec_sqnorm[fl])
+    err8 = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-6 * terms)
+               .all()), f"gather_l2_tiled realistic: max |err| {err8}")
+    ms = cuda_ms(lambda: gather_l2_tiled(real_q, core.vectors,
+                                         core.vec_sqnorm, frontier), 20)
+    chunked_ms = cuda_ms(lambda: gather_l2(real_q, core.vectors,
+                                           core.vec_sqnorm, frontier), 20)
+    plain_ms = cuda_ms(lambda: gather_l2_plain(real_q, core.vectors,
+                                               core.vec_sqnorm, frontier), 5)
+    flat = fl.reshape(-1)
+
+    def yardstick():
+        cand = core.vectors.index_select(0, flat).view(n_q, k, d)
+        return torch.bmm(cand, real_q[:, :, None])
+
+    lib_ms = cuda_ms(yardstick, 20)
+    g_bytes = frontier.numel() * 8 + frontier.numel() * (4 * d + 4) + n_q * d * 4
+    b_ms, b_by = bound(g_bytes, frontier.numel() * 2 * d)
+    tiled_launches = launches["tiled"]["gather_l2_tiled"]
+    log(f"  gather_l2_tiled ({n_q}, {k}): {ms:.4f} ms, gather_l2 (chunked) "
+        f"on the same inputs {chunked_ms:.4f} ms ({ms / chunked_ms:.2f}x), "
+        f"plain {plain_ms:.4f} ms, index_select+bmm {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), max |err| {err8:.3g}; {tiled_launches} "
+        "launches per tiled-lane search")
+    records.append(dict(
+        name="gather_l2_tiled", route="cuda",
+        source="src/repro_torch/csrc/gather_l2_tiled.cu",
+        replaces="src/repro/kernels/distance/distance_kernel.py:90",
+        launches=tiled_launches, max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return records
+
+
+def exact_and_scans(idx, q_dev, gt, gt_d, quant, gen) -> list:
+    """Phase 7, on phase 4's index before the churn round: the exact
+    lanes, both full scans, #5 on the frontier; the four kernel records."""
+    from repro_torch.core.rabitq import rabitq_preprocess_query
+    from repro_torch.kernels.search_step.ops import fused_operands, fused_search
+    core = idx.core
+    launches = exact_lanes(idx, q_dev, gt, quant)
+    rq = rabitq_preprocess_query(core.rq_params, q_dev)
+    ops = fused_operands(core.graph, beam_width=64, max_iters=140,
+                         codes=core.codes, rq_query=rq)
+    frontier = fused_search(**ops)[0]
+    exact_ops = fused_operands(core.graph, beam_width=64, max_iters=140,
+                               queries=q_dev, vectors=core.vectors,
+                               vec_sqnorm=core.vec_sqnorm)
+    log(f"  fused_search kernel alone: exact "
+        f"{cuda_ms(lambda: fused_search(**exact_ops), 3):.3f} ms, quantized "
+        f"{cuda_ms(lambda: fused_search(**ops), 3):.3f} ms")
+    scan_launches, errs = full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen)
+    launches.update(scan_launches)
+    return scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches,
+                                       errs, gen)
+
+
 # ------------------------------------------------------------ churn round
 CHURN_LANES = {
     "megakernel": dict(fusion="megakernel"),
@@ -721,7 +1189,6 @@ def churn_searches(idx, q_dev, gt, stage: str) -> dict:
     exact launch counts and the two bit-equalities; returns {lane:
     launches} of the traverse_deleted=True searches."""
     from repro_torch.core.search_spec import SearchSpec
-    wrappers = kernel_wrappers()
     first = {}
     for traverse in (True, False):
         res = {}
@@ -729,14 +1196,7 @@ def churn_searches(idx, q_dev, gt, stage: str) -> dict:
             searcher = idx.searcher(SearchSpec(
                 k=10, beam_width=64, quantized=True, use_kernels=True,
                 traverse_deleted=traverse, **kw))
-            torch.cuda.synchronize()
-            for w in wrappers.values():
-                w.launches = 0
-            t0 = time.perf_counter()
-            out = searcher.search(q_dev)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launched = {k: w.launches for k, w in wrappers.items()}
+            out, secs, launched = counted(lambda: searcher.search(q_dev))
             ids = out.ids.cpu().numpy()
             dead = int(idx.tombstoned(ids[ids >= 0]).sum())
             rec = recall_at(out.ids, gt)
@@ -931,14 +1391,18 @@ def main() -> int:
     selfcheck(gen)
 
     log(f"[4] main path: N={args.n}, {args.queries} queries")
-    idx, q_dev, launches, recall_before = main_path(args)
+    idx, q_dev, launches, (gt, gt_d), quant = main_path(args)
 
     log("[5] kernels vs plain at main-path shapes")
     records = kernels_at_main_shapes(idx, q_dev, launches, gen)
 
+    log("[7] exact lanes and full scans (phase 4's index, before the churn "
+        "round)")
+    records += exact_and_scans(idx, q_dev, gt, gt_d, quant, gen)
+
     log(f"[6] churn round: delete {args.n // 100}, search, consolidate, "
         f"insert {2 * (args.n // 100)}, search")
-    churn = churn_round(idx, q_dev, args.n, recall_before)
+    churn = churn_round(idx, q_dev, args.n, quant["recall"])
     for rec in records:
         if rec["name"] == "fused_hop":
             rec["launches"] = churn["hop"]["fused_hop"]

@@ -28,8 +28,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 
-# one shared library per source; every .cu may include common.cuh
-SOURCES = ("search_step", "gather_l2", "rabitq_search_step", "topk")
+# one shared library per source; every .cu may include the csrc headers
+SOURCES = ("search_step", "gather_l2", "rabitq_search_step", "topk",
+           "pairwise_l2", "rabitq_distance", "gather_l2_tiled")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,7 +52,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

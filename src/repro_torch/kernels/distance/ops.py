@@ -1,12 +1,21 @@
-"""Exact gather distances: the CUDA `gather_l2` kernel and its plain version.
+"""Exact squared-L2 kernels and their plain versions: `gather_l2` (bulk
+"chunked" loads), `gather_l2_tiled` (one row at a time) and `pairwise_l2`
+(every query-row pair).
 
-Replaces `gather_l2_chunked_pallas` (`repro/kernels/distance/
+`gather_l2` replaces `gather_l2_chunked_pallas` (`repro/kernels/distance/
 distance_kernel.py:130`) together with its wrapper's XLA gather
 (`repro/kernels/distance/ops.py:74`): the kernel reads the candidate rows
-itself, so no (Q, K, D) candidate buffer is ever built.
+itself, so no (Q, K, D) candidate buffer is ever built. `gather_l2_tiled`
+replaces `gather_l2_tiled_pallas` (`distance_kernel.py:90`), the paper's
+latency-exposed "tiled" load strategy, with the same function:
 
     out[q, k] = max(|q|^2 - 2 q.c + |c|^2, 0),  c = table[ids[q, k]]
               = +inf where ids[q, k] < 0
+
+`pairwise_l2` replaces `pairwise_l2_pallas` (`distance_kernel.py:58`):
+out[q, c] = max(|q|^2 - 2 q.x_c + |x_c|^2, 0) over all pairs, inputs cast
+to float32 as the JAX wrapper casts them. The kernels mask ragged Q, C
+and D themselves: nothing is padded.
 """
 
 from __future__ import annotations
@@ -15,9 +24,14 @@ import ctypes
 
 import torch
 
+from repro_torch.core.distances import pairwise_l2_squared
 from repro_torch.kernels import build
 
 _INF = float("inf")
+# the kernel's grid holds the row tiles of 128 in its y dimension
+PAIRWISE_MAX_ROWS = 65535 * 128
+FLOAT_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
+STRATEGIES = ("chunked", "tiled")
 
 
 def gather_l2_plain(q: torch.Tensor, table: torch.Tensor,
@@ -33,18 +47,11 @@ def gather_l2_plain(q: torch.Tensor, table: torch.Tensor,
     return torch.where(ids >= 0, d, torch.full_like(d, _INF))
 
 
-def gather_l2(q: torch.Tensor, table: torch.Tensor, sqnorm: torch.Tensor,
-              ids: torch.Tensor) -> torch.Tensor:
-    """(Q, D) f32 queries, (N, D) f32 table, (N,) f32 squared norms, (Q, K)
-    int32 ids -> (Q, K) f32 squared L2, +inf for ids < 0.
-
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+def _gather_launch(kernel: str, q: torch.Tensor, table: torch.Tensor,
+                   sqnorm: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Check the operands of a gather kernel and launch it (`kernel` is
+    the library and the prefix of its `<kernel>_launch` entry point)."""
     dev = ids.device
-    if dev.type == "cpu":
-        return gather_l2_plain(q, table, sqnorm, ids)
-    if dev.type != "cuda":
-        raise ValueError(f"gather_l2 runs on cuda or cpu tensors, got {dev}")
     for t, name, dt, nd in ((q, "q", torch.float32, 2),
                             (table, "table", torch.float32, 2),
                             (sqnorm, "sqnorm", torch.float32, 1),
@@ -60,14 +67,35 @@ def gather_l2(q: torch.Tensor, table: torch.Tensor, sqnorm: torch.Tensor,
     if qn == 0 or k == 0:
         return out
     if n == 0:
-        raise ValueError("gather_l2 needs a non-empty table")
-    fn = build.entry("gather_l2", "gather_l2_launch",
+        raise ValueError(f"{kernel} needs a non-empty table")
+    fn = build.entry(kernel, f"{kernel}_launch",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p])
     err = fn(build.ptr(q), build.ptr(ids), build.ptr(table),
              build.ptr(sqnorm), build.ptr(out), qn, k, d, n,
              ctypes.c_void_p(build.stream_handle()))
-    build.check(err, "gather_l2")
+    build.check(err, kernel)
+    return out
+
+
+def _device_of(t: torch.Tensor, kernel: str) -> torch.device:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on cuda or cpu tensors, got "
+                         f"{t.device}")
+    return t.device
+
+
+def gather_l2(q: torch.Tensor, table: torch.Tensor, sqnorm: torch.Tensor,
+              ids: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 queries, (N, D) f32 table, (N,) f32 squared norms, (Q, K)
+    int32 ids -> (Q, K) f32 squared L2, +inf for ids < 0 (ids past the
+    table clamp to its last row).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if _device_of(ids, "gather_l2").type == "cpu":
+        return gather_l2_plain(q, table, sqnorm, ids)
+    out = _gather_launch("gather_l2", q, table, sqnorm, ids)
     gather_l2.launches += 1
     return out
 
@@ -75,16 +103,90 @@ def gather_l2(q: torch.Tensor, table: torch.Tensor, sqnorm: torch.Tensor,
 gather_l2.launches = 0
 
 
+def gather_l2_tiled(q: torch.Tensor, table: torch.Tensor,
+                    sqnorm: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`gather_l2`'s function and operands through the "tiled" kernel: one
+    candidate row in flight per query at a time, in 4-byte loads. Its
+    plain version is `gather_l2_plain`.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if _device_of(ids, "gather_l2_tiled").type == "cpu":
+        return gather_l2_plain(q, table, sqnorm, ids)
+    out = _gather_launch("gather_l2_tiled", q, table, sqnorm, ids)
+    gather_l2_tiled.launches += 1
+    return out
+
+
+gather_l2_tiled.launches = 0
+
+
+def pairwise_l2_plain(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (any device), JAX's `pairwise_l2_ref`: float32,
+    |q|^2 - 2 q @ x.T + |x|^2 clamped at 0."""
+    return pairwise_l2_squared(q, x)
+
+
+def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Q, D) queries x (C, D) rows -> (Q, C) f32 squared L2. float32,
+    bfloat16 or float16 inputs, computed in float32.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    dev = _device_of(q, "pairwise_l2")
+    if dev.type == "cpu":
+        return pairwise_l2_plain(q, x)
+    for t, name in ((q, "q"), (x, "x")):
+        if t.dtype not in FLOAT_INPUTS:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                             f"{FLOAT_INPUTS}")
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    build.require(q, "q", torch.float32, 2, dev)
+    build.require(x, "x", torch.float32, 2, dev)
+    qn, d = q.shape
+    cn = x.shape[0]
+    if x.shape[1] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, x "
+                         f"{tuple(x.shape)}")
+    if cn > PAIRWISE_MAX_ROWS:
+        raise ValueError(f"pairwise_l2 takes at most {PAIRWISE_MAX_ROWS} "
+                         f"rows per call, got {cn}")
+    out = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+    if qn == 0 or cn == 0:
+        return out
+    fn = build.entry("pairwise_l2", "pairwise_l2_launch",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p])
+    err = fn(build.ptr(q), build.ptr(x), build.ptr(out), qn, cn, d,
+             ctypes.c_void_p(build.stream_handle()))
+    build.check(err, "pairwise_l2")
+    pairwise_l2.launches += 1
+    return out
+
+
+pairwise_l2.launches = 0
+
+
 def make_kernel_scorer(vectors: torch.Tensor, queries: torch.Tensor,
                        n_valid: int, vec_sqnorm: torch.Tensor | None = None,
-                       *, tombstone_bits: torch.Tensor | None = None,
+                       *, strategy: str = "chunked",
+                       tombstone_bits: torch.Tensor | None = None,
                        labels: torch.Tensor | None = None,
                        filter_bytes: torch.Tensor | None = None):
-    """Beam-search ScoreFn backed by `gather_l2` (drop-in for
-    `core.beam_search.make_exact_scorer`). Out-of-range, tombstoned
-    (exclude mode) and out-of-filter (exclude mode) ids become -1 before
-    the kernel, which writes +inf for them: the scorer is self-masking."""
+    """Beam-search ScoreFn backed by a gather kernel (drop-in for
+    `core.beam_search.make_exact_scorer`): `strategy="chunked"` scores
+    through `gather_l2`, `"tiled"` through `gather_l2_tiled` (JAX's
+    `make_kernel_scorer` argument; any other value raises). Out-of-range,
+    tombstoned (exclude mode) and out-of-filter (exclude mode) ids become
+    -1 before the kernel, which writes +inf for them: the scorer is
+    self-masking."""
     from repro_torch.core.mutations import bitmap_gather, label_match_gather
+
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got "
+                         f"{strategy!r}")
+    fn = gather_l2 if strategy == "chunked" else gather_l2_tiled
 
     v = vectors
     if vec_sqnorm is None:
@@ -98,7 +200,7 @@ def make_kernel_scorer(vectors: torch.Tensor, queries: torch.Tensor,
         if labels is not None:
             in_range &= label_match_gather(labels, filter_bytes, ids)
         masked = torch.where(in_range, ids, torch.full_like(ids, -1))
-        return gather_l2(q, v, vec_sqnorm, masked.to(torch.int32).contiguous())
+        return fn(q, v, vec_sqnorm, masked.to(torch.int32).contiguous())
 
     score.self_masking = True
     return score

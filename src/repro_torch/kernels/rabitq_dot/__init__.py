@@ -1,1 +1,3 @@
-"""Fused RaBitQ search-step kernel (`csrc/rabitq_search_step.cu`)."""
+"""RaBitQ estimator kernels: the fused search step
+(`csrc/rabitq_search_step.cu`), and `rabitq_gather_distance` and
+`rabitq_distance` (`csrc/rabitq_distance.cu`)."""

@@ -1,5 +1,6 @@
-"""RaBitQ search step: the CUDA `rabitq_search_step` kernel and its plain
-version.
+"""RaBitQ estimator kernels and their plain versions: `rabitq_search_step`
+(one hop's candidates, masks fused), `rabitq_gather_distance` (pre-gathered
+candidates, no mask) and `rabitq_distance` (every query-row pair).
 
 Replaces `rabitq_search_step_pallas` (`repro/kernels/rabitq_dot/
 rabitq_kernel.py:131`) together with the packed-row gather of
@@ -11,6 +12,15 @@ estimator and masks:
     out[q, k] = max(add + qa + rescale * (<codes, q_rot> - qsum), 0)
               = +inf where id < 0, id >= n_valid, tombstoned, or (with a
                 filter) the row's labels miss the filter mask
+
+`rabitq_gather_distance` replaces `rabitq_gather_distance_pallas`
+(`rabitq_kernel.py:97`): the same estimator over a contiguous (Q, K, P)
+buffer of already gathered code rows, with no mask. `rabitq_distance`
+replaces `rabitq_distance_pallas` (`rabitq_kernel.py:172`): the estimator
+over all (query, row) pairs of a (C, P) packed table, a full scan. Their
+plain versions follow `rabitq_distance_ref` (`repro/kernels/rabitq_dot/
+ref.py:13`): unpack to the first D codes (D = q_rot's width), a product,
+the epilogue.
 """
 
 from __future__ import annotations
@@ -24,6 +34,9 @@ from repro_torch.core.rabitq import RaBitQCodes, RaBitQQuery, unpack_codes
 from repro_torch.kernels import build
 
 _INF = float("inf")
+BITS = (1, 2, 4, 8)
+# the all-pairs kernel's grid holds the row tiles of 128 in its y dimension
+DISTANCE_MAX_ROWS = 65535 * 128
 
 
 def filter_word(filter_bytes: torch.Tensor) -> int:
@@ -33,6 +46,155 @@ def filter_word(filter_bytes: torch.Tensor) -> int:
     if len(fb) != 4:
         raise ValueError(f"filter mask must have 4 bytes, got {len(fb)}")
     return fb[0] | (fb[1] << 8) | (fb[2] << 16) | (fb[3] << 24)
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in BITS:
+        raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
+
+
+def _estimate(dot, add, rescale, query_add, query_sumq):
+    """The estimator epilogue, in the reference's association order."""
+    est = add + query_add[:, None] + rescale * (dot - query_sumq[:, None])
+    return torch.clamp(est, min=0.0)
+
+
+def _query_operands(q_rot, query_add, query_sumq, dev, width):
+    """float32 query operands, checked: q_rot (Q, D) with D <= width (the
+    packed row's code count), query_add / query_sumq (Q,)."""
+    q = q_rot.to(torch.float32).contiguous()
+    for t, name, nd in ((q, "q_rot", 2), (query_add, "query_add", 1),
+                        (query_sumq, "query_sumq", 1)):
+        build.require(t, name, torch.float32, nd, dev)
+    qn, d = q.shape
+    if d > width or query_add.shape != (qn,) or query_sumq.shape != (qn,):
+        raise ValueError(f"query operands q_rot {tuple(q.shape)}, "
+                         f"query_add {tuple(query_add.shape)}, query_sumq "
+                         f"{tuple(query_sumq.shape)} do not fit packed rows "
+                         f"of {width} codes")
+    return q
+
+
+def rabitq_distance_plain(packed: torch.Tensor, data_add: torch.Tensor,
+                          data_rescale: torch.Tensor, q_rot: torch.Tensor,
+                          query_add: torch.Tensor, query_sumq: torch.Tensor,
+                          *, bits: int) -> torch.Tensor:
+    """Plain PyTorch version (any device), JAX's `rabitq_distance_ref`:
+    unpack the first D codes of each row, one product, the epilogue."""
+    q = q_rot.to(torch.float32)
+    codes = unpack_codes(packed, bits, q.shape[1]).to(torch.float32)
+    return _estimate(q @ codes.T, data_add[None, :], data_rescale[None, :],
+                     query_add, query_sumq)
+
+
+def rabitq_distance(packed: torch.Tensor, data_add: torch.Tensor,
+                    data_rescale: torch.Tensor, q_rot: torch.Tensor,
+                    query_add: torch.Tensor, query_sumq: torch.Tensor, *,
+                    bits: int) -> torch.Tensor:
+    """(C, P) uint8 packed codes, (C,) f32 metadata, (Q, D) rotated queries
+    (D <= P * 8/bits), (Q,) f32 query scalars -> (Q, C) f32 estimates.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return rabitq_distance_plain(packed, data_add, data_rescale, q_rot,
+                                     query_add, query_sumq, bits=bits)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"rabitq_distance runs on cuda or cpu tensors, got {dev}")
+    _check_bits(bits)
+    build.require(packed, "packed", torch.uint8, 2, dev)
+    cn, p = packed.shape
+    for t, name in ((data_add, "data_add"), (data_rescale, "data_rescale")):
+        build.require(t, name, torch.float32, 1, dev)
+        if t.shape != (cn,):
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"packed {tuple(packed.shape)}")
+    q = _query_operands(q_rot, query_add, query_sumq, dev, p * (8 // bits))
+    qn, d = q.shape
+    if cn > DISTANCE_MAX_ROWS:
+        raise ValueError(f"rabitq_distance takes at most {DISTANCE_MAX_ROWS}"
+                         f" rows per call, got {cn}")
+    out = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+    if qn == 0 or cn == 0:
+        return out
+    fn = build.entry("rabitq_distance", "rabitq_distance_launch",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    err = fn(build.ptr(packed), build.ptr(data_add), build.ptr(data_rescale),
+             build.ptr(q), build.ptr(query_add), build.ptr(query_sumq),
+             build.ptr(out), qn, cn, p, d, bits,
+             ctypes.c_void_p(build.stream_handle()))
+    build.check(err, "rabitq_distance")
+    rabitq_distance.launches += 1
+    return out
+
+
+rabitq_distance.launches = 0
+
+
+def rabitq_gather_distance_plain(cand_packed: torch.Tensor,
+                                 cand_add: torch.Tensor,
+                                 cand_rescale: torch.Tensor,
+                                 q_rot: torch.Tensor, query_add: torch.Tensor,
+                                 query_sumq: torch.Tensor, *, bits: int
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version (any device): unpack the first D codes of each
+    candidate, a batched dot, the epilogue."""
+    q = q_rot.to(torch.float32)
+    codes = unpack_codes(cand_packed, bits, q.shape[1]).to(torch.float32)
+    return _estimate(torch.einsum("qkd,qd->qk", codes, q), cand_add,
+                     cand_rescale, query_add, query_sumq)
+
+
+def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
+                           cand_rescale: torch.Tensor, q_rot: torch.Tensor,
+                           query_add: torch.Tensor, query_sumq: torch.Tensor,
+                           *, bits: int) -> torch.Tensor:
+    """(Q, K, P) uint8 gathered code rows, (Q, K) f32 metadata, (Q, D)
+    rotated queries (D <= P * 8/bits), (Q,) f32 query scalars -> (Q, K) f32
+    estimates, unmasked.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    dev = cand_packed.device
+    if dev.type == "cpu":
+        return rabitq_gather_distance_plain(
+            cand_packed, cand_add, cand_rescale, q_rot, query_add,
+            query_sumq, bits=bits)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"rabitq_gather_distance runs on cuda or cpu tensors, got {dev}")
+    _check_bits(bits)
+    build.require(cand_packed, "cand_packed", torch.uint8, 3, dev)
+    qn, k, p = cand_packed.shape
+    for t, name in ((cand_add, "cand_add"), (cand_rescale, "cand_rescale")):
+        build.require(t, name, torch.float32, 2, dev)
+        if t.shape != (qn, k):
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"cand_packed {tuple(cand_packed.shape)}")
+    q = _query_operands(q_rot, query_add, query_sumq, dev, p * (8 // bits))
+    if q.shape[0] != qn:
+        raise ValueError(f"q_rot {tuple(q.shape)} does not match "
+                         f"cand_packed {tuple(cand_packed.shape)}")
+    out = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    if qn == 0 or k == 0:
+        return out
+    fn = build.entry("rabitq_distance", "rabitq_gather_distance_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p])
+    err = fn(build.ptr(cand_packed), build.ptr(cand_add),
+             build.ptr(cand_rescale), build.ptr(q), q.shape[1],
+             build.ptr(query_add), build.ptr(query_sumq), build.ptr(out),
+             qn, k, p, bits, ctypes.c_void_p(build.stream_handle()))
+    build.check(err, "rabitq_gather_distance")
+    rabitq_gather_distance.launches += 1
+    return out
+
+
+rabitq_gather_distance.launches = 0
 
 
 def rabitq_search_step_plain(ids: torch.Tensor, packed: torch.Tensor,
@@ -50,15 +212,14 @@ def rabitq_search_step_plain(ids: torch.Tensor, packed: torch.Tensor,
     dims = q_rot.shape[1]
     codes = unpack_codes(packed[safe], bits, dims).to(torch.float32)
     dot = torch.einsum("qkd,qd->qk", codes, q_rot.to(torch.float32))
-    est = data_add[safe] + query_add[:, None] + data_rescale[safe] * (
-        dot - query_sumq[:, None])
+    est = _estimate(dot, data_add[safe], data_rescale[safe], query_add,
+                    query_sumq)
     valid = (ids >= 0) & (ids < n_valid)
     if tombstone_bits is not None:
         valid &= ~bitmap_gather(tombstone_bits, safe)
     if labels is not None:
         valid &= label_match_gather(labels, filter_bytes, safe)
-    return torch.where(valid, torch.clamp(est, min=0.0),
-                       torch.full_like(est, _INF))
+    return torch.where(valid, est, torch.full_like(est, _INF))
 
 
 def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
@@ -82,8 +243,7 @@ def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(
             f"rabitq_search_step runs on cuda or cpu tensors, got {dev}")
-    if bits not in (1, 2, 4, 8):
-        raise ValueError(f"bits must be 1, 2, 4 or 8, got {bits}")
+    _check_bits(bits)
     qn, k = ids.shape
     n, p = packed.shape
     d_need = p * (8 // bits)

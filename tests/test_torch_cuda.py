@@ -9,8 +9,10 @@ JAX:
 
 Tolerances: on integer-valued operands every float sum is exact in any
 order, so kernel and plain version must agree BIT for bit (ids, dists,
-hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99. The
-`topk` selection does no arithmetic: bit-equal on any input.
+hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99; the
+L2 kernels rtol 1e-4 of the distance plus 1e-6 of the cancelled terms
+|q|^2 + |x|^2 (float32 ulps), the RaBitQ estimators rtol 1e-4 / atol 1e-3.
+The `topk` selection does no arithmetic: bit-equal on any input.
 """
 
 import zlib
@@ -335,3 +337,273 @@ def test_churn_round_on_the_card(cuda_device):
     mk = _search(idx, q, fusion="megakernel")
     hop = _search(idx, q, fusion="hop")
     assert torch.equal(mk.ids, hop.ids) and torch.equal(mk.n_hops, hop.n_hops)
+
+
+def _sq(t):
+    return (t.float() ** 2).sum(-1)
+
+
+def _l2_close(got, want, terms):
+    """rtol 1e-4 of the distance plus a few float32 ulps of the terms
+    |q|^2 + |x|^2 that |q|^2 - 2 q.x + |x|^2 cancels."""
+    tol = 1e-4 * want.abs() + 1e-6 * terms
+    return bool(((got - want).abs() <= tol).all())
+
+
+# (Q, C, D): Q = 1, C = 1, D in {96, 100, 960}, C and Q off the 128 tile
+PAIRWISE_SHAPES = [(1, 1, 96), (1, 300, 100), (37, 1, 960), (130, 211, 100),
+                   (257, 1000, 128), (5, 129, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAIRWISE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PAIRWISE_SHAPES])
+def test_pairwise_l2_vs_plain(cuda_device, shape):
+    """Bit-exact on integer operands; rtol 1e-4 (+ ulps of the cancelled
+    terms) on float operands; ragged Q, C and D."""
+    from repro_torch.kernels.distance.ops import pairwise_l2, pairwise_l2_plain
+    q, c, d = shape
+    rng = np.random.default_rng(q * c + d)
+    for integer in (True, False):
+        qv, xv = ((rng.integers(-9, 10, (n, d)) if integer
+                   else rng.normal(size=(n, d))).astype(np.float32)
+                  for n in (q, c))
+        qv = torch.as_tensor(qv).to(cuda_device)
+        xv = torch.as_tensor(xv).to(cuda_device)
+        before = pairwise_l2.launches
+        got = pairwise_l2(qv, xv)
+        want = pairwise_l2_plain(qv, xv)
+        torch.cuda.synchronize()
+        assert pairwise_l2.launches == before + 1
+        assert got.shape == (q, c)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            assert _l2_close(got, want, _sq(qv)[:, None] + _sq(xv)[None, :])
+
+
+@pytest.mark.cuda
+def test_pairwise_l2_bf16_inputs(cuda_device):
+    """bfloat16 operands are read as float32: bit-equal to the plain
+    version on integer values, within tolerance on random values."""
+    from repro_torch.kernels.distance.ops import pairwise_l2, pairwise_l2_plain
+    rng = np.random.default_rng(16)
+    for integer in (True, False):
+        qv, xv = (torch.as_tensor(
+            (rng.integers(-9, 10, (n, 128)) if integer
+             else rng.normal(size=(n, 128))).astype(np.float32)
+        ).to(cuda_device, torch.bfloat16) for n in (16, 200))
+        got = pairwise_l2(qv, xv)
+        want = pairwise_l2_plain(qv, xv)
+        assert got.dtype == torch.float32
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            assert _l2_close(got, want, _sq(qv)[:, None] + _sq(xv)[None, :])
+
+
+def _int_codes(rng, c, p, q, d, device):
+    """Random packed bytes, integer metadata and integer queries."""
+    def t(x):
+        return torch.as_tensor(x).to(device)
+    return (t(rng.integers(0, 256, (c, p)).astype(np.uint8)),
+            t(rng.integers(0, 4000, c).astype(np.float32)),
+            t(rng.choice([-2., -1., 1., 2.], c).astype(np.float32)),
+            t(rng.integers(-3, 4, (q, d)).astype(np.float32)),
+            t(rng.integers(0, 500, q).astype(np.float32)),
+            t(rng.integers(-50, 50, q).astype(np.float32)))
+
+
+# (Q, C, D, extra packed bytes past the D codes)
+RABITQ_SHAPES = [(1, 1, 96, 0), (19, 300, 100, 0), (37, 1, 960, 0),
+                 (130, 211, 128, 0), (8, 1000, 128, 3), (5, 129, 33, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", RABITQ_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RABITQ_SHAPES])
+def test_rabitq_distance_bit_exact_vs_plain(cuda_device, bits, shape):
+    """Integer operands: bit-equal, every bits variant, ragged shapes; only
+    the first D unpacked codes count (packed rows may be wider)."""
+    from repro_torch.kernels.rabitq_dot.ops import (rabitq_distance,
+                                                    rabitq_distance_plain)
+    q, c, d, extra = shape
+    rng = np.random.default_rng(bits * 100 + c)
+    p = tr.packed_dim(d, bits) + extra
+    args = _int_codes(rng, c, p, q, d, cuda_device)
+    before = rabitq_distance.launches
+    got = rabitq_distance(*args, bits=bits)
+    want = rabitq_distance_plain(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert rabitq_distance.launches == before + 1
+    assert got.shape == (q, c)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_rabitq_gather_distance_vs_plain_and_search_step(cuda_device, bits):
+    """Bit-equal to its plain version on integer operands, and to
+    `rabitq_search_step` on the same in-range ids with every row live on
+    integer and on float operands (the same estimator arithmetic)."""
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_gather_distance, rabitq_gather_distance_plain,
+        rabitq_search_step)
+    c = Case(bits + 40, cuda_device, bits=bits)
+    ids = torch.as_tensor(c.rng.integers(0, N, (Q, 40)).astype(np.int32)
+                          ).to(cuda_device)
+    safe = ids.long()
+    for integer in (True, False):
+        rq = c.rq if integer else tr.RaBitQQuery(
+            q_rot=torch.randn(Q, D, generator=torch.Generator().manual_seed(
+                bits)).to(cuda_device), query_add=c.rq.query_add,
+            query_sumq=c.rq.query_sumq)
+        cand = (c.codes.packed[safe].contiguous(), c.codes.data_add[safe],
+                c.codes.data_rescale[safe])
+        qargs = (rq.q_rot, rq.query_add, rq.query_sumq)
+        before = rabitq_gather_distance.launches
+        got = rabitq_gather_distance(*cand, *qargs, bits=bits)
+        want = rabitq_gather_distance_plain(*cand, *qargs, bits=bits)
+        step = rabitq_search_step(ids, c.codes.packed, c.codes.data_add,
+                                  c.codes.data_rescale, N, *qargs, bits=bits)
+        torch.cuda.synchronize()
+        assert rabitq_gather_distance.launches == before + 1
+        assert torch.equal(got, step)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 33, 96, 100, 960])
+def test_gather_l2_tiled_vs_plain(cuda_device, d):
+    """Bit-exact on integer rows (and equal to `gather_l2`); tolerance on
+    float rows; ids < 0 -> +inf, ids past the table clamp; Q = 1 too."""
+    from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_plain,
+                                                  gather_l2_tiled)
+    rng = np.random.default_rng(d + 1)
+    for q in (Q, 1):
+        ids = torch.as_tensor(rng.integers(-1, N + 3, (q, 50)).astype(
+            np.int32)).to(cuda_device)
+        for integer in (True, False):
+            x, qv = ((rng.integers(-9, 10, (n, d)) if integer
+                      else rng.normal(size=(n, d))).astype(np.float32)
+                     for n in (N, q))
+            x = torch.as_tensor(x).to(cuda_device)
+            qv = torch.as_tensor(qv).to(cuda_device)
+            sq = (x * x).sum(-1)
+            before = gather_l2_tiled.launches
+            got = gather_l2_tiled(qv, x, sq, ids)
+            want = gather_l2_plain(qv, x, sq, ids)
+            torch.cuda.synchronize()
+            assert gather_l2_tiled.launches == before + 1
+            fin = torch.isfinite(want)
+            assert torch.equal(fin, ids >= 0)
+            assert torch.equal(torch.isfinite(got), fin)
+            if integer:
+                assert torch.equal(got, want)
+                assert torch.equal(got, gather_l2(qv, x, sq, ids))
+            else:
+                terms = _sq(qv)[:, None] + sq[ids.clamp(0, N - 1).long()]
+                assert _l2_close(got[fin], want[fin], terms[fin])
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_reject_bad_operands(cuda_device):
+    from repro_torch.kernels.distance.ops import gather_l2_tiled, pairwise_l2
+    from repro_torch.kernels.rabitq_dot.ops import (rabitq_distance,
+                                                    rabitq_gather_distance)
+    x = torch.zeros((8, 4), device=cuda_device)
+    sq = torch.zeros((8,), device=cuda_device)
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_l2_tiled(x[:2], x, sq, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_l2_tiled(x[:2], x.t().contiguous().t(), sq,
+                        ids.to(torch.int32))
+    with pytest.raises(ValueError, match="dtype"):
+        pairwise_l2(x.to(torch.int32), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise_l2(x, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        pairwise_l2(x[:, :3].contiguous(), x)
+    packed = torch.zeros((8, 2), dtype=torch.uint8, device=cuda_device)
+    q = torch.zeros((2, 4), device=cuda_device)
+    qs = torch.zeros((2,), device=cuda_device)
+    with pytest.raises(ValueError, match="bits"):
+        rabitq_distance(packed, sq, sq, q, qs, qs, bits=3)
+    with pytest.raises(ValueError, match="fit"):      # 4 dims > 2 B x 1 code
+        rabitq_distance(packed, sq, sq, q, qs, qs, bits=8)
+    with pytest.raises(ValueError, match="dtype"):
+        rabitq_distance(packed.float(), sq, sq, q, qs, qs, bits=4)
+    with pytest.raises(ValueError, match="match"):
+        rabitq_distance(packed, sq[:5], sq, q, qs, qs, bits=4)
+    cand = torch.zeros((2, 3, 2), dtype=torch.uint8, device=cuda_device)
+    meta = torch.zeros((2, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="match"):
+        rabitq_gather_distance(cand, meta[:, :2].contiguous(), meta, q, qs,
+                               qs, bits=4)
+    with pytest.raises(ValueError, match="3-D"):
+        rabitq_gather_distance(cand[0], meta, meta, q, qs, qs, bits=4)
+
+
+@pytest.mark.cuda
+def test_exact_lanes_on_the_card(cuda_device):
+    """Exact-vector search on a small integer-valued index: the tiled lane
+    equals the chunked lane and the plain lane bit for bit, and each lane
+    launches exactly its own kernels."""
+    from repro_torch.core.beam_search import beam_search
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_tiled,
+                                                  make_kernel_scorer)
+    from repro_torch.kernels.search_step.ops import fused_hop, fused_search
+    wrappers = (fused_search, fused_hop, gather_l2, gather_l2_tiled)
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 64, (4096, 32)).astype(np.float32)
+    q = torch.as_tensor(rng.integers(0, 64, (128, 32)).astype(np.float32)
+                        ).to(cuda_device)
+    idx = JasperIndex(32, 4096, construction=ConstructionParams(
+        degree_bound=24, beam_width=32, max_iters=48, rev_cap=24))
+    idx.build(data)
+    core = idx.core
+    out = {}
+
+    def run(name, fn):
+        for w in wrappers:
+            w.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = (res, [w.launches for w in wrappers])
+
+    for name, kw in (("megakernel", dict(use_kernels=True,
+                                         fusion="megakernel")),
+                     ("hop", dict(use_kernels=True, fusion="hop")),
+                     ("chunked", dict(use_kernels=True)),
+                     ("plain", dict(use_kernels=False))):
+        run(name, lambda: idx.searcher(SearchSpec(
+            k=10, beam_width=48, **kw)).search(q))
+    spec = SearchSpec(k=10, beam_width=48).resolve()
+    run("tiled", lambda: beam_search(
+        core.graph, make_kernel_scorer(core.vectors, q, core.n_valid,
+                                       core.vec_sqnorm, strategy="tiled"),
+        q.shape[0], beam_width=spec.beam_width, max_iters=spec.max_iters))
+    tiled = out["tiled"][0]
+    for name in ("chunked", "plain"):
+        res = out[name][0]
+        assert torch.equal(res.ids, tiled.frontier_ids[:, :10])
+        assert torch.equal(res.dists, tiled.frontier_dists[:, :10])
+        assert torch.equal(res.n_hops, tiled.n_hops)
+    iters = int(tiled.n_hops.max())
+    hop_iters = int(out["hop"][0].n_hops.max())
+    assert out["megakernel"][1] == [1, 0, 0, 0]
+    assert out["hop"][1] == [0, hop_iters, 0, 0]
+    assert out["chunked"][1] == [0, 0, iters + 1, 0]
+    assert out["plain"][1] == [0, 0, 0, 0]
+    assert out["tiled"][1] == [0, 0, 0, iters + 1]
+    gt, _ = idx.brute_force(q, 10)
+    hit = (tiled.frontier_ids[:, :10, None] == gt[:, None, :]).any(2)
+    assert float(hit.float().mean()) >= 0.8

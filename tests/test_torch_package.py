@@ -175,13 +175,25 @@ def _wrapper_inputs(device):
 
 
 def _call_wrappers(x):
-    from repro_torch.kernels.distance.ops import gather_l2
-    from repro_torch.kernels.rabitq_dot.ops import rabitq_search_step
+    from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_tiled,
+                                                  pairwise_l2)
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
     from repro_torch.kernels.topk.ops import topk
     out = {}
     out["gather_l2"] = lambda: gather_l2(x["q"], x["table"],
                                          x["vec"].abs(), x["ids"])
+    out["gather_l2_tiled"] = lambda: gather_l2_tiled(
+        x["q"], x["table"], x["vec"].abs(), x["ids"])
+    out["pairwise_l2"] = lambda: pairwise_l2(x["q"], x["table"])
+    out["rabitq_distance"] = lambda: rabitq_distance(
+        x["packed"], x["vec"], x["vec"], x["q"], x["qs"], x["qs"],
+        bits=x["bits"])
+    safe = x["ids"].clamp(min=0).long()
+    out["rabitq_gather_distance"] = lambda: rabitq_gather_distance(
+        x["packed"][safe], x["vec"][safe], x["vec"][safe], x["q"], x["qs"],
+        x["qs"], bits=x["bits"])
     out["rabitq_search_step"] = lambda: rabitq_search_step(
         x["ids"], x["packed"], x["vec"], x["vec"], x["n"], x["q"], x["qs"],
         x["qs"], bits=x["bits"])
@@ -206,7 +218,10 @@ def _call_wrappers(x):
 
 
 @pytest.mark.parametrize("name", ["gather_l2", "rabitq_search_step",
-                                  "fused_search", "fused_hop", "topk"])
+                                  "fused_search", "fused_hop", "topk",
+                                  "gather_l2_tiled", "pairwise_l2",
+                                  "rabitq_distance",
+                                  "rabitq_gather_distance"])
 def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     """CPU tensors take the plain version (no build, no launch counted);
     tensors on any other non-CUDA device raise rather than fall back."""
@@ -215,7 +230,11 @@ def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     build._libs.clear()
     fn = _call_wrappers(_wrapper_inputs("cpu"))[name]
     wrapper = {"gather_l2": "repro_torch.kernels.distance.ops",
+               "gather_l2_tiled": "repro_torch.kernels.distance.ops",
+               "pairwise_l2": "repro_torch.kernels.distance.ops",
                "rabitq_search_step": "repro_torch.kernels.rabitq_dot.ops",
+               "rabitq_distance": "repro_torch.kernels.rabitq_dot.ops",
+               "rabitq_gather_distance": "repro_torch.kernels.rabitq_dot.ops",
                "fused_search": "repro_torch.kernels.search_step.ops",
                "fused_hop": "repro_torch.kernels.search_step.ops",
                "topk": "repro_torch.kernels.topk.ops"}[name]
