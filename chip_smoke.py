@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py            # the full run: 1M x 128, 10,000 queries
-    python3 chip_smoke.py --n 100000 --queries 2000    # a shorter run
+    python3 chip_smoke.py --n 100000 --queries 2000    # a shorter ANNS run
 
 Phases:
   1. device   — the card's name and power limit (nvidia-smi).
@@ -11,7 +11,11 @@ Phases:
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
-                all-+inf tails and widths that are not a multiple of 32).
+                all-+inf tails and widths that are not a multiple of 32);
+                the flash-attention kernels #10 and #11 on a grid of small
+                shapes: float32 and bf16, causal and bidirectional, window
+                64, q_offset > 0 with Sq < Skv, rows that see no key, GQA
+                groups 1, 2 and 9, Dh 32/64/128, ragged Sq and Skv.
   4. main path — bigann-shaped synthetic data; `JasperIndex.build` (Vamana
                 construction + RaBitQ 4-bit codes); search with the
                 megakernel + exact rerank, with the unfused loop over the
@@ -62,16 +66,38 @@ Phases:
                 terms on the real codes. Times of the four kernels beside
                 their plain versions, bounds and library calls
                 (`gather_l2_tiled` beside `gather_l2` on the same inputs).
+  8. RAG serving — runs last, after phase 6's index is freed: starcoder2-7b
+                at full width (10.12 B parameters, bf16, random weights
+                from seed 0, `use_flash_kernel=True`). #10 and #11 against
+                their plain versions at the model's attention shape (B=1,
+                S=4,096, 36 heads on 4 KV heads, Dh 128, causal; float32
+                and bf16) and timed at B=4 beside the plain version, SDPA
+                and the bound. Then the serving path through its entry
+                points: `RagPipeline.ingest` of 2,048 synthetic 128-token
+                documents (24 batches of 64, the first builds the index,
+                then two streamed inserts of 256), `evict` of 128,
+                `retrieve` for 256 self-queries (32 of them evicted) and
+                `generate` of 4 prompts of 4,096 tokens, each opening with
+                its top-1 retrieved document, + 32 greedy tokens. Checks:
+                32 launches of #10 per forward and no blockwise attention,
+                kernel path vs blockwise cosine >= 0.999 on 64 documents,
+                no evicted or tombstoned result, self-hit >= 0.9, recall@4
+                >= 0.85 against brute force, the prompts unchanged in the
+                output; the same index searched through the megakernel
+                lane (quantized, D = 4,608) for its recall and launches.
 
 Prints the kernel JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, if
 there is no CUDA device, a kernel fails to build, launch or agree, a path
-skips its kernel, recall misses its floor, or a churn check fails.
+skips its kernel, recall misses its floor, or a churn or serving check
+fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -84,6 +110,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32, outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense tensor-core rate
 RECALL_FLOOR = 0.85
 RECALL_SLACK = 0.01
 SEED = 0                       # data, queries, the RaBitQ rotation
@@ -118,9 +145,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS
+          ) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -323,6 +351,8 @@ def kernel_wrappers() -> dict:
     launches in `.launches`)."""
     from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_tiled,
                                                   pairwise_l2)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_fwd)
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
@@ -332,7 +362,9 @@ def kernel_wrappers() -> dict:
             "fused_hop": fused_hop, "topk": topk,
             "gather_l2_tiled": gather_l2_tiled, "pairwise_l2": pairwise_l2,
             "rabitq_distance": rabitq_distance,
-            "rabitq_gather_distance": rabitq_gather_distance}
+            "rabitq_gather_distance": rabitq_gather_distance,
+            "flash_attention": flash_attention,
+            "flash_attention_fwd": flash_attention_fwd}
 
 
 def counts(**nonzero) -> dict:
@@ -385,6 +417,7 @@ def selfcheck(gen) -> None:
     compare_hop_exact(cases)
     compare_step_exact(core, rq, gen, 512)
     compare_topk_exact(gen)
+    flash_selfcheck(gen)
 
 
 def recall_at(ids, gt) -> float:
@@ -394,16 +427,17 @@ def recall_at(ids, gt) -> float:
     return float(np.mean(hits.any(axis=2).sum(axis=1) / gt.shape[1]))
 
 
-def profile_search(searcher, q_dev, top=8) -> None:
-    """One more megakernel-path search under torch.profiler: device time
-    per kernel and the device's busy share of the search's wall time."""
+def profile_device(fn, what: str, top: int = 8):
+    """Run fn() once more under torch.profiler: device time per kernel and
+    the device's busy share of the call's wall time. Returns fn()'s
+    result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        searcher.search(q_dev)
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side activities only: an aten op's row repeats its kernels'
@@ -413,13 +447,14 @@ def profile_search(searcher, q_dev, top=8) -> None:
             and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
     if not rows:
-        log("  profile: the profiler recorded no device time")
-        return
-    log(f"  profile (megakernel path, one search): wall {wall_us:.0f} us, "
-        f"device busy {busy:.0f} us ({100 * busy / wall_us:.1f}%), "
+        log(f"  profile ({what}): the profiler recorded no device time")
+        return out
+    log(f"  profile ({what}): wall {wall_us:.0f} us, device busy "
+        f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), "
         f"{sum(r[2] for r in rows)} device activities")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"    {us:10.1f} us  {count:4d}x  {key[:90]}")
+    return out
 
 
 def main_path(args):
@@ -477,7 +512,9 @@ def main_path(args):
         log(f"  search {name}: {args.queries / secs:.0f} QPS ({secs:.3f} s),"
             f" recall@10 {rec:.4f}, mean hops {hops:.2f}, launches "
             f"{launched}")
-    profile_search(idx.searcher(paths["megakernel"]), q_dev)
+    mk_searcher = idx.searcher(paths["megakernel"])
+    profile_device(lambda: mk_searcher.search(q_dev),
+                   "megakernel path, one search")
 
     mk, uk, pl = (results["megakernel"], results["unfused+kernel"],
                   results["plain"])
@@ -1350,6 +1387,346 @@ def _mk_spec(k: int = 10):
                       fusion="megakernel")
 
 
+# ------------------------------------------------ flash attention (#10, #11)
+# name, b, sq, skv, h, hk, dh, causal, window, q_offset
+FLASH_GRID = [
+    ("causal-g1-d64", 2, 130, 130, 4, 4, 64, True, 0, 0),
+    ("causal-g2-d128", 1, 200, 200, 8, 4, 128, True, 0, 0),
+    ("causal-g9-d128", 1, 257, 257, 36, 4, 128, True, 0, 0),
+    ("bidir-g9-d64", 2, 100, 77, 18, 2, 64, False, 0, 0),
+    ("window64-g2-d128", 1, 300, 300, 4, 2, 128, True, 64, 0),
+    ("window64-g9-d64", 1, 193, 193, 9, 1, 64, True, 64, 0),
+    ("qoffset-g9-d128", 2, 70, 333, 9, 1, 128, True, 0, 263),
+    ("qoffset-window64-g2-d64", 1, 50, 250, 4, 2, 64, True, 64, 200),
+    ("rows-past-the-keys-g2-d64", 1, 64, 100, 4, 2, 64, True, 16, 120),
+    ("causal-g2-d32", 1, 65, 65, 4, 2, 32, True, 0, 0),
+]
+# float32: the kernel and the plain version differ only in summation order
+# and block partition; bf16: p is rounded to bf16 at another running max,
+# and the output is rounded to bf16 once more
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+LSE_ATOL = 1e-4
+
+
+def compare_flash(q, k, v, kw, what) -> float:
+    """#10 and #11 against #11's plain version on one input: o within the
+    dtype's tolerance, #11's o bit-equal to #10's, lse within 1e-4.
+    Returns the max |o err|."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_fwd, flash_attention_fwd_plain)
+    o10 = flash_attention(q, k, v, **kw)
+    o11, lse = flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(o10, o11), f"{what}: #11's o differs from #10's")
+    err = float((o10.float() - want.float()).abs().max())
+    check(torch.allclose(o10.float(), want.float(), **FLASH_TOL[q.dtype]),
+          f"{what}: o max |err| {err} against the plain version")
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_ATOL,
+          f"{what}: lse max |err| {lse_err} against the plain version")
+    return err
+
+
+def flash_selfcheck(gen) -> None:
+    """Phase 3, flash attention: the grid of small shapes, both dtypes."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_GRID:
+            name, b, sq, skv, h, hk, dh, causal, window, q_offset = case
+            q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
+                       for shape in ((b, sq, h, dh), (b, skv, hk, dh),
+                                     (b, skv, hk, dh)))
+            kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      block_q=64, block_kv=64)
+            err = compare_flash(q, k, v, kw, f"flash {name} {dtype}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"  flash_attention / flash_attention_fwd: {len(FLASH_GRID)} shapes "
+        f"x (f32, bf16) within tolerance of the plain version, #11's o "
+        f"bit-equal to #10's; max |o err| f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+
+
+def lse_of_scores(q, k, causal: bool) -> torch.Tensor:
+    """torch.logsumexp of the plain float32 scores, head by head: (B, H,
+    Sq)."""
+    b, sq, h, dh = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = torch.tril(keep)
+    out = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for hh in range(h):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, hh].float(),
+                         k[:, :, hh // g].float()) * dh ** -0.5
+        out[:, hh] = torch.logsumexp(s.masked_fill(~keep, -torch.inf), -1)
+    return out
+
+
+def flash_at_model_shapes(cfg) -> dict:
+    """Phase 8: #10 and #11 at the model's attention shape against their
+    plain versions (f32 and bf16, B=1), #11's lse against logsumexp of the
+    plain scores, then times at B=4 in bf16 beside the plain version, SDPA
+    and the bound. Returns {kernel: record fields}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_fwd, flash_attention_plain)
+    h, hk, dh, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, RAG_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kw = dict(causal=True, block_q=min(cfg.attn_chunk_q, 256),
+              block_kv=cfg.attn_chunk_kv)
+
+    def qkv(b, dtype):
+        return [torch.randn((b, s, n, dh), generator=gen, device="cuda"
+                            ).to(dtype) for n in (h, hk, hk)]
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(1, dtype)
+        errs[dtype] = compare_flash(q, k, v, kw,
+                                    f"flash at (1, {s}, {h}/{hk}, {dh}) "
+                                    f"{dtype}")
+        _, lse = flash_attention_fwd(q, k, v, **kw)
+        lse_err = float((lse - lse_of_scores(q, k, True)).abs().max())
+        check(lse_err <= LSE_ATOL, f"flash_attention_fwd {dtype}: lse max "
+              f"|err| {lse_err} against logsumexp of the plain scores")
+        log(f"  flash at (B=1, S={s}, H={h}, Hk={hk}, Dh={dh}) causal "
+            f"{dtype}: o max |err| vs plain {errs[dtype]:.3g}, #11 o "
+            f"bit-equal to #10, lse max |err| vs logsumexp {lse_err:.3g}")
+        del q, k, v, lse
+    b = RAG_GEN_BATCH
+    q, k, v = qkv(b, torch.bfloat16)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms10 = cuda_ms(lambda: flash_attention(q, k, v, **kw), 5)
+    ms11 = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 5)
+    flops = 4.0 * b * h * s * s * dh / 2
+    b_bytes = b * s * (2 * h + 2 * hk) * dh * 2
+    b_ms, b_by = bound(b_bytes, flops, peak=BF16_FLOPS)
+    # #11 also writes the (B, H, S) float32 lse
+    b11_ms, b11_by = bound(b_bytes + b * h * s * 4, flops, peak=BF16_FLOPS)
+    log(f"  flash at (B={b}, S={s}) bf16: #10 {ms10:.3f} ms, #11 "
+        f"{ms11:.3f} ms, plain {plain_ms:.3f} ms, SDPA (is_causal, "
+        f"enable_gqa) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s); #10 reaches "
+        f"{flops / ms10 / 1e9:.1f} TFLOP/s")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    common = dict(route="cuda",
+                  source="src/repro_torch/csrc/flash_attention.cu",
+                  max_abs_err=errs[torch.bfloat16], plain_ms=plain_ms,
+                  library_ms=lib_ms)
+    return {"flash_attention": dict(
+                name="flash_attention",
+                replaces="src/repro/kernels/flash_attention/flash_kernel.py:83",
+                ms=ms10, bound_ms=b_ms, bound_by=b_by, **common),
+            "flash_attention_fwd": dict(
+                name="flash_attention_fwd",
+                replaces="src/repro/kernels/flash_attention/flash_kernel.py:257",
+                ms=ms11, bound_ms=b11_ms, bound_by=b11_by, **common)}
+
+
+# ------------------------------------------------------- RAG serving (phase 8)
+RAG_ARCH = "starcoder2-7b"
+RAG_DOCS, RAG_DOC_LEN = 2048, 128
+RAG_FIRST, RAG_BATCH, RAG_STREAM = 1536, 64, 256
+RAG_EVICT = 128
+RAG_QUERIES, RAG_QUERIES_EVICTED, RAG_K, RAG_BEAM = 256, 32, 4, 32
+RAG_PROMPT, RAG_GEN_BATCH, RAG_NEW_TOKENS = 4096, 4, 32
+RAG_COSINE_FLOOR = 0.999
+
+
+class CountCalls:
+    """Count the calls of module.name while the block runs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.n += 1
+            return self.orig(*a, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def rag_serving() -> list:
+    """Phase 8; returns the flash kernels' JSON records."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.models.model import (decode_step, init_params,
+                                          param_count, prefill)
+    from repro_torch.serving.rag import RagPipeline, embed_texts
+    from repro_torch.serving.serve_loop import generate
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(RAG_ARCH), dtype="bfloat16",
+                              use_flash_kernel=True)
+    n_layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    log(f"  model: {cfg.name} ({n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads, Dh "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}), {n_params:,} parameters "
+        f"({n_params / 1e9:.2f} B) in bf16, initialised in "
+        f"{time.perf_counter() - t0:.1f} s; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    records = flash_at_model_shapes(cfg)
+
+    # ---- ingest: build + streamed inserts, then evict
+    rng = np.random.default_rng(SEED)
+    corpus = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (RAG_DOCS, RAG_DOC_LEN)).astype(np.int32)).cuda()
+    pipe = RagPipeline(params, cfg, capacity=RAG_DOCS)
+    spans = ([(a, a + RAG_BATCH) for a in range(0, RAG_FIRST, RAG_BATCH)]
+             + [(a, a + RAG_STREAM) for a in range(RAG_FIRST, RAG_DOCS,
+                                                     RAG_STREAM)])
+
+    def ingest():
+        for a, e in spans:
+            ids = pipe.ingest(corpus[a:e], list(range(a, e)))
+            check(np.array_equal(ids, np.arange(a, e)),
+                  f"ingest [{a}, {e}) got rows {ids[:4]}...")
+    path_launches = {}
+    with CountCalls(attention_mod, "blockwise_attention") as bw:
+        _, secs, launched = counted(ingest)
+    log(f"  ingest: {RAG_DOCS} documents of {RAG_DOC_LEN} tokens in "
+        f"{len(spans)} calls ({RAG_FIRST // RAG_BATCH} x {RAG_BATCH}, the "
+        f"first builds; {(RAG_DOCS - RAG_FIRST) // RAG_STREAM} x "
+        f"{RAG_STREAM} streamed): {secs:.2f} s "
+        f"({RAG_DOCS * RAG_DOC_LEN / secs:.0f} tokens/s embedded and "
+        f"indexed); index size {pipe.index.size}; launches {launched}")
+    check(launched == counts(flash_attention=n_layers * len(spans)),
+          f"ingest launched {launched}, expected {n_layers} flash_attention "
+          f"per forward x {len(spans)} forwards and nothing else")
+    check(bw.n == 0, f"ingest ran blockwise_attention {bw.n} times")
+    path_launches["ingest"] = launched
+    evicted = np.sort(rng.choice(RAG_DOCS, RAG_EVICT, replace=False))
+    check(pipe.evict(evicted) == RAG_EVICT, "evict count")
+    check(pipe.index.size == RAG_DOCS - RAG_EVICT, "size after evict")
+
+    # ---- the kernel path against the blockwise path
+    e_flash = embed_texts(params, cfg, corpus[:RAG_BATCH])
+    e_block = embed_texts(params, dataclasses.replace(
+        cfg, use_flash_kernel=False), corpus[:RAG_BATCH])
+    cos = torch.nn.functional.cosine_similarity(e_flash, e_block, dim=1)
+    rel = float(((e_flash - e_block).norm(dim=1) / e_block.norm(dim=1)).max())
+    log(f"  kernel vs blockwise embeddings of {RAG_BATCH} documents: cosine "
+        f"min {float(cos.min()):.6f}, max relative error {rel:.3g}")
+    check(float(cos.min()) >= RAG_COSINE_FLOOR,
+          f"kernel vs blockwise cosine {float(cos.min()):.6f}")
+
+    # ---- retrieve: self-queries, some of them evicted
+    dead = set(evicted.tolist())
+    live = np.array([i for i in range(RAG_DOCS) if i not in dead])
+    qdocs = np.concatenate([
+        rng.choice(live, RAG_QUERIES - RAG_QUERIES_EVICTED, replace=False),
+        rng.choice(evicted, RAG_QUERIES_EVICTED, replace=False)])
+    q_tok = corpus[torch.as_tensor(qdocs).cuda()]
+    with CountCalls(attention_mod, "blockwise_attention") as bw:
+        got, secs, launched = counted(
+            lambda: pipe.retrieve(q_tok, k=RAG_K, beam_width=RAG_BEAM))
+    check(launched == counts(flash_attention=n_layers) and bw.n == 0,
+          f"retrieve launched {launched} (blockwise {bw.n})")
+    path_launches["retrieve"] = launched
+    leaked = sum(p in dead for row in got for p in row)
+    n_live = RAG_QUERIES - RAG_QUERIES_EVICTED
+    self_hit = float(np.mean([bool(got[i]) and got[i][0] == qdocs[i]
+                              for i in range(n_live)]))
+    q_emb = embed_texts(params, cfg, q_tok)
+    res = pipe.index.searcher(SearchSpec(k=RAG_K, beam_width=RAG_BEAM)
+                              ).search(q_emb)
+    ids = res.ids.cpu().numpy()
+    tomb = int(pipe.index.tombstoned(ids[ids >= 0]).sum())
+    gt, _ = pipe.index.brute_force(q_emb, RAG_K)
+    rec = recall_at(res.ids, gt)
+    log(f"  retrieve {RAG_QUERIES} self-queries ({RAG_QUERIES_EVICTED} of "
+        f"evicted documents), k={RAG_K}, beam {RAG_BEAM}: {secs:.3f} s, "
+        f"self-hit@1 on live documents {self_hit:.4f}, recall@{RAG_K} vs "
+        f"brute force {rec:.4f}, evicted payloads returned {leaked}, "
+        f"tombstoned ids {tomb}")
+    check(leaked == 0 and tomb == 0, "retrieve returned evicted documents")
+    check(self_hit >= SELF_HIT_FLOOR, f"self-hit {self_hit:.4f}")
+    check(rec >= RECALL_FLOOR, f"retrieve recall@{RAG_K} {rec:.4f}")
+    mk = pipe.index.searcher(SearchSpec(
+        k=RAG_K, beam_width=RAG_BEAM, quantized=True, use_kernels=True,
+        fusion="megakernel"))
+    res, secs, launched = counted(lambda: mk.search(q_emb))
+    ids = res.ids.cpu().numpy()
+    check(int(pipe.index.tombstoned(ids[ids >= 0]).sum()) == 0,
+          "megakernel lane returned tombstoned ids")
+    check(launched == counts(fused_search=1, gather_l2=1),
+          f"megakernel lane launched {launched}")
+    log(f"  the same index through the megakernel lane (4-bit codes of "
+        f"{pipe.index.rabitq_codes.packed.shape[1]} B at D={cfg.d_model}, "
+        f"exact rerank): recall@{RAG_K} {recall_at(res.ids, gt):.4f}, "
+        f"{secs:.3f} s, launches {launched}")
+
+    # ---- generate: prompts that open with the top-1 retrieved document
+    top1 = [got[i][0] for i in range(RAG_GEN_BATCH)]
+    filler = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (RAG_GEN_BATCH, RAG_PROMPT - RAG_DOC_LEN)
+    ).astype(np.int32)).cuda()
+    prompts = torch.cat([corpus[torch.as_tensor(top1).cuda()], filler], 1)
+    timings = {}
+    with CountCalls(attention_mod, "blockwise_attention") as bw:
+        out, secs, launched = counted(lambda: generate(
+            params, cfg, prompts, max_new_tokens=RAG_NEW_TOKENS,
+            timings=timings))
+    check(launched == counts(flash_attention=n_layers) and bw.n == 0,
+          f"generate launched {launched} (blockwise {bw.n}), expected "
+          f"{n_layers} flash_attention for the prefill")
+    path_launches["generate"] = launched
+    check(tuple(out.shape) == (RAG_GEN_BATCH, RAG_PROMPT + RAG_NEW_TOKENS),
+          f"generate returned {tuple(out.shape)}")
+    check(torch.equal(out[:, :RAG_PROMPT], prompts),
+          "generate changed the prompts")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          "generated ids out of the vocab")
+    n_dec = RAG_GEN_BATCH * (RAG_NEW_TOKENS - 1)
+    log(f"  generate {RAG_GEN_BATCH} x {RAG_PROMPT} prompts + "
+        f"{RAG_NEW_TOKENS} greedy tokens: {secs:.2f} s; prefill (with the "
+        f"first token) {timings['prefill_s']:.3f} s "
+        f"({RAG_GEN_BATCH * RAG_PROMPT / timings['prefill_s']:.0f} tokens/s)"
+        f", decode {timings['decode_s']:.3f} s for {n_dec} tokens "
+        f"({n_dec / timings['decode_s']:.1f} tokens/s, "
+        f"{1e3 * timings['decode_s'] / (RAG_NEW_TOKENS - 1):.1f} ms per "
+        f"step); flash_attention launches in the prefill "
+        f"{launched['flash_attention']}; sample "
+        f"{out[0, -8:].tolist()}")
+    # where a request's time goes: the prefill and three decode steps
+    # again under the profiler (not counted: the path's counts are read)
+    with torch.inference_mode():
+        _, state = profile_device(lambda: prefill(
+            params, cfg, {"tokens": prompts}, max_len=RAG_PROMPT
+            + RAG_NEW_TOKENS), f"prefill of {RAG_GEN_BATCH} x {RAG_PROMPT}")
+
+        def three_steps(state=state):
+            for t in range(3):
+                _, state = decode_step(params, cfg, state, out[:, RAG_PROMPT
+                                                             + t, None])
+        profile_device(three_steps, "three decode steps")
+    total = {name: sum(p[name] for p in path_launches.values())
+             for name in ("flash_attention", "flash_attention_fwd")}
+    log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s; flash launches "
+        f"on the serving path (ingest + retrieve + prefill) {total}; max "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for name, rec in records.items():
+        rec["launches"] = total[name]
+    return [records["flash_attention"], records["flash_attention_fwd"]]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1408,6 +1785,16 @@ def main() -> int:
             rec["launches"] = churn["hop"]["fused_hop"]
         elif rec["name"] == "topk":
             rec["launches"] = churn["merge-kernel"]["topk"]
+
+    # phase 8 needs the card's memory: free the ANNS index first (the grow
+    # checker's closure holds it in a reference cycle)
+    del idx, q_dev, gt, gt_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[8] RAG serving: {RAG_ARCH} at full width over the port's index "
+        f"(device memory in use {torch.cuda.memory_allocated() / 1e9:.2f} "
+        "GB)")
+    records += rag_serving()
 
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,175 @@
+"""GQA attention: blockwise / flash-kernel prefill + cached decode (PyTorch
+port of `repro.models.attention`).
+
+The full-sequence path dispatches on `cfg.use_flash_kernel` exactly as
+the JAX package does: the flash-attention kernel (`kernels/
+flash_attention`: CUDA on the card, its plain version on the CPU), or
+`blockwise_attention`, a plain copy of the JAX blockwise loop that is the
+alternative and the numerical reference. The JAX package's sharding
+constraints are the identity on one device and have no counterpart here.
+
+GQA: q heads H = G * Hk grouped as (B, S, Hk, G, Dh), so query head `hi`
+reads KV head `hi // G`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import _init_linear, apply_rope
+
+_NEG = -1e30
+
+
+class Attention(nn.Module):
+    def __init__(self, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
+                 wo: nn.Linear):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def attention_init(generator, cfg: ModelConfig) -> Attention:
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return Attention(_init_linear(generator, cfg, d, h * dh),
+                     _init_linear(generator, cfg, d, hk * dh),
+                     _init_linear(generator, cfg, d, hk * dh),
+                     _init_linear(generator, cfg, h * dh, d))
+
+
+def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = params.wq(x).reshape(b, s, h, dh)
+    k = params.wk(x).reshape(b, s, hk, dh)
+    v = params.wv(x).reshape(b, s, hk, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, q_offset: int = 0, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024
+                        ) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k/v: (B, Skv, Hk, Dh) -> (B, Sq, H, Dh).
+
+    q_offset: absolute position of q[0] relative to k[0] (prefill = 0).
+    window > 0 limits attention to the last `window` key positions.
+    Online softmax over KV chunks per Q chunk, all in float32.
+    """
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = dh ** -0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    nq, nkv = sq // q_chunk, skv // kv_chunk
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"blockwise_attention: chunks ({q_chunk}, "
+                         f"{kv_chunk}) do not divide ({sq}, {skv})")
+    dev = q.device
+    qg = q.reshape(b, nq, q_chunk, hk, g, dh).float()
+    kc = k.reshape(b, nkv, kv_chunk, hk, dh).float()
+    vc = v.reshape(b, nkv, kv_chunk, hk, dh).float()
+    q_pos = torch.arange(sq, device=dev).reshape(nq, q_chunk) + q_offset
+    k_pos = torch.arange(skv, device=dev).reshape(nkv, kv_chunk)
+
+    outs = []
+    for qi in range(nq):
+        q_blk = qg[:, qi]                                  # (B, Tq, Hk, G, Dh)
+        qp = q_pos[qi]
+        m = torch.full((b, hk, g, q_chunk), _NEG, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hk, g, q_chunk, dh), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nkv):
+            kp = k_pos[ki]
+            s_blk = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kc[:, ki]) * scale
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kp[None, :] <= qp[:, None]
+            if window > 0:
+                mask &= kp[None, :] > (qp[:, None] - window)
+            s_blk = torch.where(mask, s_blk, _NEG)
+            new_m = torch.maximum(m, s_blk.amax(-1))
+            p = torch.exp(s_blk - new_m[..., None])
+            corr = torch.exp(m - new_m)
+            l = l * corr + p.sum(-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, ki]))
+            m = new_m
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,Hk,G,Tq,Dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,Tq,Hk,G,Dh)
+    out = torch.cat(outs, dim=1).reshape(b, sq, h, dh)
+    return out.to(q.dtype)
+
+
+def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, return_kv: bool = False):
+    """Full-sequence attention sublayer (prefill / forward)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    causal = cfg.causal and not cfg.is_encoder
+    if cfg.use_flash_kernel:
+        out = flash_attention(
+            q, k, v, causal=causal, window=cfg.sliding_window,
+            block_q=min(cfg.attn_chunk_q, 256), block_kv=cfg.attn_chunk_kv)
+    else:
+        out = blockwise_attention(
+            q, k, v, causal=causal, window=cfg.sliding_window,
+            q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+    out = params.wo(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                     *, window: int = 0
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token decode with a KV cache.
+
+    x: (B, 1, D); k_cache/v_cache: (B, S_max, Hk, Dh); pos: number of
+    tokens already in the cache (= this token's position). For window
+    caches, S_max == window and writes wrap (ring buffer). The new K/V row
+    is written into the caches IN PLACE (the JAX package returns updated
+    copies; a copy of a full-width cache per token would cost its size).
+    Returns (out (B, 1, D), k_cache, v_cache).
+    """
+    b = x.shape[0]
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hk
+    s_max = k_cache.shape[1]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+
+    slot = pos % s_max if window > 0 else pos
+    if not 0 <= slot < s_max:
+        raise IndexError(f"decode position {pos} past the cache's {s_max} "
+                         "slots")
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+
+    qg = q.reshape(b, 1, hk, g, dh).float()
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg,
+                          k_cache.float()) * (dh ** -0.5)
+    s_idx = torch.arange(s_max, device=x.device)
+    if window > 0:
+        # ring buffer: slots hold the last min(pos+1, window) positions, so
+        # every slot written so far is within the window by construction
+        written = min(pos + 1, s_max)
+        valid = s_idx < max(written, 1)
+    else:
+        valid = s_idx <= pos
+    scores = torch.where(valid[None, None, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
+    out = out.reshape(b, 1, h * dh).to(x.dtype)
+    return params.wo(out), k_cache, v_cache

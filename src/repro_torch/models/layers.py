@@ -1,0 +1,153 @@
+"""Building-block layers (PyTorch port of `repro.models.layers`).
+
+Conventions:
+  * parameters live in small `nn.Module`s with no gradient (this slice
+    serves; training comes later). Matrices are stored in `cfg.dtype`,
+    norm scales in float32. The JAX package stores float32 and casts at
+    every use (`x @ w.astype(dt)`), which computes the same thing;
+  * projections are `nn.Linear` without bias, so a weight is stored
+    (out, in), the transpose of the JAX package's (in, out) matrix
+    (`models/convert.py` carries JAX parameters across);
+  * every init fn draws from an explicit `torch.Generator` on the
+    parameters' device. Its numbers differ from `jax.random`'s: the tests
+    carry JAX's parameters across instead.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(generator: torch.Generator, shape, in_axis: int = 0, *,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 1/fan_in) drawn in float32 on the generator's device, then
+    cast to `dtype`."""
+    std = shape[in_axis] ** -0.5
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return w.mul_(std).to(dtype)
+
+
+def linear(weight: torch.Tensor) -> nn.Linear:
+    """A bias-free `nn.Linear` holding `weight` (out, in) as it is (no
+    default initialisation runs)."""
+    out_f, in_f = weight.shape
+    lin = nn.Linear(in_f, out_f, bias=False, device="meta")
+    lin.weight = _frozen(weight)
+    return lin
+
+
+def _init_linear(generator, cfg: ModelConfig, in_f: int, out_f: int
+                 ) -> nn.Linear:
+    # drawn straight into (out, in) storage; fan-in in_f as in JAX
+    return linear(dense_init(generator, (out_f, in_f), in_axis=1,
+                             dtype=torch_dtype(cfg)))
+
+
+# ------------------------------------------------------------------ RMSNorm
+class RMSNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.scale = _frozen(scale.to(torch.float32))
+
+
+def rmsnorm_init(cfg: ModelConfig, dim: int | None = None,
+                 device=None) -> RMSNorm:
+    return RMSNorm(torch.ones((dim or cfg.d_model,), dtype=torch.float32,
+                              device=device))
+
+
+def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """float32 statistics and scale, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params.scale).to(x.dtype)
+
+
+# --------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)                       # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, Dh), positions broadcastable to (..., S). The
+    half-split rotation: (x1, x2) are the two halves of the head dim, not
+    interleaved pairs; angles in float32."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta, x.device)
+    ang = positions[..., :, None, None].float() * inv   # (..., S, 1, Dh/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- SwiGLU MLP
+class MLP(nn.Module):
+    def __init__(self, w_gate: nn.Linear, w_up: nn.Linear, w_down: nn.Linear):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
+
+
+def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None) -> MLP:
+    d_ff = d_ff or cfg.d_ff
+    return MLP(_init_linear(generator, cfg, cfg.d_model, d_ff),
+               _init_linear(generator, cfg, cfg.d_model, d_ff),
+               _init_linear(generator, cfg, d_ff, cfg.d_model))
+
+
+def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = F.silu(params.w_gate(x)) * params.w_up(x)
+    return params.w_down(h)
+
+
+# -------------------------------------------------------------- Embedding
+class Embedding(nn.Module):
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.table = _frozen(table)                    # (padded_vocab, D)
+
+
+def embedding_init(generator, cfg: ModelConfig) -> Embedding:
+    return Embedding(dense_init(generator, (cfg.padded_vocab, cfg.d_model),
+                                in_axis=1, dtype=torch_dtype(cfg)))
+
+
+def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    return params.table.to(torch_dtype(cfg))[tokens.long()]
+
+
+class Unembed(nn.Module):
+    def __init__(self, w_out: nn.Linear):
+        super().__init__()
+        self.w_out = w_out                             # weight (V, D)
+
+
+def unembed_init(generator, cfg: ModelConfig) -> Unembed:
+    return Unembed(_init_linear(generator, cfg, cfg.d_model,
+                                cfg.padded_vocab))
+
+
+def unembed(params: Unembed | None, x: torch.Tensor, cfg: ModelConfig,
+            embed_params: Embedding | None = None) -> torch.Tensor:
+    """Logits over the padded vocab. Tied: x @ table.T."""
+    if cfg.tie_embeddings and embed_params is not None:
+        return F.linear(x, embed_params.table.to(torch_dtype(cfg)))
+    return params.w_out(x)

@@ -7,6 +7,10 @@ JAX:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+Flash attention (#10, #11): float32 rtol 1e-4 / atol 1e-5 against the
+plain version, bf16 rtol/atol 2e-2, lse atol 1e-4; #11's o bit-equal to
+#10's.
+
 Tolerances: on integer-valued operands every float sum is exact in any
 order, so kernel and plain version must agree BIT for bit (ids, dists,
 hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99; the
@@ -607,3 +611,106 @@ def test_exact_lanes_on_the_card(cuda_device):
     gt, _ = idx.brute_force(q, 10)
     hit = (tiled.frontier_ids[:, :10, None] == gt[:, None, :]).any(2)
     assert float(hit.float().mean()) >= 0.8
+
+
+# ------------------------------------------------- flash attention (#10, #11)
+# name, b, sq, skv, h, hk, dh, causal, window, q_offset
+FLASH_GRID = [
+    ("causal-g1-d64", 2, 130, 130, 4, 4, 64, True, 0, 0),
+    ("causal-g2-d128", 1, 200, 200, 8, 4, 128, True, 0, 0),
+    ("causal-g9-d128", 1, 257, 257, 36, 4, 128, True, 0, 0),
+    ("bidir-g9-d64", 2, 100, 77, 18, 2, 64, False, 0, 0),
+    ("window64-g2-d128", 1, 300, 300, 4, 2, 128, True, 64, 0),
+    ("window64-g9-d64", 1, 193, 193, 9, 1, 64, True, 64, 0),
+    ("qoffset-g9-d128", 2, 70, 333, 9, 1, 128, True, 0, 263),
+    ("qoffset-window64-g2-d64", 1, 50, 250, 4, 2, 64, True, 64, 200),
+    ("rows-past-the-keys-g2-d64", 1, 64, 100, 4, 2, 64, True, 16, 120),
+    ("causal-g2-d32", 1, 65, 65, 4, 2, 32, True, 0, 0),
+]
+# float32: the sums differ only in order; bf16: p is rounded to bf16 at
+# another running max and the output is rounded once more
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _flash_inputs(case, dtype, device):
+    _, b, sq, skv, h, hk, dh, *_ = case
+    rng = np.random.default_rng(zlib.crc32(case[0].encode()))
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                               ).to(device=device, dtype=dtype)
+    return t(b, sq, h, dh), t(b, skv, hk, dh), t(b, skv, hk, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_GRID, ids=[c[0] for c in FLASH_GRID])
+def test_flash_attention_vs_plain(cuda_device, case, dtype):
+    """#10 and #11 against their plain versions (the Pallas block loop at
+    64 x 64), with GQA groups 1, 2 and 9, head dims 32/64/128, ragged
+    lengths, windows, q_offset with Sq < Skv and rows that see no key;
+    #11's o bit-equal to #10's, its lse within 1e-4 of the plain one."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_fwd, flash_attention_fwd_plain)
+    q, k, v = _flash_inputs(case, dtype, cuda_device)
+    causal, window, q_offset = case[7:]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_q=64,
+              block_kv=64)
+    b10, b11 = flash_attention.launches, flash_attention_fwd.launches
+    o10 = flash_attention(q, k, v, **kw)
+    o11, lse = flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == b10 + 1
+    assert flash_attention_fwd.launches == b11 + 1
+    assert o10.dtype == dtype and o10.shape == q.shape
+    assert torch.equal(o10, o11)
+    torch.testing.assert_close(o10.float(), want.float(), **FLASH_TOL[dtype])
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_strided_operands(cuda_device):
+    """q/k/v as views of fused projections (strided heads) read in place:
+    the same numbers as from contiguous copies."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    b, s, h, hk, dh = 2, 96, 9, 1, 64
+    qkv = torch.randn((b, s, (h + 2 * hk) * dh), device=cuda_device)
+    q = qkv[..., :h * dh].view(b, s, h, dh)
+    k = qkv[..., h * dh:(h + hk) * dh].view(b, s, hk, dh)
+    v = qkv[..., (h + hk) * dh:].view(b, s, hk, dh)
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_model_forward_flash_vs_blockwise(cuda_device):
+    """Two layers of starcoder2-7b at full width (d_model 4608, 36 heads on
+    4 KV heads, Dh 128) in bf16: the kernel path's final hidden states
+    against the blockwise path's, per-token cosine >= 0.999; 2 launches
+    of #10 (one per layer)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.model import forward, init_params
+    cfg = dataclasses.replace(get_config("starcoder2-7b"), num_layers=2,
+                              dtype="bfloat16", use_flash_kernel=True)
+    params = init_params(cfg, 0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda_device)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = forward(params, cfg, {"tokens": toks}, return_hidden=True)
+        want = forward(params, dataclasses.replace(cfg,
+                                                   use_flash_kernel=False),
+                       {"tokens": toks}, return_hidden=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(),
+                                                dim=-1)
+    assert float(cos.min()) >= 0.999

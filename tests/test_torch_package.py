@@ -48,7 +48,12 @@ def test_package_has_the_slice_modules():
                  "core.index_core", "core.index", "data.synthetic",
                  "kernels.build", "kernels.distance.ops",
                  "kernels.rabitq_dot.ops", "kernels.search_step.ops",
-                 "kernels.search_step.ref", "kernels.topk.ops"):
+                 "kernels.search_step.ref", "kernels.topk.ops",
+                 "configs", "configs.base", "configs.starcoder2_7b",
+                 "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+                 "models.layers", "models.attention", "models.model",
+                 "models.convert", "serving.serve_loop", "serving.rag",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -149,6 +154,33 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     assert init_core(16, 8, 4, device="cpu").adjacency.shape == (16, 4)
 
 
+def test_lm_entry_points_raise_without_gpu(monkeypatch):
+    """The serving slice's entry points: the card, or the CPU only when
+    asked for."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tm
+    from repro_torch.serving.rag import RagPipeline
+    _no_cuda(monkeypatch)
+    cfg = dataclasses.replace(ARCHS["stablelm-1.6b"].reduced(),
+                              dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.init_decode_state(cfg, 1, 8)
+    params = tm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RagPipeline(params, cfg, capacity=16)
+    assert RagPipeline(params, cfg, capacity=16,
+                       device="cpu").index.device.type == "cpu"
+    argv = ["--arch", "stablelm-1.6b", "--reduced", "--batch", "2",
+            "--prompt-len", "8", "--new-tokens", "3"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
+    assert serve.main(argv + ["--device", "cpu"]).shape == (2, 11)
+
+
 def test_kernel_build_refuses_without_gpu(monkeypatch):
     from repro_torch.kernels import build
     _no_cuda(monkeypatch)
@@ -180,6 +212,8 @@ def _call_wrappers(x):
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_fwd)
     from repro_torch.kernels.topk.ops import topk
     out = {}
     out["gather_l2"] = lambda: gather_l2(x["q"], x["table"],
@@ -214,6 +248,13 @@ def _call_wrappers(x):
         x["packed"], x["vec"], x["vec"], None, None, None, x["n"],
         quantized=True, bits=x["bits"])
     out["topk"] = lambda: topk(f_d, f_ids, 2)
+    rng = np.random.default_rng(1)
+    fq, fk, fv = (torch.as_tensor(rng.normal(size=(1, 70, hh, 32)).astype(
+        np.float32)).to(dev) for hh in (6, 2, 2))
+    out["flash_attention"] = lambda: flash_attention(fq, fk, fv, block_q=64,
+                                                     block_kv=64)
+    out["flash_attention_fwd"] = lambda: flash_attention_fwd(
+        fq, fk, fv, block_q=64, block_kv=64)
     return out
 
 
@@ -221,7 +262,8 @@ def _call_wrappers(x):
                                   "fused_search", "fused_hop", "topk",
                                   "gather_l2_tiled", "pairwise_l2",
                                   "rabitq_distance",
-                                  "rabitq_gather_distance"])
+                                  "rabitq_gather_distance",
+                                  "flash_attention", "flash_attention_fwd"])
 def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     """CPU tensors take the plain version (no build, no launch counted);
     tensors on any other non-CUDA device raise rather than fall back."""
@@ -237,7 +279,10 @@ def test_wrappers_plain_only_on_cpu(name, monkeypatch):
                "rabitq_gather_distance": "repro_torch.kernels.rabitq_dot.ops",
                "fused_search": "repro_torch.kernels.search_step.ops",
                "fused_hop": "repro_torch.kernels.search_step.ops",
-               "topk": "repro_torch.kernels.topk.ops"}[name]
+               "topk": "repro_torch.kernels.topk.ops",
+               "flash_attention": "repro_torch.kernels.flash_attention.ops",
+               "flash_attention_fwd":
+                   "repro_torch.kernels.flash_attention.ops"}[name]
     mod = __import__(wrapper, fromlist=[name])
     before = getattr(mod, name).launches
     out = fn()
