@@ -12,10 +12,11 @@ Phases:
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
                 all-+inf tails and widths that are not a multiple of 32);
-                the flash-attention kernels #10 and #11 on a grid of small
-                shapes: float32 and bf16, causal and bidirectional, window
-                64, q_offset > 0 with Sq < Skv, rows that see no key, GQA
-                groups 1, 2 and 9, Dh 32/64/128, ragged Sq and Skv.
+                the flash-attention kernels #10, #11 and the backward #12
+                on a grid of small shapes: float32 and bf16, causal and
+                bidirectional, window 64, q_offset > 0 with Sq < Skv, rows
+                that see no key, GQA groups 1, 2 and 9, Dh 32/64/128,
+                ragged Sq and Skv.
   4. main path — bigann-shaped synthetic data; `JasperIndex.build` (Vamana
                 construction + RaBitQ 4-bit codes); search with the
                 megakernel + exact rerank, with the unfused loop over the
@@ -85,12 +86,31 @@ Phases:
                 >= 0.85 against brute force, the prompts unchanged in the
                 output; the same index searched through the megakernel
                 lane (quantized, D = 4,608) for its recall and launches.
+  9. training — runs last: minicpm-2b (40 layers, d_model 2,304, 36
+                heads, Dh 64, vocab 122,753, tied embeddings), float32
+                master weights, bf16 compute, remat "full". (a) #12 against
+                its plain version at minicpm's attention shape (B=1,
+                S=4,096, 36/36, Dh 64) and starcoder2-7b's (36/4, Dh 128),
+                float32 and bf16; (b) #12 timed at the training microbatch
+                (B=2, bf16) beside its plain version, SDPA's backward and
+                the bound; (c) 2 layers at full width, B=1: gradients of
+                `loss_fn` through the kernels against the blockwise path
+                (cosine >= 0.999, loss within 1e-3), a bit-equal checkpoint
+                round trip, a resume (2 steps, save, restore, 1 step)
+                within 1e-4 of 3 straight steps; (d) the full model through
+                `launch/train.py`'s `run`: 4 WSD steps of 4 x 4,096 tokens
+                (grad_accum 2) — finite losses and grad norms, the first
+                loss within [ln V - 0.5, ln V + 3], exactly 160 #11 and 80
+                #12 launches a step, no #10 and no blockwise attention,
+                memory under 80 GB — then 3 steps at lr 1e-3 on one fixed
+                batch (the loss must fall), one step under the profiler,
+                and the loss head and AdamW timed apart.
 
 Prints the kernel JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, if
 there is no CUDA device, a kernel fails to build, launch or agree, a path
 skips its kernel, recall misses its floor, or a churn or serving check
-fails.
+fails, or a training check fails.
 """
 
 from __future__ import annotations
@@ -351,8 +371,8 @@ def kernel_wrappers() -> dict:
     launches in `.launches`)."""
     from repro_torch.kernels.distance.ops import (gather_l2, gather_l2_tiled,
                                                   pairwise_l2)
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
@@ -364,7 +384,8 @@ def kernel_wrappers() -> dict:
             "rabitq_distance": rabitq_distance,
             "rabitq_gather_distance": rabitq_gather_distance,
             "flash_attention": flash_attention,
-            "flash_attention_fwd": flash_attention_fwd}
+            "flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def counts(**nonzero) -> dict:
@@ -1429,9 +1450,52 @@ def compare_flash(q, k, v, kw, what) -> float:
     return err
 
 
+# #12 vs its plain version: (rtol, atol as a fraction of the plain
+# gradient's largest magnitude). float32: the kernel adds up to Sq * G
+# terms one after another in a register, the plain version in blocks; the
+# difference grows like sqrt(n) * eps * |partial sum|, about 1e-5 of the
+# largest gradient at 36,864 terms (on an H100 at starcoder2-7b's shape:
+# 7.8e-5 on |dv| up to ~10). bf16: as the forward, plus the rounding of ds
+# and p to bf16 before their products.
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def bwd_close(got, want) -> bool:
+    rtol, atol = BWD_TOL[got.dtype]
+    want = want.float()
+    return torch.allclose(got.float(), want, rtol=rtol,
+                          atol=atol * float(want.abs().max()))
+
+
+def compare_flash_bwd(q, k, v, kw, what, gen) -> float:
+    """#12 against its plain version on one input (o and lse from #11's
+    plain version, a random cotangent): dq, dk, dv within BWD_TOL, a second
+    launch bit-equal. Returns the max |err|."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_plain)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    o, lse = flash_attention_fwd_plain(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        check(torch.equal(g, a), f"{what}: {name} differs between launches")
+        err = float((g.float() - w.float()).abs().max())
+        check(bool(torch.isfinite(g).all()) and bwd_close(g, w),
+              f"{what}: {name} max |err| {err} against the plain version "
+              f"(max |plain| {float(w.float().abs().max()):.3g})")
+        worst = max(worst, err)
+    return worst
+
+
 def flash_selfcheck(gen) -> None:
-    """Phase 3, flash attention: the grid of small shapes, both dtypes."""
-    worst = {}
+    """Phase 3, flash attention: the grid of small shapes, both dtypes,
+    the forwards (#10, #11) and the backward (#12)."""
+    worst, worst_bwd = {}, {}
+    dgen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     for dtype in (torch.float32, torch.bfloat16):
         for case in FLASH_GRID:
             name, b, sq, skv, h, hk, dh, causal, window, q_offset = case
@@ -1442,10 +1506,17 @@ def flash_selfcheck(gen) -> None:
                       block_q=64, block_kv=64)
             err = compare_flash(q, k, v, kw, f"flash {name} {dtype}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+            err = compare_flash_bwd(q, k, v, kw, f"flash bwd {name} {dtype}",
+                                    dgen)
+            worst_bwd[dtype] = max(worst_bwd.get(dtype, 0.0), err)
     log(f"  flash_attention / flash_attention_fwd: {len(FLASH_GRID)} shapes "
         f"x (f32, bf16) within tolerance of the plain version, #11's o "
         f"bit-equal to #10's; max |o err| f32 "
         f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    log(f"  flash_attention_bwd: the same {len(FLASH_GRID)} shapes x (f32, "
+        f"bf16) within tolerance of the plain version, launches bit-equal; "
+        f"max |dq, dk, dv err| f32 {worst_bwd[torch.float32]:.3g}, bf16 "
+        f"{worst_bwd[torch.bfloat16]:.3g}")
 
 
 def lse_of_scores(q, k, causal: bool) -> torch.Tensor:
@@ -1727,6 +1798,360 @@ def rag_serving() -> list:
     return [records["flash_attention"], records["flash_attention_fwd"]]
 
 
+# ------------------------------------------------------- training (phase 9)
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_SEQ = 4096               # the repo's train_4k sequence (SHAPES)
+TRAIN_BATCH, TRAIN_ACCUM = 4, 2   # global batch cut from 256 for one card
+TRAIN_STEPS, MEMO_STEPS, MEMO_LR = 4, 3, 1e-3
+GRAD_COSINE_FLOOR = 0.999
+LOSS_REL_TOL, RESUME_REL_TOL = 1e-3, 1e-4
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|wgmma", re.I)
+
+
+def flash_at_train_shapes(cfg) -> dict:
+    """Phase 9 (a) and (b), at the training microbatch (B=2, S=4,096):
+    #10/#11 and #12 against their plain versions at minicpm's attention
+    shape (36/36, Dh 64) in float32 and bf16, and #12 at starcoder2-7b's
+    (36/4, Dh 128: the group of 9 at full width); then #11 and #12 timed
+    in bf16 beside their plain versions, SDPA's forward and backward and
+    their bounds. Returns {kernel: record fields} for #11 and #12."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    s, b = TRAIN_SEQ, TRAIN_BATCH // TRAIN_ACCUM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    kw = dict(causal=True, block_q=min(cfg.attn_chunk_q, 256),
+              block_kv=cfg.attn_chunk_kv)
+
+    def qkv(h, hk, dh, dtype):
+        return [torch.randn((b, s, n, dh), generator=gen, device="cuda"
+                            ).to(dtype) for n in (h, hk, hk)]
+
+    fwd_errs, bwd_errs = {}, {}
+    other = get_config("starcoder2-7b")
+    for arch, c in ((cfg.name, cfg), (other.name, other)):
+        h, hk, dh = c.num_heads, c.num_kv_heads, c.head_dim
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(h, hk, dh, dtype)
+            shape = f"({b}, {s}, {h}/{hk}, {dh}) {dtype}"
+            if arch == cfg.name:
+                fwd_errs[dtype] = compare_flash(q, k, v, kw,
+                                                f"flash at {shape}")
+                log(f"  flash at {arch}'s shape (B={b}, S={s}, H={h}, "
+                    f"Hk={hk}, Dh={dh}) causal {dtype}: o max |err| vs "
+                    f"plain {fwd_errs[dtype]:.3g}, #11 o bit-equal to #10")
+            err = compare_flash_bwd(q, k, v, kw, f"flash bwd at {shape}", gen)
+            if arch == cfg.name:
+                bwd_errs[dtype] = err
+            log(f"  flash_attention_bwd at {arch}'s shape (B={b}, S={s}, "
+                f"H={h}, Hk={hk}, Dh={dh}) causal {dtype}: max |dq, dk, dv "
+                f"err| vs plain {err:.3g}, launches bit-equal")
+            del q, k, v
+
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = qkv(h, hk, dh, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    ms11 = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5)
+    plain11_ms = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, **kw), 2)
+    ms12 = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 5)
+    plain12_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), 2)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    lib11_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), 5)
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2).contiguous()
+    lib12_ms = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                   retain_graph=True), 5)
+    # the forward: 2 products of B*H*S^2*Dh/2 multiply-adds; q, k, v in,
+    # o and the float32 lse out
+    flops11 = 2.0 * b * h * s * s * dh
+    b11_ms, b11_by = bound(b * s * dh * 2 * (2 * h + 2 * hk)
+                           + b * h * s * 4, flops11, peak=BF16_FLOPS)
+    # the backward: 7 products (s and dp twice, dq, dk, dv); q, o, dO in
+    # and dq out (H heads), k, v in and dk, dv out (Hk), lse
+    flops12 = 7.0 * b * h * s * s * dh
+    b12_ms, b12_by = bound(b * s * dh * 2 * (4 * h + 4 * hk)
+                           + b * h * s * 4, flops12, peak=BF16_FLOPS)
+    log(f"  flash at the training microbatch (B={b}, S={s}, H={h}, Hk={hk}, "
+        f"Dh={dh}) bf16: #11 {ms11:.3f} ms, plain {plain11_ms:.3f} ms, SDPA "
+        f"(is_causal) {lib11_ms:.3f} ms, bound {b11_ms:.4f} ms ({b11_by}: "
+        f"{flops11 / 1e12:.3f} TFLOP at 989 TFLOP/s), #11 reaches "
+        f"{flops11 / ms11 / 1e9:.1f} TFLOP/s; #12 {ms12:.3f} ms, plain "
+        f"{plain12_ms:.3f} ms, SDPA backward (is_causal) {lib12_ms:.3f} ms, "
+        f"bound {b12_ms:.4f} ms ({b12_by}: {flops12 / 1e12:.3f} TFLOP), #12 "
+        f"reaches {flops12 / ms12 / 1e9:.1f} TFLOP/s")
+    del q, k, v, do, o, lse, qh, kh, vh, oh, doh
+    torch.cuda.empty_cache()
+    src = "src/repro/kernels/flash_attention/flash_kernel.py"
+    return {"flash_attention_fwd": dict(
+                name="flash_attention_fwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces=f"{src}:257", max_abs_err=fwd_errs[torch.bfloat16],
+                ms=ms11, plain_ms=plain11_ms, bound_ms=b11_ms,
+                bound_by=b11_by, library_ms=lib11_ms),
+            "flash_attention_bwd": dict(
+                name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces=f"{src}:302", max_abs_err=bwd_errs[torch.bfloat16],
+                ms=ms12, plain_ms=plain12_ms, bound_ms=b12_ms,
+                bound_by=b12_by, library_ms=lib12_ms)}
+
+
+def grads_of(params, cfg, batch):
+    """(loss, every parameter's gradient flattened into one float32
+    vector) of loss_fn, the gradients then cleared."""
+    from repro_torch.models.model import loss_fn
+    loss, _ = loss_fn(params, cfg, batch)
+    loss.backward()
+    flat = torch.cat([p.grad.flatten() for p in params.parameters()])
+    params.zero_grad(set_to_none=True)
+    return float(loss.detach()), flat
+
+
+def two_layer_checks(cfg) -> None:
+    """Phase 9 (c), minicpm's widths at 2 layers, B=1, S=4,096, float32
+    masters: the kernel path's gradients against the blockwise path's, a
+    bit-equal checkpoint round trip, and a resume (2 steps, save, restore
+    into another state, 1 step) against 3 straight steps."""
+    import shutil
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step, restore_checkpoint,
+                                      save_checkpoint)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    data = TokenDataset(cfg2, 1, TRAIN_SEQ, seed=SEED)
+
+    def fresh(seed):
+        return init_train_state(cfg2, init_params(cfg2, seed,
+                                                  param_dtype=torch.float32))
+
+    state = fresh(SEED)
+    loss_k, g_k = grads_of(state.params, cfg2, data(0))
+    with CountCalls(__import__("repro_torch.models.attention",
+                               fromlist=["x"]), "blockwise_attention") as bw:
+        loss_b, g_b = grads_of(state.params, dataclasses.replace(
+            cfg2, use_flash_kernel=False), data(0))
+    check(bw.n > 0, "the blockwise path did not run blockwise_attention")
+    cos = float(torch.nn.functional.cosine_similarity(g_k, g_b, dim=0))
+    rel = abs(loss_k - loss_b) / abs(loss_b)
+    log(f"  2 layers at minicpm's widths, B=1, S={TRAIN_SEQ}: kernel path "
+        f"vs blockwise path: loss {loss_k:.6f} vs {loss_b:.6f} (relative "
+        f"{rel:.3g}), gradient cosine over all {g_k.numel():,} parameters "
+        f"{cos:.6f}, relative norm of the difference "
+        f"{float((g_k - g_b).norm() / g_b.norm()):.3g}")
+    check(cos >= GRAD_COSINE_FLOOR, f"gradient cosine {cos:.6f}")
+    check(rel <= LOSS_REL_TOL, f"loss relative difference {rel:.3g}")
+    del g_k, g_b
+
+    opt = OptimizerConfig(peak_lr=MEMO_LR, schedule="wsd", warmup_steps=1,
+                          total_steps=3)
+    step = make_train_step(cfg2, opt)
+    straight = []
+    for t in range(3):
+        state, m = step(state, data(t))
+        straight.append(float(m["loss"]))
+    del state
+    state = fresh(SEED)
+    for t in range(2):
+        state, _ = step(state, data(t))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(CKPT_DIR), 2, state)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_checkpoint(str(CKPT_DIR), 2, fresh(SEED + 1))
+    t_restore = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    same = all(torch.equal(a, b) for a, b in zip(
+        state.params.parameters(), back.params.parameters()))
+    same &= all(torch.equal(state.opt_state[key][n], back.opt_state[key][n])
+                for key in ("m", "v") for n in state.opt_state[key])
+    same &= back.opt_state["step"] == state.opt_state["step"] == 2
+    check(same, "checkpoint round trip is not bit-equal")
+    del state
+    back, m = step(back, data(2))
+    resumed = float(m["loss"])
+    rel = abs(resumed - straight[2]) / abs(straight[2])
+    log(f"  checkpoint of 2 layers (parameters, m, v: {size / 1e9:.2f} GB "
+        f"npz) saved in {t_save:.1f} s, restored into another state in "
+        f"{t_restore:.1f} s, bit-equal; resume: step 3 loss {resumed:.6f} "
+        f"vs {straight[2]:.6f} straight (relative {rel:.3g}; losses "
+        f"{[round(x, 6) for x in straight]})")
+    check(rel <= RESUME_REL_TOL, f"resumed loss relative difference {rel:.3g}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def step_split(step_fn, state, batch) -> tuple:
+    """One more train step under torch.profiler: device time of #11, #12,
+    the GEMMs and everything else, the device's busy share. Returns (new
+    state, metrics)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {"#11 flash_fwd": 0.0, "#12 flash_bwd": 0.0, "GEMMs": 0.0,
+             "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if "flash_fwd_kernel" in e.key:
+            split["#11 flash_fwd"] += ms
+        elif "flash_bwd_" in e.key:
+            split["#12 flash_bwd"] += ms
+        elif GEMM_KERNEL.search(e.key):
+            split["GEMMs"] += ms
+        else:
+            split["other"] += ms
+    busy = sum(split.values())
+    if busy == 0:
+        log("  profile (train step): the profiler recorded no device time")
+    else:
+        log(f"  profile of one train step: wall {wall_ms:.0f} ms, device busy "
+            f"{busy:.0f} ms ({100 * busy / wall_ms:.1f}%): " + ", ".join(
+                f"{k} {v:.0f} ms ({100 * v / busy:.1f}%)"
+                for k, v in split.items()))
+    return state, m
+
+
+def separate_times(cfg, state) -> None:
+    """CUDA-event times of the two parts the profile's kernel names do not
+    separate: the loss head (final norm, tied unembed and float32 CE,
+    forward + backward, one microbatch) and the AdamW update."""
+    from repro_torch.models.model import _logits, cross_entropy
+    from repro_torch.training import OptimizerConfig, adamw_update
+    params = state.params
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn((mb, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (mb, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+
+    def head():
+        cross_entropy(_logits(params, cfg, x), labels,
+                      cfg.vocab_size).backward()
+    head_ms = cuda_ms(head, 2)
+    params.zero_grad(set_to_none=True)
+    del x
+    grads = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+    opt_ms = cuda_ms(lambda: adamw_update(OptimizerConfig(), grads,
+                                          state.opt_state, params), 2)
+    del grads
+    log(f"  separately timed: the loss head (final norm, tied unembed, CE; "
+        f"forward + backward of one microbatch) {head_ms:.1f} ms, x "
+        f"{TRAIN_ACCUM} per step; the AdamW update of "
+        f"{sum(p.numel() for p in params.parameters()):,} float32 "
+        f"parameters {opt_ms:.1f} ms")
+
+
+def training() -> tuple[dict, dict]:
+    """Phase 9; returns (#11's and #12's JSON records at the training
+    microbatch, the training path's launch counts)."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_flash_kernel=True)
+    records = flash_at_train_shapes(cfg)
+    two_layer_checks(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) full width through the launcher's run
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--grad-accum",
+            str(TRAIN_ACCUM), "--seed", str(SEED), "--log-every", "1"]
+    args = train.parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    with CountCalls(attention_mod, "blockwise_attention") as bw:
+        out, secs, launched = counted(lambda: train.run(args))
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    n_layers = cfg.num_layers
+    per_step = counts(flash_attention_fwd=2 * n_layers * TRAIN_ACCUM,
+                      flash_attention_bwd=n_layers * TRAIN_ACCUM)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    ln_v = float(np.log(cfg.vocab_size))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [h["seconds"] for h in hist]
+    steady = float(np.mean(step_s[1:]))
+    log(f"  {TRAIN_ARCH} at full width through launch/train.py run "
+        f"({' '.join(argv)}): {TRAIN_STEPS} steps in {secs:.1f} s (with "
+        f"init); losses {[round(x, 4) for x in losses]} (ln V = "
+        f"{ln_v:.4f}), grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}, lr "
+        f"{[round(h['lr'], 8) for h in hist]}; seconds per step "
+        f"{[round(x, 3) for x in step_s]}; max memory allocated "
+        f"{peak / 1e9:.2f} GB; launches {launched}")
+    check(out["steps"] == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
+          f"run did {out['steps']} steps")
+    check(all(np.isfinite([h["loss"] for h in hist]))
+          and all(np.isfinite([h["grad_norm"] for h in hist])),
+          "a loss or grad norm is not finite")
+    check(ln_v - 0.5 <= losses[0] <= ln_v + 3,
+          f"first loss {losses[0]:.4f} outside [ln V - 0.5, ln V + 3]")
+    check(launched == want, f"launched {launched}, expected {want} "
+          f"({per_step} a step: #11 for the forward and the recompute)")
+    check(bw.n == 0, f"training ran blockwise_attention {bw.n} times")
+    check(peak < 80e9, f"max memory allocated {peak / 1e9:.2f} GB")
+
+    # ---- memorisation: 3 steps at lr 1e-3 on one fixed batch
+    params = init_params(cfg, SEED, param_dtype=torch.float32)
+    n_params = param_count(params)
+    state = init_train_state(cfg, params)
+    step_fn = make_train_step(cfg, OptimizerConfig(
+        peak_lr=MEMO_LR, schedule="constant", warmup_steps=0,
+        total_steps=MEMO_STEPS), grad_accum=TRAIN_ACCUM)
+    batch = make_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, 0)
+    memo, memo_s = [], []
+    for _ in range(MEMO_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        memo.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        memo_s.append(time.perf_counter() - t0)
+    log(f"  memorisation, {MEMO_STEPS} steps at lr {MEMO_LR} on one fixed "
+        f"batch: losses {[round(x, 4) for x in memo]}, seconds "
+        f"{[round(x, 3) for x in memo_s]}")
+    check(all(np.isfinite(memo)) and memo[-1] < memo[0],
+          f"the loss did not fall on a fixed batch: {memo}")
+    step_t = float(np.mean(memo_s + step_s[1:]))
+    mfu = 6.0 * n_params * tokens / step_t / BF16_FLOPS
+    log(f"  {n_params:,} parameters ({n_params / 1e9:.3f} B); steady step "
+        f"{step_t:.3f} s (launcher steps 2-{TRAIN_STEPS} {steady:.3f} s), "
+        f"{tokens / step_t:.0f} tokens/s, 6*N*T/step time "
+        f"{6.0 * n_params * tokens / step_t / 1e12:.1f} TFLOP/s = "
+        f"{100 * mfu:.2f} % of 989 TFLOP/s")
+    state, _ = step_split(step_fn, state, batch)
+    separate_times(cfg, state)
+    del state, params, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return records, launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1795,6 +2220,21 @@ def main() -> int:
         f"(device memory in use {torch.cuda.memory_allocated() / 1e9:.2f} "
         "GB)")
     records += rag_serving()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[9] training: {TRAIN_ARCH} at full width, float32 masters, bf16 "
+        f"compute (device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    # #11 runs on the training path only: its record's numbers are those
+    # at the training microbatch, not phase 8's serving shape
+    train_records, train_launches = training()
+    fwd = next(r for r in records if r["name"] == "flash_attention_fwd")
+    fwd.update(train_records["flash_attention_fwd"],
+               launches=fwd["launches"]
+               + train_launches["flash_attention_fwd"])
+    records.append(dict(train_records["flash_attention_bwd"],
+                        launches=train_launches["flash_attention_bwd"]))
 
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -2,9 +2,9 @@
 
 Same sub-package layout and names as the JAX package, so each module's
 counterpart is found under the same path. Plain tensor code is PyTorch;
-the Pallas TPU kernels of the search path are hand-written CUDA C++ for
-`sm_90a` under `csrc/`, built with `nvcc` at first use and bound with
-`ctypes` (see `kernels/build.py`).
+the Pallas TPU kernels (the search path's and the flash attention's) are
+hand-written CUDA C++ for `sm_90a` under `csrc/`, built with `nvcc` at
+first use and bound with `ctypes` (see `kernels/build.py`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no GPU and no explicit CPU device they raise (see `device.py`).

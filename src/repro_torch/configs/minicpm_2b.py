@@ -1,8 +1,7 @@
 """minicpm-2b [dense] — llama-like, WSD schedule [arXiv:2404.06395].
 
-The WSD (warmup-stable-decay) schedule lives in the JAX package's
-training/optimizer.py (not ported yet) and is selected by this config's
-schedule hint.
+The WSD (warmup-stable-decay) schedule lives in training/optimizer.py
+and is selected by this config's schedule hint (see launch/train.py).
 """
 from repro_torch.configs.base import ModelConfig
 

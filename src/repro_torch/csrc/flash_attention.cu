@@ -46,16 +46,15 @@
 // Dh = 128 needs 66.5 KB (bf16) or 116 KB (f32) of shared memory: above
 // the default 48 KB, hence cudaFuncSetAttribute.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int kRows = 64;      // query rows per block
-constexpr int kKeys = 64;      // keys per K/V tile
-constexpr int kThreads = 256;  // 16 x 16
+using namespace flash;
+
 constexpr float kNeg = -1e30f;
 
 struct Params {
@@ -69,30 +68,6 @@ struct Params {
   int causal, window, q_offset;
   float scale;
 };
-
-template <typename T>
-struct alignas(2 * sizeof(T)) Pair {
-  T x, y;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -111,23 +86,6 @@ __device__ __forceinline__ bool sees_a_key(const Params& p, int pos) {
   const int lo = p.window > 0 ? max(0, pos - p.window + 1) : 0;
   const int hi = p.causal ? min(p.skv - 1, pos) : p.skv - 1;
   return lo <= hi;
-}
-
-// Copy rows [row0, row0 + 64) of one head (base, row stride) into a shared
-// tile of stride kDh + 2; rows past n are zero.
-template <typename T, int kDh>
-__device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__ base,
-                                      long long row_stride, int row0, int n) {
-  constexpr int kPairs = kDh / 2;
-  const T zero = from_f32<T>(0.f);
-  for (int i = threadIdx.x; i < kRows * kPairs; i += kThreads) {
-    const int r = i / kPairs;
-    const int c = (i - r * kPairs) * 2;
-    Pair<T> val{zero, zero};
-    if (row0 + r < n)
-      val = *reinterpret_cast<const Pair<T>*>(base + (row0 + r) * row_stride + c);
-    *reinterpret_cast<Pair<T>*>(dst + r * (kDh + 2) + c) = val;
-  }
 }
 
 template <typename T, int kDh, bool kLse>
@@ -225,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       for (int j = 0; j < 4; ++j) {
         const float pj = expf(s[i][j] - m_new);
         rs += pj;
-        ps[(ty * 4 + i) * kPStride + tx + 16 * j] = to_f32(from_f32<T>(pj));
+        ps[(ty * 4 + i) * kPStride + tx + 16 * j] = round_to<T>(pj);
       }
       rs = half_warp_sum(rs);
       l[i] = l[i] * corr + rs;

@@ -1,5 +1,14 @@
-"""Deterministic synthetic ANNS data — the ANNS half of
-`repro.data.synthetic`, pure numpy and therefore bit-identical to it.
+"""Deterministic synthetic data (port of `repro.data.synthetic`).
+
+LM batches (`make_lm_batch`, `TokenDataset`) are a pure function of
+(seed, step), so a restarted job replays the exact token stream. They are
+drawn from a CPU `torch.Generator`, the same on every device; the tokens
+differ from the JAX package's `jax.random` draws, so the tests feed both
+packages one numpy batch. The frame datasets of the audio family are not
+ported (ROADMAP.md A7).
+
+The ANNS half is pure numpy and therefore bit-identical to the JAX
+package's.
 
 The datasets are distribution-matched stand-ins for the paper's Table 3:
 clustered Gaussians on a low-intrinsic-dimension manifold (graph indices
@@ -13,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -26,6 +36,32 @@ class ANNSDatasetConfig:
     full_n: int              # the paper's size (capacity planning)
     bench_n: int             # default N for measured runs
     n_queries: int
+
+
+def make_lm_batch(cfg, batch: int, seq_len: int, seed: int, step: int
+                  ) -> dict[str, torch.Tensor]:
+    """One next-token batch on the CPU: {"tokens", "labels"} (B, S) int32,
+    labels the tokens shifted left by one. Uniform over the vocab."""
+    if cfg.frontend != "token":
+        raise NotImplementedError(
+            f"{cfg.name}: frame batches are not ported (ROADMAP.md A7)")
+    sub = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    gen = torch.Generator().manual_seed(sub)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1),
+                           generator=gen, dtype=torch.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+@dataclass
+class TokenDataset:
+    cfg: object
+    batch: int
+    seq_len: int
+    seed: int = 0
+
+    def __call__(self, step: int) -> dict[str, torch.Tensor]:
+        return make_lm_batch(self.cfg, self.batch, self.seq_len, self.seed,
+                             step)
 
 
 ANNS_DATASETS: dict[str, ANNSDatasetConfig] = {

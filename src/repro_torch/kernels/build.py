@@ -31,7 +31,7 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 # one shared library per source; every .cu may include the csrc headers
 SOURCES = ("search_step", "gather_l2", "rabitq_search_step", "topk",
            "pairwise_l2", "rabitq_distance", "gather_l2_tiled",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,2 +1,3 @@
-"""GQA flash-attention forward kernels (`csrc/flash_attention.cu`) and
-their plain versions."""
+"""GQA flash-attention kernels — the forwards (`csrc/flash_attention.cu`)
+and the backward (`csrc/flash_attention_bwd.cu`) — their plain versions
+and the autograd Function that joins them."""

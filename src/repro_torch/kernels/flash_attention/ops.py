@@ -1,18 +1,22 @@
-"""GQA flash-attention forward: the CUDA kernels #10 and #11 and their
-plain versions, plus the tile-traffic model.
+"""GQA flash attention: the CUDA kernels #10, #11 and #12, their plain
+versions, the `torch.autograd.Function` that joins #11 and #12, and the
+tile-traffic model.
 
 Replaces `flash_attention_pallas` (`repro/kernels/flash_attention/
-flash_kernel.py:83`) and `flash_attention_fwd_pallas` (`:257`), the
-kernels behind `repro.kernels.flash_attention.ops.flash_attention`. Both
-come from one source, `csrc/flash_attention.cu`, templated on the element
-type and on whether the row log-sum-exp is written.
+flash_kernel.py:83`), `flash_attention_fwd_pallas` (`:257`) and
+`flash_attention_bwd_pallas` (`:302`), the kernels behind
+`repro.kernels.flash_attention.ops.flash_attention` and its custom_vjp.
+The forwards come from one source, `csrc/flash_attention.cu`, templated
+on the element type and on whether the row log-sum-exp is written; the
+backward from `csrc/flash_attention_bwd.cu`.
 
 Layout is the JAX wrapper's: q (B, Sq, H, Dh), k/v (B, Skv, Hk, Dh) in,
 o (B, Sq, H, Dh) out, and lse (B, H, Sq) float32; query head `hi` reads
-KV head `hi // (H // Hk)`. The kernel reads q, k and v through their
-strides (the last dimension contiguous), so no transpose is copied.
+KV head `hi // (H // Hk)`. The kernels read q, k, v (and the backward dO)
+through their strides (the last dimension contiguous), so no transpose is
+copied.
 
-The arithmetic is the Pallas kernel's (`flash_kernel.py:36-80`):
+The forward arithmetic is the Pallas kernel's (`flash_kernel.py:36-80`):
   * s = dot(q, k) in float32, times Dh^-0.5 after the dot;
   * masked scores (causal `k_pos <= q_pos`, window `k_pos > q_pos -
     window`, `q_pos = row + q_offset`) are -1e30, not -inf, and the
@@ -21,14 +25,20 @@ The arithmetic is the Pallas kernel's (`flash_kernel.py:36-80`):
     dtype, with float32 accumulation;
   * o = acc / max(l, 1e-30) in the input dtype; lse = m + log(max(l,
     1e-30)).
-Any Sq and Skv: the ragged edges are masked inside the kernel, and a key
+The backward's is the Pallas backward's (`:174-254`): p = exp(s - lse)
+where visible and 0 elsewhere, delta = rowsum(dO * o) in float32 outside
+the kernel (`:313`), ds = p * (dp - delta) * Dh^-0.5; ds is rounded to
+k's dtype before dS.K, p^T to dO's dtype before P^T.dO and ds^T to q's
+dtype before dS^T.Q. A row that sees no key therefore gets no gradient,
+though the forward averaged every masked key for it.
+Any Sq and Skv: the ragged edges are masked inside the kernels, and a key
 past the end is no key at all. The Pallas wrapper's `Sq % block_q == 0` is
-the TPU's constraint; here block_q/block_kv are the plain version's block
-loop, and the kernel tiles by 64 rows and 64 keys whatever they are.
+the TPU's constraint; here block_q/block_kv are the plain versions' block
+loop, and the kernels tile by 64 rows and 64 keys whatever they are.
 
-The tensors carry no gradient in this slice: the backward kernel (#12)
-and the `torch.autograd.Function` around it belong to the training slice,
-so the wrappers refuse inputs that require a gradient.
+`flash_attention` takes the autograd Function (#11 forward saving q, k,
+v, o and lse; #12 backward) when grad mode is on and q, k or v requires a
+gradient, and #10 otherwise.
 """
 
 from __future__ import annotations
@@ -47,6 +57,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ------------------------------------------------------------ plain version
 def _blocks(n: int, size: int) -> list[tuple[int, int]]:
     return [(s, min(s + size, n)) for s in range(0, n, size)]
+
+
+def _visible(q_pos, k_pos, causal, window) -> torch.Tensor:
+    """(len(q_pos), len(k_pos)) mask of the pairs the Pallas kernels keep."""
+    mask = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > (q_pos[:, None] - window)
+    return mask
 
 
 def _flash_plain(q, k, v, causal, window, q_offset, block_q, block_kv):
@@ -75,13 +96,8 @@ def _flash_plain(q, k, v, causal, window, q_offset, block_q, block_kv):
         for ks, ke in _blocks(skv, block_kv):
             s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
                              kt[:, :, ks:ke].float()) * scale
-            k_pos = torch.arange(ks, ke, device=dev)
-            mask = torch.ones((qe - qs, ke - ks), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                mask &= k_pos[None, :] <= q_pos[:, None]
-            if window > 0:
-                mask &= k_pos[None, :] > (q_pos[:, None] - window)
+            mask = _visible(q_pos, torch.arange(ks, ke, device=dev), causal,
+                            window)
             s = torch.where(mask, s, _NEG)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -114,6 +130,83 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     """Plain PyTorch version of #11 (any device): (o, lse (B, H, Sq))."""
     _check_shapes(q, k, v)
     return _flash_plain(q, k, v, causal, window, q_offset, block_q, block_kv)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * o) in float32, (B, H, Sq) contiguous (`flash_kernel.py
+    :313`, outside the kernel there too)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0,
+                              block_q: int = 256, block_kv: int = 512
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of #12 (any device): the Pallas backward's
+    block loops at (block_q, block_kv) — dq over KV blocks (`flash_kernel.py
+    :174-209`), then dk/dv over (group member, query block) pairs
+    (`:212-254`). Returns (dq, dk, dv) in the (B, S, H|Hk, Dh) layout and
+    the input dtypes."""
+    _check_shapes(q, k, v)
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = dh ** -0.5
+    dev = q.device
+    block_q = max(1, min(block_q, sq))
+    block_kv = max(1, min(block_kv, skv))
+    delta = _delta(o, do).reshape(b, hk, g, sq)
+    lse = lse.reshape(b, hk, g, sq)
+    qt = q.reshape(b, sq, hk, g, dh).permute(0, 2, 3, 1, 4).float()
+    dot = do.reshape(b, sq, hk, g, dh).permute(0, 2, 3, 1, 4).float()
+    kt = k.permute(0, 2, 1, 3).float()                       # (B,Hk,Skv,Dh)
+    vt = v.permute(0, 2, 1, 3).float()
+    pos = torch.arange(sq, device=dev) + q_offset
+
+    dq = torch.empty((b, hk, g, sq, dh), dtype=q.dtype, device=dev)
+    for qs, qe in _blocks(sq, block_q):
+        acc = torch.zeros((b, hk, g, qe - qs, dh), dtype=torch.float32,
+                          device=dev)
+        for ks, ke in _blocks(skv, block_kv):
+            mask = _visible(pos[qs:qe], torch.arange(ks, ke, device=dev),
+                            causal, window)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qt[..., qs:qe, :],
+                             kt[:, :, ks:ke]) * scale
+            p = torch.where(mask, torch.exp(s - lse[..., qs:qe, None]), 0.0)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", dot[..., qs:qe, :],
+                              vt[:, :, ks:ke])
+            ds = p * (dp - delta[..., qs:qe, None]) * scale
+            acc += torch.einsum("bhgqk,bhkd->bhgqd", ds.to(k.dtype).float(),
+                                kt[:, :, ks:ke])
+        dq[..., qs:qe, :] = acc.to(q.dtype)
+
+    dk = torch.empty((b, hk, skv, dh), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, hk, skv, dh), dtype=v.dtype, device=dev)
+    for ks, ke in _blocks(skv, block_kv):
+        dk_acc = torch.zeros((b, hk, ke - ks, dh), dtype=torch.float32,
+                             device=dev)
+        dv_acc = torch.zeros_like(dk_acc)
+        for gi in range(g):
+            for qs, qe in _blocks(sq, block_q):
+                mask_t = _visible(pos[qs:qe], torch.arange(ks, ke, device=dev),
+                                  causal, window).T
+                qb, dob = qt[:, :, gi, qs:qe], dot[:, :, gi, qs:qe]
+                st = torch.einsum("bhkd,bhqd->bhkq", kt[:, :, ks:ke],
+                                  qb) * scale
+                pt = torch.where(mask_t, torch.exp(
+                    st - lse[:, :, gi, None, qs:qe]), 0.0)
+                dv_acc += torch.einsum("bhkq,bhqd->bhkd",
+                                       pt.to(do.dtype).float(), dob)
+                dpt = torch.einsum("bhkd,bhqd->bhkq", vt[:, :, ks:ke], dob)
+                dst = pt * (dpt - delta[:, :, gi, None, qs:qe]) * scale
+                dk_acc += torch.einsum("bhkq,bhqd->bhkd",
+                                       dst.to(q.dtype).float(), qb)
+        dk[:, :, ks:ke] = dk_acc.to(k.dtype)
+        dv[:, :, ks:ke] = dv_acc.to(v.dtype)
+    return (dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh),
+            dk.permute(0, 2, 1, 3).contiguous(),
+            dv.permute(0, 2, 1, 3).contiguous())
 
 
 # ---------------------------------------------------------------- wrappers
@@ -152,9 +245,6 @@ def _launch(q, k, v, causal, window, q_offset, with_lse):
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward in this slice "
-                           "(kernel #12 comes with training)")
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
@@ -186,9 +276,15 @@ def _launch(q, k, v, causal, window, q_offset, with_lse):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     block_q: int = 256, block_kv: int = 512) -> torch.Tensor:
-    """(B, Sq, H, Dh) x (B, Skv, Hk, Dh) -> (B, Sq, H, Dh). CUDA tensors
-    launch kernel #10 (or raise); CPU tensors take the plain version at
-    (block_q, block_kv)."""
+    """(B, Sq, H, Dh) x (B, Skv, Hk, Dh) -> (B, Sq, H, Dh).
+
+    Differentiable: with grad mode on and q, k or v requiring a gradient,
+    it runs `FlashAttentionFn` (forward #11, backward #12). Otherwise CUDA
+    tensors launch kernel #10 (or raise), and CPU tensors take the plain
+    version at (block_q, block_kv)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      block_q, block_kv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, block_q=block_q,
@@ -222,6 +318,101 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
+                         f"got {dev}")
+    _check_shapes(q, k, v)
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {dev}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bwd takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != dev:
+        raise ValueError(f"lse must be float32 (B, H, Sq) = {(b, h, sq)} on "
+                         f"{dev}, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} above the grid's 65535")
+    if skv == 0:
+        raise ValueError("flash_attention_bwd needs at least one key")
+    dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, skv, hk, dh), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, skv, hk, dh), dtype=v.dtype, device=dev)
+    if b == 0 or sq == 0 or h == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = _delta(o, do)
+    lse = lse.contiguous()
+    q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
+    fn = build.entry(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do),
+             build.ptr(lse), build.ptr(delta), build.ptr(dq), build.ptr(dk),
+             build.ptr(dv), _DTYPES[q.dtype], dh, b, h, hk, sq, skv, *strides,
+             int(causal), int(window), int(q_offset), dh ** -0.5,
+             ctypes.c_void_p(build.stream_handle()))
+    build.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, block_q: int = 256,
+                        block_kv: int = 512
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward from the forward's o and lse and the cotangent do:
+    (dq (B, Sq, H, Dh), dk, dv (B, Skv, Hk, Dh)) in the input dtype. CUDA
+    tensors launch kernel #12 (or raise); CPU tensors take the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         block_q=block_q, block_kv=block_kv)
+    dq, dk, dv = _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset)
+    if dq.numel():
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The custom_vjp of `repro/kernels/flash_attention/ops.py:28-54`: the
+    forward runs #11 and saves (q, k, v, o, lse); the backward runs #12.
+    Arguments after v: causal, window, q_offset, block_q, block_kv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_kv):
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  block_q=block_q, block_kv=block_kv)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_inference(q: torch.Tensor, k: torch.Tensor,

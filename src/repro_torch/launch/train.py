@@ -1,0 +1,145 @@
+"""Fault-tolerant training launcher (PyTorch port of `repro.launch.train`).
+
+    python -m repro_torch.launch.train --arch minicpm-2b --steps 4 \
+        --batch 4 --seq 4096 --grad-accum 2
+    python -m repro_torch.launch.train --arch minicpm-2b --reduced \
+        --device cpu --steps 3
+
+Runs on the card unless `--device cpu` is given. Parameters are random,
+from `--seed`, kept as float32 masters and cast to the config's dtype at
+use. Full-sequence attention goes through the flash-attention kernels
+(`use_flash_kernel=True`): the forward #11 and the backward #12, inside
+`torch.autograd.Function`. minicpm takes the WSD schedule, the others
+cosine.
+
+Fault tolerance, as in the JAX launcher:
+  * checkpoints every --ckpt-every steps, atomic, step-tagged;
+  * --resume restarts from the newest complete checkpoint — the data is a
+    pure function of (seed, step), so the replay is exact;
+  * the step loop retries once from the last checkpoint on a failure.
+`--mesh debug|production` (the multi-device data-parallel step) is not
+ported: it raises, naming ROADMAP.md A5.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data.synthetic import make_lm_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.model import init_params, param_count
+from repro_torch.training.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.train_loop import init_train_state, make_train_step
+
+
+def build(args):
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    schedule = "wsd" if args.arch.startswith("minicpm") else "cosine"
+    opt = OptimizerConfig(peak_lr=args.lr, schedule=schedule,
+                          warmup_steps=min(100, args.steps // 10 + 1),
+                          total_steps=args.steps)
+    step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
+    return cfg, opt, step_fn
+
+
+def run(args) -> dict:
+    """Train `args.steps` steps; returns the last step's metrics (floats),
+    "steps", and "history": each step's metrics with its "seconds" (host
+    clock to a synchronised finish)."""
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the multi-device data-parallel step is not "
+            "ported (ROADMAP.md A5)")
+    cfg, opt, step_fn = build(args)
+    dev = resolve_device(args.device)
+    params = init_params(cfg, args.seed, device=dev,
+                         param_dtype=torch.float32)
+    state = init_train_state(cfg, params)
+    print(f"arch={cfg.name} params={param_count(state.params) / 1e6:.2f}M "
+          f"device={dev}", flush=True)
+
+    start = 0
+    if args.resume and args.ckpt_dir:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            state = restore_checkpoint(args.ckpt_dir, last, state)
+            start = last
+            print(f"resumed from step {last}", flush=True)
+
+    metrics, history = {}, []
+    t0 = time.perf_counter()
+    step = start
+    retried = False
+    while step < args.steps:
+        try:
+            t_step = time.perf_counter()
+            batch = make_lm_batch(cfg, args.batch, args.seq, args.seed, step)
+            state, out = step_fn(state, batch)
+            metrics = {k: float(v) for k, v in out.items()}   # synchronises
+            history.append(metrics | {"seconds": time.perf_counter() - t_step})
+            step += 1
+            if step % args.log_every == 0 or step == args.steps:
+                dt = (time.perf_counter() - t0) / max(step - start, 1)
+                print(f"step {step:5d} loss {metrics['loss']:.4f} "
+                      f"ce {metrics['ce']:.4f} lr {metrics['lr']:.2e} "
+                      f"gnorm {metrics['grad_norm']:.2f} ({dt:.2f}s/step)",
+                      flush=True)
+            if args.ckpt_dir and step % args.ckpt_every == 0:
+                save_checkpoint(args.ckpt_dir, step, state)
+        except (RuntimeError, ValueError):
+            # transient-failure path: reload the last checkpoint once
+            if retried or not args.ckpt_dir:
+                raise
+            retried = True
+            last = latest_step(args.ckpt_dir)
+            if last is None:
+                raise
+            print(f"step failed; retrying from checkpoint {last}", flush=True)
+            state = restore_checkpoint(args.ckpt_dir, last, state)
+            step = last
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, step, state)
+    return metrics | {"steps": step, "history": history}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=["none", "debug", "production"],
+                    default="none")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the card)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    return run(parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,11 +7,12 @@ from repro_torch.models.model import (
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
     param_count,
     prefill,
 )
 
 __all__ = [
     "init_params", "forward", "init_decode_state", "decode_step", "prefill",
-    "param_count",
+    "param_count", "loss_fn",
 ]

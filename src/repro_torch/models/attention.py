@@ -3,10 +3,12 @@ port of `repro.models.attention`).
 
 The full-sequence path dispatches on `cfg.use_flash_kernel` exactly as
 the JAX package does: the flash-attention kernel (`kernels/
-flash_attention`: CUDA on the card, its plain version on the CPU), or
+flash_attention`: CUDA on the card, its plain version on the CPU; under
+autograd its `torch.autograd.Function`, forward #11 and backward #12), or
 `blockwise_attention`, a plain copy of the JAX blockwise loop that is the
-alternative and the numerical reference. The JAX package's sharding
-constraints are the identity on one device and have no counterpart here.
+alternative and the numerical reference (differentiable by autograd).
+The JAX package's sharding constraints are the identity on one device
+and have no counterpart here.
 
 GQA: q heads H = G * Hk grouped as (B, S, Hk, G, Dh), so query head `hi`
 reads KV head `hi // G`.
@@ -19,7 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import _init_linear, apply_rope
+from repro_torch.models.layers import _init_linear, apply_rope, dense
 
 _NEG = -1e30
 
@@ -31,21 +33,22 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
 
 
-def attention_init(generator, cfg: ModelConfig) -> Attention:
+def attention_init(generator, cfg: ModelConfig,
+                   dtype: torch.dtype | None = None) -> Attention:
     d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return Attention(_init_linear(generator, cfg, d, h * dh),
-                     _init_linear(generator, cfg, d, hk * dh),
-                     _init_linear(generator, cfg, d, hk * dh),
-                     _init_linear(generator, cfg, h * dh, d))
+    return Attention(_init_linear(generator, cfg, d, h * dh, dtype),
+                     _init_linear(generator, cfg, d, hk * dh, dtype),
+                     _init_linear(generator, cfg, d, hk * dh, dtype),
+                     _init_linear(generator, cfg, h * dh, d, dtype))
 
 
 def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     b, s, _ = x.shape
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = params.wq(x).reshape(b, s, h, dh)
-    k = params.wk(x).reshape(b, s, hk, dh)
-    v = params.wv(x).reshape(b, s, hk, dh)
+    q = dense(x, params.wq).reshape(b, s, h, dh)
+    k = dense(x, params.wk).reshape(b, s, hk, dh)
+    v = dense(x, params.wv).reshape(b, s, hk, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -124,7 +127,7 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         out = blockwise_attention(
             q, k, v, causal=causal, window=cfg.sliding_window,
             q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
-    out = params.wo(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+    out = dense(out.reshape(b, s, cfg.num_heads * cfg.head_dim), params.wo)
     if return_kv:
         return out, (k, v)
     return out
@@ -172,4 +175,4 @@ def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
     out = out.reshape(b, 1, h * dh).to(x.dtype)
-    return params.wo(out), k_cache, v_cache
+    return dense(out, params.wo), k_cache, v_cache

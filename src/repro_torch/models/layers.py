@@ -1,16 +1,21 @@
 """Building-block layers (PyTorch port of `repro.models.layers`).
 
 Conventions:
-  * parameters live in small `nn.Module`s with no gradient (this slice
-    serves; training comes later). Matrices are stored in `cfg.dtype`,
-    norm scales in float32. The JAX package stores float32 and casts at
-    every use (`x @ w.astype(dt)`), which computes the same thing;
-  * projections are `nn.Linear` without bias, so a weight is stored
+  * parameters live in small `nn.Module`s, created frozen
+    (`requires_grad=False`); training makes them trainable
+    (`training/train_loop.py` `init_train_state`). Matrices are stored in
+    a parameter dtype: `cfg.dtype` by default (the serving storage), or
+    float32 for training's master weights, as the JAX package stores them.
+    Every use casts the matrix to the activations' dtype (`x @
+    w.astype(dt)` in the JAX package; a no-op when the storage already is
+    `cfg.dtype`). Norm scales are float32;
+  * projections are bias-free `nn.Linear` holders, so a weight is stored
     (out, in), the transpose of the JAX package's (in, out) matrix
     (`models/convert.py` carries JAX parameters across);
   * every init fn draws from an explicit `torch.Generator` on the
-    parameters' device. Its numbers differ from `jax.random`'s: the tests
-    carry JAX's parameters across instead.
+    parameters' device, in float32 before any cast, so the float32 and
+    the `cfg.dtype` storage come from the same draws. Its numbers differ
+    from `jax.random`'s: the tests carry JAX's parameters across instead.
 """
 
 from __future__ import annotations
@@ -49,11 +54,16 @@ def linear(weight: torch.Tensor) -> nn.Linear:
     return lin
 
 
-def _init_linear(generator, cfg: ModelConfig, in_f: int, out_f: int
-                 ) -> nn.Linear:
+def _init_linear(generator, cfg: ModelConfig, in_f: int, out_f: int,
+                 dtype: torch.dtype | None = None) -> nn.Linear:
     # drawn straight into (out, in) storage; fan-in in_f as in JAX
     return linear(dense_init(generator, (out_f, in_f), in_axis=1,
-                             dtype=torch_dtype(cfg)))
+                             dtype=dtype or torch_dtype(cfg)))
+
+
+def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """x @ W for a bias-free projection, W cast to x's dtype at use."""
+    return F.linear(x, lin.weight.to(x.dtype))
 
 
 # ------------------------------------------------------------------ RMSNorm
@@ -105,16 +115,17 @@ class MLP(nn.Module):
         self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
 
 
-def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None) -> MLP:
+def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None,
+             dtype: torch.dtype | None = None) -> MLP:
     d_ff = d_ff or cfg.d_ff
-    return MLP(_init_linear(generator, cfg, cfg.d_model, d_ff),
-               _init_linear(generator, cfg, cfg.d_model, d_ff),
-               _init_linear(generator, cfg, d_ff, cfg.d_model))
+    return MLP(_init_linear(generator, cfg, cfg.d_model, d_ff, dtype),
+               _init_linear(generator, cfg, cfg.d_model, d_ff, dtype),
+               _init_linear(generator, cfg, d_ff, cfg.d_model, dtype))
 
 
 def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = F.silu(params.w_gate(x)) * params.w_up(x)
-    return params.w_down(h)
+    h = F.silu(dense(x, params.w_gate)) * dense(x, params.w_up)
+    return dense(h, params.w_down)
 
 
 # -------------------------------------------------------------- Embedding
@@ -124,9 +135,10 @@ class Embedding(nn.Module):
         self.table = _frozen(table)                    # (padded_vocab, D)
 
 
-def embedding_init(generator, cfg: ModelConfig) -> Embedding:
+def embedding_init(generator, cfg: ModelConfig,
+                   dtype: torch.dtype | None = None) -> Embedding:
     return Embedding(dense_init(generator, (cfg.padded_vocab, cfg.d_model),
-                                in_axis=1, dtype=torch_dtype(cfg)))
+                                in_axis=1, dtype=dtype or torch_dtype(cfg)))
 
 
 def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig
@@ -140,9 +152,10 @@ class Unembed(nn.Module):
         self.w_out = w_out                             # weight (V, D)
 
 
-def unembed_init(generator, cfg: ModelConfig) -> Unembed:
+def unembed_init(generator, cfg: ModelConfig,
+                 dtype: torch.dtype | None = None) -> Unembed:
     return Unembed(_init_linear(generator, cfg, cfg.d_model,
-                                cfg.padded_vocab))
+                                cfg.padded_vocab, dtype))
 
 
 def unembed(params: Unembed | None, x: torch.Tensor, cfg: ModelConfig,
@@ -150,4 +163,4 @@ def unembed(params: Unembed | None, x: torch.Tensor, cfg: ModelConfig,
     """Logits over the padded vocab. Tied: x @ table.T."""
     if cfg.tie_embeddings and embed_params is not None:
         return F.linear(x, embed_params.table.to(torch_dtype(cfg)))
-    return params.w_out(x)
+    return dense(x, params.w_out)

@@ -4,8 +4,10 @@
 The dense family is pre-norm GQA attention + SwiGLU MLP. The JAX package
 stacks the layers along a leading axis and scans them; here they are an
 `nn.ModuleList` walked by a Python loop (`models/convert.py` splits JAX's
-stacked tree). The other families (moe, vlm, audio, ssm, hybrid) and
-`loss_fn` are not ported yet: they raise, naming ROADMAP.md A7.
+stacked tree). `cfg.remat == "full"` wraps each block in
+`torch.utils.checkpoint` under autograd, as `_maybe_remat` wraps the scan
+body. `loss_fn` is the JAX package's. The other families (moe, vlm,
+audio, ssm, hybrid) are not ported yet: they raise, naming ROADMAP.md A7.
 
 Decode threads an explicit state dict {"k", "v": (L, B, S_cache, Hk, Dh)
 caches in `cfg.dtype`, "pos": int}. `prefill` and `decode_step` write the
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -45,6 +48,7 @@ from repro_torch.models.layers import (
 )
 
 PORTED_FAMILIES = ("dense",)
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -79,9 +83,11 @@ class Model(nn.Module):
 
 # ================================================================== init
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
-                device=None) -> Model:
-    """Random parameters from a seed (or a generator on `device`):
-    matrices in `cfg.dtype`, norm scales float32."""
+                device=None, param_dtype: torch.dtype | None = None) -> Model:
+    """Random parameters from a seed (or a generator on `device`), frozen:
+    matrices in `param_dtype` (None: `cfg.dtype`, the serving storage;
+    torch.float32: training's master weights, the same draws), norm
+    scales float32."""
     _require_dense(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
@@ -89,12 +95,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{dev}")
-    emb = embedding_init(generator, cfg)
-    unemb = None if cfg.tie_embeddings else unembed_init(generator, cfg)
+    emb = embedding_init(generator, cfg, param_dtype)
+    unemb = (None if cfg.tie_embeddings
+             else unembed_init(generator, cfg, param_dtype))
     blocks = [Block(rmsnorm_init(cfg, device=dev),
-                    attention_init(generator, cfg),
+                    attention_init(generator, cfg, param_dtype),
                     rmsnorm_init(cfg, device=dev),
-                    mlp_init(generator, cfg))
+                    mlp_init(generator, cfg, dtype=param_dtype))
               for _ in range(cfg.num_layers)]
     return Model(emb, blocks, rmsnorm_init(cfg, device=dev), unemb)
 
@@ -117,21 +124,64 @@ def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :]
 
 
+def _block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    eps = cfg.norm_eps
+    x = x + attention(blk.attn, rmsnorm(blk.ln1, x, eps), cfg, positions)
+    return x + mlp(blk.mlp, rmsnorm(blk.ln2, x, eps), cfg)
+
+
 def forward(params: Model, cfg: ModelConfig, batch: dict,
-            return_hidden: bool = False) -> torch.Tensor:
+            with_aux: bool = False, return_hidden: bool = False):
     """Full-sequence forward. batch: {"tokens": (B, S)}. Returns logits
-    (B, S, padded V); return_hidden=True returns the final-norm hidden
-    states instead (retrieval embeddings for serving/rag.py)."""
+    (B, S, padded V) [, aux loss (0 for the dense family)];
+    return_hidden=True returns the final-norm hidden states instead
+    (retrieval embeddings for serving/rag.py)."""
     _require_dense(cfg)
     x = embed(params.embed, _tokens(params, batch), cfg)
     positions = _positions(x.shape[1], x.device)
-    eps = cfg.norm_eps
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for blk in params.blocks:
-        x = x + attention(blk.attn, rmsnorm(blk.ln1, x, eps), cfg, positions)
-        x = x + mlp(blk.mlp, rmsnorm(blk.ln2, x, eps), cfg)
-    if return_hidden:
-        return rmsnorm(params.final_norm, x, eps)
-    return _logits(params, cfg, x)
+        if remat:
+            # the recompute in the backward re-runs the block's forward
+            # (and so relaunches the flash forward #11)
+            x = checkpoint(_block, blk, x, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(blk, x, cfg, positions)
+    out = (rmsnorm(params.final_norm, x, cfg.norm_eps) if return_hidden
+           else _logits(params, cfg, x))
+    if with_aux:
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return out
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy + AUX_LOSS_WEIGHT * aux (JAX
+    `model.py:233-252`). batch: {"tokens", "labels": (B, S) int}; negative
+    labels are masked out. Logits in float32, the vocab padding columns
+    at -1e30. Returns (total, {"ce", "aux"})."""
+    logits, aux = forward(params, cfg, batch, with_aux=True)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    loss = cross_entropy(logits, labels, cfg.vocab_size)
+    return loss + AUX_LOSS_WEIGHT * aux, {"ce": loss, "aux": aux}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0, in float32, the padding
+    columns past `vocab_size` at -1e30."""
+    # in place on the float32 copy, which nothing else holds: one fewer
+    # (B, S, V) float32 tensor at full width
+    logits = logits.float().masked_fill_(
+        torch.arange(logits.shape[-1], device=logits.device) >= vocab_size,
+        -1e30)
+    labels = labels.long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((logz - gold) * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 # ================================================================= decode

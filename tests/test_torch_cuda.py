@@ -9,7 +9,13 @@ JAX:
 
 Flash attention (#10, #11): float32 rtol 1e-4 / atol 1e-5 against the
 plain version, bf16 rtol/atol 2e-2, lse atol 1e-4; #11's o bit-equal to
-#10's.
+#10's. Its backward (#12): dq, dk, dv against the plain version at rtol
+1e-4 and atol 1e-4 of the largest plain gradient in float32 (the kernel
+sums up to Sq * G terms one after another, the plain version in blocks:
+the difference grows like sqrt(n) * eps), rtol 2e-2 and atol 2e-2 of it in
+bf16 (ds and p are rounded to bf16 before their products, and the outputs
+once more); run twice, bit-equal (no atomics). The autograd Function
+against torch autograd of `blockwise_attention`, float32, rtol 1e-4.
 
 Tolerances: on integer-valued operands every float sum is exact in any
 order, so kernel and plain version must agree BIT for bit (ids, dists,
@@ -714,3 +720,112 @@ def test_model_forward_flash_vs_blockwise(cuda_device):
     cos = torch.nn.functional.cosine_similarity(got.float(), want.float(),
                                                 dim=-1)
     assert float(cos.min()) >= 0.999
+
+
+# ------------------------------------------------ flash attention backward (#12)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_GRID, ids=[c[0] for c in FLASH_GRID])
+def test_flash_attention_bwd_vs_plain(cuda_device, case, dtype):
+    """#12 against its plain version (the Pallas backward's block loops at
+    64 x 64) on the forward's grid: groups 1, 2 and 9, Dh 32/64/128, ragged
+    lengths, windows, q_offset with Sq < Skv and rows that see no key
+    (their dq is 0 in both); a second launch is bit-equal."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_plain)
+    q, k, v = _flash_inputs(case, dtype, cuda_device)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
+    causal, window, q_offset = case[7:]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, block_q=64,
+              block_kv=64)
+    o, lse = flash_attention_fwd_plain(q, k, v, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    for name, g, a, w, like in zip(("dq", "dk", "dv"), got, again, want,
+                                   (q, k, v)):
+        assert g.dtype == dtype and g.shape == like.shape, name
+        assert torch.equal(g, a), name
+        tol = FLASH_TOL[dtype]["rtol"]     # 1e-4 (f32) or 2e-2 (bf16)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * float(w.float().abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_vs_blockwise(cuda_device):
+    """The autograd Function (#11 forward, #12 backward) against torch
+    autograd of blockwise_attention, float32, GQA group 9, Dh 128, q,
+    k and v views of one fused projection: rtol 1e-4, atol 1e-5."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.models.attention import blockwise_attention
+    b, s, h, hk, dh = 2, 192, 9, 1, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn((b, s, (h + 2 * hk) * dh), generator=gen,
+                      device=cuda_device)
+    ct = torch.randn((b, s, h, dh), generator=gen, device=cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        x = qkv.clone().requires_grad_()
+        q = x[..., :h * dh].view(b, s, h, dh)
+        k = x[..., h * dh:(h + hk) * dh].view(b, s, hk, dh)
+        v = x[..., (h + hk) * dh:].view(b, s, hk, dh)
+        n11, n12 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        if use_kernel:
+            out = flash_attention(q, k, v, causal=True, window=100)
+        else:
+            out = blockwise_attention(q, k, v, causal=True, window=100,
+                                      q_chunk=64, kv_chunk=64)
+        (out * ct).sum().backward()
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches - n11 == int(use_kernel)
+        assert flash_attention_bwd.launches - n12 == int(use_kernel)
+        grads.append(x.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_loss_backward_launch_counts(cuda_device, remat):
+    """loss_fn + backward at a reduced minicpm (2 layers, bf16 compute on
+    float32 masters, the flash path): #11 once per layer (twice with remat
+    "full": the forward and the recompute), #12 once per layer, #10 never;
+    the gradients match the blockwise path's (cosine >= 0.999)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
+                              dtype="bfloat16", use_flash_kernel=True,
+                              remat=remat)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen,
+                         device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = []
+    for flash in (True, False):
+        params = init_params(dataclasses.replace(cfg, use_flash_kernel=flash),
+                             0, device=cuda_device, param_dtype=torch.float32)
+        params.requires_grad_(True)
+        counters = (flash_attention, flash_attention_fwd, flash_attention_bwd)
+        before = [c.launches for c in counters]
+        loss, _ = loss_fn(params, dataclasses.replace(
+            cfg, use_flash_kernel=flash), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = [c.launches - b_ for c, b_ in zip(counters, before)]
+        layers = cfg.num_layers
+        want = ([0, layers * (2 if remat == "full" else 1), layers] if flash
+                else [0, 0, 0])
+        assert launched == want, (flash, launched)
+        assert all(p.grad.dtype == torch.float32 for p in params.parameters())
+        flat.append(torch.cat([p.grad.flatten() for p in params.parameters()]))
+    cos = torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0)
+    assert float(cos) >= 0.999

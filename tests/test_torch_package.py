@@ -53,7 +53,9 @@ def test_package_has_the_slice_modules():
                  "kernels.flash_attention.ops", "kernels.flash_attention.ref",
                  "models.layers", "models.attention", "models.model",
                  "models.convert", "serving.serve_loop", "serving.rag",
-                 "launch.serve"):
+                 "launch.serve", "training", "training.optimizer",
+                 "training.train_loop", "training.checkpoint",
+                 "launch.train"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -181,6 +183,34 @@ def test_lm_entry_points_raise_without_gpu(monkeypatch):
     assert serve.main(argv + ["--device", "cpu"]).shape == (2, 11)
 
 
+def test_training_entry_points_raise_without_gpu(monkeypatch):
+    """The training slice's entry points: the card, or the CPU only when
+    asked for."""
+    import argparse
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.models import model as tm
+    from repro_torch.training import init_train_state
+    _no_cuda(monkeypatch)
+    cfg = ARCHS["minicpm-2b"].reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, tm.init_params(cfg, 0,
+                                             param_dtype=torch.float32))
+    state = init_train_state(cfg, tm.init_params(
+        cfg, 0, device="cpu", param_dtype=torch.float32))
+    assert state.opt_state["m"]["embed.table"].device.type == "cpu"
+    args = argparse.Namespace(
+        arch="minicpm-2b", reduced=True, steps=1, batch=2, seq=16, lr=1e-3,
+        grad_accum=1, seed=0, mesh="none", ckpt_dir=None, ckpt_every=10,
+        resume=False, log_every=1, device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.run(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
+    args.device = "cpu"
+    assert train.run(args)["steps"] == 1
+
+
 def test_kernel_build_refuses_without_gpu(monkeypatch):
     from repro_torch.kernels import build
     _no_cuda(monkeypatch)
@@ -212,8 +242,8 @@ def _call_wrappers(x):
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_gather_distance, rabitq_search_step)
     from repro_torch.kernels.search_step.ops import fused_hop, fused_search
-    from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                         flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.topk.ops import topk
     out = {}
     out["gather_l2"] = lambda: gather_l2(x["q"], x["table"],
@@ -255,6 +285,10 @@ def _call_wrappers(x):
                                                      block_kv=64)
     out["flash_attention_fwd"] = lambda: flash_attention_fwd(
         fq, fk, fv, block_q=64, block_kv=64)
+    fo = torch.zeros_like(fq)
+    lse = torch.zeros((1, 6, 70), device=dev)
+    out["flash_attention_bwd"] = lambda: flash_attention_bwd(
+        fq, fk, fv, fo, lse, fo, block_q=64, block_kv=64)
     return out
 
 
@@ -263,7 +297,8 @@ def _call_wrappers(x):
                                   "gather_l2_tiled", "pairwise_l2",
                                   "rabitq_distance",
                                   "rabitq_gather_distance",
-                                  "flash_attention", "flash_attention_fwd"])
+                                  "flash_attention", "flash_attention_fwd",
+                                  "flash_attention_bwd"])
 def test_wrappers_plain_only_on_cpu(name, monkeypatch):
     """CPU tensors take the plain version (no build, no launch counted);
     tensors on any other non-CUDA device raise rather than fall back."""
@@ -282,6 +317,8 @@ def test_wrappers_plain_only_on_cpu(name, monkeypatch):
                "topk": "repro_torch.kernels.topk.ops",
                "flash_attention": "repro_torch.kernels.flash_attention.ops",
                "flash_attention_fwd":
+                   "repro_torch.kernels.flash_attention.ops",
+               "flash_attention_bwd":
                    "repro_torch.kernels.flash_attention.ops"}[name]
     mod = __import__(wrapper, fromlist=[name])
     before = getattr(mod, name).launches
