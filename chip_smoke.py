@@ -7,7 +7,11 @@
 Phases:
   1. device   — the card's name and power limit (nvidia-smi).
   2. build    — compile the CUDA kernels from `src/repro_torch/csrc` (one
-                nvcc per source, in parallel); print the seconds.
+                nvcc per source, in parallel); print the seconds, each
+                library's registers and spills, and, from `cuobjdump -sass`,
+                the HMMA (tensor-core) instructions of every bf16
+                flash-attention kernel: each must have some and no spill
+                stores.
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
@@ -15,8 +19,9 @@ Phases:
                 the flash-attention kernels #10, #11 and the backward #12
                 on a grid of small shapes: float32 and bf16, causal and
                 bidirectional, window 64, q_offset > 0 with Sq < Skv, rows
-                that see no key, GQA groups 1, 2 and 9, Dh 32/64/128,
-                ragged Sq and Skv.
+                that see no key, GQA groups 1, 2 and 9, Dh 32/64/80/128,
+                ragged Sq and Skv at the tiles' edges (63, 65, 127, 129,
+                255: 64 keys, 64 rows or 128 at Dh 128).
   4. main path — bigann-shaped synthetic data; `JasperIndex.build` (Vamana
                 construction + RaBitQ 4-bit codes); search with the
                 megakernel + exact rerank, with the unfused loop over the
@@ -88,10 +93,12 @@ Phases:
                 lane (quantized, D = 4,608) for its recall and launches.
   9. training — runs last: minicpm-2b (40 layers, d_model 2,304, 36
                 heads, Dh 64, vocab 122,753, tied embeddings), float32
-                master weights, bf16 compute, remat "full". (a) #12 against
-                its plain version at minicpm's attention shape (B=1,
-                S=4,096, 36/36, Dh 64) and starcoder2-7b's (36/4, Dh 128),
-                float32 and bf16; (b) #12 timed at the training microbatch
+                master weights, bf16 compute, remat "full". (a) #10/#11
+                and #12 against their plain versions at minicpm's attention
+                shape (B=2, S=4,096, 36/36, Dh 64), #12 at starcoder2-7b's
+                (36/4, Dh 128), float32 and bf16, and #10/#11/#12 at
+                stablelm-3b's (B=1, 32/32, Dh 80) in bf16; (b) #11 and #12
+                timed at the training microbatch
                 (B=2, bf16) beside its plain version, SDPA's backward and
                 the bound; (c) 2 layers at full width, B=1: gradients of
                 `loss_fn` through the kernels against the blockwise path
@@ -1421,6 +1428,20 @@ FLASH_GRID = [
     ("qoffset-window64-g2-d64", 1, 50, 250, 4, 2, 64, True, 64, 200),
     ("rows-past-the-keys-g2-d64", 1, 64, 100, 4, 2, 64, True, 16, 120),
     ("causal-g2-d32", 1, 65, 65, 4, 2, 32, True, 0, 0),
+    # head dim 80 (stablelm-3b, zamba2-2.7b, hubert-xlarge)
+    ("causal-g2-d80", 1, 200, 200, 8, 4, 80, True, 0, 0),
+    ("window64-g1-d80", 1, 257, 257, 4, 4, 80, True, 64, 0),
+    ("qoffset-g2-d80", 2, 70, 333, 4, 2, 80, True, 0, 263),
+    ("bidir-g9-d80", 1, 129, 127, 9, 1, 80, False, 0, 0),
+    # the edges of the bf16 kernels' tiles: 64 keys; 64 query rows, or 128
+    # at Dh 128 (the backward: 64 rows and 64 keys at every Dh)
+    ("edge-63-d128", 1, 63, 63, 4, 1, 128, True, 0, 0),
+    ("edge-65-d80", 1, 65, 65, 4, 2, 80, True, 0, 0),
+    ("edge-127-129-d64", 2, 127, 129, 4, 2, 64, False, 0, 0),
+    ("edge-129-d128", 1, 129, 129, 4, 2, 128, True, 0, 0),
+    ("edge-129-255-d80", 1, 129, 255, 4, 2, 80, True, 0, 126),
+    ("edge-255-d32", 1, 255, 255, 6, 2, 32, True, 0, 0),
+    ("edge-255-127-window-d128", 1, 255, 127, 4, 4, 128, True, 64, 0),
 ]
 # float32: the kernel and the plain version differ only in summation order
 # and block partition; bf16: p is rounded to bf16 at another running max,
@@ -1489,6 +1510,46 @@ def compare_flash_bwd(q, k, v, kw, what, gen) -> float:
               f"(max |plain| {float(w.float().abs().max()):.3g})")
         worst = max(worst, err)
     return worst
+
+
+def kernel_label(symbol: str) -> str:
+    """flash_fwd_bf16_kernel<128, lse> from a mangled kernel name."""
+    m = re.search(r"(?<=\d)(flash_\w+?_kernel)I(?:f)?Li(\d+)E(?:Lb(\d)E)?",
+                  symbol)
+    if not m:
+        return symbol
+    return f"{m[1]}<{m[2]}{', lse' if m[3] == '1' else ''}>"
+
+
+def flash_sass_check(libs: dict) -> None:
+    """Phase 2: every bf16 flash-attention kernel computes its products on
+    the tensor cores (HMMA instructions in its SASS, `cuobjdump` from the
+    toolkit of `nvcc`) and spills nothing (its ptxas report)."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([str(tool), "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        hmma = {fn: body.count("HMMA") for fn, body in re.findall(
+            r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S)}
+        report = (build.BUILD_DIR / f"{name}.log").read_text(errors="replace")
+        spills = {fn: int(n) for fn, n in re.findall(
+            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores", report)}
+        bf16 = sorted((fn for fn in hmma if "bf16_kernel" in fn),
+                      key=lambda fn: (len(kernel_label(fn)),
+                                      kernel_label(fn)))
+        check(len(bf16) > 0, f"{name}: no bf16 kernel in the SASS")
+        for fn in bf16:
+            check(hmma[fn] > 0, f"{kernel_label(fn)}: no HMMA instruction")
+            check(spills.get(fn) == 0, f"{kernel_label(fn)}: spill stores "
+                  f"{spills.get(fn, 'not reported')}")
+        others = [fn for fn in hmma if fn not in bf16]
+        log(f"    sass {name}: HMMA per bf16 kernel "
+            + ", ".join(f"{kernel_label(fn)} {hmma[fn]}" for fn in bf16)
+            + f" (no spill stores); the {len(others)} float32 SIMT kernels "
+            f"{sum(hmma[fn] for fn in others)}")
 
 
 def flash_selfcheck(gen) -> None:
@@ -1813,7 +1874,8 @@ def flash_at_train_shapes(cfg) -> dict:
     """Phase 9 (a) and (b), at the training microbatch (B=2, S=4,096):
     #10/#11 and #12 against their plain versions at minicpm's attention
     shape (36/36, Dh 64) in float32 and bf16, and #12 at starcoder2-7b's
-    (36/4, Dh 128: the group of 9 at full width); then #11 and #12 timed
+    (36/4, Dh 128: the group of 9 at full width); #10/#11 and #12 at
+    stablelm-3b's (B=1, 32/32, Dh 80) in bf16; then #11 and #12 timed
     in bf16 beside their plain versions, SDPA's forward and backward and
     their bounds. Returns {kernel: record fields} for #11 and #12."""
     import torch.nn.functional as F
@@ -1850,6 +1912,20 @@ def flash_at_train_shapes(cfg) -> dict:
                 f"H={h}, Hk={hk}, Dh={dh}) causal {dtype}: max |dq, dk, dv "
                 f"err| vs plain {err:.3g}, launches bit-equal")
             del q, k, v
+
+    # stablelm-3b's attention (32 heads of 80), one sequence, bf16
+    c3 = get_config("stablelm-3b")
+    h, hk, dh = c3.num_heads, c3.num_kv_heads, c3.head_dim
+    q, k, v = [torch.randn((1, s, n, dh), generator=gen, device="cuda"
+                           ).to(torch.bfloat16) for n in (h, hk, hk)]
+    shape = f"(1, {s}, {h}/{hk}, {dh}) bf16"
+    err_f = compare_flash(q, k, v, kw, f"flash at {shape}")
+    err_b = compare_flash_bwd(q, k, v, kw, f"flash bwd at {shape}", gen)
+    log(f"  flash at {c3.name}'s shape (B=1, S={s}, H={h}, Hk={hk}, "
+        f"Dh={dh}) causal bf16: o max |err| vs plain {err_f:.3g}, #11 o "
+        f"bit-equal to #10; max |dq, dk, dv err| {err_b:.3g}, launches "
+        f"bit-equal")
+    del q, k, v
 
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = qkv(h, hk, dh, torch.bfloat16)
@@ -2008,7 +2084,7 @@ def step_split(step_fn, state, batch) -> tuple:
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         ms = e.self_device_time_total / 1e3
-        if "flash_fwd_kernel" in e.key:
+        if "flash_fwd_" in e.key:        # flash_fwd_kernel, flash_fwd_bf16_kernel
             split["#11 flash_fwd"] += ms
         elif "flash_bwd_" in e.key:
             split["#12 flash_bwd"] += ms
@@ -2187,6 +2263,7 @@ def main() -> int:
         if regs:
             log(f"    ptxas {name}: {len(regs)} kernels, registers "
                 f"{min(regs)}..{max(regs)}, {spills} with spill stores")
+    flash_sass_check(libs)
 
     gen = torch.Generator().manual_seed(SEED + 7)
     log("[3] selfcheck (small index, every variant, exact arithmetic)")

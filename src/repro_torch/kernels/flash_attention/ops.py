@@ -7,8 +7,10 @@ flash_kernel.py:83`), `flash_attention_fwd_pallas` (`:257`) and
 `flash_attention_bwd_pallas` (`:302`), the kernels behind
 `repro.kernels.flash_attention.ops.flash_attention` and its custom_vjp.
 The forwards come from one source, `csrc/flash_attention.cu`, templated
-on the element type and on whether the row log-sum-exp is written; the
-backward from `csrc/flash_attention_bwd.cu`.
+on whether the row log-sum-exp is written; the backward from
+`csrc/flash_attention_bwd.cu`. Each source has two paths, picked by
+dtype: bfloat16 runs on the tensor cores (`mma.sync`, the path serving and
+training take), float32 on SIMT FMAs. Head dims 32, 64, 80 and 128.
 
 Layout is the JAX wrapper's: q (B, Sq, H, Dh), k/v (B, Skv, Hk, Dh) in,
 o (B, Sq, H, Dh) out, and lse (B, H, Sq) float32; query head `hi` reads
@@ -50,7 +52,7 @@ import torch
 from repro_torch.kernels import build
 
 _NEG = -1e30
-HEAD_DIMS = (32, 64, 128)            # the kernel's template instances
+HEAD_DIMS = (32, 64, 80, 128)        # the kernels' template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -221,15 +223,29 @@ def _check_shapes(q, k, v) -> None:
                          f"{tuple(k.shape)} (H must be a multiple of Hk)")
 
 
+def _fits(t: torch.Tensor) -> bool:
+    """Can the kernels read t through its strides? The last dimension
+    contiguous, and every row start aligned: the float32 kernels read
+    element pairs (the batch/seq/head strides even, the base 8-byte
+    aligned), the bf16 kernels copy 16-byte chunks with cp.async (those
+    strides multiples of 8 elements, the base 16-byte aligned)."""
+    elems = 8 if t.dtype == torch.bfloat16 else 2
+    return (t.stride(3) == 1 and all(s % elems == 0 for s in t.stride()[:3])
+            and t.data_ptr() % (elems * t.element_size()) == 0)
+
+
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads element pairs through the batch/seq/head strides:
-    the last dimension contiguous, those strides even, the base aligned
-    to a pair. Anything else is copied into a contiguous tensor."""
-    pair = 2 * t.element_size()
-    if (t.stride(3) == 1 and all(s % 2 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % pair == 0):
+    """t itself where the kernels can read it in place, else a contiguous
+    copy (aligned: Dh is a multiple of 8 and PyTorch's allocations are
+    256-byte aligned); raises if even that does not fit."""
+    if _fits(t):
         return t
-    return t.contiguous() if not t.is_contiguous() else t.clone()
+    t = t.contiguous() if not t.is_contiguous() else t.clone()
+    if not _fits(t):
+        raise ValueError(f"flash_attention: a {t.dtype} operand of shape "
+                         f"{tuple(t.shape)} at {t.data_ptr():#x} has rows "
+                         "the kernels cannot read aligned")
+    return t
 
 
 def _launch(q, k, v, causal, window, q_offset, with_lse):

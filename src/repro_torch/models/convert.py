@@ -14,8 +14,10 @@ function in the port's storage:
 `named_from_jax` gives any JAX-layout tree (the parameters, or an AdamW
 moment of them) keyed by the port's parameter names, and `to_jax_layout`
 maps the port's parameters (or a moment dict keyed by their names) back
-to the JAX tree as numpy arrays, so the tests compare leaf by leaf. Real
-checkpoints would load the same way.
+to the JAX tree as numpy arrays, so the tests compare leaf by leaf and
+`training/checkpoint.py` writes and reads the JAX package's checkpoints.
+Both take the layout from a `ModelConfig` or from a `Model` itself (its
+layer count and whether the embeddings are tied are all they need).
 """
 
 from __future__ import annotations
@@ -40,11 +42,20 @@ _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w_gate", "w_up", "w_down")
 
 
-def _leaves(cfg: ModelConfig):
+def _layout(cfg: ModelConfig | Model) -> tuple[int, bool]:
+    """(layers, tied embeddings) of a config, or of a dense Model."""
+    if isinstance(cfg, Model):
+        return len(cfg.blocks), cfg.unembed is None
+    _require_dense(cfg)
+    return cfg.num_layers, cfg.tie_embeddings
+
+
+def _leaves(cfg: ModelConfig | Model):
     """(port parameter name, JAX path, layer or None, transposed) for
     every parameter, in the port's `named_parameters()` order."""
+    num_layers, tied = _layout(cfg)
     out = [("embed.table", ("embed", "table"), None, False)]
-    for i in range(cfg.num_layers):
+    for i in range(num_layers):
         pre = f"blocks.{i}"
         out.append((f"{pre}.ln1.scale", ("blocks", "ln1", "scale"), i, False))
         out += [(f"{pre}.attn.{w}.weight", ("blocks", "attn", w), i, True)
@@ -53,16 +64,16 @@ def _leaves(cfg: ModelConfig):
         out += [(f"{pre}.mlp.{w}.weight", ("blocks", "mlp", w), i, True)
                 for w in _MLP]
     out.append(("final_norm.scale", ("final_norm", "scale"), None, False))
-    if not cfg.tie_embeddings:
+    if not tied:
         out.append(("unembed.w_out.weight", ("unembed", "w_out"), None,
                     True))
     return out
 
 
-def named_from_jax(arrays: dict, cfg: ModelConfig) -> dict[str, np.ndarray]:
+def named_from_jax(arrays: dict, cfg: ModelConfig | Model
+                   ) -> dict[str, np.ndarray]:
     """{port parameter name: float32 array in the port's layout} from a
     JAX-layout tree (the parameters, or an AdamW moment of them)."""
-    _require_dense(cfg)
     out = {}
     for name, path, layer, transposed in _leaves(cfg):
         a = arrays
@@ -99,15 +110,17 @@ def params_from_jax(arrays: dict, cfg: ModelConfig, device=None,
                  norm("final_norm.scale"), unemb)
 
 
-def to_jax_layout(params, cfg: ModelConfig) -> dict:
+def to_jax_layout(params, cfg: ModelConfig | Model) -> dict:
     """The port's parameters (a `Model`, or a dict {parameter name:
     tensor} such as an AdamW moment) as the JAX package's tree of float32
     numpy arrays: layers stacked, projections back to (in, out)."""
     named = (dict(params.named_parameters()) if isinstance(params, Model)
              else params)
     tree: dict = {}
+    num_layers = _layout(cfg)[0]
     for name, path, layer, transposed in _leaves(cfg):
-        a = named[name].detach().float().cpu().numpy()
+        # a copy: the arrays must not follow later in-place updates
+        a = named[name].detach().to("cpu", torch.float32, copy=True).numpy()
         a = a.T if transposed else a
         node = tree
         for key in path[:-1]:
@@ -115,7 +128,7 @@ def to_jax_layout(params, cfg: ModelConfig) -> dict:
         if layer is None:
             node[path[-1]] = a
         else:
-            node.setdefault(path[-1], [None] * cfg.num_layers)[layer] = a
+            node.setdefault(path[-1], [None] * num_layers)[layer] = a
     for sub in ("ln1", "attn", "ln2", "mlp"):
         for key, layers in tree["blocks"][sub].items():
             tree["blocks"][sub][key] = np.stack(layers)

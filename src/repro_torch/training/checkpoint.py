@@ -1,14 +1,19 @@
 """Fault-tolerant checkpointing (PyTorch port of
-`repro.training.checkpoint`): atomic, step-tagged.
+`repro.training.checkpoint`): atomic, step-tagged, and in the JAX
+package's format, so a run checkpointed by either package resumes in the
+other.
 
 Layout: <dir>/step_<N>.npz (+ .meta.json), written via tmp + os.replace so
 a crash mid-write never corrupts the latest checkpoint; the meta file is
 renamed last, and `latest_step` only counts steps that have both. One npz
-holds every leaf, keyed by the port's names: "params/<parameter name>",
-"opt_state/m/<parameter name>", ..., "opt_state/step". Floating leaves are
-stored as float32 (exact for float32 and bfloat16), so the format does
-not depend on the device that wrote it. Restore copies INTO a like-state
-on any device, in place.
+holds every leaf of a `TrainState`, keyed as `repro.training.checkpoint`
+flattens JAX's `TrainState` (pytree paths joined by "/", a named-tuple
+field as ".<field>"): ".params/blocks/attn/wq" with the layers stacked
+and projections as (in, out) matrices, ".opt_state/m/...",
+".opt_state/v/...", ".opt_state/step". The parameters and moments go
+through `models/convert.py` (`to_jax_layout` to write, `named_from_jax`
+to read) and are stored as float32; the step as int32. Restore copies
+INTO a like-state on any device, in place.
 """
 
 from __future__ import annotations
@@ -20,41 +25,62 @@ import threading
 
 import numpy as np
 import torch
-from torch import nn
+
+from repro_torch.models.convert import named_from_jax, to_jax_layout
+from repro_torch.training.train_loop import TrainState
+
+_SEP = "/"
+_MOMENTS = ("m", "v")
 
 
-def _leaves(tree, prefix: str = ""):
-    """(key, leaf) for every tensor or number of a TrainState / dict /
-    Module tree."""
-    if isinstance(tree, nn.Module):
-        for name, p in tree.named_parameters():
-            yield prefix + name, p
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for field in tree._fields:
-            yield from _leaves(getattr(tree, field), f"{prefix}{field}/")
-    elif isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}{k}/")
-    else:
-        yield prefix.rstrip("/"), tree
+def _flatten(tree, prefix: str) -> dict[str, np.ndarray]:
+    """{JAX checkpoint key: array} of a nested dict of arrays."""
+    flat = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            flat.update(_flatten(leaf, f"{prefix}{key}{_SEP}"))
+        else:
+            flat[prefix + key] = leaf
+    return flat
 
 
-def _to_numpy(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
-        return (t.float() if t.is_floating_point() else t).cpu().numpy()
-    return np.asarray(leaf)
+def _unflatten(data, prefix: str) -> dict:
+    """The nested dict of the arrays of `data` whose keys start with
+    `prefix`, split at "/"."""
+    tree: dict = {}
+    for key in data.files:
+        if not key.startswith(prefix):
+            continue
+        *path, last = key[len(prefix):].split(_SEP)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = data[key]
+    return tree
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree,
+def _require_state(tree) -> None:
+    if not isinstance(tree, TrainState):
+        raise TypeError(f"checkpoints hold a TrainState, got "
+                        f"{type(tree).__name__}")
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: TrainState,
                     extra_meta: dict | None = None,
                     async_write: bool = False) -> str:
-    """Atomic save. Returns the final path. The leaves are copied to the
-    host first; async_write then returns and writes the file in a daemon
-    thread (done when its meta file exists)."""
+    """Atomic save of a TrainState in the JAX package's layout. Returns the
+    final path. The leaves are copied to the host first; async_write then
+    returns and writes the file in a daemon thread (done when its meta
+    file exists)."""
+    _require_state(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
-    flat = {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+    model, opt = tree
+    flat = _flatten(to_jax_layout(model, model), f".params{_SEP}")
+    for key in _MOMENTS:
+        flat.update(_flatten(to_jax_layout(opt[key], model),
+                             f".opt_state{_SEP}{key}{_SEP}"))
+    flat[f".opt_state{_SEP}step"] = np.asarray(opt["step"], np.int32)
     meta = {"step": step, **(extra_meta or {})}
 
     def write():
@@ -85,26 +111,25 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 @torch.no_grad()
-def _restore(tree, data, prefix: str = ""):
-    if isinstance(tree, nn.Module):
-        for name, p in tree.named_parameters():
-            p.copy_(torch.from_numpy(data[prefix + name]))
-        return tree
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_restore(getattr(tree, f), data, f"{prefix}{f}/")
-                            for f in tree._fields))
-    if isinstance(tree, dict):
-        return {k: _restore(v, data, f"{prefix}{k}/") for k, v in tree.items()}
-    key = prefix.rstrip("/")
-    if isinstance(tree, torch.Tensor):
-        return tree.copy_(torch.from_numpy(data[key]))
-    return type(tree)(data[key])
+def _copy_into(tensors: dict[str, torch.Tensor], arrays: dict) -> None:
+    for name, t in tensors.items():
+        t.copy_(torch.from_numpy(arrays[name]))
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like):
-    """Restore into the structure of `like` (a TrainState, dict or
-    Module), copying each leaf into `like`'s tensor in place — on the
-    device and in the dtype it has there. Returns the restored tree."""
+def restore_checkpoint(ckpt_dir: str, step: int, like: TrainState
+                       ) -> TrainState:
+    """Restore a checkpoint of either package into `like` (a TrainState
+    of the same model), copying each leaf into `like`'s tensor in place —
+    on the device and in the dtype it has there. Returns the restored
+    state."""
+    _require_state(like)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    model, opt = like
     with np.load(path) as data:
-        return _restore(like, data)
+        _copy_into(dict(model.named_parameters()), named_from_jax(
+            _unflatten(data, f".params{_SEP}"), model))
+        for key in _MOMENTS:
+            _copy_into(opt[key], named_from_jax(
+                _unflatten(data, f".opt_state{_SEP}{key}{_SEP}"), model))
+        step_now = int(data[f".opt_state{_SEP}step"])
+    return TrainState(model, {**opt, "step": step_now})

@@ -632,6 +632,20 @@ FLASH_GRID = [
     ("qoffset-window64-g2-d64", 1, 50, 250, 4, 2, 64, True, 64, 200),
     ("rows-past-the-keys-g2-d64", 1, 64, 100, 4, 2, 64, True, 16, 120),
     ("causal-g2-d32", 1, 65, 65, 4, 2, 32, True, 0, 0),
+    # head dim 80 (stablelm-3b, zamba2-2.7b, hubert-xlarge)
+    ("causal-g2-d80", 1, 200, 200, 8, 4, 80, True, 0, 0),
+    ("window64-g1-d80", 1, 257, 257, 4, 4, 80, True, 64, 0),
+    ("qoffset-g2-d80", 2, 70, 333, 4, 2, 80, True, 0, 263),
+    ("bidir-g9-d80", 1, 129, 127, 9, 1, 80, False, 0, 0),
+    # the edges of the bf16 kernels' tiles: 64 keys; 64 query rows, or 128
+    # at Dh 128 (the backward: 64 rows and 64 keys at every Dh)
+    ("edge-63-d128", 1, 63, 63, 4, 1, 128, True, 0, 0),
+    ("edge-65-d80", 1, 65, 65, 4, 2, 80, True, 0, 0),
+    ("edge-127-129-d64", 2, 127, 129, 4, 2, 64, False, 0, 0),
+    ("edge-129-d128", 1, 129, 129, 4, 2, 128, True, 0, 0),
+    ("edge-129-255-d80", 1, 129, 255, 4, 2, 80, True, 0, 126),
+    ("edge-255-d32", 1, 255, 255, 6, 2, 32, True, 0, 0),
+    ("edge-255-127-window-d128", 1, 255, 127, 4, 4, 128, True, 64, 0),
 ]
 # float32: the sums differ only in order; bf16: p is rounded to bf16 at
 # another running max and the output is rounded once more
@@ -655,8 +669,9 @@ def _flash_inputs(case, dtype, device):
 @pytest.mark.parametrize("case", FLASH_GRID, ids=[c[0] for c in FLASH_GRID])
 def test_flash_attention_vs_plain(cuda_device, case, dtype):
     """#10 and #11 against their plain versions (the Pallas block loop at
-    64 x 64), with GQA groups 1, 2 and 9, head dims 32/64/128, ragged
-    lengths, windows, q_offset with Sq < Skv and rows that see no key;
+    64 x 64), with GQA groups 1, 2 and 9, head dims 32/64/80/128, ragged
+    lengths at the tiles' edges (63, 65, 127, 129, 255), windows, q_offset
+    with Sq < Skv and rows that see no key;
     #11's o bit-equal to #10's, its lse within 1e-4 of the plain one."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_fwd, flash_attention_fwd_plain)
@@ -729,7 +744,7 @@ def test_model_forward_flash_vs_blockwise(cuda_device):
 @pytest.mark.parametrize("case", FLASH_GRID, ids=[c[0] for c in FLASH_GRID])
 def test_flash_attention_bwd_vs_plain(cuda_device, case, dtype):
     """#12 against its plain version (the Pallas backward's block loops at
-    64 x 64) on the forward's grid: groups 1, 2 and 9, Dh 32/64/128, ragged
+    64 x 64) on the forward's grid: groups 1, 2 and 9, Dh 32/64/80/128, ragged
     lengths, windows, q_offset with Sq < Skv and rows that see no key
     (their dq is 0 in both); a second launch is bit-equal."""
     from repro_torch.kernels.flash_attention.ops import (
@@ -828,4 +843,46 @@ def test_loss_backward_launch_counts(cuda_device, remat):
         assert all(p.grad.dtype == torch.float32 for p in params.parameters())
         flat.append(torch.cat([p.grad.flatten() for p in params.parameters()]))
     cos = torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0)
+    assert float(cos) >= 0.999
+
+
+@pytest.mark.cuda
+def test_stablelm_3b_gradients_flash_vs_blockwise(cuda_device):
+    """Two layers of stablelm-3b at full width (d_model 2,560, 32 heads of
+    Dh 80), float32 masters, bf16 compute, B=1, S=2,048: the gradients of
+    loss_fn through the flash kernels (#11, #12 at Dh 80) against the
+    blockwise path's, cosine >= 0.999 over all parameters, the loss within
+    1e-3 (relative), as chip_smoke.py phase 9 (c) holds minicpm-2b."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2,
+                              use_flash_kernel=True)
+    assert cfg.head_dim == 80
+    params = init_params(cfg, 0, device=cuda_device,
+                         param_dtype=torch.float32)
+    params.requires_grad_(True)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2049), generator=gen,
+                         device=cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for flash in (True, False):
+        n11, n12 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        loss, _ = loss_fn(params, dataclasses.replace(
+            cfg, use_flash_kernel=flash), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (flash_attention_fwd.launches - n11,
+                    flash_attention_bwd.launches - n12)
+        assert launched == ((2 * cfg.num_layers, cfg.num_layers) if flash
+                            else (0, 0)), launched
+        out.append((float(loss.detach()), torch.cat(
+            [p.grad.flatten() for p in params.parameters()])))
+        params.zero_grad(set_to_none=True)
+    (loss_k, g_k), (loss_b, g_b) = out
+    assert abs(loss_k - loss_b) <= 1e-3 * abs(loss_b)
+    cos = torch.nn.functional.cosine_similarity(g_k, g_b, dim=0)
     assert float(cos) >= 0.999

@@ -9,8 +9,9 @@ runs it):
     `flash_attention_ref`, and `flash_attention_fwd` (plain) vs
     `flash_attention_fwd_pallas` (o and lse): rtol 1e-4, atol 1e-4 (the
     tolerance of tests/test_kernels.py's flash tests), float32, over the
-    four shapes of those tests, one with q_offset > 0 and Sq < Skv, and
-    one bfloat16 case (atol 2e-2);
+    four shapes of those tests, one with q_offset > 0 and Sq < Skv, three
+    at head dim 80 (causal GQA, a window, q_offset > 0), and one bfloat16
+    case (atol 2e-2);
   * ragged lengths (no multiple of the block) and fully masked leading
     tiles against the blockwise oracle in one chunk;
   * `flash_traffic_bytes` equal to JAX's;
@@ -68,8 +69,13 @@ SHAPES = [
     (2, 128, 128, 4, 4, 32, False, 0, 0),      # bidirectional (encoder)
     (1, 256, 256, 4, 2, 32, True, 64, 0),      # sliding window
     (1, 64, 192, 6, 2, 32, True, 0, 128),      # q_offset > 0, Sq < Skv
+    # head dim 80 (stablelm-3b, zamba2-2.7b, hubert-xlarge)
+    (1, 128, 128, 8, 2, 80, True, 0, 0),       # causal GQA
+    (1, 192, 192, 4, 2, 80, True, 64, 0),      # sliding window
+    (1, 64, 192, 6, 2, 80, True, 0, 128),      # q_offset > 0, Sq < Skv
 ]
-IDS = ["mha", "gqa", "bidir", "window", "q_offset"]
+IDS = ["mha", "gqa", "bidir", "window", "q_offset", "gqa-d80", "window-d80",
+       "q_offset-d80"]
 
 
 @pytest.mark.parametrize("b,sq,skv,h,hk,dh,causal,window,q_offset", SHAPES,

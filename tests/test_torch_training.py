@@ -23,7 +23,9 @@ plain #11/#12 here) and the blockwise path:
     equal to 1 within 1e-5 (as tests/test_training.py); the loss falls on
     a fixed batch;
   * checkpoints: bit-equal round trip into a different like-state,
-    atomicity, exact resume (tests/test_training.py's contracts);
+    atomicity, exact resume (tests/test_training.py's contracts); a
+    checkpoint of either package restores bit-equal in the other and its
+    next step's loss is within 1e-5 of the straight run's;
   * the launcher on the CPU (tests/test_launchers.py's contracts).
 """
 
@@ -40,6 +42,7 @@ import torch
 
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.models import model as jm
+from repro.training import checkpoint as jckpt
 from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
 from repro_torch.configs import ARCHS
@@ -484,6 +487,69 @@ def test_train_resume_exact(tmp_path):
         s_b2, _ = step(s_b2, data(t))
     for a, b in zip(s_a.params.parameters(), s_b2.params.parameters()):
         assert float((a - b).abs().max().detach()) < 1e-5
+
+
+def test_checkpoints_cross_packages(tmp_path):
+    """A run checkpointed by either package resumes in the other. JAX
+    saves its state after 2 steps, the port restores it into a state of
+    another seed and takes step 3; the port saves its own state after 2
+    steps, JAX restores it and takes step 3. The restored parameters and
+    moments are bit-equal to the saved ones, and each resumed step's loss
+    is within 1e-5 of the saving package's straight third step."""
+    cfg = _cfg("minicpm-2b")
+    jcfg = _jcfg(cfg)
+    opt = OptimizerConfig(peak_lr=1e-3, schedule="wsd", warmup_steps=1,
+                          total_steps=4)
+    jstep = jax.jit(jtl.make_train_step(
+        jcfg, jopt.OptimizerConfig(**dataclasses.asdict(opt))))
+    step = make_train_step(cfg, opt)
+    batches = [_batch(cfg, seed=31 + t) for t in range(3)]
+    init = jtl.init_train_state(jcfg, jm.init_params(
+        jcfg, jax.random.PRNGKey(3)))
+
+    # JAX: 3 straight steps, its checkpoint after 2
+    jstate, jlosses = init, []
+    for t, (tokens, labels) in enumerate(batches):
+        if t == 2:
+            jckpt.save_checkpoint(str(tmp_path / "jax"), 2, jstate)
+            jsaved = jax.device_get(jstate)
+        jstate, met = jstep(jstate, _jbatch(tokens, labels))
+        jlosses.append(float(met["loss"]))
+    back = restore_checkpoint(str(tmp_path / "jax"), 2, _state(cfg, 11))
+    assert back.opt_state["step"] == 2
+    for got, want in ((to_jax_layout(back.params, cfg), jsaved.params),
+                      (to_jax_layout(back.opt_state["m"], cfg),
+                       jsaved.opt_state["m"]),
+                      (to_jax_layout(back.opt_state["v"], cfg),
+                       jsaved.opt_state["v"])):
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                                jax.tree_util.tree_leaves(want)):
+            assert np.array_equal(g, np.asarray(w)), path
+    _, met = step(back, _tbatch(*batches[2]))
+    assert abs(float(met["loss"]) - jlosses[2]) <= 1e-5
+
+    # the port: 3 straight steps, its checkpoint after 2
+    state, losses = train_state_from_jax(jax.device_get(init), cfg,
+                                         device="cpu"), []
+    for t, (tokens, labels) in enumerate(batches):
+        if t == 2:
+            save_checkpoint(str(tmp_path / "port"), 2, state)
+            saved = {key: to_jax_layout(tree, cfg) for key, tree in (
+                ("params", state.params), ("m", state.opt_state["m"]),
+                ("v", state.opt_state["v"]))}
+        state, met = step(state, _tbatch(tokens, labels))
+        losses.append(float(met["loss"]))
+    like = jtl.init_train_state(jcfg, jm.init_params(
+        jcfg, jax.random.PRNGKey(12)))
+    jback = jckpt.restore_checkpoint(str(tmp_path / "port"), 2, like)
+    assert int(jback.opt_state["step"]) == 2
+    for key, want in saved.items():
+        got = jback.params if key == "params" else jback.opt_state[key]
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                                jax.tree_util.tree_leaves(want)):
+            assert np.array_equal(np.asarray(g), w), (key, path)
+    _, met = jstep(jback, _jbatch(*batches[2]))
+    assert abs(float(met["loss"]) - losses[2]) <= 1e-5
 
 
 # ----------------------------------------------------------------- launcher
