@@ -8,10 +8,12 @@ Phases:
   1. device   — the card's name and power limit (nvidia-smi).
   2. build    — compile the CUDA kernels from `src/repro_torch/csrc` (one
                 nvcc per source, in parallel); print the seconds, each
-                library's registers and spills, and, from `cuobjdump -sass`,
-                the HMMA (tensor-core) instructions of every bf16
-                flash-attention kernel: each must have some and no spill
-                stores.
+                library's registers and spills; none of the 80 instances
+                of the fused search kernels may spill (the ptxas report),
+                and the main path's instance prints its registers; from
+                `cuobjdump -sass`, the HMMA (tensor-core) instructions of
+                every bf16 flash-attention kernel: each must have some and
+                no spill stores.
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
@@ -34,7 +36,13 @@ Phases:
                 telemetry) and realistic mode (id agreement >= 0.99, hops
                 equal on >= 99% of queries, dists rtol 1e-4); times of each
                 kernel, its plain version, its bound and, where one PyTorch
-                call computes the same function, that call's time.
+                call computes the same function, that call's time;
+                `fused_search` and `fused_hop` also as the median, min and
+                max of 10 launches (at each sampled hop for `fused_hop`);
+                `fused_hop` also replayed from a CUDA graph (`ms_graph`:
+                the kernel without the wrapper's host path, which is the
+                longer of the two); the main path's instance's registers
+                and resident queries per SM (the CUDA occupancy API).
   6. churn round ("built for change") on the same index: delete 1% of the
                 rows; search on the megakernel, hop (`fused_hop`) and
                 merge-kernel (`rabitq_search_step` + `topk`) lanes with
@@ -55,7 +63,9 @@ Phases:
                 each, tiled == chunked == plain and hop == megakernel bit for
                 bit (the bigann stand-in is integer-valued, so f32 is exact),
                 and prints whether the exact megakernel equals the unfused
-                lane, and its QPS and recall beside the quantized one's.
+                lane, and its QPS and recall beside the quantized one's;
+                the exact-mode `fused_search` kernel time goes into its
+                record (`exact_ms`, and the median, min and max of 10).
                 Exact full scan (`pairwise_l2`, all queries x all rows in
                 chunks of 131,072, the last ragged, a running top-10): every
                 chunk bit-equal to `pairwise_l2_plain`, the top-10 distances
@@ -170,6 +180,37 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_each(fn, reps: int) -> tuple[float, float, float]:
+    """(median, min, max) device time of fn() over `reps` runs, each
+    between its own pair of events (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in pairs]
+    return float(np.median(times)), min(times), max(times)
+
+
+def graph_of(fn) -> torch.cuda.CUDAGraph:
+    """fn() captured in a CUDA graph: its replays time the device alone, with
+    no host time between launches (a launch whose kernel is shorter than
+    the wrapper's host path otherwise times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS
@@ -582,7 +623,7 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_search_step, rabitq_search_step_plain)
     from repro_torch.kernels.search_step.ops import (
-        fused_operands, fused_search, fused_search_plain)
+        fused_operands, fused_search, fused_search_plain, occupancy)
 
     core = idx.core
     n_q = q_dev.shape[0]
@@ -616,21 +657,32 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
     hops_total = float(got[2].sum())
     scored_total = float(got[3][:, 0].sum())
     ms = cuda_ms(lambda: fused_search(**ops), 3)
+    med, lo, hi = cuda_ms_each(lambda: fused_search(**ops), 10)
     plain_ms = cuda_ms(lambda: fused_search_plain(**ops), 1)
     f_bytes = (hops_total * r * 4 + scored_total * (p + 8)
                + n_q * (beam * 12 + beam * 8 + 4 + p * 8 // core.codes.bits
                         * 4 + 8))
     f_ops = scored_total * 2 * d
     b_ms, b_by = bound(f_bytes, f_ops)
-    log(f"  fused_search: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); {hops_total / n_q:.2f} hops and "
+    occ = occupancy(hop=False, quantized=True, bits=core.codes.bits,
+                    l_width=beam, r=r, dq=ops["q"].shape[1], row_width=p)
+    log(f"  fused_search: {ms:.3f} ms (mean of 3); median of 10 {med:.3f} ms"
+        f" (min {lo:.3f}, max {hi:.3f}); plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / med:.1f} % of it at the "
+        f"median; {hops_total / n_q:.2f} hops and "
         f"{scored_total / n_q:.1f} scored candidates per query")
+    log(f"  fused_search main-path instance: {occ['registers']} registers, "
+        f"{occ['queries_per_sm']} resident queries per SM "
+        f"({occ['queries_per_block']} a block, {occ['smem_per_block']} B of "
+        f"shared memory a block, {occ['local_bytes']} B local)")
     records.append(dict(
         name="fused_search", route="cuda",
         source="src/repro_torch/csrc/search_step.cu",
         replaces="src/repro/kernels/search_step/search_step_kernel.py:352",
         launches=launches["fused_search"], max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_median=med, ms_min=lo, ms_max=hi,
+        registers=occ["registers"], queries_per_sm=occ["queries_per_sm"]))
 
     # ---- rabitq_search_step at a hop's shape: (Q, R) ids of real rows
     compare_step_exact(core, rq, gen, n_q)
@@ -729,6 +781,7 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     dq = ops["q"].shape[1]
     d = core.store_dims
     ms, plain, bounds, err, agree, f10 = [], [], [], 0.0, [], None
+    medians, spread, g_ms, g_medians, g_spread = [], [], [], [], []
     for t in range(ops["max_iters"]):
         if t % 10:
             got = fused_hop(*f, sched[t], **hop_ops)
@@ -747,10 +800,22 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
                 err = max(err, float((got[1][fin] - want[1][fin]).abs().max()))
                 check(torch.allclose(got[1][fin], want[1][fin], rtol=1e-4,
                                      atol=1e-3), f"fused_hop hop {t}: dists")
-            fi = f
-            ms.append(cuda_ms(lambda: fused_hop(*fi, sched[t], **hop_ops), 5))
+
+            def launch(fi=f, width=sched[t]):
+                return fused_hop(*fi, width, **hop_ops)
+
+            ms.append(cuda_ms(launch, 5))
+            med, lo, hi = cuda_ms_each(launch, 10)
+            medians.append(med)
+            spread += [lo, hi]
+            graph = graph_of(launch)
+            g_ms.append(cuda_ms(graph.replay, 5))
+            med, lo, hi = cuda_ms_each(graph.replay, 10)
+            g_medians.append(med)
+            g_spread += [lo, hi]
+            del graph
             plain.append(cuda_ms(
-                lambda: fused_hop_plain(*fi, sched[t], **hop_ops), 1))
+                lambda: fused_hop_plain(*f, sched[t], **hop_ops), 1))
             active = float(got[3].sum())
             scored = float(got[4][:, 0].sum())
             # frontier in and out (ids, dists, visited: 12 B each way), the
@@ -767,8 +832,16 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     check(f10 is not None, "the hop walk ended before hop 10")
     hop_ms, hop_plain = float(np.mean(ms)), float(np.mean(plain))
     hop_bound = float(np.mean(bounds))
+    hop_med, g_med = float(np.mean(medians)), float(np.mean(g_medians))
+    g_mean = float(np.mean(g_ms))
     log(f"  fused_hop ({n_q}, L={beam}) over hops 0, 10, ..., "
-        f"{10 * (len(ms) - 1)}: {hop_ms:.4f} ms per launch, plain "
+        f"{10 * (len(ms) - 1)}, launched from the wrapper: {hop_ms:.4f} ms "
+        f"per launch (mean of 5 a hop); median of 10 a hop {hop_med:.4f} ms "
+        f"averaged over the hops (launches min {min(spread):.4f}, max "
+        f"{max(spread):.4f}); replayed from a CUDA graph (the kernel alone) "
+        f"{g_mean:.4f} ms, median of 10 a hop {g_med:.4f} ms (each hop's "
+        f"median: {', '.join(f'{m:.4f}' for m in g_medians)}; launches min "
+        f"{min(g_spread):.4f}, max {max(g_spread):.4f}); plain "
         f"{hop_plain:.4f} ms, bound {hop_bound:.4f} ms (bytes), id agreement "
         f"min {min(agree):.4f}, max |err| {err:.3g}")
     records = [dict(
@@ -776,7 +849,10 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
         source="src/repro_torch/csrc/search_step.cu",
         replaces="src/repro/kernels/search_step/search_step_kernel.py:309",
         launches=None, max_abs_err=err, ms=hop_ms, plain_ms=hop_plain,
-        bound_ms=hop_bound, bound_by="bytes", library_ms=None)]
+        bound_ms=hop_bound, bound_by="bytes", library_ms=None,
+        ms_median=hop_med, ms_min=min(spread), ms_max=max(spread),
+        ms_graph=g_mean, ms_graph_median=g_med, ms_graph_min=min(g_spread),
+        ms_graph_max=max(g_spread))]
 
     # ---- topk on hop 10's merge operands
     cand = core.adjacency[f10[0][:, 0].long()].contiguous()
@@ -1214,9 +1290,10 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     return records
 
 
-def exact_and_scans(idx, q_dev, gt, gt_d, quant, gen) -> list:
+def exact_and_scans(idx, q_dev, gt, gt_d, quant, gen) -> tuple[list, dict]:
     """Phase 7, on phase 4's index before the churn round: the exact
-    lanes, both full scans, #5 on the frontier; the four kernel records."""
+    lanes, both full scans, #5 on the frontier; the four kernel records,
+    and the exact-mode `fused_search` times for its record."""
     from repro_torch.core.rabitq import rabitq_preprocess_query
     from repro_torch.kernels.search_step.ops import fused_operands, fused_search
     core = idx.core
@@ -1228,13 +1305,17 @@ def exact_and_scans(idx, q_dev, gt, gt_d, quant, gen) -> list:
     exact_ops = fused_operands(core.graph, beam_width=64, max_iters=140,
                                queries=q_dev, vectors=core.vectors,
                                vec_sqnorm=core.vec_sqnorm)
-    log(f"  fused_search kernel alone: exact "
-        f"{cuda_ms(lambda: fused_search(**exact_ops), 3):.3f} ms, quantized "
+    exact_ms = cuda_ms(lambda: fused_search(**exact_ops), 3)
+    exact = cuda_ms_each(lambda: fused_search(**exact_ops), 10)
+    log(f"  fused_search kernel alone: exact {exact_ms:.3f} ms (median of 10 "
+        f"{exact[0]:.3f}, min {exact[1]:.3f}, max {exact[2]:.3f}), quantized "
         f"{cuda_ms(lambda: fused_search(**ops), 3):.3f} ms")
     scan_launches, errs = full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen)
     launches.update(scan_launches)
     return scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches,
-                                       errs, gen)
+                                       errs, gen), dict(
+        exact_ms=exact_ms, exact_ms_median=exact[0], exact_ms_min=exact[1],
+        exact_ms_max=exact[2])
 
 
 # ------------------------------------------------------------ churn round
@@ -1519,6 +1600,36 @@ def kernel_label(symbol: str) -> str:
     if not m:
         return symbol
     return f"{m[1]}<{m[2]}{', lse' if m[3] == '1' else ''}>"
+
+
+def search_step_ptxas_check() -> None:
+    """Phase 2: all 80 instances of the fused search kernels (fused_search
+    and fused_hop x exact / 1, 2, 4, 8 bits x tombstone x labels x
+    telemetry) spill nothing (the ptxas report); their registers, and the
+    main path's instance's (4 bits, no masks, no telemetry)."""
+    from repro_torch.kernels import build
+    report = (build.BUILD_DIR / "search_step.log").read_text(errors="replace")
+    spills = {fn: int(n) for fn, n in re.findall(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+        r"(\d+) bytes spill stores", report)}
+    regs = {fn: int(n) for fn, n in re.findall(
+        r"Compiling entry function '(\S+)' for '\w+'\n(?:.*\n)*?.*?Used "
+        r"(\d+) registers", report)}
+    kernels = sorted(fn for fn in regs
+                     if "fused_search_kernel" in fn or "fused_hop_kernel" in fn)
+    check(len(kernels) == 80, f"search_step: {len(kernels)} kernel instances "
+          "in the ptxas report, expected 80")
+    for fn in kernels:
+        check(fn in spills, f"search_step {fn}: no spill report")
+    for fn, n in spills.items():   # the kernels and any function not inlined
+        check(n == 0, f"search_step {fn}: {n} bytes of spill stores")
+    main = {k: regs[fn] for k in ("fused_search_kernel", "fused_hop_kernel")
+            for fn in kernels if f"{k}ILb1ELi4ELb0ELb0ELb0E" in fn}
+    log(f"    ptxas search_step: 80 instances, no spill stores, registers "
+        f"{min(regs[fn] for fn in kernels)}..{max(regs[fn] for fn in kernels)}"
+        f"; main path's instance (4 bits, no masks or telemetry): "
+        f"fused_search {main.get('fused_search_kernel')}, fused_hop "
+        f"{main.get('fused_hop_kernel')}")
 
 
 def flash_sass_check(libs: dict) -> None:
@@ -2263,6 +2374,7 @@ def main() -> int:
         if regs:
             log(f"    ptxas {name}: {len(regs)} kernels, registers "
                 f"{min(regs)}..{max(regs)}, {spills} with spill stores")
+    search_step_ptxas_check()
     flash_sass_check(libs)
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -2277,7 +2389,10 @@ def main() -> int:
 
     log("[7] exact lanes and full scans (phase 4's index, before the churn "
         "round)")
-    records += exact_and_scans(idx, q_dev, gt, gt_d, quant, gen)
+    scan_records, exact_times = exact_and_scans(idx, q_dev, gt, gt_d, quant,
+                                                gen)
+    next(r for r in records if r["name"] == "fused_search").update(exact_times)
+    records += scan_records
 
     log(f"[6] churn round: delete {args.n // 100}, search, consolidate, "
         f"insert {2 * (args.n // 100)}, search")

@@ -1,4 +1,6 @@
-// Shared device helpers for the Jasper search kernels (sm_90a).
+// Shared device helpers for the Jasper search kernels (sm_90a), and the
+// cp.async copies and the bf16 tensor-core product that the search and
+// flash kernels use.
 //
 // packed_dot: one warp's inner product between a bit-packed RaBitQ code
 // row and a float query in shared memory. Codes are little-endian within
@@ -87,6 +89,50 @@ __device__ __forceinline__ float rabitq_epilogue(float add, float qa, float resc
 // Exact squared-L2 epilogue: (|q|^2 - 2 q.c) + |c|^2, clamped at 0.
 __device__ __forceinline__ float l2_epilogue(float qsq, float dot, float csq) {
   return fmaxf(__fadd_rn(__fsub_rn(qsq, __fmul_rn(2.f, dot)), csq), 0.f);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (then
+// nothing is read: a row past the end becomes zeros, never garbage).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// d += a * b on the tensor cores: mma.sync m16n8k16, bf16 in, f32
+// accumulate (a: 16 x 16 row-major fragment, b: 16 x 8 column-major).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x * y + z on two bf16 lanes, rounded to nearest.
+__device__ __forceinline__ unsigned bf16x2_fma(unsigned x, unsigned y, unsigned z) {
+  unsigned r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(y), "r"(z));
+  return r;
 }
 
 }  // namespace jasper

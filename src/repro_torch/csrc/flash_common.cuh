@@ -11,6 +11,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace flash {
 
 constexpr int kRows = 64;      // query rows per tile
@@ -81,31 +83,11 @@ struct Tile {
   static constexpr int kElems = 64 * kStride;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (then
-// nothing is read: a row past the end becomes zeros, never garbage).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+using jasper::cp_async16;
+using jasper::cp_async4;
+using jasper::cp_async_commit;
+using jasper::cp_async_wait;
+using jasper::smem_addr;
 
 // Rows [row0, row0 + kTileRows) of one head (base, row stride in elements)
 // into a padded shared tile with cp.async, by `threads` threads; rows at or
@@ -140,14 +122,7 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const __nv_bfloa
 }
 
 // d += a * b (16 x 8 f32 += 16 x 16 bf16 * 16 x 8 bf16).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using jasper::mma_bf16;
 
 // The A fragment of k-chunk kc of the 16 rows at `rows` (a row-major
 // shared tile, row stride kStride): 16 x 16 from column 16 kc.

@@ -124,8 +124,10 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's address as a C entry point takes it (an argument typed
+    c_void_p; None is NULL)."""
+    return t.data_ptr() if t is not None else None
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

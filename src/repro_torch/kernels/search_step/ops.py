@@ -5,9 +5,9 @@ and `fused_beam_search`, the entry `core_search` routes to when
 
 `fused_search` replaces `fused_search_pallas` (`repro/kernels/search_step/
 search_step_kernel.py:352`): one launch runs the whole greedy beam search,
-one thread block per query, frontier in shared memory throughout; only the
-final (Q, L) frontier, the hop counts and (with telemetry) the counters go
-to device memory. `fused_hop` replaces `fused_hop_pallas` (`:309`): the
+one warp per query, frontier in shared memory throughout; only the final
+(Q, L) frontier, the hop counts and (with telemetry) the counters go to
+device memory. `fused_hop` replaces `fused_hop_pallas` (`:309`): the
 same hop body (`csrc/search_step.cu` `hop`) once per launch, the frontier
 loaded from and stored to device memory around it. The plain versions are
 the oracle (`ref.search_loop`, `ref.fused_hop_ref`) over the same operands.
@@ -43,6 +43,81 @@ from repro_torch.kernels.search_step.ref import (
 
 _INF = float("inf")
 
+# csrc/search_step.cu: kQueriesPerBlock query slots share a block's
+# shared memory, of which an H100 block has at most SMEM_PER_BLOCK bytes;
+# a slot stages up to STAGE_BYTES of candidate rows at once
+QUERIES_PER_BLOCK = 4
+SMEM_PER_BLOCK = 232_448
+STAGE_BYTES = 5120
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def query_smem_bytes(l_width: int, r: int, row_bytes: int,
+                     codes_per_unit: int) -> int:
+    """Shared bytes of one query slot of the fused kernels (`layout` and
+    `set_rows` in `csrc/search_step.cu`) for rows of `row_bytes` bytes,
+    whose 16-byte units hold `codes_per_unit` codes (128 / bits packed, 4
+    floats exact): the query padded to whole units (f32, or three bf16
+    parts when 4-bit rows of whole 64-byte groups go to the tensor cores),
+    two (L,) frontier buffers of ids, dists and visited bits, the
+    candidates' ids and compacted positions (R each), the sort keys (a
+    power of two >= R, 8 B each), the stage (rows as many as fit in
+    STAGE_BYTES up to R, at least one, at a stride of an odd count of
+    units on the SIMT path) with two metadata floats a row, and 32 B of
+    counters; each part rounded up to 16 B."""
+    units = -(-row_bytes // 16)
+    mma = codes_per_unit == 32 and units % 4 == 0
+    stride = 16 * (units if mma or units % 2 else units + 1)
+    fit = STAGE_BYTES // stride
+    rows = 1 if fit < 1 else min(fit, r)
+    return (_align16((6 if mma else 4) * units * codes_per_unit)
+            + 6 * _align16(4 * l_width) + 2 * _align16(4 * r)
+            + _align16(8 * _pow2(r)) + rows * stride + 2 * _align16(4 * rows)
+            + 32)
+
+
+def check_fused_shape(l_width: int, r: int, row_bytes: int,
+                      codes_per_unit: int) -> None:
+    """The shapes the fused kernels take: L >= 1, R >= 1, and a block of
+    QUERIES_PER_BLOCK query slots (`query_smem_bytes`) within
+    SMEM_PER_BLOCK bytes of shared memory. Raises ValueError naming the
+    limit; both wrappers call it before they launch."""
+    if l_width < 1 or r < 1:
+        raise ValueError(f"fused search: L and R must be >= 1, got L={l_width}"
+                         f", R={r}")
+    need = QUERIES_PER_BLOCK * query_smem_bytes(l_width, r, row_bytes,
+                                                codes_per_unit)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused search: L={l_width}, R={r} and rows of {row_bytes} B need "
+            f"{need} bytes of shared memory a block ({QUERIES_PER_BLOCK} "
+            f"queries of {need // QUERIES_PER_BLOCK}); the limit is "
+            f"{SMEM_PER_BLOCK}")
+
+
+def occupancy(*, hop: bool, quantized: bool, bits: int, l_width: int,
+              r: int, dq: int, row_width: int, tomb: bool = False,
+              labels: bool = False, telemetry: bool = False) -> dict:
+    """One instance of the fused kernels on the card: its registers a
+    thread, resident queries per SM (the CUDA occupancy API), shared bytes
+    a block, local (spilled) bytes a thread and queries a block, at
+    (L, R, Dq) and a row of `row_width` bytes (quantized) or floats."""
+    fn = build.entry("search_step", "fused_search_occupancy",
+                     [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    info = (ctypes.c_int * 5)()
+    build.check(fn(int(hop), int(quantized), int(bits), int(tomb),
+                   int(labels), int(telemetry), l_width, r, dq, row_width,
+                   ctypes.cast(info, ctypes.c_void_p)), "fused_search_occupancy")
+    return dict(zip(("registers", "queries_per_sm", "smem_per_block",
+                     "local_bytes", "queries_per_block"), info))
+
 
 def _operand_scorer(q, qa, qb, data, meta0, meta1, n_valid, *, quantized,
                     bits):
@@ -61,8 +136,8 @@ def _check_operands(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
                     meta0, meta1, tomb, labels, fb, *, quantized: bool,
                     bits: int):
     """The argument checks `fused_search` and `fused_hop` share: device,
-    dtype, rank, contiguity and agreeing shapes. Returns (Q, L, R, cap,
-    Dq, row width, filter word)."""
+    dtype, rank, contiguity, agreeing shapes and `check_fused_shape`.
+    Returns (Q, L, R, cap, Dq, row width, filter word)."""
     dev = f_ids.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {dev}")
@@ -104,7 +179,30 @@ def _check_operands(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
         if labels.shape != (cap, 4) or labels.data_ptr() % 4:
             raise ValueError("labels must be a 4-byte aligned (cap, 4) plane")
         fbw = filter_word(fb)
+    check_fused_shape(l_width, r, row_width * (1 if quantized else 4),
+                      128 // bits if quantized else 4)
     return qn, l_width, r, cap, dq, row_width, fbw
+
+
+_SEARCH_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2          # frontier, Q, L
+    + [ctypes.c_void_p, ctypes.c_int]                   # sched, iters
+    + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
+    + [ctypes.c_void_p] * 3                             # qa, qb, adj
+    + [ctypes.c_int] * 3                                # R, cap, nvalid
+    + [ctypes.c_void_p, ctypes.c_int]                   # data, width
+    + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+    + [ctypes.c_int] * 3                                # q, bits, tel
+    + [ctypes.c_void_p] * 6)                            # outs, stream
+_HOP_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3          # frontier, Q, L, width
+    + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
+    + [ctypes.c_void_p] * 3                             # qa, qb, adj
+    + [ctypes.c_int] * 3                                # R, cap, nvalid
+    + [ctypes.c_void_p, ctypes.c_int]                   # data, width
+    + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+    + [ctypes.c_int] * 3                                # q, bits, tel
+    + [ctypes.c_void_p] * 6)                            # outs, stream
 
 
 def fused_search_plain(f_ids, f_dists, f_vis, schedule, q, qa, qb,
@@ -165,16 +263,8 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
         counters = torch.empty((qn, 3), dtype=torch.int32, device=dev)
         occ = torch.empty((qn, max_iters), dtype=torch.int32, device=dev)
     if qn > 0:
-        fn = build.entry("search_step", "fused_search_launch", (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2          # frontier, Q, L
-            + [ctypes.c_void_p, ctypes.c_int]                   # sched, iters
-            + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
-            + [ctypes.c_void_p] * 3                             # qa, qb, adj
-            + [ctypes.c_int] * 3                                # R, cap, nvalid
-            + [ctypes.c_void_p, ctypes.c_int]                   # data, width
-            + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
-            + [ctypes.c_int] * 3                                # q, bits, tel
-            + [ctypes.c_void_p] * 6))                           # outs, stream
+        fn = build.entry("search_step", "fused_search_launch",
+                         _SEARCH_ARGTYPES)
         err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
                  qn, l_width, build.ptr(schedule), max_iters,
                  build.ptr(q), dq, build.ptr(qa), build.ptr(qb),
@@ -220,7 +310,9 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
     """One hop of the fused search for every query, one launch.
 
     Operands as `fused_search`, with the hop's frontier `width` in place
-    of the schedule. Returns (ids, dists, visited (Q, L) int32, increment
+    of the schedule; the frontier must be sorted by distance, as every
+    frontier `fused_operands` or an earlier hop makes is (the kernel's
+    merge relies on it; the plain version does not). Returns (ids, dists, visited (Q, L) int32, increment
     (Q,) int32: 1 where the row expanded a node) — plus a (Q, 4) int32
     [scored, masked, dups, occupancy] block with telemetry. A row with no
     unvisited slot comes back unchanged with increment 0. CUDA tensors
@@ -243,15 +335,7 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
     counters = (torch.empty((qn, 4), dtype=torch.int32, device=dev)
                 if telemetry else None)
     if qn > 0:
-        fn = build.entry("search_step", "fused_hop_launch", (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3          # frontier, Q, L, width
-            + [ctypes.c_void_p, ctypes.c_int]                   # q, dq
-            + [ctypes.c_void_p] * 3                             # qa, qb, adj
-            + [ctypes.c_int] * 3                                # R, cap, nvalid
-            + [ctypes.c_void_p, ctypes.c_int]                   # data, width
-            + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
-            + [ctypes.c_int] * 3                                # q, bits, tel
-            + [ctypes.c_void_p] * 6))                           # outs, stream
+        fn = build.entry("search_step", "fused_hop_launch", _HOP_ARGTYPES)
         err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
                  qn, l_width, int(width), build.ptr(q), dq, build.ptr(qa),
                  build.ptr(qb), build.ptr(adjacency), r, cap, int(n_valid),

@@ -36,6 +36,8 @@ from repro_torch.core.mutations import pack_bitmap
 from repro_torch.core.vamana import VamanaGraph
 
 N, D, R, Q = 512, 32, 16, 24
+SMALL = (N, D, R, Q)
+MAIN = (2048, 128, 64, 32)   # the main path's D, R; a 64 B row at 4 bits
 
 FUSED_VARIANTS = [
     # name, quantized, bits, beam, masks, telemetry, schedule
@@ -53,6 +55,26 @@ FUSED_VARIANTS = [
     ("exact-L40-tomb", False, 4, 40, "tomb", False, None),
 ]
 
+# (variant, (N, D, R, Q)): the small shape's variants, then the main
+# path's R = 64 and 64-byte rows (16-byte loads, 4 lanes a candidate) at
+# L = 64 and L = 128, 1 and 8 bits (16 and 128 B rows), exact rows of
+# 512 B, and rows that are not a multiple of 16 B (D = 40, 4 bits: 20 B,
+# 4-byte loads) or of 4 B (D = 36: 18 B, byte loads)
+FUSED_CASES = [(v, SMALL) for v in FUSED_VARIANTS] + [
+    (("main4-L64-tel", True, 4, 64, "none", True, None), MAIN),
+    (("main4-L128-tel", True, 4, 128, "none", True, None), MAIN),
+    (("main4-both-tel", True, 4, 64, "both", True, None), MAIN),
+    (("main4-L128-both-tel", True, 4, 128, "both", True, None), MAIN),
+    (("main4-L64", True, 4, 64, "none", False, None), MAIN),
+    (("main-exact-tel", False, 4, 64, "none", True, None), MAIN),
+    (("main1-tel", True, 1, 64, "none", True, None), MAIN),
+    (("main8-tel", True, 8, 64, "none", True, None), MAIN),
+    (("d40-quant4-tel", True, 4, 64, "none", True, None), (2048, 40, 64, 32)),
+    (("d36-quant4-tel", True, 4, 64, "none", True, None), (2048, 36, 64, 32)),
+    (("d36-exact-both-tel", False, 4, 64, "both", True, None),
+     (2048, 36, 64, 32)),
+]
+
 
 @pytest.fixture
 def cuda_device():
@@ -64,40 +86,41 @@ def cuda_device():
 class Case:
     """Integer-valued operands on the card (numpy-seeded)."""
 
-    def __init__(self, seed, device, bits=4):
+    def __init__(self, seed, device, bits=4, shape=SMALL):
+        n_rows, d, r, q = shape
         rng = np.random.default_rng(seed)
 
         def t(x):
             return torch.as_tensor(x).to(device)
 
         self.rng = rng
-        adj = rng.integers(-1, N, (N, R)).astype(np.int32)  # dups, pads, self
-        self.graph = VamanaGraph(adjacency=t(adj), n_valid=N - 7,
-                                 medoid=int(rng.integers(0, N - 7)))
-        vec = rng.integers(-5, 6, (N, D)).astype(np.float32)
+        adj = rng.integers(-1, n_rows, (n_rows, r)).astype(np.int32)  # dups, pads, self
+        self.graph = VamanaGraph(adjacency=t(adj), n_valid=n_rows - 7,
+                                 medoid=int(rng.integers(0, n_rows - 7)))
+        vec = rng.integers(-5, 6, (n_rows, d)).astype(np.float32)
         self.vectors, self.sqnorm = t(vec), t((vec ** 2).sum(-1))
-        self.queries = t(rng.integers(-5, 6, (Q, D)).astype(np.float32))
-        p = tr.packed_dim(D, bits)
+        self.queries = t(rng.integers(-5, 6, (q, d)).astype(np.float32))
+        p = tr.packed_dim(d, bits)
         self.codes = tr.RaBitQCodes(
-            packed=t(rng.integers(0, 256, (N, p)).astype(np.uint8)),
-            data_add=t(rng.integers(0, 4000, N).astype(np.float32)),
-            data_rescale=t(rng.choice([-2., -1., 1., 2.], N)
+            packed=t(rng.integers(0, 256, (n_rows, p)).astype(np.uint8)),
+            data_add=t(rng.integers(0, 4000, n_rows).astype(np.float32)),
+            data_rescale=t(rng.choice([-2., -1., 1., 2.], n_rows)
                            .astype(np.float32)),
-            bits=bits, dims=D)
+            bits=bits, dims=d)
         self.rq = tr.RaBitQQuery(
-            q_rot=t(rng.integers(-3, 4, (Q, D)).astype(np.float32)),
-            query_add=t(rng.integers(0, 500, Q).astype(np.float32)),
-            query_sumq=t(rng.integers(-50, 50, Q).astype(np.float32)))
-        self.tomb = pack_bitmap(t(rng.random(N) < 0.15))
-        self.labels = t((rng.integers(0, 16, (N, 4))
+            q_rot=t(rng.integers(-3, 4, (q, d)).astype(np.float32)),
+            query_add=t(rng.integers(0, 500, q).astype(np.float32)),
+            query_sumq=t(rng.integers(-50, 50, q).astype(np.float32)))
+        self.tomb = pack_bitmap(t(rng.random(n_rows) < 0.15))
+        self.labels = t((rng.integers(0, 16, (n_rows, 4))
                          * np.array([1, 0, 0, 0])).astype(np.uint8))
         self.fb = t(np.array([0x05, 0, 0, 0], np.uint8))
 
 
-def _operands(variant, device):
+def _operands(variant, device, shape=SMALL):
     from repro_torch.kernels.search_step.ops import fused_operands
     name, quantized, bits, beam, masks, telemetry, schedule = variant
-    c = Case(zlib.crc32(name.encode()), device, bits=bits)
+    c = Case(zlib.crc32(name.encode()), device, bits=bits, shape=shape)
     kw = {}
     if masks in ("tomb", "both"):
         kw.update(tombstone_bits=c.tomb, traverse_deleted=False)
@@ -111,12 +134,12 @@ def _operands(variant, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", FUSED_VARIANTS,
-                         ids=[v[0] for v in FUSED_VARIANTS])
-def test_fused_search_bit_exact_vs_plain(cuda_device, variant):
+@pytest.mark.parametrize("variant, shape", FUSED_CASES,
+                         ids=[v[0] for v, _ in FUSED_CASES])
+def test_fused_search_bit_exact_vs_plain(cuda_device, variant, shape):
     from repro_torch.kernels.search_step.ops import (fused_search,
                                                      fused_search_plain)
-    ops = _operands(variant, cuda_device)
+    ops = _operands(variant, cuda_device, shape)
     telemetry = variant[5]
     before = fused_search.launches
     got = fused_search(**ops, telemetry=telemetry)
@@ -130,15 +153,15 @@ def test_fused_search_bit_exact_vs_plain(cuda_device, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", FUSED_VARIANTS,
-                         ids=[v[0] for v in FUSED_VARIANTS])
-def test_fused_hop_bit_exact_vs_plain(cuda_device, variant):
+@pytest.mark.parametrize("variant, shape", FUSED_CASES,
+                         ids=[v[0] for v, _ in FUSED_CASES])
+def test_fused_hop_bit_exact_vs_plain(cuda_device, variant, shape):
     """Every hop of a whole search: the kernel and the plain version from
     the same frontier, bit-equal, the walk continuing from the kernel's
     output."""
     from repro_torch.kernels.search_step.ops import (
         fused_hop, fused_hop_plain, hop_operands)
-    ops = _operands(variant, cuda_device)
+    ops = _operands(variant, cuda_device, shape)
     telemetry = variant[5]
     sched = ops["schedule"].tolist()
     f, hop_ops = hop_operands(ops)
@@ -156,7 +179,38 @@ def test_fused_hop_bit_exact_vs_plain(cuda_device, variant):
         if int(got[3].sum()) == 0:
             break
         f = got[:3]
-    assert hops > 3 * Q                              # the walks did work
+    assert hops > 3 * shape[3]                       # the walks did work
+
+
+@pytest.mark.cuda
+def test_fused_instances_fit_and_do_not_spill(cuda_device):
+    """All 80 instances (2 kernels x exact / 1, 2, 4, 8 bits x tombstone x
+    labels x telemetry) at the main shape: the block's shared memory is
+    the layout `check_fused_shape` counts, and no thread spills to local
+    memory."""
+    from repro_torch.kernels.search_step.ops import (
+        QUERIES_PER_BLOCK, occupancy, query_smem_bytes)
+    seen = 0
+    for hop in (False, True):
+        for quantized, bits in ((False, 8), (True, 1), (True, 2), (True, 4),
+                                (True, 8)):
+            p = 128 * bits // 8 if quantized else 512
+            for tomb in (False, True):
+                for labels in (False, True):
+                    for tel in (False, True):
+                        dq = p * 8 // bits if quantized else 128
+                        info = occupancy(
+                            hop=hop, quantized=quantized, bits=bits,
+                            l_width=64, r=64, dq=dq,
+                            row_width=p if quantized else 128, tomb=tomb,
+                            labels=labels, telemetry=tel)
+                        assert info["smem_per_block"] == (
+                            QUERIES_PER_BLOCK * query_smem_bytes(
+                                64, 64, p, 128 // bits if quantized else 4))
+                        assert info["local_bytes"] == 0, info
+                        assert info["queries_per_sm"] > 0
+                        seen += 1
+    assert seen == 80
 
 
 @pytest.mark.cuda
@@ -244,6 +298,19 @@ def test_wrappers_reject_bad_operands(cuda_device):
         gather_l2(x[:2], x.t().contiguous().t(), sq, ids.to(torch.int32))
     with pytest.raises(ValueError, match="shape"):
         gather_l2(x[:2, :3].contiguous(), x, sq, ids.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_a_frontier_past_shared_memory(cuda_device):
+    from repro_torch.kernels.search_step.ops import (
+        SMEM_PER_BLOCK, fused_hop, fused_search, hop_operands)
+    v = ("quant4", True, 4, 4096, "none", False, None)
+    ops = _operands(v, cuda_device)
+    with pytest.raises(ValueError, match=f"the limit is {SMEM_PER_BLOCK}"):
+        fused_search(**ops)
+    f, hop_ops = hop_operands(ops)
+    with pytest.raises(ValueError, match=f"the limit is {SMEM_PER_BLOCK}"):
+        fused_hop(*f, 16, **hop_ops)
 
 
 @pytest.mark.cuda
