@@ -12,8 +12,9 @@ Phases:
                 of the fused search kernels may spill (the ptxas report),
                 and the main path's instance prints its registers; from
                 `cuobjdump -sass`, the HMMA (tensor-core) instructions of
-                every bf16 flash-attention kernel: each must have some and
-                no spill stores.
+                every bf16 flash-attention kernel and of the four instances
+                of `rabitq_distance` (#6): each must have some and no spill
+                stores.
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
@@ -39,10 +40,11 @@ Phases:
                 call computes the same function, that call's time;
                 `fused_search` and `fused_hop` also as the median, min and
                 max of 10 launches (at each sampled hop for `fused_hop`);
-                `fused_hop` also replayed from a CUDA graph (`ms_graph`:
-                the kernel without the wrapper's host path, which is the
-                longer of the two); the main path's instance's registers
-                and resident queries per SM (the CUDA occupancy API).
+                `fused_hop` and `rabitq_search_step` also replayed from a
+                CUDA graph (`ms_graph`: the kernel without the wrapper's
+                host path, which is the longer of the two); the main
+                path's instance's registers and resident queries (or
+                blocks) per SM (the CUDA occupancy API).
   6. churn round ("built for change") on the same index: delete 1% of the
                 rows; search on the megakernel, hop (`fused_hop`) and
                 merge-kernel (`rabitq_search_step` + `topk`) lanes with
@@ -81,7 +83,12 @@ Phases:
                 operands), and within rtol 1e-4 plus float32 ulps of the
                 terms on the real codes. Times of the four kernels beside
                 their plain versions, bounds and library calls
-                (`gather_l2_tiled` beside `gather_l2` on the same inputs).
+                (`gather_l2_tiled` beside `gather_l2` on the same inputs);
+                `rabitq_distance` also as the median, min and max of 5, its
+                bound at the bf16 tensor rate (its products are exact on the
+                tensor cores) with the float32 one beside it, and its
+                registers and blocks per SM; one estimated scan profiled
+                (device time by kernel: the kernel against the top-k merge).
   8. RAG serving — runs last, after phase 6's index is freed: starcoder2-7b
                 at full width (10.12 B parameters, bf16, random weights
                 from seed 0, `use_flash_kernel=True`). #10 and #11 against
@@ -699,20 +706,36 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
     err = float((got[fin] - want[fin]).abs().max())
     check(torch.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-3),
           f"rabitq_search_step realistic: max |err| {err}")
-    ms = cuda_ms(lambda: rabitq_search_step(*args, bits=core.codes.bits), 20)
+    def step():
+        return rabitq_search_step(*args, bits=core.codes.bits)
+
+    ms = cuda_ms(step, 20)
+    # the kernel alone, replayed from a CUDA graph (`ms` above is launched
+    # from the wrapper, whose host path may be the longer of the two)
+    graph = graph_of(step)
+    g_ms = cuda_ms(graph.replay, 20)
+    g_med, g_lo, g_hi = cuda_ms_each(graph.replay, 20)
+    del graph
     plain_ms = cuda_ms(
         lambda: rabitq_search_step_plain(*args, bits=core.codes.bits), 5)
     n_valid_ids = float(fin.sum())
     s_bytes = ids.numel() * 8 + n_valid_ids * (p + 8) + n_q * (p * 8 // core.codes.bits * 4 + 8)
     b_ms, b_by = bound(s_bytes, n_valid_ids * 2 * d)
-    log(f"  rabitq_search_step ({n_q}, {r}): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| {err:.3g}")
+    occ = estimator_occupancy("rabitq_search_step", core.codes.bits, p)
+    log(f"  rabitq_search_step ({n_q}, {r}): {ms:.4f} ms launched from the "
+        f"wrapper (mean of 20); replayed from a CUDA graph (the kernel "
+        f"alone) {g_ms:.4f} ms, median of 20 {g_med:.4f} (min {g_lo:.4f}, "
+        f"max {g_hi:.4f}); plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {100 * b_ms / g_med:.1f} % of it at the graph median, "
+        f"max |err| {err:.3g}; {occ}")
     records.append(dict(
         name="rabitq_search_step", route="cuda",
         source="src/repro_torch/csrc/rabitq_search_step.cu",
         replaces="src/repro/kernels/rabitq_dot/rabitq_kernel.py:131",
         launches=launches["rabitq_search_step"], max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_graph=g_ms, ms_graph_median=g_med, ms_graph_min=g_lo,
+        ms_graph_max=g_hi, **occ))
 
     # ---- gather_l2 at the rerank's shape: the (Q, L) final frontier
     frontier = fused_search(**ops)[0]
@@ -1083,6 +1106,8 @@ def full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen):
         f"of the top {RERANK_DEPTH} {rec_rr:.4f}")
     check(rec_rr >= RECALL_FLOOR, f"estimate-then-rerank recall {rec_rr:.4f}"
           f" < {RECALL_FLOOR}")
+    # where the scan's wall goes: the kernel, or the running top-k merge
+    profile_device(est_scan, "estimated scan", top=4)
 
     # ---- rabitq_gather_distance on the megakernel's final frontier
     check(bool(((frontier >= 0) & (frontier < n)).all()),
@@ -1208,20 +1233,29 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     args6 = (codes.packed[:c_n], codes.data_add[:c_n],
              codes.data_rescale[:c_n], rq.q_rot, rq.query_add, rq.query_sumq)
     ms = cuda_ms(lambda: rabitq_distance(*args6, bits=bits), 5)
+    med, lo, hi = cuda_ms_each(lambda: rabitq_distance(*args6, bits=bits), 5)
     plain_ms = cuda_ms(lambda: rabitq_distance_plain(*args6, bits=bits), 2)
-    b_ms, b_by = bound(c_n * (p + 8) + n_q * (d * 4 + 8) + n_q * c_n * 4,
-                       2.0 * n_q * c_n * d)
-    log(f"  rabitq_distance ({n_q}, {c_n}, {bits} bits): {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
-        f"{launches['rabitq_distance']['rabitq_distance']} launches per "
-        "estimated scan")
+    # the 2QCD products are exact on the tensor cores (integer codes times
+    # a query split into three bf16 parts), so the least time for this work
+    # is at the bf16 rate; the float32 bound is kept beside it
+    b_bytes = c_n * (p + 8) + n_q * (d * 4 + 8) + n_q * c_n * 4
+    b_ms, b_by = bound(b_bytes, 2.0 * n_q * c_n * d, peak=BF16_FLOPS)
+    b32_ms, b32_by = bound(b_bytes, 2.0 * n_q * c_n * d)
+    occ = estimator_occupancy("rabitq_distance", bits, p)
+    log(f"  rabitq_distance ({n_q}, {c_n}, {bits} bits): {ms:.3f} ms (mean "
+        f"of 5), median of 5 {med:.3f} (min {lo:.3f}, max {hi:.3f}); plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f} % of it (float32 bound {b32_ms:.3f} ms, "
+        f"{b32_by}); {occ}; {launches['rabitq_distance']['rabitq_distance']}"
+        " launches per estimated scan")
     records.append(dict(
         name="rabitq_distance", route="cuda",
         source="src/repro_torch/csrc/rabitq_distance.cu",
         replaces="src/repro/kernels/rabitq_dot/rabitq_kernel.py:172",
         launches=launches["rabitq_distance"]["rabitq_distance"],
         max_abs_err=errs["err6"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        bound_by=b_by, library_ms=None, ms_median=med, ms_min=lo, ms_max=hi,
+        bound_f32_ms=b32_ms, bound_f32_by=b32_by, **occ))
     torch.cuda.empty_cache()
 
     # ---- rabitq_gather_distance on the frontier's gathered codes
@@ -1602,19 +1636,70 @@ def kernel_label(symbol: str) -> str:
     return f"{m[1]}<{m[2]}{', lse' if m[3] == '1' else ''}>"
 
 
-def search_step_ptxas_check() -> None:
-    """Phase 2: all 80 instances of the fused search kernels (fused_search
-    and fused_hop x exact / 1, 2, 4, 8 bits x tombstone x labels x
-    telemetry) spill nothing (the ptxas report); their registers, and the
-    main path's instance's (4 bits, no masks, no telemetry)."""
+def ptxas_report(name: str) -> tuple[dict, dict]:
+    """({kernel: registers}, {function: spill-store bytes}) of library
+    `name`, from its ptxas report."""
     from repro_torch.kernels import build
-    report = (build.BUILD_DIR / "search_step.log").read_text(errors="replace")
+    report = (build.BUILD_DIR / f"{name}.log").read_text(errors="replace")
     spills = {fn: int(n) for fn, n in re.findall(
         r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
         r"(\d+) bytes spill stores", report)}
     regs = {fn: int(n) for fn, n in re.findall(
         r"Compiling entry function '(\S+)' for '\w+'\n(?:.*\n)*?.*?Used "
         r"(\d+) registers", report)}
+    return regs, spills
+
+
+def estimator_occupancy(name: str, bits: int, p: int) -> dict:
+    """Registers, resident blocks an SM, shared bytes a block (#3: and
+    queries a block) of #3's or #6's main-path instance (the occupancy
+    API), and the most spill stores of its variants at BITS = bits (the
+    ptxas report)."""
+    from repro_torch.kernels.rabitq_dot.ops import occupancy
+    _, spills = ptxas_report(name)
+    info = occupancy(name, bits=bits, p=p)
+    info["spill_stores"] = max(n for fn, n in spills.items()
+                               if f"{name}_kernelILi{bits}E" in fn)
+    return info
+
+
+def sass_hmma(lib: Path) -> dict:
+    """{kernel: HMMA (tensor-core) instructions} in a library's SASS
+    (`cuobjdump` from the toolkit of `nvcc`)."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {fn: body.count("HMMA") for fn, body in re.findall(
+        r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S)}
+
+
+def rabitq_distance_sass_check(libs: dict) -> dict:
+    """Phase 2: every instance of #6 (BITS 1, 2, 4, 8) computes its
+    products on the tensor cores (HMMA in its SASS) and spills nothing (its
+    ptxas report). Returns {bits: HMMA count}."""
+    hmma = {fn: n for fn, n in sass_hmma(libs["rabitq_distance"]).items()
+            if "rabitq_distance_kernel" in fn}
+    _, spills = ptxas_report("rabitq_distance")
+    check(len(hmma) == 4, f"rabitq_distance: {len(hmma)} instances of "
+          "rabitq_distance_kernel in the SASS, expected 4")
+    for fn, n in hmma.items():
+        check(n > 0, f"rabitq_distance {fn}: no HMMA instruction")
+        check(spills.get(fn) == 0, f"rabitq_distance {fn}: spill stores "
+              f"{spills.get(fn, 'not reported')}")
+    by_bits = {int(re.search(r"kernelILi(\d+)E", fn)[1]): n
+               for fn, n in hmma.items()}
+    log(f"    sass rabitq_distance: HMMA per instance (bits: count) "
+        f"{dict(sorted(by_bits.items()))}, no spill stores")
+    return by_bits
+
+
+def search_step_ptxas_check() -> None:
+    """Phase 2: all 80 instances of the fused search kernels (fused_search
+    and fused_hop x exact / 1, 2, 4, 8 bits x tombstone x labels x
+    telemetry) spill nothing (the ptxas report); their registers, and the
+    main path's instance's (4 bits, no masks, no telemetry)."""
+    regs, spills = ptxas_report("search_step")
     kernels = sorted(fn for fn in regs
                      if "fused_search_kernel" in fn or "fused_hop_kernel" in fn)
     check(len(kernels) == 80, f"search_step: {len(kernels)} kernel instances "
@@ -1636,18 +1721,9 @@ def flash_sass_check(libs: dict) -> None:
     """Phase 2: every bf16 flash-attention kernel computes its products on
     the tensor cores (HMMA instructions in its SASS, `cuobjdump` from the
     toolkit of `nvcc`) and spills nothing (its ptxas report)."""
-    from repro_torch.kernels import build
-    tool = Path(build._nvcc()).parent / "cuobjdump"
     for name in ("flash_attention", "flash_attention_bwd"):
-        sass = subprocess.run([str(tool), "-sass", str(libs[name])],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        hmma = {fn: body.count("HMMA") for fn, body in re.findall(
-            r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S)}
-        report = (build.BUILD_DIR / f"{name}.log").read_text(errors="replace")
-        spills = {fn: int(n) for fn, n in re.findall(
-            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
-            r"(\d+) bytes spill stores", report)}
+        hmma = sass_hmma(libs[name])
+        _, spills = ptxas_report(name)
         bf16 = sorted((fn for fn in hmma if "bf16_kernel" in fn),
                       key=lambda fn: (len(kernel_label(fn)),
                                       kernel_label(fn)))
@@ -2376,6 +2452,7 @@ def main() -> int:
                 f"{min(regs)}..{max(regs)}, {spills} with spill stores")
     search_step_ptxas_check()
     flash_sass_check(libs)
+    hmma6 = rabitq_distance_sass_check(libs)
 
     gen = torch.Generator().manual_seed(SEED + 7)
     log("[3] selfcheck (small index, every variant, exact arithmetic)")
@@ -2392,6 +2469,8 @@ def main() -> int:
     scan_records, exact_times = exact_and_scans(idx, q_dev, gt, gt_d, quant,
                                                 gen)
     next(r for r in records if r["name"] == "fused_search").update(exact_times)
+    next(r for r in scan_records if r["name"] == "rabitq_distance")[
+        "sass_hmma"] = hmma6[idx.core.codes.bits]
     records += scan_records
 
     log(f"[6] churn round: delete {args.n // 100}, search, consolidate, "

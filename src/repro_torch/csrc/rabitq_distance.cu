@@ -6,86 +6,413 @@
 // rabitq_distance replaces rabitq_distance_pallas (repro/kernels/rabitq_dot/
 // rabitq_kernel.py:172): every (query, row) pair of a (Q, D) rotated query
 // block and a (C, P) packed code table, the estimator over a full scan.
-// Bound on the H100: float32 operations. At (Q, C) = (10,000, 131,072),
-// D = 128, 4 bits: 2QCD = 3.36e11 flop = 5.0 ms at 67 TFLOP/s; the codes are
-// only 8.4 MB, the output 5.24 GB = 1.57 ms. Design: the register-blocked
-// tile loop of tiled_product.cuh, whose B loader unpacks each stage of the
-// code tile (128 rows x 8 dims) with shift/mask straight into shared memory:
-// once per tile, not once per query. Templated on BITS in {1, 2, 4, 8}.
-// Only the first D unpacked codes count (D <= P * 8/BITS); ragged Q, C and D
-// are masked in-kernel.
+// Bound on the H100: bytes. At (Q, C) = (10,000, 131,072), D = 128, 4 bits
+// the output is 5.24 GB = 1.57 ms at 3.35 TB/s; the 2QCD = 3.36e11 products
+// are 0.34 ms on the tensor cores (the codes are 8.4 MB).
+//
+// Design: the products on the tensor cores, exactly. A code is an integer
+// below 2^BITS <= 256, so exact in bf16; a float32 query splits exactly
+// into three bf16 parts (q = h0 + h1 + h2, 8 significant bits each), so
+// every product code * h is exact and mma.sync m16n8k16 (bf16 in, f32
+// accumulate) takes three products a k-step. On integer operands every
+// partial sum is an integer below 2^24: the result is the plain version's
+// bit for bit. A block computes a 64-query x 256-row tile, 8 warps of 32 x
+// 64, over k-chunks of 64 dims: the chunk's packed code bytes and query
+// floats arrive by 16-byte cp.async (the next chunk's while this one is
+// multiplied); the codes are unpacked once into bf16 in shared memory and
+// the query chunk is split into its three parts there; fragments come by
+// ldmatrix, a code fragment serving all three parts. The estimator
+// epilogue runs on the accumulators in registers: two neighbouring lanes
+// swap halves so that each holds four consecutive columns of one row, and
+// a warp's 16-byte streaming stores write its rows' 128-byte lines whole,
+// 32 bytes of 16 rows a store. 95,744 B of shared memory a block at 4 bits
+// and at most 128 registers a thread: two blocks an SM, one storing while
+// the other multiplies. Only the first D unpacked codes count (D <= P *
+// 8/BITS): the query's parts past D are zero. Ragged Q, C and D are masked
+// in-kernel.
 //
 // rabitq_gather_distance replaces rabitq_gather_distance_pallas
 // (rabitq_kernel.py:97): per query, K candidate code rows already gathered
 // into a contiguous (Q, K, P) buffer with their (Q, K) metadata, as the JAX
 // kernel takes them. Bound: bytes, P + 8 B read and 4 B written per
-// candidate against 2D flops. Design: #3's (rabitq_search_step.cu) body
-// without its gather and mask — one block per query, the query in shared
-// memory zero-padded to P * 8/BITS dims, one warp per candidate through
-// common.cuh's packed_dot (coalesced 32-bit words) and the same epilogue,
-// so on the same rows both kernels round alike.
+// candidate against 2D flops. Design: one block per query, the query in
+// shared memory zero-padded to P * 8/BITS dims, one warp per candidate
+// through common.cuh's packed_dot (coalesced 32-bit words) and the same
+// epilogue. rabitq_search_step.cu scores its staged rows in packed_dot's
+// lane order and shuffle tree, so on the same rows both kernels round
+// alike.
 
-#include "tiled_product.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-using namespace jasper::tile;
+// ------------------------------------------------------ rabitq_distance
+constexpr int kBM = 64;             // queries a block tile
+constexpr int kBN = 256;            // code rows a block tile
+constexpr int kKC = 64;             // dims a k-chunk: four mma k-steps
+constexpr int kThreads = 256;       // 8 warps: 2 (queries) x 4 (rows)
+constexpr int kStride = kKC + 8;    // bf16 a shared row: 9 units of 16 B
+constexpr int kParts = 3;
 
-// Unpacked codes of a (rows, p) packed table as the B operand: dims
-// k..k+3 of row r, zero past d or the table's end.
+// Shared memory of a block: the query chunk's three bf16 parts (A), the
+// unpacked code chunk (B), the next query chunk as floats and the next
+// code chunk as packed bytes (both arriving by cp.async while A and B are
+// multiplied), and the tile's metadata.
+constexpr int kMetaFloats = 2 * (kBN + kBM);  // add, rescale; qa, qsum
+
 template <int BITS>
-struct CodeLoader {
-  const uint8_t* __restrict__ packed;
-  int rows, p, d, r0;
-  __device__ __forceinline__ float4 operator()(int r, int k) const {
-    constexpr int kCpb = 8 / BITS;
-    constexpr unsigned kMask = (1u << BITS) - 1u;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    const int row = r0 + r;
-    if (row < rows) {
-      const uint8_t* src = packed + static_cast<size_t>(row) * p;
+struct Chunk {
+  static constexpr int kBytes = kKC * BITS / 8;             // a row's packed chunk
+  static constexpr int kUnit = kBytes < 16 ? kBytes : 16;   // bytes a cp.async
+  // staged row stride: 16 B of padding past 32 B keeps a quarter-warp's
+  // reads of 8 rows on distinct banks
+  static constexpr int kStage = kBytes >= 32 ? kBytes + 16 : kBytes;
+  static constexpr int kA = kParts * kBM * kStride * 2;
+  static constexpr int kB = kBN * kStride * 2;
+  static constexpr int kQ = kBM * kKC * 4;
+  static constexpr int kPacked = kBN * kStage;
+  static constexpr int kMeta = kA + kB + kQ + kPacked;
+  static constexpr int kSmem = kMeta + kMetaFloats * 4;
+};
+
+__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Copies of k-chunk [k0, k0 + 64) of the tile's query rows into a float
+// buffer [row][dim], float4 f = t + 256 j at (f / 16, 4 (f % 16)): 16-byte
+// copies when d is a multiple of 4 and q 16-byte aligned, else 4-byte
+// ones; zero past nq and d.
+__device__ __forceinline__ void stage_queries(float* qs, const float* __restrict__ q, int nq,
+                                              int d, int m0, int k0, bool vec) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = k + j;
-        if (kk < d)
-          v[j] = static_cast<float>((__ldg(src + kk / kCpb) >> ((kk % kCpb) * BITS)) & kMask);
+  for (int j = 0; j < kBM * kKC / 4 / kThreads; ++j) {
+    const int f = threadIdx.x + kThreads * j;
+    const int r = f >> 4;
+    const int c = 4 * (f & 15);
+    const bool row = m0 + r < nq;
+    const float* src = q + static_cast<size_t>(row ? m0 + r : 0) * d + k0 + c;
+    if (vec) {
+      const bool valid = row && k0 + c < d;
+      jasper::cp_async16(qs + r * kKC + c, valid ? src : q, valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = row && k0 + c + e < d;
+        jasper::cp_async4(qs + r * kKC + c + e, valid ? src + e : q, valid);
       }
     }
-    return make_float4(v[0], v[1], v[2], v[3]);
   }
-};
+}
 
-struct EstimatorEpilogue {
-  const float* __restrict__ add;       // (C,)
-  const float* __restrict__ rescale;   // (C,)
-  const float* __restrict__ qa;        // (Q,)
-  const float* __restrict__ qsum;      // (Q,)
-  __device__ __forceinline__ float operator()(int m, int n, float dot) const {
-    return jasper::rabitq_epilogue(__ldg(add + n), __ldg(qa + m), __ldg(rescale + n), dot,
-                                   __ldg(qsum + m));
+// The staged query chunk into its three bf16 parts, [part][row][dim], each
+// remainder rounded to nearest even: q = h0 + h1 + h2 exactly. Thread t
+// splits the float4s it staged.
+__device__ __forceinline__ void split_queries(__nv_bfloat16* As, const float* qs) {
+#pragma unroll
+  for (int j = 0; j < kBM * kKC / 4 / kThreads; ++j) {
+    const int f = threadIdx.x + kThreads * j;
+    const int r = f >> 4;
+    const int c = 4 * (f & 15);
+    const float4 x4 = *reinterpret_cast<const float4*>(qs + r * kKC + c);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    unsigned h[kParts][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const unsigned h0 = flash::pack_bf16(x[2 * i], x[2 * i + 1]);
+      const float r0 = x[2 * i] - bf16_lo(h0);
+      const float r1 = x[2 * i + 1] - bf16_hi(h0);
+      const unsigned h1 = flash::pack_bf16(r0, r1);
+      h[0][i] = h0;
+      h[1][i] = h1;
+      h[2][i] = flash::pack_bf16(r0 - bf16_lo(h1), r1 - bf16_hi(h1));
+    }
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      *reinterpret_cast<uint2*>(As + (p * kBM + r) * kStride + c) = make_uint2(h[p][0], h[p][1]);
   }
-};
+}
 
-template <int BITS, bool VEC, bool VEC_OUT>
-__global__ void __launch_bounds__(kThreads)
+// Copies of k-chunk kc of the tile's packed rows into a staging buffer:
+// whole units by cp.async (zero past the row or the table), or, for rows
+// that are not a whole number of units or a base off 16 bytes, one byte at
+// a time.
+template <int BITS>
+__device__ __forceinline__ void stage_codes(uint8_t* staged, const uint8_t* __restrict__ packed,
+                                            int nc, int p, int n0, int kc, bool vec) {
+  using C = Chunk<BITS>;
+  const int b0 = kc * C::kBytes;
+  if (vec) {
+    constexpr int kUnits = C::kBytes / C::kUnit;
+    for (int i = threadIdx.x; i < kBN * kUnits; i += kThreads) {
+      const int r = i / kUnits;
+      const int off = (i - r * kUnits) * C::kUnit;
+      const bool valid = n0 + r < nc && b0 + off < p;
+      const uint8_t* src = valid ? packed + static_cast<size_t>(n0 + r) * p + b0 + off : packed;
+      const unsigned dst = jasper::smem_addr(staged + r * C::kStage + off);
+      if constexpr (C::kUnit == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                     "r"(valid ? 16 : 0));
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                     "r"(valid ? 8 : 0));
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBN * C::kBytes; i += kThreads) {
+      const int r = i / C::kBytes;
+      const int off = i - r * C::kBytes;
+      staged[r * C::kStage + off] =
+          n0 + r < nc && b0 + off < p ? __ldg(packed + static_cast<size_t>(n0 + r) * p + b0 + off)
+                                      : 0;
+    }
+  }
+}
+
+// bf16 pairs (lo, hi) of two codes below 128: 128 + code in the mantissa of
+// 128, then 128 taken off, exactly.
+__device__ __forceinline__ unsigned small_codes_bf16(unsigned lo, unsigned hi) {
+  return jasper::bf16x2_fma(lo | (hi << 16) | 0x43004300u, 0x3f803f80u, 0xc300c300u);
+}
+
+// N packed words (N * 32/BITS codes) of a row into bf16, 8 codes (one
+// 16-byte unit) at a time.
+template <int BITS, int N>
+__device__ __forceinline__ void unpack_words(__nv_bfloat16* dst, const uint32_t (&w)[N]) {
+  constexpr int kCodes = 32 / BITS;  // codes a word
+  constexpr unsigned kMask = (1u << BITS) - 1u;
+#pragma unroll
+  for (int g = 0; g < N * kCodes / 8; ++g) {
+    unsigned pr[4];
+    if constexpr (BITS == 4) {
+      // word g holds dims 8g..8g+7, its byte i dims 2i (low nibble), 2i+1
+      const uint32_t lo = w[g] & 0x0f0f0f0fu;
+      const uint32_t hi = (w[g] >> 4) & 0x0f0f0f0fu;
+      const uint32_t t0 = __byte_perm(lo, hi, 0x5140);  // dims 0..3, a byte each
+      const uint32_t t1 = __byte_perm(lo, hi, 0x7362);  // dims 4..7
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pr[i] = jasper::bf16x2_fma(
+            __byte_perm(i < 2 ? t0 : t1, 0x43434343u, (i & 1) ? 0x4342 : 0x4140), 0x3f803f80u,
+            0xc300c300u);
+    } else if constexpr (BITS == 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t x = w[2 * g + (i >> 1)];
+        const int s = 16 * (i & 1);
+        pr[i] = flash::pack_bf16(static_cast<float>((x >> s) & 0xffu),
+                                 static_cast<float>((x >> (s + 8)) & 0xffu));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int dim = 8 * g + 2 * i;
+        const uint32_t x = w[dim / kCodes];
+        const int s = (dim % kCodes) * BITS;
+        pr[i] = small_codes_bf16((x >> s) & kMask, (x >> (s + BITS)) & kMask);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + 8 * g) = make_uint4(pr[0], pr[1], pr[2], pr[3]);
+  }
+}
+
+// The staged chunk unpacked into bf16, [row][dim]: thread t unpacks row
+// t's 64 codes, read as 16-byte (at 1 bit 8-byte) vectors. Codes past d are
+// left as they are: the query's parts there are zero.
+template <int BITS>
+__device__ __forceinline__ void unpack_codes(__nv_bfloat16* Bs, const uint8_t* staged) {
+  using C = Chunk<BITS>;
+  const uint8_t* src = staged + threadIdx.x * C::kStage;
+  __nv_bfloat16* dst = Bs + threadIdx.x * kStride;
+  if constexpr (BITS == 1) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    const uint32_t w[2] = {v.x, v.y};
+    unpack_words<BITS, 2>(dst, w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < C::kBytes / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      unpack_words<BITS, 4>(dst + i * (128 / BITS), w);
+    }
+  }
+}
+
+// Copies of a tile's metadata, add and rescale of its rows, qa and qsum of
+// its queries, into meta (zero past nc, nq).
+__device__ __forceinline__ void stage_meta(float* meta, const float* __restrict__ add,
+                                           const float* __restrict__ rescale,
+                                           const float* __restrict__ qa,
+                                           const float* __restrict__ qsum, int nq, int nc, int m0,
+                                           int n0) {
+  for (int i = threadIdx.x; i < kBN; i += kThreads) {
+    const bool valid = n0 + i < nc;
+    jasper::cp_async4(meta + i, valid ? add + n0 + i : add, valid);
+    jasper::cp_async4(meta + kBN + i, valid ? rescale + n0 + i : rescale, valid);
+  }
+  for (int i = threadIdx.x; i < kBM; i += kThreads) {
+    const bool valid = m0 + i < nq;
+    jasper::cp_async4(meta + 2 * kBN + i, valid ? qa + m0 + i : qa, valid);
+    jasper::cp_async4(meta + 2 * kBN + kBM + i, valid ? qsum + m0 + i : qsum, valid);
+  }
+}
+
+// A block computes one output tile: the next chunk's copies are in flight
+// while this one is multiplied (two barriers a chunk), then each warp
+// applies the epilogue to its dots in registers and stores them.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads, 2)
 rabitq_distance_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ add,
                        const float* __restrict__ rescale, const float* __restrict__ q,
                        const float* __restrict__ qa, const float* __restrict__ qsum,
-                       float* __restrict__ out, int nq, int nc, int p, int d) {
-  __shared__ __align__(16) Stage st[2];
+                       float* __restrict__ out, int nq, int nc, int p, int d, int vec_q,
+                       int vec_codes, int vec_out) {
+  using C = Chunk<BITS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + C::kA);
+  float* qs = reinterpret_cast<float*>(smem + C::kA + C::kB);
+  uint8_t* staged = smem + C::kA + C::kB + C::kQ;
+  float* meta = reinterpret_cast<float*>(smem + C::kMeta);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp >> 2;  // rows 32 wm .. of the query tile
+  const int wn = warp & 3;   // rows 64 wn .. of the code tile
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
-  float acc[8][8];
+  const int chunks = d > kKC ? (d + kKC - 1) / kKC : 1;
+
+  stage_meta(meta, add, rescale, qa, qsum, nq, nc, m0, n0);
+  stage_queries(qs, q, nq, d, m0, 0, vec_q);
+  stage_codes<BITS>(staged, packed, nc, p, n0, 0, vec_codes);
+  jasper::cp_async_commit();
+  float acc[2][8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float unused_a = 0.f, unused_b = 0.f;
-  tile_product<VEC, false>(q, nq, d, m0, CodeLoader<BITS>{packed, nc, p, d, n0}, st, acc,
-                           unused_a, unused_b);
-  store_tile<VEC_OUT>(out, nq, nc, m0, n0, acc, EstimatorEpilogue{add, rescale, qa, qsum});
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int kc = 0; kc < chunks; ++kc) {
+    jasper::cp_async_wait<0>();
+    __syncthreads();  // chunk kc staged; every warp done with chunk kc - 1
+    split_queries(As, qs);
+    unpack_codes<BITS>(Bs, staged);
+    __syncthreads();
+    if (kc + 1 < chunks) {
+      stage_queries(qs, q, nq, d, m0, (kc + 1) * kKC, vec_q);
+      stage_codes<BITS>(staged, packed, nc, p, n0, kc + 1, vec_codes);
+      jasper::cp_async_commit();
+    }
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      unsigned b[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) flash::load_b<kStride>(b[j], Bs + 64 * wn * kStride, j, ks);
+      // the smallest part first: the sum grows from its finest terms
+#pragma unroll
+      for (int part = kParts - 1; part >= 0; --part) {
+        unsigned a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          flash::load_a<kStride>(a[mt], As + (part * kBM + 32 * wm + 16 * mt) * kStride, ks);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            jasper::mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][2 * (nt & 1)],
+                             b[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    }
+  }
+
+  // The epilogue from the accumulators: lanes t and t ^ 1 (columns 2t4,
+  // 2t4 + 1 and the next two, rows g and g + 8) swap halves, so the even
+  // lane holds four columns of row g and the odd one four of row g + 8.
+  // A warp's store then writes 32 bytes of 16 rows, and four of them (n-
+  // tiles 2j, 2j + 1 of both m-tiles) the warp's whole 128-byte lines.
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int odd = t4 & 1;
+  float a_r[2], b_r[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int mr = 32 * wm + 16 * mt + g + 8 * odd;  // row of the tile
+    a_r[mt] = meta[2 * kBN + mr];
+    b_r[mt] = meta[2 * kBN + kBM + mr];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int nc0 = 64 * wn + 8 * nt + 4 * (t4 >> 1);  // column of the tile
+    const float4 ad = *reinterpret_cast<const float4*>(meta + nc0);
+    const float4 rs = *reinterpret_cast<const float4*>(meta + kBN + nc0);
+    const int n = n0 + nc0;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* c = acc[mt][nt];
+      const float x = __shfl_xor_sync(jasper::kFullMask, odd ? c[0] : c[2], 1);
+      const float y = __shfl_xor_sync(jasper::kFullMask, odd ? c[1] : c[3], 1);
+      const float4 dot = odd ? make_float4(x, y, c[2], c[3]) : make_float4(c[0], c[1], x, y);
+      const int m = m0 + 32 * wm + 16 * mt + g + 8 * odd;
+      if (m >= nq) continue;
+      const float a = a_r[mt];
+      const float b = b_r[mt];
+      const float e[4] = {jasper::rabitq_epilogue(ad.x, a, rs.x, dot.x, b),
+                          jasper::rabitq_epilogue(ad.y, a, rs.y, dot.y, b),
+                          jasper::rabitq_epilogue(ad.z, a, rs.z, dot.z, b),
+                          jasper::rabitq_epilogue(ad.w, a, rs.w, dot.w, b)};
+      float* row = out + static_cast<size_t>(m) * nc + n;
+      if (vec_out) {
+        if (n < nc) __stcs(reinterpret_cast<float4*>(row), make_float4(e[0], e[1], e[2], e[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < nc) row[j] = e[j];
+      }
+    }
+  }
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int BITS>
+int set_smem() {
+  return static_cast<int>(cudaFuncSetAttribute(rabitq_distance_kernel<BITS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Chunk<BITS>::kSmem));
+}
+
+template <int BITS>
+int launch_all_pairs(const uint8_t* packed, const float* add, const float* rescale,
+                     const float* q, const float* qa, const float* qsum, float* out, int nq,
+                     int nc, int p, int d, cudaStream_t s) {
+  static const int attr = set_smem<BITS>();
+  if (attr != 0) return attr;
+  const dim3 grid((nq + kBM - 1) / kBM, (nc + kBN - 1) / kBN);
+  const int vec_q = (d & 3) == 0 && aligned16(q);
+  const int vec_codes = p % Chunk<BITS>::kUnit == 0 && aligned16(packed);
+  const int vec_out = (nc & 3) == 0 && aligned16(out);
+  rabitq_distance_kernel<BITS><<<grid, kThreads, Chunk<BITS>::kSmem, s>>>(
+      packed, add, rescale, q, qa, qsum, out, nq, nc, p, d, vec_q, vec_codes, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS>
+int occupancy_of(int* info) {
+  int e = set_smem<BITS>();
+  if (e != 0) return e;
+  cudaFuncAttributes attr;
+  e = static_cast<int>(cudaFuncGetAttributes(&attr, rabitq_distance_kernel<BITS>));
+  if (e != 0) return e;
+  int blocks = 0;
+  e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, rabitq_distance_kernel<BITS>, kThreads, Chunk<BITS>::kSmem));
+  info[0] = attr.numRegs;
+  info[1] = blocks;
+  info[2] = Chunk<BITS>::kSmem;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return e;
+}
+
+// ------------------------------------------------ rabitq_gather_distance
 template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 rabitq_gather_kernel(const uint8_t* __restrict__ cand, const float* __restrict__ add,
@@ -109,30 +436,6 @@ rabitq_gather_kernel(const uint8_t* __restrict__ cand, const float* __restrict__
     dot = jasper::warp_sum(dot);
     if (lane == 0) out[e] = jasper::rabitq_epilogue(__ldg(add + e), a, __ldg(rescale + e), dot, b);
   }
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-template <int BITS>
-int launch_all_pairs(const uint8_t* packed, const float* add, const float* rescale,
-                     const float* q, const float* qa, const float* qsum, float* out, int nq,
-                     int nc, int p, int d, cudaStream_t s) {
-  const dim3 grid((nq + kBM - 1) / kBM, (nc + kBN - 1) / kBN);
-  const bool vec = (d & 3) == 0 && aligned16(q);
-  const bool vec_out = (nc & 3) == 0 && aligned16(out);
-  if (vec && vec_out)
-    rabitq_distance_kernel<BITS, true, true><<<grid, kThreads, 0, s>>>(
-        packed, add, rescale, q, qa, qsum, out, nq, nc, p, d);
-  else if (vec)
-    rabitq_distance_kernel<BITS, true, false><<<grid, kThreads, 0, s>>>(
-        packed, add, rescale, q, qa, qsum, out, nq, nc, p, d);
-  else if (vec_out)
-    rabitq_distance_kernel<BITS, false, true><<<grid, kThreads, 0, s>>>(
-        packed, add, rescale, q, qa, qsum, out, nq, nc, p, d);
-  else
-    rabitq_distance_kernel<BITS, false, false><<<grid, kThreads, 0, s>>>(
-        packed, add, rescale, q, qa, qsum, out, nq, nc, p, d);
-  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kGatherThreads = 256;
@@ -165,6 +468,18 @@ extern "C" int rabitq_distance_launch(const uint8_t* packed, const float* data_a
     case 2: return launch_all_pairs<2>(packed, data_add, data_rescale, q, qa, qsum, out, nq, nc, p, d, s);
     case 4: return launch_all_pairs<4>(packed, data_add, data_rescale, q, qa, qsum, out, nq, nc, p, d, s);
     case 8: return launch_all_pairs<8>(packed, data_add, data_rescale, q, qa, qsum, out, nq, nc, p, d, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// registers a thread, resident blocks an SM, shared bytes a block and
+// local (spilled) bytes a thread of the all-pairs kernel at `bits`
+extern "C" int rabitq_distance_occupancy(int bits, int* info) {
+  switch (bits) {
+    case 1: return occupancy_of<1>(info);
+    case 2: return occupancy_of<2>(info);
+    case 4: return occupancy_of<4>(info);
+    case 8: return occupancy_of<8>(info);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -35,8 +35,68 @@ from repro_torch.kernels import build
 
 _INF = float("inf")
 BITS = (1, 2, 4, 8)
-# the all-pairs kernel's grid holds the row tiles of 128 in its y dimension
+# rows per call of the all-pairs kernel (within its grid's y dimension of
+# at most 65,535 tiles of 256 rows)
 DISTANCE_MAX_ROWS = 65535 * 128
+# `rabitq_search_step`'s shared slot of one query, a warp (`slot_of` in
+# csrc/rabitq_search_step.cu): a block holds up to STEP_WARPS_PER_BLOCK
+SMEM_PER_BLOCK = 232_448
+STEP_WARPS_PER_BLOCK = 4
+STEP_STAGE_BYTES = 16384
+STEP_MAX_ROWS = 128
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def step_smem_bytes(k: int, p: int, bits: int) -> int:
+    """Shared bytes of one query's slot of `rabitq_search_step` at K
+    candidates and P-byte rows: the query (P * 8/bits floats) when a row
+    has more than 32 units (32-bit words, or bytes when P is not a multiple
+    of 4; shorter rows keep it in registers), the rows a
+    round stages (as many of K as fit in STEP_STAGE_BYTES at a stride of
+    whole 16-byte units, at least one, at most STEP_MAX_ROWS), and their
+    ids and dots (4 B each), rounded up to 16 B."""
+    stride = _align16(p)
+    rows = min(k, max(1, min(STEP_MAX_ROWS, STEP_STAGE_BYTES // stride)))
+    units = p // 4 if p % 4 == 0 else p
+    q_bytes = _align16(p * (8 // bits) * 4) if units > 32 else 0
+    return _align16(q_bytes + rows * stride + rows * 8)
+
+
+def check_step_shape(k: int, p: int, bits: int) -> None:
+    """The shapes `rabitq_search_step`'s kernel takes: one query's slot
+    (`step_smem_bytes`) within SMEM_PER_BLOCK bytes of shared memory (a
+    block then holds as many as fit, at most STEP_WARPS_PER_BLOCK). Raises
+    ValueError naming the limit."""
+    need = step_smem_bytes(k, p, bits)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"rabitq_search_step: K={k} and rows of {p} B at {bits} bits "
+            f"need {need} bytes of shared memory for one query; the limit is "
+            f"{SMEM_PER_BLOCK}")
+
+
+def occupancy(kernel: str, *, bits: int, p: int, k: int = 64) -> dict:
+    """One instance of an estimator kernel on the card, "rabitq_distance"
+    (#6) or "rabitq_search_step" (#3, no masks, at K and P-byte rows): its
+    registers a thread, resident blocks an SM (the CUDA occupancy API),
+    shared bytes a block and local (spilled) bytes a thread; #3 also its
+    warps (queries) a block."""
+    if kernel == "rabitq_distance":
+        fn = build.entry(kernel, "rabitq_distance_occupancy",
+                         [ctypes.c_int, ctypes.c_void_p])
+        info = (ctypes.c_int * 4)()
+        err = fn(bits, ctypes.cast(info, ctypes.c_void_p))
+    else:
+        fn = build.entry(kernel, "rabitq_search_step_occupancy",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        info = (ctypes.c_int * 5)()
+        err = fn(bits, k, p, ctypes.cast(info, ctypes.c_void_p))
+    build.check(err, f"{kernel} occupancy")
+    return dict(zip(("registers", "blocks_per_sm", "smem_per_block",
+                     "local_bytes", "warps_per_block"), info))
 
 
 def filter_word(filter_bytes: torch.Tensor) -> int:
@@ -246,6 +306,7 @@ def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
     _check_bits(bits)
     qn, k = ids.shape
     n, p = packed.shape
+    check_step_shape(k, p, bits)
     d_need = p * (8 // bits)
     if q_rot.shape[0] != qn or q_rot.shape[1] > d_need:
         raise ValueError(f"q_rot {tuple(q_rot.shape)} does not fit ids "

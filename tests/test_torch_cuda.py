@@ -553,6 +553,158 @@ def test_rabitq_gather_distance_vs_plain_and_search_step(cuda_device, bits):
             assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
+# (Q, C, D): ragged queries, rows and dims, D not a multiple of 16 or 64
+RABITQ_REAL_SHAPES = [(1, 1, 96), (19, 300, 100), (37, 5, 960),
+                      (130, 513, 128), (65, 257, 33), (200, 1000, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", RABITQ_REAL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in RABITQ_REAL_SHAPES])
+def test_rabitq_distance_real_operands_vs_plain(cuda_device, bits, shape):
+    """Real queries and metadata: within rtol 1e-4 of the plain version plus
+    1e-6 of the magnitude the estimator cancels, |add| + |qa| + |rescale|
+    (sum |q| (2^bits - 1) + |qsum|) — chip_smoke.py's `within` bound. The
+    tensor cores sum the exact products of the three bf16 parts in another
+    order than the plain float32 product."""
+    from repro_torch.kernels.rabitq_dot.ops import (rabitq_distance,
+                                                    rabitq_distance_plain)
+    q, c, d = shape
+    rng = np.random.default_rng(bits * 1000 + d)
+    p = tr.packed_dim(d, bits)
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.float32)).to(cuda_device)
+    packed = torch.as_tensor(rng.integers(0, 256, (c, p)).astype(np.uint8)
+                             ).to(cuda_device)
+    args = (packed, t(rng.normal(size=c) * 100), t(rng.normal(size=c)),
+            t(rng.normal(size=(q, d))), t(rng.normal(size=q) * 100),
+            t(rng.normal(size=q) * 10))
+    got = rabitq_distance(*args, bits=bits)
+    want = rabitq_distance_plain(*args, bits=bits)
+    torch.cuda.synchronize()
+    add, rescale, qr, qa, qs = args[1:]
+    qmag = qr.abs().sum(1) * (2 ** bits - 1) + qs.abs()
+    terms = (add.abs()[None, :] + qa.abs()[:, None]
+             + rescale.abs()[None, :] * qmag[:, None])
+    assert bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-6 * terms)
+                .all())
+
+
+def _sass_hmma_and_spills(name):
+    """{kernel: (HMMA instructions in its SASS, spill-store bytes from its
+    ptxas report)} of the library `name` (built on first use)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    lib = build.build_all()[name]
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    report = (build.BUILD_DIR / f"{name}.log").read_text(errors="replace")
+    spills = dict(re.findall(r"Function properties for (\S+)\n\s*\d+ bytes "
+                             r"stack frame, (\d+) bytes spill stores", report))
+    return {fn: (body.count("HMMA"), int(spills.get(fn, -1)))
+            for fn, body in re.findall(
+                r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S)}
+
+
+@pytest.mark.cuda
+def test_rabitq_distance_on_the_tensor_cores_without_spills(cuda_device):
+    """Every instance of #6 (BITS 1, 2, 4, 8) has HMMA (tensor-core)
+    instructions and no spill stores."""
+    found = {fn: v for fn, v in _sass_hmma_and_spills("rabitq_distance")
+             .items() if "rabitq_distance_kernel" in fn}
+    assert len(found) == 4
+    for fn, (hmma, spill) in found.items():
+        assert hmma > 0, fn
+        assert spill == 0, fn
+
+
+# (K, D at 4 bits): rows of 16 B (D 32), 64 B (the main path), 2,304 B (the
+# RAG index's D 4,608: several rounds a query), and rows of 18 and 20 B
+# (byte and 4-byte copies)
+STEP_SHAPES = [(k, d) for k in (1, 33, 64, 128) for d in (32, 128, 4608)] + [
+    (64, 36), (64, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masks", ["none", "tomb", "labels", "both"])
+@pytest.mark.parametrize("k, d", STEP_SHAPES,
+                         ids=[f"K{k}-P{d // 2}" for k, d in STEP_SHAPES])
+def test_rabitq_search_step_rows_in_flight(cuda_device, k, d, masks):
+    """All of a query's rows staged at once, or in rounds: ids -1, ids in
+    [n_valid, N), every mask combination; bit-equal to the plain version on
+    integer operands."""
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_search_step, rabitq_search_step_plain)
+    c = Case(k * 7 + d, cuda_device, bits=4, shape=(N, d, R, Q))
+    ids = torch.as_tensor(c.rng.integers(-1, N, (Q, k)).astype(np.int32)
+                          ).to(cuda_device)
+    kw = {}
+    if masks in ("tomb", "both"):
+        kw["tombstone_bits"] = c.tomb
+    if masks in ("labels", "both"):
+        kw.update(labels=c.labels, filter_bytes=c.fb)
+    args = (ids, c.codes.packed, c.codes.data_add, c.codes.data_rescale,
+            c.graph.n_valid, c.rq.q_rot, c.rq.query_add, c.rq.query_sumq)
+    before = rabitq_search_step.launches
+    got = rabitq_search_step(*args, bits=4, **kw)
+    want = rabitq_search_step_plain(*args, bits=4, **kw)
+    torch.cuda.synchronize()
+    assert rabitq_search_step.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rabitq_search_step_equals_gather_distance_on_real_codes(cuda_device):
+    """#3 scores a staged row in packed_dot's lane order and shuffle tree:
+    on the same live rows it equals #5 bit for bit on real operands, at the
+    main path's 64-byte rows."""
+    from repro_torch.kernels.rabitq_dot.ops import (rabitq_gather_distance,
+                                                    rabitq_search_step)
+    c = Case(64, cuda_device, bits=4, shape=MAIN)
+    rng = np.random.default_rng(64)
+    n = MAIN[0]
+    ids = torch.as_tensor(rng.integers(0, n, (MAIN[3], 64)).astype(np.int32)
+                          ).to(cuda_device)
+    codes = tr.RaBitQCodes(
+        packed=c.codes.packed,
+        data_add=torch.as_tensor(rng.normal(size=n).astype(np.float32) * 50
+                                 ).to(cuda_device),
+        data_rescale=torch.as_tensor(rng.normal(size=n).astype(np.float32)
+                                     ).to(cuda_device), bits=4, dims=128)
+    qargs = (torch.as_tensor(rng.normal(size=(MAIN[3], 128)).astype(
+        np.float32)).to(cuda_device), c.rq.query_add, c.rq.query_sumq)
+    safe = ids.long()
+    got5 = rabitq_gather_distance(codes.packed[safe].contiguous(),
+                                  codes.data_add[safe],
+                                  codes.data_rescale[safe], *qargs, bits=4)
+    got3 = rabitq_search_step(ids, codes.packed, codes.data_add,
+                              codes.data_rescale, n, *qargs, bits=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got3, got5)
+
+
+@pytest.mark.cuda
+def test_rabitq_search_step_reports_its_occupancy(cuda_device):
+    """The main path's instance: STEP_WARPS_PER_BLOCK queries (warps) a
+    block, resident blocks > 0, the slots `step_smem_bytes` counts, nothing
+    spilled; #6 two blocks an SM."""
+    from repro_torch.kernels.rabitq_dot.ops import (
+        STEP_WARPS_PER_BLOCK, occupancy, step_smem_bytes)
+    info = occupancy("rabitq_search_step", bits=4, p=64, k=64)
+    assert info["warps_per_block"] == STEP_WARPS_PER_BLOCK
+    assert info["smem_per_block"] == (STEP_WARPS_PER_BLOCK
+                                      * step_smem_bytes(64, 64, 4))
+    assert info["blocks_per_sm"] > 0 and info["local_bytes"] == 0
+    info = occupancy("rabitq_distance", bits=4, p=64)
+    assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 33, 96, 100, 960])
 def test_gather_l2_tiled_vs_plain(cuda_device, d):
