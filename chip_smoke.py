@@ -12,9 +12,9 @@ Phases:
                 of the fused search kernels may spill (the ptxas report),
                 and the main path's instance prints its registers; from
                 `cuobjdump -sass`, the HMMA (tensor-core) instructions of
-                every bf16 flash-attention kernel and of the four instances
-                of `rabitq_distance` (#6): each must have some and no spill
-                stores.
+                every bf16 flash-attention kernel, of the four instances
+                of `rabitq_distance` (#6) and of `pairwise_l2` (#7): each
+                must have some and no spill stores.
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
@@ -40,9 +40,9 @@ Phases:
                 call computes the same function, that call's time;
                 `fused_search` and `fused_hop` also as the median, min and
                 max of 10 launches (at each sampled hop for `fused_hop`);
-                `fused_hop` and `rabitq_search_step` also replayed from a
-                CUDA graph (`ms_graph`: the kernel without the wrapper's
-                host path, which is the longer of the two); the main
+                `fused_hop`, `rabitq_search_step` and `topk` also replayed
+                from a CUDA graph (`ms_graph`: the kernel without the
+                wrapper's host path, which is the longer of the two); the main
                 path's instance's registers and resident queries (or
                 blocks) per SM (the CUDA occupancy API).
   6. churn round ("built for change") on the same index: delete 1% of the
@@ -71,7 +71,8 @@ Phases:
                 Exact full scan (`pairwise_l2`, all queries x all rows in
                 chunks of 131,072, the last ragged, a running top-10): every
                 chunk bit-equal to `pairwise_l2_plain`, the top-10 distances
-                bit-equal to `brute_force`'s and the ids equal below the cut.
+                bit-equal to `brute_force`'s and the ids equal below the cut;
+                one exact scan profiled (the kernel against the top-k merge).
                 Estimated full scan (`rabitq_distance` on the 4-bit codes, a
                 running top-64, exact rerank through `gather_l2`): recall@10
                 code-only and after the rerank (>= 0.85).
@@ -84,11 +85,17 @@ Phases:
                 terms on the real codes. Times of the four kernels beside
                 their plain versions, bounds and library calls
                 (`gather_l2_tiled` beside `gather_l2` on the same inputs);
-                `rabitq_distance` also as the median, min and max of 5, its
-                bound at the bf16 tensor rate (its products are exact on the
-                tensor cores) with the float32 one beside it, and its
-                registers and blocks per SM; one estimated scan profiled
-                (device time by kernel: the kernel against the top-k merge).
+                `rabitq_distance` and `pairwise_l2` also as the median, min
+                and max of 5, their bounds at the bf16 tensor rate (their
+                products are exact on the tensor cores; #7's counts the
+                products of parts its votes take on the operands) with the
+                float32 one beside it, and their registers and blocks per
+                SM; `pairwise_l2` timed and checked on three operand kinds:
+                the scan's integer operands (bit-equal), noisy queries
+                against the integer rows and real x real (within rtol 1e-4
+                plus float32 ulps of |q|^2 + |x|^2); one estimated scan
+                profiled (device time by kernel: the kernel against the
+                top-k merge).
   8. RAG serving — runs last, after phase 6's index is freed: starcoder2-7b
                 at full width (10.12 B parameters, bf16, random weights
                 from seed 0, `use_flash_kernel=True`). #10 and #11 against
@@ -368,10 +375,11 @@ def compare_hop_exact(cases) -> None:
 def compare_topk_exact(gen) -> None:
     """topk against topk_plain, bit-equal: integer dists with ties, 30 %
     +inf entries, rows whose second half is all +inf, and widths that are
-    not a multiple of 32."""
+    not a multiple of 32, on both sides of the warp path's width."""
     from repro_torch.kernels.topk.ops import topk, topk_plain
     for q, c, k in ((512, 6, 4), (10_000, 128, 64), (300, 45, 9),
-                    (64, 1000, 100)):
+                    (64, 1000, 100), (300, 33, 20), (1000, 256, 128),
+                    (300, 257, 64)):
         d = torch.randint(0, 8, (q, c), generator=gen).float()
         d[torch.rand((q, c), generator=gen) < 0.3] = float("inf")
         d[: q // 4, c // 2:] = float("inf")
@@ -381,7 +389,8 @@ def compare_topk_exact(gen) -> None:
         got, want = topk(d, ids, k), topk_plain(d, ids, k)
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
               f"topk ({q}, {c}) k={k}: differs from topk_plain")
-    log("  topk: bit-equal on ties and +inf tails, C in {6, 128, 45, 1000}")
+    log("  topk: bit-equal on ties and +inf tails, C in {6, 128, 45, 1000, "
+        "33, 256, 257}")
 
 
 def compare_step_exact(core, rq, gen, n_q) -> None:
@@ -891,19 +900,27 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "topk at the merge's shape differs from topk_plain")
     ms = cuda_ms(lambda: topk(all_d, pos, beam), 20)
+    graph = graph_of(lambda: topk(all_d, pos, beam))
+    g_ms = cuda_ms(graph.replay, 20)
+    g_med, g_lo, g_hi = cuda_ms_each(graph.replay, 20)
+    del graph
     plain_ms = cuda_ms(lambda: topk_plain(all_d, pos, beam), 20)
     lib_ms = cuda_ms(lambda: torch.topk(all_d, beam, dim=1, largest=False,
                                         sorted=True), 20)
     # read dists + ids once, write the k smallest; C*C rank compares per row
     b_ms, b_by = bound(n_q * c * 8 + n_q * beam * 8, n_q * c * c)
-    log(f"  topk ({n_q}, {c}) k={beam}: {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" torch.topk {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+    log(f"  topk ({n_q}, {c}) k={beam}: launched from the wrapper "
+        f"{ms:.4f} ms (mean of 20); replayed from a CUDA graph (the kernel "
+        f"alone) {g_ms:.4f} ms, median of 20 {g_med:.4f} (min {g_lo:.4f}, "
+        f"max {g_hi:.4f}); plain {plain_ms:.4f} ms, torch.topk "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"{float(torch.isinf(all_d).float().mean()):.3f} of the entries +inf")
     records.append(dict(
         name="topk", route="cuda", source="src/repro_torch/csrc/topk.cu",
         replaces="src/repro/kernels/topk/topk_kernel.py:49",
         launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ms_graph=g_ms,
+        ms_graph_median=g_med, ms_graph_min=g_lo, ms_graph_max=g_hi))
     return records
 
 
@@ -1077,6 +1094,8 @@ def full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen):
         del got
     log(f"  pairwise_l2: every chunk bit-equal to pairwise_l2_plain "
         f"(integer rows and queries)")
+    # where the scan's wall goes: the kernel, or the running top-k merge
+    profile_device(exact_scan, "exact scan", top=4)
 
     # ---- estimated full scan: counted pass (top-64 -> exact rerank)
     c = core.codes
@@ -1182,12 +1201,12 @@ def full_scans(idx, q_dev, rq, gt, gt_d, frontier, gen):
 
 def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
                                 gen):
-    """Times and bounds of the four kernels of phase 7 (#7 and #6 on one
-    full chunk, #5 on the frontier, #8 at the rerank's shape beside #2);
-    returns their kernel JSON records."""
+    """Times and bounds of the four kernels of phase 7 (#7 on one full chunk
+    with three operand kinds, #6 on one full chunk, #5 on the frontier, #8
+    at the rerank's shape beside #2); returns their kernel JSON records."""
     from repro_torch.kernels.distance.ops import (
         gather_l2, gather_l2_plain, gather_l2_tiled, pairwise_l2,
-        pairwise_l2_plain)
+        pairwise_l2_plain, pairwise_occupancy, pairwise_tensor_flops)
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_distance_plain, rabitq_gather_distance,
         rabitq_gather_distance_plain)
@@ -1199,34 +1218,63 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     k = frontier.shape[1]
     records = []
 
-    # ---- pairwise_l2: noisy queries too (realistic mode), then times
-    noisy_q = q_dev + 0.37 * torch.randn(q_dev.shape, generator=gen).to(
-        q_dev.device)
-    got = pairwise_l2(noisy_q, x)
-    want = pairwise_l2_plain(noisy_q, x)
-    qsq = (noisy_q * noisy_q).sum(1)
-    ok, err7 = within(got, want, lambda a, b: (
-        qsq[a:b, None] + core.vec_sqnorm[None, :c_n]))
-    check(ok, f"pairwise_l2 realistic: max |err| {err7}")
-    del got, want
-    ms = cuda_ms(lambda: pairwise_l2(q_dev, x), 5)
+    # ---- pairwise_l2 on three operand kinds: the scan's integer queries
+    # and rows (bit-equal in full_scans), noisy queries against the integer
+    # rows, and real x real (the rows jittered too); times and bounds of each
+    kinds = {"integer": (q_dev, x)}
+    kinds["noisy"] = (q_dev + 0.37 * torch.randn(
+        q_dev.shape, generator=gen).to(q_dev.device), x)
+    kinds["real"] = (kinds["noisy"][0], x + 0.37 * torch.randn(
+        x.shape, generator=gen).to(x.device))
+    noisy_q = kinds["noisy"][0]
+    b32_ms, b32_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
+                           2.0 * n_q * c_n * d)
+    per_kind = {}
+    for kind, (qk, xk) in kinds.items():
+        got = pairwise_l2(qk, xk)
+        want = pairwise_l2_plain(qk, xk)
+        if kind == "integer":
+            ok, err = torch.equal(got, want), float((got - want).abs().max())
+        else:
+            qsq = (qk * qk).sum(1)
+            xsq = (xk * xk).sum(1)
+            ok, err = within(got, want, lambda a, b, qsq=qsq, xsq=xsq: (
+                qsq[a:b, None] + xsq[None, :]))
+        check(ok, f"pairwise_l2 {kind} operands: max |err| {err}")
+        del got, want
+        ms = cuda_ms(lambda: pairwise_l2(qk, xk), 5)
+        # the products the kernel takes on these operands (pairwise_l2's
+        # votes) run at the bf16 tensor rate
+        b_ms, b_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
+                           pairwise_tensor_flops(qk, xk), peak=BF16_FLOPS)
+        per_kind[kind] = dict(ms=ms, err=err, bound_ms=b_ms, bound_by=b_by)
+        log(f"  pairwise_l2 ({n_q}, {c_n}, {d}) {kind} operands: {ms:.3f} ms "
+            f"(mean of 5), bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}"
+            f" % of it; max |err| vs plain {err:.3g}")
+    med, lo, hi = cuda_ms_each(lambda: pairwise_l2(q_dev, x), 5)
     plain_ms = cuda_ms(lambda: pairwise_l2_plain(q_dev, x), 2)
     lib_ms = cuda_ms(lambda: torch.cdist(
         q_dev, x, compute_mode="use_mm_for_euclid_dist"), 2)
-    b_ms, b_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
-                       2.0 * n_q * c_n * d)
-    log(f"  pairwise_l2 ({n_q}, {c_n}, {d}): {ms:.3f} ms, plain "
+    occ = pairwise_occupancy()
+    main = per_kind["integer"]
+    log(f"  pairwise_l2 ({n_q}, {c_n}, {d}): {main['ms']:.3f} ms (mean of 5),"
+        f" median of 5 {med:.3f} (min {lo:.3f}, max {hi:.3f}); plain "
         f"{plain_ms:.3f} ms, torch.cdist (mm, returns the square root) "
-        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), noisy-query max "
-        f"|err| {err7:.3g}; {launches['pairwise_l2']['pairwise_l2']} launches"
-        " per exact scan")
+        f"{lib_ms:.3f} ms, bound {main['bound_ms']:.3f} ms "
+        f"({main['bound_by']}; float32 bound {b32_ms:.3f} ms, {b32_by}); "
+        f"{occ}; {launches['pairwise_l2']['pairwise_l2']} launches per exact "
+        "scan")
     records.append(dict(
         name="pairwise_l2", route="cuda",
         source="src/repro_torch/csrc/pairwise_l2.cu",
         replaces="src/repro/kernels/distance/distance_kernel.py:58",
-        launches=launches["pairwise_l2"]["pairwise_l2"], max_abs_err=err7,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        launches=launches["pairwise_l2"]["pairwise_l2"],
+        max_abs_err=per_kind["noisy"]["err"], ms=main["ms"],
+        plain_ms=plain_ms, bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=lib_ms, ms_median=med,
+        ms_min=lo, ms_max=hi, bound_f32_ms=b32_ms, bound_f32_by=b32_by,
+        **{f"{kind}_{key}": val for kind, rec in per_kind.items()
+           for key, val in rec.items()}, **occ))
     torch.cuda.empty_cache()
 
     # ---- rabitq_distance on one chunk of the real codes
@@ -1674,24 +1722,39 @@ def sass_hmma(lib: Path) -> dict:
         r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S)}
 
 
-def rabitq_distance_sass_check(libs: dict) -> dict:
-    """Phase 2: every instance of #6 (BITS 1, 2, 4, 8) computes its
+def tensor_core_check(libs: dict, name: str, kernel: str) -> dict:
+    """Phase 2: every instance of `kernel` in library `name` computes its
     products on the tensor cores (HMMA in its SASS) and spills nothing (its
-    ptxas report). Returns {bits: HMMA count}."""
-    hmma = {fn: n for fn, n in sass_hmma(libs["rabitq_distance"]).items()
-            if "rabitq_distance_kernel" in fn}
-    _, spills = ptxas_report("rabitq_distance")
+    ptxas report). Returns {instance: HMMA count}."""
+    hmma = {fn: n for fn, n in sass_hmma(libs[name]).items() if kernel in fn}
+    _, spills = ptxas_report(name)
+    check(len(hmma) > 0, f"{name}: no instance of {kernel} in the SASS")
+    for fn, n in hmma.items():
+        check(n > 0, f"{name} {fn}: no HMMA instruction")
+        check(spills.get(fn) == 0, f"{name} {fn}: spill stores "
+              f"{spills.get(fn, 'not reported')}")
+    return hmma
+
+
+def rabitq_distance_sass_check(libs: dict) -> dict:
+    """Phase 2: the tensor-core check of #6's four instances (BITS 1, 2, 4,
+    8). Returns {bits: HMMA count}."""
+    hmma = tensor_core_check(libs, "rabitq_distance", "rabitq_distance_kernel")
     check(len(hmma) == 4, f"rabitq_distance: {len(hmma)} instances of "
           "rabitq_distance_kernel in the SASS, expected 4")
-    for fn, n in hmma.items():
-        check(n > 0, f"rabitq_distance {fn}: no HMMA instruction")
-        check(spills.get(fn) == 0, f"rabitq_distance {fn}: spill stores "
-              f"{spills.get(fn, 'not reported')}")
     by_bits = {int(re.search(r"kernelILi(\d+)E", fn)[1]): n
                for fn, n in hmma.items()}
     log(f"    sass rabitq_distance: HMMA per instance (bits: count) "
         f"{dict(sorted(by_bits.items()))}, no spill stores")
     return by_bits
+
+
+def pairwise_l2_sass_check(libs: dict) -> int:
+    """Phase 2: the tensor-core check of #7. Returns its HMMA count."""
+    hmma = tensor_core_check(libs, "pairwise_l2", "pairwise_l2_kernel")
+    log(f"    sass pairwise_l2: HMMA per instance {sorted(hmma.values())}, "
+        "no spill stores")
+    return max(hmma.values())
 
 
 def search_step_ptxas_check() -> None:
@@ -2453,6 +2516,7 @@ def main() -> int:
     search_step_ptxas_check()
     flash_sass_check(libs)
     hmma6 = rabitq_distance_sass_check(libs)
+    hmma7 = pairwise_l2_sass_check(libs)
 
     gen = torch.Generator().manual_seed(SEED + 7)
     log("[3] selfcheck (small index, every variant, exact arithmetic)")
@@ -2471,6 +2535,8 @@ def main() -> int:
     next(r for r in records if r["name"] == "fused_search").update(exact_times)
     next(r for r in scan_records if r["name"] == "rabitq_distance")[
         "sass_hmma"] = hmma6[idx.core.codes.bits]
+    next(r for r in scan_records if r["name"] == "pairwise_l2")[
+        "sass_hmma"] = hmma7
     records += scan_records
 
     log(f"[6] churn round: delete {args.n // 100}, search, consolidate, "

@@ -20,16 +20,16 @@
 // 64, over k-chunks of 64 dims: the chunk's packed code bytes and query
 // floats arrive by 16-byte cp.async (the next chunk's while this one is
 // multiplied); the codes are unpacked once into bf16 in shared memory and
-// the query chunk is split into its three parts there; fragments come by
-// ldmatrix, a code fragment serving all three parts. The estimator
-// epilogue runs on the accumulators in registers: two neighbouring lanes
-// swap halves so that each holds four consecutive columns of one row, and
-// a warp's 16-byte streaming stores write its rows' 128-byte lines whole,
-// 32 bytes of 16 rows a store. 95,744 B of shared memory a block at 4 bits
-// and at most 128 registers a thread: two blocks an SM, one storing while
-// the other multiplies. Only the first D unpacked codes count (D <= P *
-// 8/BITS): the query's parts past D are zero. Ragged Q, C and D are masked
-// in-kernel.
+// the query chunk is split into its three parts there (bf16_split.cuh);
+// fragments come by ldmatrix, a code fragment serving all three parts. The
+// estimator epilogue runs on the accumulators in registers: two
+// neighbouring lanes swap halves so that each holds four consecutive
+// columns of one row, and a warp's 16-byte streaming stores write its
+// rows' 128-byte lines whole, 32 bytes of 16 rows a store. 95,744 B of
+// shared memory a block at 4 bits and at most 128 registers a thread: two
+// blocks an SM, one storing while the other multiplies. Only the first D
+// unpacked codes count (D <= P * 8/BITS): the query's parts past D are
+// zero. Ragged Q, C and D are masked in-kernel.
 //
 // rabitq_gather_distance replaces rabitq_gather_distance_pallas
 // (rabitq_kernel.py:97): per query, K candidate code rows already gathered
@@ -42,7 +42,7 @@
 // lane order and shuffle tree, so on the same rows both kernels round
 // alike.
 
-#include "flash_common.cuh"
+#include "bf16_split.cuh"
 
 namespace {
 
@@ -75,60 +75,20 @@ struct Chunk {
   static constexpr int kSmem = kMeta + kMetaFloats * 4;
 };
 
-__device__ __forceinline__ float bf16_lo(unsigned v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
-
-// Copies of k-chunk [k0, k0 + 64) of the tile's query rows into a float
-// buffer [row][dim], float4 f = t + 256 j at (f / 16, 4 (f % 16)): 16-byte
-// copies when d is a multiple of 4 and q 16-byte aligned, else 4-byte
-// ones; zero past nq and d.
-__device__ __forceinline__ void stage_queries(float* qs, const float* __restrict__ q, int nq,
-                                              int d, int m0, int k0, bool vec) {
-#pragma unroll
-  for (int j = 0; j < kBM * kKC / 4 / kThreads; ++j) {
-    const int f = threadIdx.x + kThreads * j;
-    const int r = f >> 4;
-    const int c = 4 * (f & 15);
-    const bool row = m0 + r < nq;
-    const float* src = q + static_cast<size_t>(row ? m0 + r : 0) * d + k0 + c;
-    if (vec) {
-      const bool valid = row && k0 + c < d;
-      jasper::cp_async16(qs + r * kKC + c, valid ? src : q, valid);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = row && k0 + c + e < d;
-        jasper::cp_async4(qs + r * kKC + c + e, valid ? src + e : q, valid);
-      }
-    }
-  }
-}
-
-// The staged query chunk into its three bf16 parts, [part][row][dim], each
-// remainder rounded to nearest even: q = h0 + h1 + h2 exactly. Thread t
-// splits the float4s it staged.
+// The staged query chunk into its three bf16 parts, [part][row][dim]:
+// q = h0 + h1 + h2 exactly (bf16_split.cuh). Thread t splits the float4s it
+// staged.
 __device__ __forceinline__ void split_queries(__nv_bfloat16* As, const float* qs) {
 #pragma unroll
   for (int j = 0; j < kBM * kKC / 4 / kThreads; ++j) {
     const int f = threadIdx.x + kThreads * j;
     const int r = f >> 4;
     const int c = 4 * (f & 15);
-    const float4 x4 = *reinterpret_cast<const float4*>(qs + r * kKC + c);
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-    unsigned h[kParts][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const unsigned h0 = flash::pack_bf16(x[2 * i], x[2 * i + 1]);
-      const float r0 = x[2 * i] - bf16_lo(h0);
-      const float r1 = x[2 * i + 1] - bf16_hi(h0);
-      const unsigned h1 = flash::pack_bf16(r0, r1);
-      h[0][i] = h0;
-      h[1][i] = h1;
-      h[2][i] = flash::pack_bf16(r0 - bf16_lo(h1), r1 - bf16_hi(h1));
-    }
+    uint2 h[kParts];
+    jasper::bf16_split4(*reinterpret_cast<const float4*>(qs + r * kKC + c), h);
 #pragma unroll
     for (int p = 0; p < kParts; ++p)
-      *reinterpret_cast<uint2*>(As + (p * kBM + r) * kStride + c) = make_uint2(h[p][0], h[p][1]);
+      *reinterpret_cast<uint2*>(As + (p * kBM + r) * kStride + c) = h[p];
   }
 }
 
@@ -281,7 +241,7 @@ rabitq_distance_kernel(const uint8_t* __restrict__ packed, const float* __restri
   const int chunks = d > kKC ? (d + kKC - 1) / kKC : 1;
 
   stage_meta(meta, add, rescale, qa, qsum, nq, nc, m0, n0);
-  stage_queries(qs, q, nq, d, m0, 0, vec_q);
+  jasper::stage_floats<kBM, kKC, kThreads>(qs, q, nq, d, m0, 0, vec_q);
   stage_codes<BITS>(staged, packed, nc, p, n0, 0, vec_codes);
   jasper::cp_async_commit();
   float acc[2][8][4];
@@ -298,7 +258,7 @@ rabitq_distance_kernel(const uint8_t* __restrict__ packed, const float* __restri
     unpack_codes<BITS>(Bs, staged);
     __syncthreads();
     if (kc + 1 < chunks) {
-      stage_queries(qs, q, nq, d, m0, (kc + 1) * kKC, vec_q);
+      jasper::stage_floats<kBM, kKC, kThreads>(qs, q, nq, d, m0, (kc + 1) * kKC, vec_q);
       stage_codes<BITS>(staged, packed, nc, p, n0, kc + 1, vec_codes);
       jasper::cp_async_commit();
     }

@@ -14,8 +14,11 @@ latency-exposed "tiled" load strategy, with the same function:
 
 `pairwise_l2` replaces `pairwise_l2_pallas` (`distance_kernel.py:58`):
 out[q, c] = max(|q|^2 - 2 q.x_c + |x_c|^2, 0) over all pairs, inputs cast
-to float32 as the JAX wrapper casts them. The kernels mask ragged Q, C
-and D themselves: nothing is padded.
+to float32 as the JAX wrapper casts them. Its kernel takes the products on
+the tensor cores, exactly: each operand splits into three bf16 parts
+(`bf16_parts`), and a block takes, a k-chunk at a time, only the products
+of parts that its tile's values need (`pairwise_tensor_flops` counts
+them). The kernels mask ragged Q, C and D themselves: nothing is padded.
 """
 
 from __future__ import annotations
@@ -28,8 +31,12 @@ from repro_torch.core.distances import pairwise_l2_squared
 from repro_torch.kernels import build
 
 _INF = float("inf")
-# the kernel's grid holds the row tiles of 128 in its y dimension
-PAIRWISE_MAX_ROWS = 65535 * 128
+# pairwise_l2's block tile (queries and rows) and k-chunk (dims), the
+# granularity of its vote on the parts a chunk needs
+PAIRWISE_TILE = 128
+PAIRWISE_CHUNK = 32
+# the kernel's grid holds the row tiles in its y dimension (at most 65,535)
+PAIRWISE_MAX_ROWS = 65535 * PAIRWISE_TILE
 FLOAT_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
 STRATEGIES = ("chunked", "tiled")
 
@@ -127,6 +134,83 @@ def pairwise_l2_plain(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return pairwise_l2_squared(q, x)
 
 
+def bf16_parts(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """float32 v -> its three bf16 parts, as float32 tensors, the way the
+    kernels split it (`csrc/bf16_split.cuh`): each remainder rounded to
+    nearest even, so v = h0 + h1 + h2 exactly."""
+    v = v.to(torch.float32)
+    h0 = v.to(torch.bfloat16).float()
+    r1 = v - h0
+    h1 = r1.to(torch.bfloat16).float()
+    return h0, h1, (r1 - h1).to(torch.bfloat16).float()
+
+
+def chunk_votes(v: torch.Tensor) -> torch.Tensor:
+    """(N, D) operand -> (N tiles of PAIRWISE_TILE rows, D chunks of
+    PAIRWISE_CHUNK dims) bool: True where the tile's chunk holds a value
+    that is not a bf16 value, so `pairwise_l2`'s block takes its parts h1
+    and h2 there (its vote). At least one chunk, as the kernel."""
+    n, d = v.shape
+    rest = v.to(torch.float32) != bf16_parts(v)[0]
+    tiles = -(-n // PAIRWISE_TILE)
+    chunks = max(1, -(-d // PAIRWISE_CHUNK))
+    rest = torch.nn.functional.pad(
+        rest, (0, chunks * PAIRWISE_CHUNK - d, 0, tiles * PAIRWISE_TILE - n))
+    return rest.reshape(tiles, PAIRWISE_TILE, chunks,
+                        PAIRWISE_CHUNK).any(3).any(1)
+
+
+def pairwise_tensor_flops(q: torch.Tensor, x: torch.Tensor) -> float:
+    """The tensor-core flops `pairwise_l2` takes on these operands: 2 per
+    multiply-add of each product of parts it takes, over the true rows
+    and dims. A tile pair's chunk takes h0.h0 alone, three products when
+    one operand's tile votes for its parts, six when both do (those with
+    i + j <= 2)."""
+    vq, vx = chunk_votes(q).cpu(), chunk_votes(x).cpu()
+    rq, rx = _tile_rows(q.shape[0]), _tile_rows(x.shape[0])
+    aq, ax = float(rq.sum()), float(rx.sum())
+    d = q.shape[1]
+    total = 0.0
+    for kc in range(-(-d // PAIRWISE_CHUNK)):
+        dims = min(PAIRWISE_CHUNK, d - kc * PAIRWISE_CHUNK)
+        pq, px = float(rq[vq[:, kc]].sum()), float(rx[vx[:, kc]].sum())
+        # products a pair: 1 + 2 [q votes] + 2 [x votes] + [both]
+        total += 2.0 * dims * (aq * ax + 2 * pq * ax + 2 * aq * px + pq * px)
+    return total
+
+
+def _tile_rows(n: int) -> torch.Tensor:
+    """The true rows of each tile of PAIRWISE_TILE over n rows."""
+    rows = torch.full((-(-n // PAIRWISE_TILE),), float(PAIRWISE_TILE),
+                      dtype=torch.float64)
+    if n:
+        rows[-1] = n - (rows.shape[0] - 1) * PAIRWISE_TILE
+    return rows
+
+
+def check_pairwise_rows(cn: int) -> None:
+    """The tables `pairwise_l2`'s kernel takes: at most PAIRWISE_MAX_ROWS
+    rows a call (its grid's row tiles). Raises ValueError naming the
+    limit."""
+    if cn > PAIRWISE_MAX_ROWS:
+        raise ValueError(f"pairwise_l2 takes at most {PAIRWISE_MAX_ROWS} "
+                         f"rows per call, got {cn}")
+
+
+def pairwise_occupancy() -> dict:
+    """`pairwise_l2`'s kernel on the card: its registers a thread, resident
+    blocks an SM (the CUDA occupancy API), shared bytes a block and local
+    (spilled) bytes a thread."""
+    fn = build.entry("pairwise_l2", "pairwise_l2_occupancy",
+                     [ctypes.c_void_p])
+    info = (ctypes.c_int * 4)()
+    build.check(fn(ctypes.cast(info, ctypes.c_void_p)),
+                "pairwise_l2 occupancy")
+    return dict(zip(("registers", "blocks_per_sm", "smem_per_block",
+                     "local_bytes"), info))
+
+
 def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q, D) queries x (C, D) rows -> (Q, C) f32 squared L2. float32,
     bfloat16 or float16 inputs, computed in float32.
@@ -149,9 +233,7 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.shape[1] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, x "
                          f"{tuple(x.shape)}")
-    if cn > PAIRWISE_MAX_ROWS:
-        raise ValueError(f"pairwise_l2 takes at most {PAIRWISE_MAX_ROWS} "
-                         f"rows per call, got {cn}")
+    check_pairwise_rows(cn)
     out = torch.empty((qn, cn), dtype=torch.float32, device=dev)
     if qn == 0 or cn == 0:
         return out

@@ -19,6 +19,9 @@ from repro_torch.kernels import build
 
 # one row of distances sits in a block's (default 48 KB) shared memory
 MAX_COLUMNS = 12288
+# rows up to this width run one warp a row (every merge of the search
+# lanes: C = L + R); wider ones one block a row
+WARP_MAX_COLUMNS = 256
 
 
 def topk_plain(dists: torch.Tensor, ids: torch.Tensor, k: int
@@ -32,7 +35,13 @@ def topk(dists: torch.Tensor, ids: torch.Tensor, k: int
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(Q, C) f32 dists + (Q, C) int32 ids -> the k smallest per row,
     ascending: ((Q, k) f32, (Q, k) int32). CUDA tensors launch the kernel
-    (or raise); CPU tensors take the plain version."""
+    (or raise); CPU tensors take the plain version.
+
+    The kernel's design follows the width, a dispatch on shape: rows of C
+    <= WARP_MAX_COLUMNS run one warp a row (a bitonic sort of the row's
+    (distance, position) pairs in the warp's registers), wider rows up to
+    MAX_COLUMNS one block a row (stable ranks). Both give the one order
+    of `topk_plain`."""
     dev = dists.device
     if dev.type == "cpu":
         return topk_plain(dists, ids, k)

@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import rabitq as tr
 from repro_torch.core.mutations import pack_bitmap
 from repro_torch.core.vamana import VamanaGraph
+from repro_torch.kernels.topk.ops import MAX_COLUMNS, WARP_MAX_COLUMNS
 
 N, D, R, Q = 512, 32, 16, 24
 SMALL = (N, D, R, Q)
@@ -213,11 +214,21 @@ def test_fused_instances_fit_and_do_not_spill(cuda_device):
     assert seen == 80
 
 
+# (Q, C, k): the warp path at every values-a-lane width (C <= 32, 64, 128,
+# 256) and just past each, C at both sides of WARP_MAX_COLUMNS, the block
+# path up to MAX_COLUMNS; C not a multiple of 4 or of 32
+TOPK_SHAPES = [(24, 6, 4), (300, 128, 64), (64, 45, 9), (7, 1000, 100),
+               (33, 32, 32), (33, 33, 7), (20, 64, 64), (21, 65, 30),
+               (20, 129, 64), (23, 255, 3), (20, WARP_MAX_COLUMNS, 128),
+               (20, WARP_MAX_COLUMNS + 1, 100), (3, MAX_COLUMNS - 1, 64),
+               (3, MAX_COLUMNS, MAX_COLUMNS)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(24, 6, 4), (300, 128, 64), (64, 45, 9),
-                                   (7, 1000, 100)])
+@pytest.mark.parametrize("shape", TOPK_SHAPES)
 def test_topk_bit_exact_vs_plain(cuda_device, shape):
-    """Rows with ties, all-+inf tails, C not a multiple of 32."""
+    """Rows with ties, all-+inf tails, C not a multiple of 32; both sides
+    of the warp path's width and the block path's."""
     from repro_torch.kernels.topk.ops import topk, topk_plain
     q, c, k = shape
     rng = np.random.default_rng(c)
@@ -427,9 +438,27 @@ def _l2_close(got, want, terms):
     return bool(((got - want).abs() <= tol).all())
 
 
-# (Q, C, D): Q = 1, C = 1, D in {96, 100, 960}, C and Q off the 128 tile
+# (Q, C, D): Q = 1, C = 1, D in {96, 100, 960}, C and Q off the 128 tile;
+# D off the 32-dim chunk and the 16-dim k-step, one dim, a tile exactly
 PAIRWISE_SHAPES = [(1, 1, 96), (1, 300, 100), (37, 1, 960), (130, 211, 100),
-                   (257, 1000, 128), (5, 129, 33)]
+                   (257, 1000, 128), (5, 129, 33), (129, 257, 31),
+                   (128, 128, 32), (200, 300, 129), (3, 5, 1), (64, 96, 18)]
+
+
+def _pairwise_operands(rng, q, c, d, kind):
+    """(q, x) float32 of `kind`: integer (bit-exact), noisy queries against
+    integer rows, real x real, or mixed (integer queries and rows in the
+    first 128-row tile, real ones after: tiles vote differently)."""
+    qv = rng.integers(-9, 10, (q, d)).astype(np.float32)
+    xv = rng.integers(-9, 10, (c, d)).astype(np.float32)
+    if kind in ("noisy", "real"):
+        qv += rng.normal(size=qv.shape).astype(np.float32)
+    if kind == "real":
+        xv = rng.normal(size=xv.shape).astype(np.float32)
+    if kind == "mixed":
+        qv[128:] += rng.normal(size=qv[128:].shape).astype(np.float32)
+        xv[128:] += rng.normal(size=xv[128:].shape).astype(np.float32)
+    return qv, xv
 
 
 @pytest.mark.cuda
@@ -437,26 +466,40 @@ PAIRWISE_SHAPES = [(1, 1, 96), (1, 300, 100), (37, 1, 960), (130, 211, 100),
                          ids=["x".join(map(str, s)) for s in PAIRWISE_SHAPES])
 def test_pairwise_l2_vs_plain(cuda_device, shape):
     """Bit-exact on integer operands; rtol 1e-4 (+ ulps of the cancelled
-    terms) on float operands; ragged Q, C and D."""
+    terms) on noisy x integer, real x real and mixed operands; ragged Q, C
+    and D."""
     from repro_torch.kernels.distance.ops import pairwise_l2, pairwise_l2_plain
     q, c, d = shape
     rng = np.random.default_rng(q * c + d)
-    for integer in (True, False):
-        qv, xv = ((rng.integers(-9, 10, (n, d)) if integer
-                   else rng.normal(size=(n, d))).astype(np.float32)
-                  for n in (q, c))
-        qv = torch.as_tensor(qv).to(cuda_device)
-        xv = torch.as_tensor(xv).to(cuda_device)
+    for kind in ("integer", "noisy", "real", "mixed"):
+        qv, xv = (torch.as_tensor(t).to(cuda_device)
+                  for t in _pairwise_operands(rng, q, c, d, kind))
         before = pairwise_l2.launches
         got = pairwise_l2(qv, xv)
         want = pairwise_l2_plain(qv, xv)
         torch.cuda.synchronize()
         assert pairwise_l2.launches == before + 1
         assert got.shape == (q, c)
-        if integer:
+        if kind == "integer":
             assert torch.equal(got, want)
         else:
             assert _l2_close(got, want, _sq(qv)[:, None] + _sq(xv)[None, :])
+
+
+@pytest.mark.cuda
+def test_pairwise_l2_on_the_tensor_cores_without_spills(cuda_device):
+    """#7's kernel has HMMA (tensor-core) instructions and no spill
+    stores, and holds two blocks an SM."""
+    from repro_torch.kernels.distance.ops import pairwise_occupancy
+    found = {fn: v for fn, v in _sass_hmma_and_spills("pairwise_l2").items()
+             if "pairwise_l2_kernel" in fn}
+    assert len(found) >= 1
+    for fn, (hmma, spill) in found.items():
+        assert hmma > 0, fn
+        assert spill == 0, fn
+    info = pairwise_occupancy()
+    assert info["local_bytes"] == 0
+    assert info["blocks_per_sm"] == 2
 
 
 @pytest.mark.cuda
