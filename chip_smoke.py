@@ -18,7 +18,9 @@ Phases:
   3. selfcheck — each kernel against its plain PyTorch version on a small
                 synthetic index, every template variant, exact arithmetic
                 (`fused_hop` hop by hop over whole walks; `topk` on ties,
-                all-+inf tails and widths that are not a multiple of 32);
+                all-+inf tails and widths that are not a multiple of 32;
+                `rabitq_gather_distance` at 64-, 33- and 2,304-byte rows
+                against its plain version and `rabitq_search_step`);
                 the flash-attention kernels #10, #11 and the backward #12
                 on a grid of small shapes: float32 and bf16, causal and
                 bidirectional, window 64, q_offset > 0 with Sq < Skv, rows
@@ -78,7 +80,10 @@ Phases:
                 code-only and after the rerank (>= 0.85).
                 `rabitq_gather_distance` on the megakernel's final frontier:
                 bit-equal to its plain version (integer operands) and to
-                `rabitq_search_step` with every row live. `rabitq_distance`
+                `rabitq_search_step` with every row live; timed launched
+                and replayed from a CUDA graph (the mean, median, min and
+                max of 20), its registers, blocks per SM and spills (none
+                allowed at the main path's bits). `rabitq_distance`
                 chunks bit-equal to the plain version and to
                 `rabitq_gather_distance` at the frontier ids (integer
                 operands), and within rtol 1e-4 plus float32 ulps of the
@@ -430,6 +435,53 @@ def compare_step_exact(core, rq, gen, n_q) -> None:
     log(f"  gather_l2: bit-equal on integer rows, ({n_q}, {r})")
 
 
+# #5's self-check shapes (K, P, D) at 4 bits: the main path's 64-byte
+# rows, 33-byte rows (byte copies and byte units) with D below P * 2, and
+# the RAG index's 2,304-byte rows (D = 4,608: rounds of 7 rows, the query
+# transposed in shared memory)
+GATHER_SELFCHECK = ((64, 64, 128), (40, 33, 60), (64, 2304, 4608))
+
+
+def compare_gather_exact(gen, dev, n=1024, n_q=256, bits=4) -> None:
+    """Phase 3: rabitq_gather_distance at GATHER_SELFCHECK's shapes on
+    random codes and integer metadata: bit-equal to its plain version on
+    integer queries, and to rabitq_search_step at the same in-range ids
+    on integer and real queries."""
+    from repro_torch.kernels.rabitq_dot.ops import (
+        rabitq_gather_distance, rabitq_gather_distance_plain,
+        rabitq_search_step)
+    for k, p, d in GATHER_SELFCHECK:
+        packed = torch.randint(0, 256, (n, p), generator=gen,
+                               dtype=torch.uint8).to(dev)
+        add = torch.randint(0, 4000, (n,), generator=gen).float().to(dev)
+        rescale = torch.tensor([-2., -1., 1., 2.])[
+            torch.randint(0, 4, (n,), generator=gen)].to(dev)
+        ids = torch.randint(0, n, (n_q, k), generator=gen,
+                            dtype=torch.int32).to(dev)
+        qa = torch.randint(0, 500, (n_q,), generator=gen).float().to(dev)
+        qs = torch.randint(-50, 50, (n_q,), generator=gen).float().to(dev)
+        cand = (packed[ids.long()].contiguous(), add[ids.long()],
+                rescale[ids.long()])
+        for kind in ("integer", "real"):
+            q = (torch.randint(-3, 4, (n_q, d), generator=gen).float()
+                 if kind == "integer" else
+                 torch.randn((n_q, d), generator=gen)).to(dev)
+            got = rabitq_gather_distance(*cand, q, qa, qs, bits=bits)
+            step = rabitq_search_step(ids, packed, add, rescale, n, q, qa,
+                                      qs, bits=bits)
+            check(torch.equal(got, step), f"rabitq_gather_distance (K {k}, "
+                  f"P {p}, D {d}) differs from rabitq_search_step on "
+                  f"{kind} queries")
+            if kind == "integer":
+                check(torch.equal(got, rabitq_gather_distance_plain(
+                    *cand, q, qa, qs, bits=bits)),
+                    f"rabitq_gather_distance (K {k}, P {p}, D {d}) not "
+                    "bit-equal to its plain version on integer operands")
+    log(f"  rabitq_gather_distance: bit-equal to its plain version (integer"
+        f" queries) and to rabitq_search_step (integer and real), (K, P, D)"
+        f" {GATHER_SELFCHECK}")
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each counts its
     launches in `.launches`)."""
@@ -501,6 +553,7 @@ def selfcheck(gen) -> None:
     compare_fused_exact(cases)
     compare_hop_exact(cases)
     compare_step_exact(core, rq, gen, 512)
+    compare_gather_exact(gen, core.device)
     compare_topk_exact(gen)
     flash_selfcheck(gen)
 
@@ -1310,21 +1363,40 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     fl = frontier.long()
     args5 = (codes.packed[fl].contiguous(), codes.data_add[fl],
              codes.data_rescale[fl], rq.q_rot, rq.query_add, rq.query_sumq)
-    ms = cuda_ms(lambda: rabitq_gather_distance(*args5, bits=bits), 20)
+
+    def gather():
+        return rabitq_gather_distance(*args5, bits=bits)
+
+    ms = cuda_ms(gather, 20)
+    # the kernel alone, replayed from a CUDA graph (`ms` above is launched
+    # from the wrapper, whose host path may be the longer of the two)
+    graph = graph_of(gather)
+    g_ms = cuda_ms(graph.replay, 20)
+    g_med, g_lo, g_hi = cuda_ms_each(graph.replay, 20)
+    del graph
     plain_ms = cuda_ms(lambda: rabitq_gather_distance_plain(*args5,
                                                             bits=bits), 5)
     b_ms, b_by = bound(n_q * k * (p + 8) + n_q * (d * 4 + 8) + n_q * k * 4,
                        2.0 * n_q * k * d)
-    log(f"  rabitq_gather_distance ({n_q}, {k}, P={p}): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no search lane "
-        "launches it (1 launch in the counted frontier re-estimate)")
+    occ = estimator_occupancy("rabitq_gather_distance", bits, p)
+    check(occ["spill_stores"] == 0 and occ["local_bytes"] == 0,
+          f"rabitq_gather_distance spills: {occ}")
+    log(f"  rabitq_gather_distance ({n_q}, {k}, P={p}): {ms:.4f} ms launched "
+        f"from the wrapper (mean of 20); replayed from a CUDA graph (the "
+        f"kernel alone) {g_ms:.4f} ms, median of 20 {g_med:.4f} (min "
+        f"{g_lo:.4f}, max {g_hi:.4f}); plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / g_med:.1f} % of it at the "
+        f"graph median; {occ}; no search lane launches it (1 launch in the "
+        "counted frontier re-estimate)")
     records.append(dict(
         name="rabitq_gather_distance", route="cuda",
         source="src/repro_torch/csrc/rabitq_distance.cu",
         replaces="src/repro/kernels/rabitq_dot/rabitq_kernel.py:97",
         launches=launches["rabitq_gather_distance"]["rabitq_gather_distance"],
         max_abs_err=errs["err5"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        bound_by=b_by, library_ms=None, ms_graph=g_ms,
+        ms_graph_median=g_med, ms_graph_min=g_lo, ms_graph_max=g_hi,
+        bound_share_graph_median=b_ms / g_med, **occ))
 
     # ---- gather_l2_tiled at the rerank's shape, beside gather_l2
     real_q = q_dev
@@ -1698,16 +1770,25 @@ def ptxas_report(name: str) -> tuple[dict, dict]:
     return regs, spills
 
 
+# estimator kernel -> (its library, its kernel's name in the ptxas report)
+ESTIMATORS = {"rabitq_search_step": ("rabitq_search_step",
+                                     "rabitq_search_step_kernel"),
+              "rabitq_distance": ("rabitq_distance", "rabitq_distance_kernel"),
+              "rabitq_gather_distance": ("rabitq_distance",
+                                         "rabitq_gather_kernel")}
+
+
 def estimator_occupancy(name: str, bits: int, p: int) -> dict:
-    """Registers, resident blocks an SM, shared bytes a block (#3: and
-    queries a block) of #3's or #6's main-path instance (the occupancy
-    API), and the most spill stores of its variants at BITS = bits (the
-    ptxas report)."""
+    """Registers, resident blocks an SM, shared bytes a block (#3 and #5:
+    and queries a block) of #3's, #5's or #6's main-path instance (the
+    occupancy API), and the most spill stores of its variants at BITS =
+    bits (the ptxas report)."""
     from repro_torch.kernels.rabitq_dot.ops import occupancy
-    _, spills = ptxas_report(name)
+    library, kernel = ESTIMATORS[name]
+    _, spills = ptxas_report(library)
     info = occupancy(name, bits=bits, p=p)
     info["spill_stores"] = max(n for fn, n in spills.items()
-                               if f"{name}_kernelILi{bits}E" in fn)
+                               if f"{kernel}ILi{bits}E" in fn)
     return info
 
 

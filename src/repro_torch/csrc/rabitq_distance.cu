@@ -35,14 +35,30 @@
 // (rabitq_kernel.py:97): per query, K candidate code rows already gathered
 // into a contiguous (Q, K, P) buffer with their (Q, K) metadata, as the JAX
 // kernel takes them. Bound: bytes, P + 8 B read and 4 B written per
-// candidate against 2D flops. Design: one block per query, the query in
-// shared memory zero-padded to P * 8/BITS dims, one warp per candidate
-// through common.cuh's packed_dot (coalesced 32-bit words) and the same
-// epilogue. rabitq_search_step.cu scores its staged rows in packed_dot's
-// lane order and shuffle tree, so on the same rows both kernels round
-// alike.
+// candidate against 2D flops (at (10,000 x 64), P = 64, D = 128: 54 MB,
+// 0.016 ms at 3.35 TB/s). Design: one warp a query at a time, four warps
+// a block, no block barrier, persistent: the grid holds only as many
+// blocks as are resident at once, and warp w of W takes queries w, w + W,
+// ... A query's K rows are one contiguous K x P slab (4 KB at the main
+// shape), so nothing waits on an id: an item (a query's rows, at most
+// kGatherStageBytes of them, and the query itself) goes to one of the
+// warp's two shared buffers by cp.async (16-byte units where the slab's
+// address and length allow, 4- or 1-byte ones otherwise) while the warp
+// scores the item before it from the other buffer, so a warp's loads and
+// its scoring overlap. The metadata (one float a lane, coalesced) and the
+// query scalars go to registers at an item's start and are used after its
+// scoring. The rows score with rabitq_rows.cuh's scorer, the one
+// rabitq_search_step (#3, rabitq_search_step.cu) uses — a group of G lanes
+// a row, eight FMA chains a lane, xor shuffles G/2 .. 1 — so #3 and #5
+// score a row alike by construction. Outputs leave as one coalesced write
+// an item. Wide rows (2,304 B at D = 4,608, 4 bits) take several items a
+// query and read the query transposed from the buffer. Only the first D
+// codes count: the query's codes past D are staged as zeros.
+
+#include <mutex>
 
 #include "bf16_split.cuh"
+#include "rabitq_rows.cuh"
 
 namespace {
 
@@ -373,46 +389,271 @@ int occupancy_of(int* info) {
 }
 
 // ------------------------------------------------ rabitq_gather_distance
-template <int BITS>
-__global__ void __launch_bounds__(kThreads)
-rabitq_gather_kernel(const uint8_t* __restrict__ cand, const float* __restrict__ add,
-                     const float* __restrict__ rescale, const float* __restrict__ q, int d,
-                     const float* __restrict__ qa, const float* __restrict__ qsum, int k, int p,
-                     float* __restrict__ out) {
-  extern __shared__ float sq[];  // p * 8/BITS floats, zero past d
-  const int dq = p * (8 / BITS);
-  const int qi = blockIdx.x;
-  for (int i = threadIdx.x; i < dq; i += blockDim.x)
-    sq[i] = i < d ? q[static_cast<size_t>(qi) * d + i] : 0.f;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const float a = qa[qi];
-  const float b = qsum[qi];
-  for (int c = warp; c < k; c += n_warps) {
-    const size_t e = static_cast<size_t>(qi) * k + c;
-    float dot = jasper::packed_dot<BITS>(cand + e * p, p, sq, lane);
-    dot = jasper::warp_sum(dot);
-    if (lane == 0) out[e] = jasper::rabitq_epilogue(__ldg(add + e), a, __ldg(rescale + e), dot, b);
+constexpr int kGatherWarps = 4;            // warps a block
+constexpr int kGatherStageBytes = 16384;   // a warp's staged rows an item
+constexpr int kGatherMaxRows = 128;        // rows an item: four a lane
+constexpr int kSmemLimit = 232448;         // shared bytes a block may use
+
+// A warp's shared slot: two buffers, each the query (P * 8/BITS floats,
+// zero past D; transposed for rows of more than 32 units) and an item's
+// rows back to back (a stride of P), then the item's dots. ops.py
+// `gather_smem_bytes` computes the same.
+struct GatherSlot {
+  int q_bytes, stage_bytes, rows, bytes;
+};
+
+__host__ __device__ inline GatherSlot gather_slot_of(int k, int p, int bits) {
+  GatherSlot s;
+  s.q_bytes = (p * (8 / bits) * 4 + 15) & ~15;
+  int rows = kGatherStageBytes / (p > 0 ? p : 1);
+  rows = rows < 1 ? 1 : (rows > kGatherMaxRows ? kGatherMaxRows : rows);
+  s.rows = k < rows ? k : rows;
+  s.stage_bytes = (s.rows * p + 15) & ~15;
+  s.bytes = 2 * (s.q_bytes + s.stage_bytes) + ((s.rows * 4 + 15) & ~15);
+  return s;
+}
+
+// Warps a block: as many slots as fit, at most kGatherWarps; 0 when one
+// does not fit.
+inline int gather_warps_per_block(const GatherSlot& s) {
+  const int n = kSmemLimit / s.bytes;
+  return n > kGatherWarps ? kGatherWarps : n;
+}
+
+struct GatherArgs {
+  const uint8_t* cand;
+  const float* add;
+  const float* rescale;
+  const float* q;
+  const float* qa;
+  const float* qsum;
+  float* out;
+  int num_q, k, p, d;
+};
+
+// n contiguous bytes from src into a buffer's rows: 16-byte cp.async units
+// where the address and length allow, 4-byte ones, else bytes.
+__device__ __forceinline__ void stage_slab(const uint8_t* src, int n, unsigned char* stage,
+                                           int lane) {
+  const unsigned align = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src)) | n;
+  if ((align & 15) == 0) {
+    for (int u = lane; u < n >> 4; u += 32) jasper::cp_async16(stage + 16 * u, src + 16 * u, true);
+  } else if ((align & 3) == 0) {
+    for (int u = lane; u < n >> 2; u += 32) jasper::cp_async4(stage + 4 * u, src + 4 * u, true);
+  } else {
+    for (int u = lane; u < n; u += 32) stage[u] = __ldg(src + u);
   }
 }
 
-constexpr int kGatherThreads = 256;
+// An item is one query's rows [base, base + m): its rows and the query go
+// into buffer `buf` by cp.async, one commit group; the query as it is for
+// rows of at most 32 units, transposed otherwise (code j of unit u at
+// j * units + u), zero past d.
+template <int BITS, bool WORDS>
+__device__ __forceinline__ void stage_item(const GatherArgs& a, const GatherSlot& s, int units,
+                                           int qi, int base, unsigned char* buf, int lane) {
+  constexpr int kCpu = WORDS ? 32 / BITS : 8 / BITS;
+  const float* qrow = a.q + static_cast<size_t>(qi) * a.d;
+  float* sq = reinterpret_cast<float*>(buf);
+  for (int i = lane; i < units * kCpu; i += 32) {
+    const int u = i / kCpu;
+    float* dst = units > 32 ? sq + (i - u * kCpu) * units + u : sq + i;
+    jasper::cp_async4(dst, qrow + (i < a.d ? i : 0), i < a.d);
+  }
+  const int m = min(s.rows, a.k - base);
+  stage_slab(a.cand + (static_cast<size_t>(qi) * a.k + base) * a.p, m * a.p, buf + s.q_bytes,
+             lane);
+  jasper::cp_async_commit();
+}
+
+// An item's rows [0, m) scored into sdot with rabitq_rows.cuh's
+// score_rows. UNITS > 0 is the row's width in words as a compile-time
+// constant (a power of two, at most 32: the group is the row), and whole
+// passes of the warp go to score_rows with a constant row count, so its
+// bounds fold away and a lane's chains interleave; the rows past the last
+// whole pass take one more call. A row's dot is the same either way.
+template <int BITS, bool WORDS, int UNITS>
+__device__ __forceinline__ void score_item(const unsigned char* rows, int p, float* sdot, int m,
+                                           const float (&qr)[WORDS ? 32 / BITS : 8 / BITS],
+                                           const float* qt, int units, int lane) {
+  if constexpr (UNITS > 0) {
+    constexpr int kPass = jasper::kScoreChains<BITS> * (32 / UNITS);
+    int r0 = 0;
+    for (; r0 + kPass <= m; r0 += kPass)
+      jasper::score_rows<BITS, WORDS>(rows + r0 * 4 * UNITS, 4 * UNITS, sdot + r0, kPass, qr, qt,
+                                      UNITS, lane);
+    if (r0 < m)
+      jasper::score_rows<BITS, WORDS>(rows + r0 * 4 * UNITS, 4 * UNITS, sdot + r0, m - r0, qr,
+                                      qt, UNITS, lane);
+  } else {
+    jasper::score_rows<BITS, WORDS>(rows, p, sdot, m, qr, qt, units, lane);
+  }
+}
+
+// Persistent: warp w of the grid's W takes queries w, w + W, ..., each in
+// items of at most s.rows rows, and stages item t + 1 into one buffer while
+// it scores item t from the other. UNITS: as score_item.
+template <int BITS, bool WORDS, int UNITS>
+__global__ void __launch_bounds__(32 * kGatherWarps)
+rabitq_gather_kernel(GatherArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kCpu = WORDS ? 32 / BITS : 8 / BITS;  // codes a unit
+  constexpr int kOwn = kGatherMaxRows / 32;           // rows a lane owns
+  const int lane = threadIdx.x & 31;
+  const int n_warps = gridDim.x * (blockDim.x >> 5);
+  int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (qi >= a.num_q) return;  // a whole warp: no block barrier follows
+  const GatherSlot s = gather_slot_of(a.k, a.p, BITS);
+  unsigned char* slot = smem + (threadIdx.x >> 5) * s.bytes;
+  const int buf_bytes = s.q_bytes + s.stage_bytes;
+  float* sdot = reinterpret_cast<float*>(slot + 2 * buf_bytes);
+  const int units = UNITS > 0 ? UNITS : (WORDS ? a.p >> 2 : a.p);
+  const int G = units < 32 ? jasper::pow2_at_least(units) : 32;
+  const int g = lane & (G - 1);
+
+  int base = 0, b = 0;
+  stage_item<BITS, WORDS>(a, s, units, qi, 0, slot, lane);
+  while (true) {
+    // this item's metadata and query scalars into registers: they are
+    // needed only after the scoring
+    const int m = min(s.rows, a.k - base);
+    const size_t row0 = static_cast<size_t>(qi) * a.k + base;
+    float ad[kOwn], rs[kOwn];
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      const int j = lane + 32 * i;
+      ad[i] = j < m ? __ldg(a.add + row0 + j) : 0.f;
+      rs[i] = j < m ? __ldg(a.rescale + row0 + j) : 0.f;
+    }
+    const float qa = __ldg(a.qa + qi);
+    const float qb = __ldg(a.qsum + qi);
+    // the next item in flight while this one scores
+    int next_q = qi, next_base = base + s.rows;
+    if (next_base >= a.k) {
+      next_q += n_warps;
+      next_base = 0;
+    }
+    const bool more = next_q < a.num_q;
+    if (more) {
+      stage_item<BITS, WORDS>(a, s, units, next_q, next_base, slot + (b ^ 1) * buf_bytes, lane);
+      jasper::cp_async_wait<1>();
+    } else {
+      jasper::cp_async_wait<0>();
+    }
+    __syncwarp();
+    const unsigned char* buf = slot + b * buf_bytes;
+    const float* sq = reinterpret_cast<const float*>(buf);
+    float qr[kCpu];
+#pragma unroll
+    for (int j = 0; j < kCpu; ++j) qr[j] = units <= 32 && g < units ? sq[g * kCpu + j] : 0.f;
+    score_item<BITS, WORDS, UNITS>(buf + s.q_bytes, a.p, sdot, m, qr, sq, units, lane);
+    __syncwarp();
+    float* out = a.out + row0;
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      const int j = lane + 32 * i;
+      if (j < m) out[j] = jasper::rabitq_epilogue(ad[i], qa, rs[i], sdot[j], qb);
+    }
+    if (!more) break;
+    __syncwarp();  // the next item rewrites sdot; buffer b takes the one after
+    qi = next_q;
+    base = next_base;
+    b ^= 1;
+  }
+}
+
+using GatherKernel = void (*)(GatherArgs);
+
+// An instance, its shared-memory limit raised to kSmemLimit once (err: the
+// result of that call).
+template <int BITS, bool WORDS, int UNITS>
+GatherKernel gather_instance(int* err) {
+  static const int attr = static_cast<int>(
+      cudaFuncSetAttribute(rabitq_gather_kernel<BITS, WORDS, UNITS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit));
+  *err = attr;
+  return rabitq_gather_kernel<BITS, WORDS, UNITS>;
+}
+
+// The instance for rows of p bytes: rows of 4, 8, 16 or 32 words (D = 128
+// at 1, 2, 4 and 8 bits) take their width as a constant; other rows of
+// whole words, and rows of bytes, read it at run time.
+template <int BITS>
+GatherKernel gather_kernel_for(int p, int* err) {
+  if ((p & 3) != 0) return gather_instance<BITS, false, 0>(err);
+  switch (p >> 2) {
+    case 4: return gather_instance<BITS, true, 4>(err);
+    case 8: return gather_instance<BITS, true, 8>(err);
+    case 16: return gather_instance<BITS, true, 16>(err);
+    case 32: return gather_instance<BITS, true, 32>(err);
+    default: return gather_instance<BITS, true, 0>(err);
+  }
+}
+
+// Resident blocks an SM of an instance at its warps and shared bytes a
+// block (the occupancy API), remembered for the next launch of that shape.
+int gather_blocks_per_sm(GatherKernel kern, int wpb, int smem, int* blocks) {
+  struct Seen {
+    GatherKernel kern;
+    int wpb, smem, blocks;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  static std::mutex mu;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n_seen; ++i)
+      if (seen[i].kern == kern && seen[i].wpb == wpb && seen[i].smem == smem) {
+        *blocks = seen[i].blocks;
+        return 0;
+      }
+  }
+  const int e = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, 32 * wpb, smem));
+  if (e != 0) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (n_seen < 64) seen[n_seen++] = Seen{kern, wpb, smem, *blocks};
+  return 0;
+}
+
+// The grid: one block of wpb warps for every wpb queries, at most as many
+// as are resident on the card at once (the warps then loop).
+template <int BITS>
+int launch_gather(const GatherArgs& a, cudaStream_t st) {
+  const GatherSlot s = gather_slot_of(a.k, a.p, BITS);
+  const int wpb = gather_warps_per_block(s);
+  if (wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = wpb * s.bytes;
+  int e = 0, blocks = 0, sms = 0, device = 0;
+  const GatherKernel kern = gather_kernel_for<BITS>(a.p, &e);
+  if (e == 0) e = gather_blocks_per_sm(kern, wpb, smem, &blocks);
+  if (e == 0) e = static_cast<int>(cudaGetDevice(&device));
+  if (e == 0)
+    e = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (e != 0) return e;
+  const int need = (a.num_q + wpb - 1) / wpb;
+  const int resident = (blocks > 0 ? blocks : 1) * sms;
+  kern<<<need < resident ? need : resident, 32 * wpb, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int BITS>
-int launch_gather(const uint8_t* cand, const float* add, const float* rescale, const float* q,
-                  int d, const float* qa, const float* qsum, float* out, int nq, int k, int p,
-                  cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(p) * (8 / BITS) * sizeof(float);
-  auto kern = rabitq_gather_kernel<BITS>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<nq, kGatherThreads, smem, s>>>(cand, add, rescale, q, d, qa, qsum, k, p, out);
-  return static_cast<int>(cudaGetLastError());
+int gather_occupancy_of(int k, int p, int* info) {
+  const GatherSlot s = gather_slot_of(k, p, BITS);
+  const int wpb = gather_warps_per_block(s);
+  if (wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int e = 0, blocks = 0;
+  const GatherKernel kern = gather_kernel_for<BITS>(p, &e);
+  if (e == 0) e = gather_blocks_per_sm(kern, wpb, wpb * s.bytes, &blocks);
+  if (e != 0) return e;
+  cudaFuncAttributes attr;
+  e = static_cast<int>(cudaFuncGetAttributes(&attr, kern));
+  info[0] = attr.numRegs;
+  info[1] = blocks;
+  info[2] = wpb * s.bytes;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = wpb;
+  return e;
 }
 
 }  // namespace
@@ -448,12 +689,26 @@ extern "C" int rabitq_gather_distance_launch(const uint8_t* cand, const float* c
                                              const float* cand_rescale, const float* q, int d,
                                              const float* qa, const float* qsum, float* out,
                                              int nq, int k, int p, int bits, void* stream) {
+  const GatherArgs a{cand, cand_add, cand_rescale, q, qa, qsum, out, nq, k, p, d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return launch_gather<1>(cand, cand_add, cand_rescale, q, d, qa, qsum, out, nq, k, p, s);
-    case 2: return launch_gather<2>(cand, cand_add, cand_rescale, q, d, qa, qsum, out, nq, k, p, s);
-    case 4: return launch_gather<4>(cand, cand_add, cand_rescale, q, d, qa, qsum, out, nq, k, p, s);
-    case 8: return launch_gather<8>(cand, cand_add, cand_rescale, q, d, qa, qsum, out, nq, k, p, s);
+    case 1: return launch_gather<1>(a, s);
+    case 2: return launch_gather<2>(a, s);
+    case 4: return launch_gather<4>(a, s);
+    case 8: return launch_gather<8>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// registers a thread, resident blocks an SM, shared bytes a block, local
+// (spilled) bytes a thread and queries a block of the gathered-rows kernel
+// at (bits, k, p)
+extern "C" int rabitq_gather_distance_occupancy(int bits, int k, int p, int* info) {
+  switch (bits) {
+    case 1: return gather_occupancy_of<1>(k, p, info);
+    case 2: return gather_occupancy_of<2>(k, p, info);
+    case 4: return gather_occupancy_of<4>(k, p, info);
+    case 8: return gather_occupancy_of<8>(k, p, info);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,24 +20,18 @@
 // and label word go to the registers of the lane that owns its id — all
 // in one round, one wait. A tombstoned or filtered row in range is loaded
 // anyway (it saves the round its mask would cost) and gets +inf. Rows
-// score from shared memory in common.cuh packed_dot's order: the lanes of
-// a group of G (the least power of two >= the row's 32-bit words, at
-// most 32) take words g, g + 32, ... and reduce by xor shuffles G/2 .. 1
-// — the upper offsets of packed_dot's full-warp tree add exact zeros — so
-// a row scores as rabitq_gather_kernel (rabitq_distance.cu) scores it,
-// bit for bit. A code becomes a float exactly without a conversion
-// instruction (a byte permute under 2^23's exponent, less 2^23), and a
-// lane runs eight rows' FMA chains at once to hide their latency: the
-// scoring, not the bytes, is most of the time. A row of at most 32 units
-// keeps the lane's query codes in registers; wider rows read the query
-// transposed from shared memory (code j of unit u at j * units + u). A
-// round stages up to kStageBytes of rows (128 rows at most); wider rows
-// (2,304 B at D = 4,608, 4 bits) take several rounds. Outputs leave as
-// one coalesced write a round. Invalid candidates (id < 0, id >= n_valid
-// or n, tombstoned, out of filter) get +inf; out = max(add + qa +
+// score from shared memory with rabitq_rows.cuh's scorer (a group of G
+// lanes a row in a whole warp's order, eight FMA chains a lane, codes
+// made floats exactly by a byte permute), which
+// rabitq_gather_distance (rabitq_distance.cu) shares, so the two kernels
+// score a row alike, bit for bit: the scoring, not the bytes, is most of
+// the time. A round stages up to kStageBytes of rows (128 rows at most);
+// wider rows (2,304 B at D = 4,608, 4 bits) take several rounds. Outputs
+// leave as one coalesced write a round. Invalid candidates (id < 0, id >=
+// n_valid or n, tombstoned, out of filter) get +inf; out = max(add + qa +
 // rescale * (dot - qsum), 0) otherwise.
 
-#include "common.cuh"
+#include "rabitq_rows.cuh"
 
 namespace {
 
@@ -67,12 +61,6 @@ __host__ __device__ inline Slot slot_of(int k, int p, int bits) {
   return s;
 }
 
-__host__ __device__ inline int pow2_at_least(int n) {
-  int g = 1;
-  while (g < n) g <<= 1;
-  return g;
-}
-
 struct Args {
   const int32_t* ids;
   const uint8_t* packed;
@@ -95,7 +83,7 @@ template <int UNIT>
 __device__ __forceinline__ void stage_rows(const Args& a, const int32_t* sid, int m,
                                            unsigned char* stage, int stride, int lane) {
   const int units = a.p / UNIT;
-  const int G = units < 32 ? pow2_at_least(units) : 32;
+  const int G = units < 32 ? jasper::pow2_at_least(units) : 32;
   const int per = 32 / G;
   const int g = lane & (G - 1);
   for (int r0 = 0; r0 < m; r0 += per) {
@@ -116,84 +104,19 @@ __device__ __forceinline__ void stage_rows(const Args& a, const int32_t* sid, in
   }
 }
 
-// code j of a 32-bit unit as a float, exactly: its bits under 2^23's
-// exponent, less 2^23. At 4 bits the unit's low and high nibbles are split
-// once (lo, hi: a code a byte), and a byte permute puts code j under the
-// exponent.
-template <int BITS>
-__device__ __forceinline__ float code_of(uint32_t x, uint32_t lo, uint32_t hi, int j) {
-  if constexpr (BITS == 4)
-    return __uint_as_float(__byte_perm(j & 1 ? hi : lo, 0x4b000000u, 0x7440 | (j >> 1))) -
-           8388608.f;
-  else
-    return __uint_as_float(((x >> (j * BITS)) & ((1u << BITS) - 1u)) | 0x4b000000u) -
-           8388608.f;
-}
-
-// Per-lane partial dot of a staged row over this lane's units g, g + 32,
-// ... in packed_dot's order: unit u holds CPU codes (a 32-bit word, or a
-// byte), code j times q[u * CPU + j], one FMA after another. qt is the
-// query transposed (qt[j * units + u]); qr holds unit g's codes when a row
-// has at most 32 units, so then the lane reads only the row's word.
+// The round's rows [0, m) scored into sdot (rabitq_rows.cuh); rows of at
+// most 32 units keep lane g's codes of the query (qrow) in registers.
 template <int BITS, bool WORDS>
-__device__ __forceinline__ float row_dot(const unsigned char* row, int units, int g,
-                                         const float* qt,
-                                         const float (&qr)[WORDS ? 32 / BITS : 8 / BITS]) {
-  constexpr int kCpu = WORDS ? 32 / BITS : 8 / BITS;  // codes a unit
-  float acc = 0.f;
-  if (units <= 32) {
-    if (g < units) {
-      const uint32_t x = WORDS ? reinterpret_cast<const uint32_t*>(row)[g] : row[g];
-      const uint32_t lo = x & 0x0f0f0f0fu;
-      const uint32_t hi = (x >> 4) & 0x0f0f0f0fu;
-#pragma unroll
-      for (int j = 0; j < kCpu; ++j) acc += code_of<BITS>(x, lo, hi, j) * qr[j];
-    }
-    return acc;
-  }
-  for (int u = g; u < units; u += 32) {
-    const uint32_t x = WORDS ? reinterpret_cast<const uint32_t*>(row)[u] : row[u];
-    const uint32_t lo = x & 0x0f0f0f0fu;
-    const uint32_t hi = (x >> 4) & 0x0f0f0f0fu;
-#pragma unroll
-    for (int j = 0; j < kCpu; ++j) acc += code_of<BITS>(x, lo, hi, j) * qt[j * units + u];
-  }
-  return acc;
-}
-
-// Dots of the round's rows [0, m) into sdot: a group of G lanes a row, the
-// group's lanes reduced by xor shuffles G/2 .. 1; a lane takes kChains
-// rows a pass (independent FMA chains; fewer at 2 and 1 bits, whose 16 or
-// 32 codes a unit take more registers). Rows of at most 32 units keep
-// lane g's codes of the query (from qrow, in device memory) in registers.
-template <int BITS, bool WORDS>
-__device__ __forceinline__ void score_rows(const unsigned char* stage, int stride, float* sdot,
-                                           int m, const float* __restrict__ qrow,
-                                           const float* qt, int units, int lane) {
-  constexpr int kChains = BITS >= 4 ? 8 : 2 * BITS;
+__device__ __forceinline__ void score_round(const unsigned char* stage, int stride, float* sdot,
+                                            int m, const float* __restrict__ qrow,
+                                            const float* qt, int units, int lane) {
   constexpr int kCpu = WORDS ? 32 / BITS : 8 / BITS;
-  const int G = units < 32 ? pow2_at_least(units) : 32;
-  const int glog = 31 - __clz(G);
-  const int per = 32 >> glog;  // rows a pass, a group each
+  const int G = units < 32 ? jasper::pow2_at_least(units) : 32;
   const int g = lane & (G - 1);
   float qr[kCpu];
 #pragma unroll
   for (int j = 0; j < kCpu; ++j) qr[j] = units <= 32 && g < units ? __ldg(qrow + g * kCpu + j) : 0.f;
-  for (int r0 = 0; r0 < m; r0 += kChains * per) {  // uniform over the warp
-    const int r = r0 + (lane >> glog);
-    float acc[kChains];
-#pragma unroll
-    for (int c = 0; c < kChains; ++c)
-      acc[c] = r + c * per < m
-                   ? row_dot<BITS, WORDS>(stage + (r + c * per) * stride, units, g, qt, qr)
-                   : 0.f;
-    for (int off = G >> 1; off > 0; off >>= 1)
-#pragma unroll
-      for (int c = 0; c < kChains; ++c) acc[c] += __shfl_xor_sync(jasper::kFullMask, acc[c], off);
-#pragma unroll
-    for (int c = 0; c < kChains; ++c)
-      if (g == 0 && r + c * per < m) sdot[r + c * per] = acc[c];
-  }
+  jasper::score_rows<BITS, WORDS>(stage, stride, sdot, m, qr, qt, units, lane);
 }
 
 __device__ __forceinline__ bool in_range(const Args& a, int id) {
@@ -215,8 +138,8 @@ rabitq_search_step_kernel(Args a) {
   int32_t* sid = reinterpret_cast<int32_t*>(stage + s.rows * s.stride);
   float* sdot = reinterpret_cast<float*>(sid + s.rows);
 
-  // rows of whole 32-bit words score a word a lane (packed_dot's word
-  // path), other rows a byte a lane
+  // rows of whole 32-bit words score a word a lane, other rows a byte a
+  // lane
   const bool words = (a.p & 3) == 0;
   const int units = words ? a.p >> 2 : a.p;
   const int dq = a.p * (8 / BITS);
@@ -272,9 +195,9 @@ rabitq_search_step_kernel(Args a) {
     jasper::cp_async_wait<0>();
     __syncwarp();
     if (words)
-      score_rows<BITS, true>(stage, s.stride, sdot, m, qrow, qt, units, lane);
+      score_round<BITS, true>(stage, s.stride, sdot, m, qrow, qt, units, lane);
     else
-      score_rows<BITS, false>(stage, s.stride, sdot, m, qrow, qt, units, lane);
+      score_round<BITS, false>(stage, s.stride, sdot, m, qrow, qt, units, lane);
     __syncwarp();
     // the estimates of this lane's ids, masked, in one coalesced write
     float* out = a.out + static_cast<size_t>(qi) * a.k + base;

@@ -44,6 +44,11 @@ SMEM_PER_BLOCK = 232_448
 STEP_WARPS_PER_BLOCK = 4
 STEP_STAGE_BYTES = 16384
 STEP_MAX_ROWS = 128
+# `rabitq_gather_distance`'s shared slot of one warp (`gather_slot_of` in
+# csrc/rabitq_distance.cu): a block holds up to GATHER_WARPS_PER_BLOCK
+GATHER_WARPS_PER_BLOCK = 4
+GATHER_STAGE_BYTES = 16384
+GATHER_MAX_ROWS = 128
 
 
 def _align16(n: int) -> int:
@@ -78,22 +83,64 @@ def check_step_shape(k: int, p: int, bits: int) -> None:
             f"{SMEM_PER_BLOCK}")
 
 
+def gather_smem_bytes(k: int, p: int, bits: int) -> int:
+    """Shared bytes of one warp's slot of `rabitq_gather_distance` at K
+    candidates and P-byte rows: two buffers (one item staged while the
+    other scores), each the query (P * 8/bits floats) and an item's rows
+    back to back (as many of K as fit in GATHER_STAGE_BYTES, at least one,
+    at most GATHER_MAX_ROWS), then the item's dots (4 B each), each part
+    rounded up to 16 B."""
+    rows = min(k, max(1, min(GATHER_MAX_ROWS,
+                             GATHER_STAGE_BYTES // max(p, 1))))
+    buf = _align16(p * (8 // bits) * 4) + _align16(rows * p)
+    return 2 * buf + _align16(rows * 4)
+
+
+def gather_warps_per_block(k: int, p: int, bits: int) -> int:
+    """Warps a block of `rabitq_gather_distance` at (K, P, bits): as many
+    slots as fit in SMEM_PER_BLOCK, at most GATHER_WARPS_PER_BLOCK."""
+    return min(GATHER_WARPS_PER_BLOCK,
+               SMEM_PER_BLOCK // gather_smem_bytes(k, p, bits))
+
+
+def check_gather_shape(k: int, p: int, bits: int) -> None:
+    """The shapes `rabitq_gather_distance`'s kernel takes: one warp's slot
+    (`gather_smem_bytes`) within SMEM_PER_BLOCK bytes of shared memory (a
+    block then holds `gather_warps_per_block`). Raises ValueError naming
+    the limit."""
+    need = gather_smem_bytes(k, p, bits)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"rabitq_gather_distance: K={k} and rows of {p} B at {bits} bits"
+            f" need {need} bytes of shared memory for one warp; the limit "
+            f"is {SMEM_PER_BLOCK}")
+
+
+# the C entry point of each estimator kernel's occupancy, and whether it
+# takes (K, P) after the bits
+_OCCUPANCY = {"rabitq_distance": ("rabitq_distance", False),
+              "rabitq_search_step": ("rabitq_search_step", True),
+              "rabitq_gather_distance": ("rabitq_distance", True)}
+
+
 def occupancy(kernel: str, *, bits: int, p: int, k: int = 64) -> dict:
     """One instance of an estimator kernel on the card, "rabitq_distance"
-    (#6) or "rabitq_search_step" (#3, no masks, at K and P-byte rows): its
-    registers a thread, resident blocks an SM (the CUDA occupancy API),
-    shared bytes a block and local (spilled) bytes a thread; #3 also its
-    warps (queries) a block."""
-    if kernel == "rabitq_distance":
-        fn = build.entry(kernel, "rabitq_distance_occupancy",
-                         [ctypes.c_int, ctypes.c_void_p])
-        info = (ctypes.c_int * 4)()
-        err = fn(bits, ctypes.cast(info, ctypes.c_void_p))
-    else:
-        fn = build.entry(kernel, "rabitq_search_step_occupancy",
+    (#6), or "rabitq_search_step" (#3, no masks) or
+    "rabitq_gather_distance" (#5), both at K and P-byte rows: its registers
+    a thread, resident blocks an SM (the CUDA occupancy API), shared bytes
+    a block and local (spilled) bytes a thread; #3 and #5 also their warps
+    (queries) a block."""
+    library, shaped = _OCCUPANCY[kernel]
+    symbol = f"{kernel}_occupancy"
+    if shaped:
+        fn = build.entry(library, symbol,
                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
         info = (ctypes.c_int * 5)()
         err = fn(bits, k, p, ctypes.cast(info, ctypes.c_void_p))
+    else:
+        fn = build.entry(library, symbol, [ctypes.c_int, ctypes.c_void_p])
+        info = (ctypes.c_int * 4)()
+        err = fn(bits, ctypes.cast(info, ctypes.c_void_p))
     build.check(err, f"{kernel} occupancy")
     return dict(zip(("registers", "blocks_per_sm", "smem_per_block",
                      "local_bytes", "warps_per_block"), info))
@@ -238,6 +285,7 @@ def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
     if q.shape[0] != qn:
         raise ValueError(f"q_rot {tuple(q.shape)} does not match "
                          f"cand_packed {tuple(cand_packed.shape)}")
+    check_gather_shape(k, p, bits)
     out = torch.empty((qn, k), dtype=torch.float32, device=dev)
     if qn == 0 or k == 0:
         return out

@@ -21,7 +21,9 @@ Tolerances: on integer-valued operands every float sum is exact in any
 order, so kernel and plain version must agree BIT for bit (ids, dists,
 hops, telemetry). On float operands: dists rtol 1e-4, ids >= 0.99; the
 L2 kernels rtol 1e-4 of the distance plus 1e-6 of the cancelled terms
-|q|^2 + |x|^2 (float32 ulps), the RaBitQ estimators rtol 1e-4 / atol 1e-3.
+|q|^2 + |x|^2 (float32 ulps), the RaBitQ estimators rtol 1e-4 / atol 1e-3
+(#5's grid, at D up to 18,432, and #6: rtol 1e-4 plus 1e-6 of the
+magnitude the estimator cancels).
 The `topk` selection does no arithmetic: bit-equal on any input.
 """
 
@@ -561,39 +563,74 @@ def test_rabitq_distance_bit_exact_vs_plain(cuda_device, bits, shape):
     assert torch.equal(got, want)
 
 
+# (K, P) of #5: one round of rows or several (K 300 > 128 rows a round;
+# P 2,304 B: 7 rows a round, the query transposed in shared memory),
+# 16-byte, byte-width (33 B) and the main path's 64-byte rows
+GATHER_GRID = [(k, p) for k in (1, 40, 64, 128, 300)
+               for p in (16, 33, 64, 2304)]
+
+
+def _estimator_close(got, want, add, qa, rescale, q, qs, bits):
+    """Within rtol 1e-4 of the plain version plus 1e-6 of the magnitude the
+    estimator cancels, |add| + |qa| + |rescale| (sum |q| (2^bits - 1) +
+    |qsum|): chip_smoke.py's `within` bound, as #6's real operands are
+    held. The kernel and the plain version sum D products in other
+    orders."""
+    qmag = q.abs().sum(1) * (2 ** bits - 1) + qs.abs()
+    terms = add.abs() + qa.abs()[:, None] + rescale.abs() * qmag[:, None]
+    return bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-6 * terms)
+                .all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-def test_rabitq_gather_distance_vs_plain_and_search_step(cuda_device, bits):
+@pytest.mark.parametrize("k, p", GATHER_GRID,
+                         ids=[f"K{k}-P{p}" for k, p in GATHER_GRID])
+def test_rabitq_gather_distance_vs_plain_and_search_step(cuda_device, bits,
+                                                         k, p):
     """Bit-equal to its plain version on integer operands, and to
     `rabitq_search_step` on the same in-range ids with every row live on
-    integer and on float operands (the same estimator arithmetic)."""
+    integer and on real operands (both kernels score a row with
+    rabitq_rows.cuh's scorer); real operands within `_estimator_close` of
+    the plain version. Ragged Q (13: the last block holds one query); D
+    below P * 8/bits at K 1, 40 and 300."""
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_gather_distance, rabitq_gather_distance_plain,
         rabitq_search_step)
-    c = Case(bits + 40, cuda_device, bits=bits)
-    ids = torch.as_tensor(c.rng.integers(0, N, (Q, 40)).astype(np.int32)
-                          ).to(cuda_device)
+    n, q = 512, 13
+    rng = np.random.default_rng(bits * 10_000 + k * 10 + p)
+    d = p * (8 // bits) - (3 if k in (1, 40, 300) else 0)
+
+    def t(x):
+        return torch.as_tensor(x).to(cuda_device)
+    packed = t(rng.integers(0, 256, (n, p)).astype(np.uint8))
+    ids = t(rng.integers(0, n, (q, k)).astype(np.int32))
     safe = ids.long()
     for integer in (True, False):
-        rq = c.rq if integer else tr.RaBitQQuery(
-            q_rot=torch.randn(Q, D, generator=torch.Generator().manual_seed(
-                bits)).to(cuda_device), query_add=c.rq.query_add,
-            query_sumq=c.rq.query_sumq)
-        cand = (c.codes.packed[safe].contiguous(), c.codes.data_add[safe],
-                c.codes.data_rescale[safe])
-        qargs = (rq.q_rot, rq.query_add, rq.query_sumq)
+        if integer:
+            meta = (rng.integers(0, 4000, n), rng.choice([-2, -1, 1, 2], n),
+                    rng.integers(-3, 4, (q, d)), rng.integers(0, 500, q),
+                    rng.integers(-50, 50, q))
+        else:
+            meta = (rng.normal(size=n) * 100, rng.normal(size=n),
+                    rng.normal(size=(q, d)), rng.normal(size=q) * 100,
+                    rng.normal(size=q) * 10)
+        add, rescale, q_rot, qa, qs = (t(x.astype(np.float32)) for x in meta)
+        cand = (packed[safe].contiguous(), add[safe], rescale[safe])
         before = rabitq_gather_distance.launches
-        got = rabitq_gather_distance(*cand, *qargs, bits=bits)
-        want = rabitq_gather_distance_plain(*cand, *qargs, bits=bits)
-        step = rabitq_search_step(ids, c.codes.packed, c.codes.data_add,
-                                  c.codes.data_rescale, N, *qargs, bits=bits)
+        got = rabitq_gather_distance(*cand, q_rot, qa, qs, bits=bits)
+        want = rabitq_gather_distance_plain(*cand, q_rot, qa, qs, bits=bits)
+        step = rabitq_search_step(ids, packed, add, rescale, n, q_rot, qa, qs,
+                                  bits=bits)
         torch.cuda.synchronize()
         assert rabitq_gather_distance.launches == before + 1
+        assert got.shape == (q, k)
         assert torch.equal(got, step)
         if integer:
             assert torch.equal(got, want)
         else:
-            assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+            assert _estimator_close(got, want, cand[1], qa, cand[2], q_rot,
+                                    qs, bits)
 
 
 # (Q, C, D): ragged queries, rows and dims, D not a multiple of 16 or 64
@@ -704,8 +741,8 @@ def test_rabitq_search_step_rows_in_flight(cuda_device, k, d, masks):
 
 @pytest.mark.cuda
 def test_rabitq_search_step_equals_gather_distance_on_real_codes(cuda_device):
-    """#3 scores a staged row in packed_dot's lane order and shuffle tree:
-    on the same live rows it equals #5 bit for bit on real operands, at the
+    """#3 and #5 score a staged row with one scorer (rabitq_rows.cuh): on
+    the same live rows they agree bit for bit on real operands, at the
     main path's 64-byte rows."""
     from repro_torch.kernels.rabitq_dot.ops import (rabitq_gather_distance,
                                                     rabitq_search_step)
@@ -734,16 +771,24 @@ def test_rabitq_search_step_equals_gather_distance_on_real_codes(cuda_device):
 
 @pytest.mark.cuda
 def test_rabitq_search_step_reports_its_occupancy(cuda_device):
-    """The main path's instance: STEP_WARPS_PER_BLOCK queries (warps) a
-    block, resident blocks > 0, the slots `step_smem_bytes` counts, nothing
-    spilled; #6 two blocks an SM."""
+    """The main path's instances of #3 and #5: STEP_WARPS_PER_BLOCK /
+    `gather_warps_per_block` warps a block, resident blocks > 0, the slots
+    `step_smem_bytes` / `gather_smem_bytes` count, nothing spilled; #5
+    also at the RAG index's 2,304-byte rows; #6 two blocks an SM."""
     from repro_torch.kernels.rabitq_dot.ops import (
-        STEP_WARPS_PER_BLOCK, occupancy, step_smem_bytes)
+        STEP_WARPS_PER_BLOCK, gather_smem_bytes, gather_warps_per_block,
+        occupancy, step_smem_bytes)
     info = occupancy("rabitq_search_step", bits=4, p=64, k=64)
     assert info["warps_per_block"] == STEP_WARPS_PER_BLOCK
     assert info["smem_per_block"] == (STEP_WARPS_PER_BLOCK
                                       * step_smem_bytes(64, 64, 4))
     assert info["blocks_per_sm"] > 0 and info["local_bytes"] == 0
+    for p in (64, 2304):
+        info = occupancy("rabitq_gather_distance", bits=4, p=p, k=64)
+        wpb = gather_warps_per_block(64, p, 4)
+        assert info["warps_per_block"] == wpb
+        assert info["smem_per_block"] == wpb * gather_smem_bytes(64, p, 4)
+        assert info["blocks_per_sm"] > 0 and info["local_bytes"] == 0
     info = occupancy("rabitq_distance", bits=4, p=64)
     assert info["blocks_per_sm"] >= 2 and info["local_bytes"] == 0
 
