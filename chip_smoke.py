@@ -141,12 +141,44 @@ Phases:
                 memory under 80 GB — then 3 steps at lr 1e-3 on one fixed
                 batch (the loss must fall), one step under the profiler,
                 and the loss head and AdamW timed apart.
+ 10. ANNS serving — runs after phase 6, on its index, before phase 8
+                frees it. (a) The main spec's plan (k 10, beam 64, 4-bit,
+                megakernel, device rerank, the 10,000 queries) is a
+                captured CUDA graph: the first search misses and captures
+                once, three more hit; every replay, and a telemetry
+                spec's, bit-equal to an eager `core_search`; each counts
+                `fused_search` 1 + `gather_l2` 1; host-clock time of an
+                eager and a replayed search (mean of 10) and the device
+                busy share of one profiled replay beside phase 4's.
+                (b) Delete 1,000, insert 1,000, consolidate under the
+                main and the exact megakernel specs' plans: replays
+                bit-equal to eager, no tombstoned id, no recapture; then a
+                grow: one recapture a spec. (c) Submit 4 x 2,500 queries,
+                insert 1,000, drain: equal to the searches at the submit
+                generation and stamped with it. (d) `AnnsService.serve`
+                over lanes default (the main spec) + exact at the bucket
+                ladder (1, 8, 32, 128), every (lane, rung) warmed first:
+                saturation (Poisson 1e6 QPS, 20,000 arrivals, not real
+                time) at buckets (1,) and at the ladder, then real-time
+                Poisson and bursty (x8) replays at half the ladder's
+                saturation QPS, lanes 0.7 / 0.3, 100 ms SLO: QPS, p50,
+                p99, SLO hit rate, flush reasons, batch occupancy; no
+                trace or miss after the warm-up, completed + rejected =
+                arrivals, the flush reasons add up to the batches, no
+                tombstoned id, 256 coalesced results bit-equal to the
+                same queries alone in the same bucket. (e) `run` over 20
+                ticks (delete 0.1 % of the live rows, insert 0.1 %, search
+                1,000): the generation stamps increase, an auto-consolidate
+                fires, no plan traces, recall@10 >= 0.85 after; two
+                tenants of 10,000 rows see only their own rows. (f) The
+                `metrics_snapshot()` keys and the span summary. Prints one
+                `{"serving": ...}` JSON line.
 
-Prints the kernel JSON line, the card's name and power limit, and last
-`{"ok": true, "device": {...}}`. Exits non-zero, printing no result, if
-there is no CUDA device, a kernel fails to build, launch or agree, a path
-skips its kernel, recall misses its floor, or a churn or serving check
-fails, or a training check fails.
+Prints the serving JSON line, the kernel JSON line, the card's name and
+power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
+printing no result, if there is no CUDA device, a kernel fails to build,
+launch or agree, a path skips its kernel, recall misses its floor, or a
+churn or serving check fails, or a training check fails.
 """
 
 from __future__ import annotations
@@ -565,10 +597,10 @@ def recall_at(ids, gt) -> float:
     return float(np.mean(hits.any(axis=2).sum(axis=1) / gt.shape[1]))
 
 
-def profile_device(fn, what: str, top: int = 8):
+def profile_device(fn, what: str, top: int = 8, stats: dict | None = None):
     """Run fn() once more under torch.profiler: device time per kernel and
     the device's busy share of the call's wall time. Returns fn()'s
-    result."""
+    result; `stats`, when given, receives wall_us, busy_us and share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -584,6 +616,9 @@ def profile_device(fn, what: str, top: int = 8):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
+    if stats is not None:
+        stats.update(wall_us=wall_us, busy_us=busy,
+                     share=busy / wall_us if rows else None)
     if not rows:
         log(f"  profile ({what}): the profiler recorded no device time")
         return out
@@ -651,8 +686,10 @@ def main_path(args):
             f" recall@10 {rec:.4f}, mean hops {hops:.2f}, launches "
             f"{launched}")
     mk_searcher = idx.searcher(paths["megakernel"])
+    results["megakernel"]["profile"] = {}
     profile_device(lambda: mk_searcher.search(q_dev),
-                   "megakernel path, one search")
+                   "megakernel path, one search",
+                   stats=results["megakernel"]["profile"])
 
     mk, uk, pl = (results["megakernel"], results["unfused+kernel"],
                   results["plain"])
@@ -1650,6 +1687,370 @@ def _mk_spec(k: int = 10):
                       fusion="megakernel")
 
 
+# ------------------------------------------------- ANNS serving (phase 10)
+SERVE_ARRIVALS = 20_000        # arrivals a serving trace
+SERVE_SLO_S = 0.100            # the realtime replays' per-query budget
+SERVE_TICKS = 20               # service ticks of churn + search
+TICK_QUERIES = 1_000
+TENANT_ROWS = 10_000
+SERVE_CHECK_ROWS = 256         # coalesced results checked against solo ones
+
+
+def _serving_specs():
+    from repro_torch.core.search_spec import SearchSpec
+    main = _mk_spec()
+    exact = SearchSpec(k=10, beam_width=64, fusion="megakernel")
+    return main, exact
+
+
+def _same_as_eager(idx, res, spec, q) -> bool:
+    """A session's result equals `core_search` run eagerly on the index's
+    core, bit for bit (ids, dists, hops and any telemetry)."""
+    from repro_torch.core.index_core import core_search
+    want = core_search(idx.core, q, spec=spec.resolve(idx),
+                       filter_tombstones=idx._filter_tombstones)
+    same = (torch.equal(res.ids, want[0]) and torch.equal(res.dists, want[1])
+            and torch.equal(res.n_hops, want[2]))
+    if len(want) > 3:
+        same = same and all(torch.equal(a, b)
+                            for a, b in zip(res.telemetry, want[3]))
+    return same
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Mean synchronised host-clock time of fn() (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def plans_on_the_main_spec(idx, q_dev, phase4_profile) -> dict:
+    """Phase 10 (a): the main spec's plan is a captured CUDA graph."""
+    from repro_torch.core.index_core import core_search
+    from repro_torch.core.plans import GraphPlan
+    main, _ = _serving_specs()
+    tel = main.with_(telemetry="on")
+    idx.plans.clear()              # earlier phases' plans; stats stay
+    before = idx.plans.stats.snapshot()
+    ses = idx.searcher(main)
+    res, secs, launched = counted(lambda: ses.search(q_dev))
+    delta = idx.plans.stats.delta(before)
+    log(f"  first search (captures): {secs:.3f} s, plan cache {delta}, "
+        f"launches {launched}")
+    check(delta["misses"] == 1 and delta["traces"] == 1,
+          f"the first search did not capture once: {delta}")
+    want = counts(fused_search=1, gather_l2=1)
+    check(launched == want, f"a captured search counted {launched}, "
+          f"expected {want}")
+    check(_same_as_eager(idx, res, main, q_dev),
+          "the captured search differs from an eager search")
+    for _ in range(3):
+        res, _, launched = counted(lambda: ses.search(q_dev))
+        check(launched == want, f"a replay counted {launched}")
+        check(_same_as_eager(idx, res, main, q_dev),
+              "a replay differs from an eager search")
+    delta = idx.plans.stats.delta(before)
+    check(delta["hits"] == 3 and delta["misses"] == 1
+          and delta["traces"] == 1, f"three more searches: {delta}")
+    plan = idx._search_plan(ses.resolved, tuple(q_dev.shape),
+                            idx._filter_tombstones)
+    check(isinstance(plan, GraphPlan) and plan._graph is not None,
+          "the main spec's plan is not a captured CUDA graph")
+    tses = idx.searcher(tel)
+    for _ in range(2):
+        check(_same_as_eager(idx, tses.search(q_dev), tel, q_dev),
+              "a telemetry replay differs from an eager search")
+    log(f"  3 replays + telemetry spec: ids, dists, hops and counters "
+        f"bit-equal to eager core_search; plan cache {delta}")
+    rspec = main.resolve(idx)
+    eager_ms = _host_ms(lambda: core_search(
+        idx.core, q_dev, spec=rspec, filter_tombstones=idx._filter_tombstones))
+    replay_ms = _host_ms(lambda: ses.search(q_dev))
+    prof = {}
+    profile_device(lambda: ses.search(q_dev), "phase 10, one replayed search",
+                   stats=prof)
+    log(f"  10,000 queries, synchronised host clock, mean of 10: eager "
+        f"{eager_ms:.3f} ms, replayed {replay_ms:.3f} ms; device busy "
+        f"{_share(prof)} of a replay against {_share(phase4_profile)} of "
+        "phase 4's eager search")
+    return dict(eager_ms=eager_ms, replay_ms=replay_ms, replay_profile=prof,
+                eager_profile=phase4_profile)
+
+
+def _share(prof: dict) -> str:
+    if not prof or prof.get("share") is None:
+        return "not measured"
+    return (f"{100 * prof['share']:.1f}% ({prof['busy_us']:.0f} of "
+            f"{prof['wall_us']:.0f} us)")
+
+
+def mutations_under_plans(idx, q_dev) -> dict:
+    """Phase 10 (b): delete, insert and consolidate under captured plans,
+    then a grow."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    specs = _serving_specs()
+    gen = torch.Generator().manual_seed(SEED + 10)
+
+    def replays(step: str) -> None:
+        for spec in specs:
+            res = idx.searcher(spec).search(q_dev)
+            ids = res.ids.cpu().numpy()
+            dead = int(idx.tombstoned(ids[ids >= 0]).sum())
+            check(dead == 0, f"{step}: {dead} tombstoned ids")
+            check(_same_as_eager(idx, res, spec, q_dev),
+                  f"{step}: a replay differs from an eager search")
+
+    live = np.flatnonzero(idx.live_mask())
+    perm = torch.randperm(live.size, generator=gen).numpy()
+    # the liveness mode (part of a plan's key, as in the JAX package) is
+    # "filter" from here on: ten tombstones before the plans are taken
+    idx.delete(np.sort(live[perm[:10]]))
+    dead = np.sort(live[perm[10:1010]])
+    replays("before")
+    base = idx.plans.stats.snapshot()
+    rows = make_anns_dataset(ANNS_DATASETS["bigann"], n=1000, seed=SEED + 4)
+    steps = (("delete 1,000", lambda: idx.delete(dead)),
+             ("insert 1,000", lambda: idx.insert(rows)),
+             ("consolidate", lambda: idx.consolidate()))
+    out = {}
+    for step, fn in steps:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[step] = time.perf_counter() - t0
+        replays(step)
+        delta = idx.plans.stats.delta(base)
+        check(delta["traces"] == 0, f"{step} recaptured a plan: {delta}")
+        log(f"  {step}: {out[step]:.3f} s; replays of both specs bit-equal to"
+            f" eager, no tombstoned id, no recapture ({delta})")
+    cap = idx.capacity
+    idx.grow()
+    replays("grow")
+    delta = idx.plans.stats.delta(base)
+    check(delta["traces"] == len(specs) and delta["misses"] == 0,
+          f"the grow recaptured {delta['traces']} plans for {len(specs)} "
+          f"specs: {delta}")
+    log(f"  grow {cap} -> {idx.capacity}: one recapture a spec ({delta}); "
+        "replays bit-equal to eager")
+    return out
+
+
+def submit_and_drain(idx, q_dev) -> None:
+    """Phase 10 (c): submit 4 x 2,500 queries, insert, drain."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    main, _ = _serving_specs()
+    ses = idx.searcher(main)
+    parts = q_dev.split(2500)[:4]
+    refs = [ses.search(p) for p in parts]
+    gen = idx.generation
+    for p in parts:
+        ses.submit(p)
+    idx.insert(make_anns_dataset(ANNS_DATASETS["bigann"], n=1000,
+                                 seed=SEED + 5))
+    out = ses.drain()
+    check(idx.generation > gen, "the insert did not advance the generation")
+    for r, ref in zip(out, refs):
+        check(r.generation == gen, f"drained generation {r.generation}, "
+              f"submitted at {gen}")
+        check(np.array_equal(r.ids, ref.ids.cpu().numpy())
+              and np.array_equal(r.dists, ref.dists.cpu().numpy())
+              and np.array_equal(r.n_hops, ref.n_hops.cpu().numpy()),
+              "a drained batch differs from the search at its generation")
+    log(f"  submit 4 x 2,500, insert 1,000, drain: equal to the searches at "
+        f"generation {gen} and stamped with it (now {idx.generation})")
+
+
+def _serve_line(what: str, rep: dict) -> str:
+    return (f"  {what}: {rep['qps']:.0f} QPS, p50 {rep['p50_ms']:.3f} ms, "
+            f"p99 {rep['p99_ms']:.3f} ms, SLO hit {rep['slo_hit_rate']:.4f},"
+            f" completed {rep['completed']}, rejected {rep['rejected']}, "
+            f"batches {rep['batches']}, flush {rep['flush_reasons']}, "
+            f"occupancy {rep['mean_batch_occupancy']}")
+
+
+def scheduler_serving(idx, pool: np.ndarray) -> tuple[dict, object]:
+    """Phase 10 (d): the standing-query scheduler over two lanes."""
+    from repro_torch.core.search_spec import BUCKET_LADDER
+    from repro_torch.serving.anns_service import AnnsService
+    from repro_torch.serving.loadgen import bursty_trace, poisson_trace
+    main, exact = _serving_specs()
+    lanes = {"exact": exact}
+    svc = AnnsService(idx, spec=main, verify=True)
+    svc.metrics()
+    t0 = time.perf_counter()
+    for spec in (main, exact):
+        ses = idx.searcher(spec)
+        for b in BUCKET_LADDER:
+            ses.search(pool[:b])
+    torch.cuda.synchronize()
+    log(f"  warm-up of 2 lanes x {len(BUCKET_LADDER)} rungs: "
+        f"{time.perf_counter() - t0:.2f} s")
+    before = idx.plans.stats.snapshot()
+    reports = {}
+
+    def serve(name, trace, realtime, **cfg):
+        rep, handles = svc.serve(trace, pool, lanes=lanes, realtime=realtime,
+                                 **cfg)
+        check(rep["completed"] + rep["rejected"] == len(trace),
+              f"{name}: completed + rejected != arrivals")
+        check(sum(rep["flush_reasons"].values()) == rep["batches"],
+              f"{name}: the flush reasons do not add up to the batches")
+        done = [h for h in handles if h.status == "done"]
+        ids = np.concatenate([h.ids for h in done])
+        check(not idx.tombstoned(ids[ids >= 0]).any(),
+              f"{name}: a tombstoned id")
+        reports[name] = {k: rep[k] for k in (
+            "qps", "p50_ms", "p99_ms", "slo_hit_rate", "completed",
+            "rejected", "batches", "flush_reasons", "mean_batch_occupancy",
+            "wall_s")}
+        log(_serve_line(name, rep))
+        return rep
+
+    sat = poisson_trace(1e6, SERVE_ARRIVALS, n_queries=pool.shape[0], seed=0,
+                        slo_budget_s=10.0)
+    for name, buckets in (("saturation buckets=(1,)", (1,)),
+                          ("saturation ladder", BUCKET_LADDER)):
+        serve(name, sat, False, buckets=buckets,
+              max_queue=SERVE_ARRIVALS + 1, slo_budget_s=10.0)
+    rate = 0.5 * reports["saturation ladder"]["qps"]
+    mix = dict(n_queries=pool.shape[0], slo_budget_s=SERVE_SLO_S,
+               lanes=("default", "exact"), lane_weights=(0.7, 0.3))
+    serve(f"poisson {rate:.0f} QPS", poisson_trace(
+        rate, SERVE_ARRIVALS, seed=1, **mix), True, buckets=BUCKET_LADDER,
+        slo_budget_s=SERVE_SLO_S)
+    serve(f"bursty {rate:.0f} QPS, burst x8", bursty_trace(
+        rate, SERVE_ARRIVALS, burst_factor=8.0, seed=2, **mix), True,
+        buckets=BUCKET_LADDER, slo_budget_s=SERVE_SLO_S)
+    delta = idx.plans.stats.delta(before)
+    check(delta["traces"] == 0 and delta["misses"] == 0,
+          f"serving after the warm-up traced or missed: {delta}")
+    # coalesced results against the same queries alone, same bucket
+    top = BUCKET_LADDER[-1]
+    sched = svc.scheduler(buckets=(top,), slo_budget_s=10.0)
+    handles = [sched.submit(q) for q in pool[:SERVE_CHECK_ROWS]]
+    sched.drain()
+    solo = svc.scheduler(buckets=(top,), slo_budget_s=10.0)
+    for i, h in enumerate(handles):
+        solo.submit(pool[i])
+        (s,) = solo.drain()
+        check(h.status == "done" and np.array_equal(h.ids, s.ids)
+              and np.array_equal(h.dists, s.dists) and h.n_hops == s.n_hops,
+              f"coalesced query {i} differs from its solo dispatch")
+    log(f"  plan cache over the four replays {delta}; {SERVE_CHECK_ROWS} "
+        f"coalesced results bit-equal to solo dispatches in the {top}-bucket")
+    reports["plan_cache"] = delta
+    return reports, svc
+
+
+def service_ticks(idx, q_dev, pool: np.ndarray) -> dict:
+    """Phase 10 (e): `run` over ticks of churn + search, then tenants."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    from repro_torch.serving.anns_service import AnnsService
+    main, _ = _serving_specs()
+    svc = AnnsService(idx, spec=main, consolidate_threshold=0.012,
+                      verify=True)
+    svc.metrics()
+    gen = torch.Generator().manual_seed(SEED + 11)
+    n_tick = idx.size // 1000
+    queries = pool[:TICK_QUERIES]
+    new = make_anns_dataset(ANNS_DATASETS["bigann"], n=n_tick * SERVE_TICKS
+                            + 2 * TENANT_ROWS, seed=SEED + 6)
+
+    def pick(n):
+        live = np.flatnonzero(idx.live_mask())
+        return np.sort(live[torch.randperm(live.size, generator=gen)[:n]
+                            .numpy()])
+
+    svc.delete(pick(10))           # the liveness mode of the ticks
+    svc.search(queries)            # ... and its plan, captured
+    before = idx.plans.stats.snapshot()
+    t0 = time.perf_counter()
+    gens, cons = [], []
+    for t in range(SERVE_TICKS):
+        n_cons = svc.stats.n_consolidations
+        out = svc.run([("delete", pick(n_tick)),
+                       ("insert", new[t * n_tick:(t + 1) * n_tick]),
+                       ("search", queries)])
+        gens.append(out[-1].generation)
+        if svc.stats.n_consolidations > n_cons:
+            cons.append(t)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    delta = idx.plans.stats.delta(before)
+    check(all(b > a for a, b in zip(gens, gens[1:])),
+          f"generation stamps do not increase: {gens}")
+    check(cons, "no auto-consolidate fired in the ticks")
+    check(delta["traces"] == 0, f"the ticks recaptured a plan: {delta}")
+    rec = idx.recall(q_dev[:2000], 10, spec=main)
+    log(f"  {SERVE_TICKS} ticks of delete {n_tick} / insert {n_tick} / search "
+        f"{TICK_QUERIES}: {secs:.2f} s; auto-consolidate at ticks {cons}; "
+        f"generations {gens[0]} .. {gens[-1]}; plan cache {delta}; recall@10 "
+        f"(2,000 queries, brute force over the live rows) {rec:.4f}")
+    check(rec >= RECALL_FLOOR, f"recall after the ticks {rec:.4f}")
+    tenants = {}
+    for i, name in enumerate(("acme", "beta")):
+        svc.register_tenant(name)
+        rows = new[SERVE_TICKS * n_tick + i * TENANT_ROWS:][:TENANT_ROWS]
+        tenants[name] = svc.tenant_insert(name, rows)
+    own = {}
+    for name, ids in tenants.items():
+        for mode in ("traverse", "exclude"):
+            t = svc.tenant_search(name, queries, filter_mode=mode)
+            got = t.ids[t.ids >= 0]
+            check(np.isin(got, ids).all(),
+                  f"tenant {name} ({mode}) got another tenant's rows")
+            own[f"{name}/{mode}"] = int(got.size)
+    log(f"  two tenants of {TENANT_ROWS} rows: tenant_search returns only "
+        f"their own rows (results a {TICK_QUERIES}-query batch: {own})")
+    return dict(seconds=secs, consolidated_at=cons, recall=rec,
+                generations=(gens[0], gens[-1]), tenant_results=own,
+                service=svc)
+
+
+def anns_serving(idx, q_dev, phase4_profile, smi: str) -> dict:
+    """Phase 10 on phase 6's index: plans, mutations under plans,
+    submit/drain, the scheduler, service ticks and the metrics."""
+    from repro_torch import obs
+    t_phase = time.perf_counter()
+    pool = q_dev.cpu().numpy()
+    tracer = obs.SpanTracer()
+    out = {"device": smi}
+    with obs.use_tracer(tracer):
+        log("  (a) plans on the main spec")
+        out["plans"] = plans_on_the_main_spec(idx, q_dev, phase4_profile)
+        log("  (b) mutations under captured plans")
+        out["mutations_s"] = mutations_under_plans(idx, q_dev)
+        log("  (c) submit and drain")
+        submit_and_drain(idx, q_dev)
+        log("  (d) the standing-query scheduler: lanes default + exact")
+        out["scheduler"], sched_svc = scheduler_serving(idx, pool)
+        log("  (e) service ticks")
+        ticks = service_ticks(idx, q_dev, pool)
+    svc = ticks.pop("service")
+    out["ticks"] = ticks
+    # (f) the metrics plane: the ticks' service and the scheduler's
+    snap = dict(sched_svc.metrics_snapshot())
+    snap.update(svc.metrics_snapshot())
+    spaces = sorted({k.split(".")[0] for k in snap})
+    log(f"  (f) metrics_snapshot namespaces {spaces}; keys "
+        f"{sorted(snap)}")
+    for ns in ("service", "plan_cache", "scheduler", "search", "tenants"):
+        check(ns in spaces, f"metrics_snapshot has no {ns}.* keys")
+    summary = tracer.summary()
+    log("  span summary: " + ", ".join(
+        f"{name} {s['count']}x mean {s['mean_us']:.0f} us"
+        for name, s in sorted(summary.items())))
+    out["spans"] = {k: v["count"] for k, v in summary.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {out['seconds']:.1f} s")
+    print(json.dumps({"serving": out}, default=float), flush=True)
+    return out
+
+
 # ------------------------------------------------ flash attention (#10, #11)
 # name, b, sq, skv, h, hk, dh, causal, window, q_offset
 FLASH_GRID = [
@@ -2628,6 +3029,10 @@ def main() -> int:
             rec["launches"] = churn["hop"]["fused_hop"]
         elif rec["name"] == "topk":
             rec["launches"] = churn["merge-kernel"]["topk"]
+
+    log("[10] ANNS serving on phase 6's index: captured plans, mutations "
+        "under them, submit/drain, the scheduler, service ticks")
+    anns_serving(idx, q_dev, quant.get("profile", {}), smi)
 
     # phase 8 needs the card's memory: free the ANNS index first (the grow
     # checker's closure holds it in a reference cycle)

@@ -3,10 +3,18 @@
 The subset of `repro.core.index.JasperIndex` the port carries: bulk
 build, the mutation lifecycle ("built for change": streaming insert with
 slot reuse and auto-grow, tombstone delete, consolidate, grow), exact and
-RaBitQ-quantized search through `searcher(spec)`, brute force, recall,
-memory statistics, and save/load in the JAX package's `.npz` +
-`.meta.json` format (an index either package saved loads in the other).
-The host rows tier and PQ are not ported yet (ROADMAP queue A).
+RaBitQ-quantized search through the session surface it inherits from
+`SearchSurface` (`searcher(spec)` sessions over the index's `PlanCache`
+of search plans, `recall`), brute force, memory statistics, and save/load
+in the JAX package's `.npz` + `.meta.json` format (an index either
+package saved loads in the other). The host rows tier and PQ are not
+ported yet (ROADMAP queue A).
+
+Search plans (core/plans.py) are captured CUDA graphs on the card's
+megakernel lanes. So that a graph stays valid, mutations that keep the
+buffers' shapes write into the core's existing buffers (`keep_buffers`),
+and the core's `n_valid` and `medoid` reach a captured search through
+device mirrors (`scalars`).
 
     build/insert -> LIVE -> delete (tombstone) -> consolidate (graph
     repair, slot freed) -> insert reuses the slot; capacity doubles by
@@ -40,7 +48,6 @@ from repro_torch.core.index_core import (
     core_grow,
     core_insert_at,
     core_live_mask,
-    core_search,
     core_set_labels,
     core_size,
     core_take_free_slots,
@@ -54,18 +61,21 @@ from repro_torch.core.rabitq import (
     packed_bytes_per_vector,
     rabitq_train,
 )
-from repro_torch.core.search_spec import SearchSpec, Searcher, measure_recall
+from repro_torch.core.plans import DeviceScalars, keep_buffers, make_plan
+from repro_torch.core.search_spec import PlanCache, SearchSpec, SearchSurface
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracing import span as obs_span
 
 
-class JasperIndex:
+class JasperIndex(SearchSurface):
     """Updatable ANNS index (Vamana graph + optional RaBitQ) on one card."""
 
     def __init__(self, dims: int, capacity: int, *, metric: str = "l2",
                  quantization: str | None = None, bits: int = 4,
                  construction: ConstructionParams | None = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, plan_cache_capacity: int | None = None,
+                 device=None):
         if metric not in ("l2", "mips"):
             raise ValueError(f"metric must be l2|mips, got {metric!r}")
         if quantization == "pq":
@@ -84,10 +94,32 @@ class JasperIndex:
         self.bits = bits
         self.params = construction or ConstructionParams()
         self.seed = seed
-        self.core: IndexCore = init_core(capacity, self.store_dims,
-                                         self.params.degree_bound,
-                                         self.device)
+        self._core: IndexCore = init_core(capacity, self.store_dims,
+                                          self.params.degree_bound,
+                                          self.device)
+        # search plans keyed on (resolved spec, query shape, liveness
+        # mode); sessions and the legacy calls share them.
+        # plan_cache_capacity bounds the cache LRU-style (None = unbounded)
+        self.plans = PlanCache(capacity=plan_cache_capacity)
+        self._scalars: DeviceScalars | None = None
         self._mips_max_sqnorm: float | None = None
+
+    @property
+    def core(self) -> IndexCore:
+        return self._core
+
+    @core.setter
+    def core(self, new: IndexCore) -> None:
+        """Install a mutated core, its shape-preserving buffers written into
+        the current ones (see `keep_buffers`)."""
+        self._core = keep_buffers(self._core, new)
+
+    @property
+    def scalars(self) -> DeviceScalars:
+        """The device mirrors of the core's n_valid and medoid."""
+        if self._scalars is None:
+            self._scalars = DeviceScalars(self.device)
+        return self._scalars
 
     # -------------------------------------------------------- core delegation
     @property
@@ -193,6 +225,11 @@ class JasperIndex:
                          core.vectors[:n])
 
     def _prep_query(self, q) -> torch.Tensor:
+        if self.device.type == "cuda" and not isinstance(q, torch.Tensor):
+            # through pinned memory, without waiting for the stream: a
+            # dispatch then never blocks on the searches in flight
+            q = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
+            q = q.pin_memory().to(self.device, non_blocking=True)
         q = self._as_tensor(q)
         if self.metric == "mips":
             q = mips_augment_query(q)
@@ -211,12 +248,15 @@ class JasperIndex:
         """Bulk construction over `data` (rows 0..N). Resets the graph and
         all mutation state. `labels`: optional per-row label ids (scalar
         or per-row sets) for filtered search."""
-        x = self._prep_data(data)
-        self._ensure_quantizer(x)
-        self.core = core_build(self.core, x, params=self.params,
-                               refine=refine, progress_fn=progress_fn)
-        if labels is not None:
-            self.set_labels(np.arange(x.shape[0], dtype=np.int32), labels)
+        with obs_span("index.build", n=int(np.shape(data)[0]),
+                      sharded=False):
+            x = self._prep_data(data)
+            self._ensure_quantizer(x)
+            self.core = core_build(self.core, x, params=self.params,
+                                   refine=refine, progress_fn=progress_fn)
+            if labels is not None:
+                self.set_labels(np.arange(x.shape[0], dtype=np.int32),
+                                labels)
         return self
 
     def _grow_to_fit(self, n_rows: int) -> None:
@@ -324,17 +364,15 @@ class JasperIndex:
         return self
 
     # ------------------------------------------------------------ search
-    def searcher(self, spec: SearchSpec | None = None, **kw) -> Searcher:
-        """Open a search session; the spec is resolved once."""
-        spec = SearchSpec(**kw) if spec is None else \
-            (spec.with_(**kw) if kw else spec)
-        return Searcher(self, spec)
-
-    def _run_search(self, rspec, queries, filter_bytes) -> tuple:
-        q = self._prep_query(queries)
-        return core_search(self.core, q, spec=rspec,
-                           filter_tombstones=self._filter_tombstones,
-                           filter_bytes=filter_bytes)
+    # searcher()/recall() come from SearchSurface
+    def _search_plan(self, rspec, q_shape, filt: bool):
+        """Plan-cache lookup/build: `(queries, filter_bytes) -> (ids,
+        dists, n_hops[, telemetry])`. The filter value is a run-time
+        operand: the key carries only its presence (in `rspec.filtered`),
+        so every filter value shares one plan."""
+        key = ("search", rspec, tuple(q_shape), filt)
+        return self.plans.get(
+            key, lambda: make_plan(self, rspec, tuple(q_shape), filt))
 
     def search(self, queries, k: int = 10, *, beam_width: int | None = None,
                max_iters: int | None = None, expand: int = 1,
@@ -364,15 +402,6 @@ class JasperIndex:
     def brute_force(self, queries, k: int = 10):
         """Exact top-k by full scan over LIVE rows (recall ground truth)."""
         return core_brute_force(self.core, self._prep_query(queries), k=k)
-
-    def recall(self, queries, k: int = 10, *, beam_width: int | None = None,
-               quantized: bool = False, use_kernels: bool = False,
-               expand: int = 1, spec: SearchSpec | None = None) -> float:
-        """Recall@k vs brute force at the exact served configuration."""
-        spec = spec or SearchSpec(k=k, beam_width=beam_width,
-                                  quantized=quantized,
-                                  use_kernels=use_kernels, expand=expand)
-        return measure_recall(self, queries, spec)
 
     # ------------------------------------------------------------ memory
     def memory_stats(self) -> dict[str, float]:

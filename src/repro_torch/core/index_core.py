@@ -229,9 +229,15 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
     spec.fusion == "megakernel": the whole beam search in one launch of
     the CUDA `fused_search` kernel (plain version on CPU tensors); then,
     quantized, the exact rerank through `gather_l2` (use_kernels) and a
-    stable sort. fusion == "none": the unfused loop, scoring through the
-    `rabitq_search_step` / `gather_l2` kernels when spec.use_kernels.
-    fusion == "hop" and rerank_source == "host" are not ported yet.
+    stable sort. fusion == "hop": one `fused_hop` launch a hop behind a
+    host convergence check. fusion == "none": the unfused loop, scoring
+    through the `rabitq_search_step` / `gather_l2` kernels when
+    spec.use_kernels. rerank_source == "host" is not ported yet.
+
+    filter_bytes: the uint8[4] filter value, as numpy or as a tensor (a
+    device tensor is used as it is, so a captured plan reads its static
+    buffer). `core.n_valid` and `core.medoid` may be 0-d int32 device
+    tensors in place of ints (a captured plan's mirrors).
     """
     k = spec.k
     tomb = core.mut.tombstone_bits if filter_tombstones else None
@@ -248,8 +254,12 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
             "rerank_source='host' needs the host rows tier (core/storage.py),"
             " which is not ported yet: ROADMAP queue A")
     labels = core.mut.labels if filtered else None
-    fb = (torch.as_tensor(np.asarray(filter_bytes), dtype=torch.uint8,
-                          device=core.device) if filtered else None)
+    fb = None
+    if filtered:
+        fb = (filter_bytes.to(device=core.device, dtype=torch.uint8)
+              if isinstance(filter_bytes, torch.Tensor) else
+              torch.as_tensor(np.asarray(filter_bytes), dtype=torch.uint8,
+                              device=core.device))
     filter_exclude = filtered and spec.filter_mode == "exclude"
 
     def _out(ids, dists, res):

@@ -1,31 +1,42 @@
-"""Declarative search configuration: the subset of `repro.core.search_spec`
-this slice needs.
+"""One query surface: declarative `SearchSpec` + compiled `Searcher`
+sessions (port of `repro.core.search_spec`, the same names and
+behaviour).
 
   * `SearchSpec` — frozen, hashable, JSON-serialisable description of one
     search configuration. `resolve()` is the single definition site of
     every default formula and validation rule.
-  * `ResolvedSearchSpec` — the fully concrete, normalised form
-    `core_search` runs.
+  * `ResolvedSearchSpec` — the fully concrete, normalised form; with the
+    query shape and the liveness mode it keys the plan cache.
   * `SearchResult` — ids, dists, per-query hop counts, generation.
-  * `Searcher` — the minimal session `JasperIndex.searcher(spec)` returns:
-    the spec resolved once, `.search(queries)` -> `SearchResult`.
-  * `measure_recall` — recall@k at the exact served configuration.
-
-`PlanCache`, `Searcher.submit/drain`, `SearchSurface` and the bucket
-ladder are not ported yet (ROADMAP queue A).
+  * `BUCKET_LADDER`, `bucket_for`, `pad_to_bucket` — the padded batch
+    shapes coalesced serving dispatches (serving/scheduler.py).
+  * `CacheStats`, `PlanCache` — the index's LRU plan cache and its
+    hit/miss/trace/eviction counters. A plan is a captured CUDA graph on
+    the card's megakernel lanes and an eager callable elsewhere
+    (core/plans.py); a capture counts one trace, as a jit trace does.
+  * `Searcher` — a session from `index.searcher(spec)`: the spec resolved
+    once, `search` (synchronous), `submit`/`drain` (asynchronous: results
+    copied to pinned host memory behind a CUDA event), `pending`,
+    `cache_stats`.
+  * `SearchSurface` — `searcher` and `recall`, the surface `JasperIndex`
+    inherits; `measure_recall` — recall@k at the exact served
+    configuration.
 """
 
 from __future__ import annotations
 
 import json
 import numbers
+from collections import OrderedDict, deque
 from dataclasses import asdict, dataclass, fields, replace
 from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.beam_search import MERGE_STRATEGIES
 from repro_torch.core.mutations import N_LABELS, filter_to_bytes
+from repro_torch.obs.tracing import span as obs_span
 
 SPEC_VERSION = 1
 
@@ -39,6 +50,36 @@ TELEMETRY_MODES = ("off", "on")
 RERANK_SOURCES = ("device", "host", "none")
 
 FILTER_MODES = ("exclude", "traverse")
+
+# The default shape ladder for coalesced serving (serving/scheduler.py):
+# standing queries are padded up to the next rung, so every dispatched
+# batch has one of these shapes and the plan cache holds at most
+# len(ladder) plans per (spec, liveness) pair.
+BUCKET_LADDER = (1, 8, 32, 128)
+
+
+def bucket_for(n: int, ladder: tuple = BUCKET_LADDER) -> int:
+    """The smallest ladder rung >= n (the top rung for n above it)."""
+    if n < 1:
+        raise ValueError(f"bucket_for needs n >= 1, got {n}")
+    for b in sorted(ladder):
+        if n <= b:
+            return int(b)
+    return int(max(ladder))
+
+
+def pad_to_bucket(queries: np.ndarray, ladder: tuple = BUCKET_LADDER
+                  ) -> tuple[np.ndarray, int]:
+    """Pad a (n, D) query batch up to its ladder rung: returns `(padded
+    (bucket, D), n)`. Padding rows repeat the last real query, and the
+    caller slices results back to the first n rows."""
+    q = np.asarray(queries)
+    n = int(q.shape[0])
+    bucket = bucket_for(n, ladder)
+    if bucket == n:
+        return q, n
+    pad = np.repeat(q[-1:], bucket - n, axis=0)
+    return np.concatenate([q, pad], axis=0), n
 
 
 def check_quantized_backend(index, *, need_codes: bool = True) -> None:
@@ -322,25 +363,241 @@ class SearchResult(NamedTuple):
     estimated: bool = False  # True iff dists are estimator values
 
 
+def to_host(x):
+    """A tensor (or anything array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A non-blocking copy of a card tensor into pinned host memory, on
+    the current stream."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class PendingResult:
+    """A `SearchResult` on its way to the host. On the card its tensors
+    are copied into pinned host memory without blocking, and a CUDA event
+    recorded after the copies says when they have landed; `ready()`
+    queries the event, `result()` waits for it. Results on the CPU are
+    ready at once."""
+
+    def __init__(self, res: SearchResult):
+        self._res = res
+        self._event = None
+        if isinstance(res.ids, torch.Tensor) and res.ids.is_cuda:
+            tel = res.telemetry
+            self._res = res._replace(
+                ids=_pinned_copy(res.ids), dists=_pinned_copy(res.dists),
+                n_hops=_pinned_copy(res.n_hops),
+                telemetry=(None if tel is None else
+                           type(tel)(*(_pinned_copy(t) for t in tel))))
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def result(self) -> SearchResult:
+        """The result with numpy arrays (blocks until they have landed)."""
+        if self._event is not None:
+            self._event.synchronize()
+        r = self._res
+        tel = r.telemetry
+        if tel is not None:
+            tel = type(tel)(*(to_host(t) for t in tel))
+        return SearchResult(ids=to_host(r.ids), dists=to_host(r.dists),
+                            n_hops=to_host(r.n_hops),
+                            generation=r.generation, telemetry=tel,
+                            estimated=r.estimated)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CacheStats:
+    """Counters for the plan cache (monotonic; `clear()` keeps them)."""
+
+    hits: int = 0
+    misses: int = 0
+    traces: int = 0
+    evictions: int = 0
+
+    @property
+    def hit_rate(self) -> float:
+        """Hits per lookup; 0.0 on a never-used cache."""
+        lookups = self.hits + self.misses
+        return self.hits / lookups if lookups else 0.0
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__, hit_rate=self.hit_rate)
+
+    def delta(self, since: "CacheStats") -> dict:
+        return {k: v - getattr(since, k) for k, v in self.__dict__.items()}
+
+    def snapshot(self) -> "CacheStats":
+        return CacheStats(**self.__dict__)
+
+
+class PlanCache:
+    """Plan cache keyed on (kind, resolved spec, query shape, liveness),
+    LRU-bounded when given a capacity.
+
+    `get` returns the cached plan or builds it. Plans call `count_trace`
+    when they trace: a captured plan at each capture (the first dispatch,
+    and again when the buffers it captured were reallocated, as by a
+    grow), an eager plan when the core's shapes are new to it — where a
+    jit re-traces. `capacity=None` keeps every plan; with a capacity, a
+    hit refreshes the key and an insert past capacity drops the least
+    recently used plan (`stats.evictions`)."""
+
+    def __init__(self, capacity: int | None = None) -> None:
+        self._plans: OrderedDict = OrderedDict()
+        self.stats = CacheStats()
+        self.capacity = capacity
+
+    @property
+    def capacity(self) -> int | None:
+        return self._capacity
+
+    @capacity.setter
+    def capacity(self, capacity: int | None) -> None:
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"PlanCache capacity must be >= 1 or None, "
+                             f"got {capacity}")
+        self._capacity = capacity
+        self._evict()
+
+    def get(self, key, build):
+        try:
+            plan = self._plans[key]
+            self._plans.move_to_end(key)      # LRU refresh
+            self.stats.hits += 1
+            return plan
+        except KeyError:
+            self.stats.misses += 1
+            plan = self._plans[key] = build()
+            self._evict()
+            return plan
+
+    def _evict(self) -> None:
+        while (self._capacity is not None
+               and len(self._plans) > self._capacity):
+            self._plans.popitem(last=False)   # least recently used
+            self.stats.evictions += 1
+
+    def count_trace(self) -> None:
+        """Called by a plan each time it traces (captures)."""
+        self.stats.traces += 1
+
+    def clear(self) -> None:
+        """Drop the plans; stats persist."""
+        self._plans.clear()
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+
+# ---------------------------------------------------------------------------
+# The search session
+# ---------------------------------------------------------------------------
+
 class Searcher:
-    """A search session over one index: the spec is resolved (validated,
-    defaults filled) once, at construction."""
+    """A search session over one index, from `index.searcher(spec)`.
+
+    The spec is resolved once, at construction; each query shape then
+    takes one plan from the index's shared `PlanCache`, so repeated
+    searches — and every other session or legacy call with the same
+    configuration — reuse it.
+
+    `search()` is the synchronous path (device tensors at the current
+    generation). `submit()` dispatches a batch and starts copying its
+    results to pinned host memory without waiting; `drain()` returns the
+    completed results as numpy arrays in submission order. Work runs on
+    one stream, so a mutation made after a `submit` runs after that
+    batch's search: a drained result is the snapshot of its generation.
+    """
 
     def __init__(self, index, spec: SearchSpec):
         self.index = index
         self.spec = spec
         self.resolved = spec.resolve(index)
+        # the filter value, lowered once to its runtime byte-mask operand;
+        # the resolved spec (and hence the plan) only knows its presence
         self._filter_bytes = spec.filter_bytes()
+        self._inflight: deque = deque()
 
-    def search(self, queries) -> SearchResult:
-        """Synchronous search at the current generation."""
+    def _dispatch(self, queries) -> SearchResult:
         idx = self.index
-        out = idx._run_search(self.resolved, queries, self._filter_bytes)
+        q = idx._prep_query(queries)
+        generation = idx.generation
+        plan = idx._search_plan(self.resolved, tuple(q.shape),
+                                idx._filter_tombstones)
+        out = plan(q, self._filter_bytes)
+        # plans return (ids, dists, n_hops), plus a SearchTelemetry
+        # fourth element iff the resolved spec has telemetry on
         ids, dists, n_hops = out[:3]
         tel = out[3] if len(out) > 3 else None
         return SearchResult(ids=ids, dists=dists, n_hops=n_hops,
-                            generation=idx.generation, telemetry=tel,
+                            generation=generation, telemetry=tel,
                             estimated=self.resolved.rerank_source == "none")
+
+    def search(self, queries) -> SearchResult:
+        """Synchronous search at the current snapshot generation."""
+        return self._dispatch(queries)
+
+    def submit(self, queries) -> int:
+        """Dispatch a batch without waiting; returns the in-flight depth."""
+        with obs_span("searcher.submit", pending=len(self._inflight)):
+            self._inflight.append(PendingResult(self._dispatch(queries)))
+        return len(self._inflight)
+
+    def drain(self, limit: int | None = None) -> list[SearchResult]:
+        """Wait for the oldest `limit` in-flight batches (None = all);
+        results in submission order, host-resident (numpy arrays)."""
+        out = []
+        with obs_span("searcher.drain", pending=len(self._inflight)):
+            while self._inflight and (limit is None or len(out) < limit):
+                out.append(self._inflight.popleft().result())
+        return out
+
+    @property
+    def pending(self) -> int:
+        return len(self._inflight)
+
+    @property
+    def cache_stats(self) -> CacheStats:
+        """The index's shared plan-cache counters."""
+        return self.index.plans.stats
+
+
+class SearchSurface:
+    """The spec-driven query surface an index inherits: session
+    opening and recall. The index supplies `_prep_query`,
+    `_filter_tombstones`, `generation`, `brute_force`, `plans` and
+    `_search_plan`."""
+
+    def searcher(self, spec: SearchSpec | None = None, **kw) -> Searcher:
+        """Open a search session; `spec` (or keyword fields building one;
+        keywords beside a spec derive `spec.with_(**kw)`) is resolved once."""
+        spec = SearchSpec(**kw) if spec is None else \
+            (spec.with_(**kw) if kw else spec)
+        return Searcher(self, spec)
+
+    def recall(self, queries, k: int = 10, *,
+               beam_width: int | None = None, quantized: bool = False,
+               use_kernels: bool = False, expand: int = 1,
+               spec: SearchSpec | None = None) -> float:
+        """Recall@k vs brute force at the exact served configuration."""
+        spec = spec or SearchSpec(k=k, beam_width=beam_width,
+                                  quantized=quantized,
+                                  use_kernels=use_kernels, expand=expand)
+        return measure_recall(self, queries, spec)
 
 
 def measure_recall(index, queries, spec: SearchSpec) -> float:
@@ -348,7 +605,6 @@ def measure_recall(index, queries, spec: SearchSpec) -> float:
     exact configuration described by `spec`."""
     gt, _ = index.brute_force(queries, spec.resolve(index).k)
     res = index.searcher(spec).search(queries)
-    ids = np.asarray(res.ids.cpu())
-    gt = np.asarray(gt.cpu())
+    ids, gt = to_host(res.ids), to_host(gt)
     hits = (ids[:, :, None] == gt[:, None, :]) & (ids >= 0)[:, :, None]
     return float(np.mean(hits.any(axis=2).sum(axis=1) / gt.shape[1]))

@@ -107,6 +107,10 @@ struct Args {
   const uint8_t* tomb;
   const uint32_t* labels;
   uint32_t fb;
+  // when not null, n_valid and fb are read from these device words instead
+  // (a search captured in a CUDA graph then follows their current values)
+  const int32_t* n_valid_dev;
+  const uint32_t* fb_dev;
   int32_t* out_ids;
   float* out_dists;
   int32_t* out_hops;      // (Q,) hops (fused_search) or 0/1 increment (fused_hop)
@@ -575,7 +579,8 @@ __device__ __forceinline__ int hop(const Args& a, const Query& s, const int cur,
   // frontier when in_frontier) and its place in the compacted list; every
   // lane of the warp calls it together
   auto classify = [&](const int j, const int id, const bool in_frontier) {
-    const bool in_range = j < R && id >= 0 && id < a.n_valid;
+    const bool in_range =
+        j < R && id >= 0 && id < (a.n_valid_dev != nullptr ? __ldg(a.n_valid_dev) : a.n_valid);
     const bool dup = in_range && in_frontier;
     bool valid = in_range && !dup;
     bool dead = false, fmiss = false;
@@ -584,7 +589,7 @@ __device__ __forceinline__ int hop(const Args& a, const Query& s, const int cur,
       valid = !dead;
     }
     if (USE_FILT && valid) {
-      fmiss = (__ldg(a.labels + id) & a.fb) == 0;
+      fmiss = (__ldg(a.labels + id) & (a.fb_dev != nullptr ? __ldg(a.fb_dev) : a.fb)) == 0;
       valid = !fmiss;
     }
     if (TEL) {
@@ -926,12 +931,13 @@ extern "C" int fused_search_launch(
     const int32_t* sched, int max_iters, const float* q, int dq, const float* qa,
     const float* qb, const int32_t* adj, int R, int cap, int n_valid, const void* data,
     int row_width, const float* meta0, const float* meta1, const uint8_t* tomb,
-    const uint32_t* labels, uint32_t fb, int quantized, int bits, int telemetry,
-    int32_t* out_ids, float* out_dists, int32_t* out_hops, int32_t* out_counters,
-    int32_t* out_occ, void* stream) {
-  Args a{f_ids, f_dists, f_vis, num_q, L, sched, max_iters, q, dq, qa, qb, adj, R, cap,
-         n_valid, data, row_width, meta0, meta1, tomb, labels, fb, out_ids, out_dists,
-         out_hops, out_counters, out_occ, nullptr};
+    const uint32_t* labels, uint32_t fb, const int32_t* n_valid_dev, const uint32_t* fb_dev,
+    int quantized, int bits, int telemetry, int32_t* out_ids, float* out_dists,
+    int32_t* out_hops, int32_t* out_counters, int32_t* out_occ, void* stream) {
+  Args a{f_ids,   f_dists, f_vis,  num_q,     L,         sched,    max_iters, q,
+         dq,      qa,      qb,     adj,       R,         cap,      n_valid,   data,
+         row_width, meta0, meta1,  tomb,      labels,    fb,       n_valid_dev, fb_dev,
+         out_ids, out_dists, out_hops, out_counters, out_occ, nullptr};
   return dispatch(a, quantized, bits, tomb != nullptr, labels != nullptr, telemetry, -1,
                   static_cast<cudaStream_t>(stream), nullptr);
 }
@@ -941,12 +947,14 @@ extern "C" int fused_hop_launch(
     int width, const float* q, int dq, const float* qa, const float* qb, const int32_t* adj,
     int R, int cap, int n_valid, const void* data, int row_width, const float* meta0,
     const float* meta1, const uint8_t* tomb, const uint32_t* labels, uint32_t fb,
-    int quantized, int bits, int telemetry, int32_t* out_ids, float* out_dists,
-    int32_t* out_vis, int32_t* out_inc, int32_t* out_counters, void* stream) {
+    const int32_t* n_valid_dev, const uint32_t* fb_dev, int quantized, int bits,
+    int telemetry, int32_t* out_ids, float* out_dists, int32_t* out_vis, int32_t* out_inc,
+    int32_t* out_counters, void* stream) {
   if (width < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{f_ids, f_dists, f_vis, num_q, L, nullptr, 0, q, dq, qa, qb, adj, R, cap, n_valid,
-         data, row_width, meta0, meta1, tomb, labels, fb, out_ids, out_dists, out_inc,
-         out_counters, nullptr, out_vis};
+  Args a{f_ids,   f_dists, f_vis,  num_q,     L,         nullptr,  0,         q,
+         dq,      qa,      qb,     adj,       R,         cap,      n_valid,   data,
+         row_width, meta0, meta1,  tomb,      labels,    fb,       n_valid_dev, fb_dev,
+         out_ids, out_dists, out_inc, out_counters, nullptr, out_vis};
   return dispatch(a, quantized, bits, tomb != nullptr, labels != nullptr, telemetry, width,
                   static_cast<cudaStream_t>(stream), nullptr);
 }

@@ -15,6 +15,11 @@ the oracle (`ref.search_loop`, `ref.fused_hop_ref`) over the same operands.
 `fused_beam_search` prepares the operands, runs the kernels (or, for CPU
 tensors, the plain versions) and finishes through the shared
 `finalize_frontier` epilogue, like every search path.
+
+`n_valid` (and the graph's medoid) may be a 0-d int32 device tensor, and
+the exclude-mode filter value a uint8[4] device tensor: the kernels then
+read them through pointers, so a search captured in a CUDA graph follows
+their current values (core/plans.py).
 """
 
 from __future__ import annotations
@@ -174,14 +179,31 @@ def _check_operands(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
         raise ValueError(f"{what}: operand shapes disagree")
     if tomb is not None and tomb.shape[0] * 8 < cap:
         raise ValueError("tombstone bitmap shorter than the table")
-    fbw = 0
+    fbw, fb_dev = 0, None
     if labels is not None:
         if labels.shape != (cap, 4) or labels.data_ptr() % 4:
             raise ValueError("labels must be a 4-byte aligned (cap, 4) plane")
-        fbw = filter_word(fb)
+        if (isinstance(fb, torch.Tensor) and fb.device == dev
+                and fb.dtype == torch.uint8 and fb.numel() == 4
+                and fb.is_contiguous() and fb.data_ptr() % 4 == 0):
+            fb_dev = fb      # the kernels read the word through a pointer
+        else:
+            fbw = filter_word(fb)
     check_fused_shape(l_width, r, row_width * (1 if quantized else 4),
                       128 // bits if quantized else 4)
-    return qn, l_width, r, cap, dq, row_width, fbw
+    return qn, l_width, r, cap, dq, row_width, fbw, fb_dev
+
+
+def _n_valid_operand(n_valid, dev) -> tuple[int, torch.Tensor | None]:
+    """(value, device pointer tensor) of `n_valid`: an int goes by value, a
+    0-d int32 tensor on the kernel's device through its pointer."""
+    if isinstance(n_valid, torch.Tensor):
+        if (n_valid.device != dev or n_valid.dtype != torch.int32
+                or n_valid.numel() != 1):
+            raise ValueError("n_valid must be an int or a 0-d int32 tensor "
+                             f"on {dev}")
+        return 0, n_valid
+    return int(n_valid), None
 
 
 _SEARCH_ARGTYPES = (
@@ -192,6 +214,7 @@ _SEARCH_ARGTYPES = (
     + [ctypes.c_int] * 3                                # R, cap, nvalid
     + [ctypes.c_void_p, ctypes.c_int]                   # data, width
     + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+    + [ctypes.c_void_p] * 2                             # nvalid, fb ptrs
     + [ctypes.c_int] * 3                                # q, bits, tel
     + [ctypes.c_void_p] * 6)                            # outs, stream
 _HOP_ARGTYPES = (
@@ -201,6 +224,7 @@ _HOP_ARGTYPES = (
     + [ctypes.c_int] * 3                                # R, cap, nvalid
     + [ctypes.c_void_p, ctypes.c_int]                   # data, width
     + [ctypes.c_void_p] * 4 + [ctypes.c_uint32]         # meta, masks
+    + [ctypes.c_void_p] * 2                             # nvalid, fb ptrs
     + [ctypes.c_int] * 3                                # q, bits, tel
     + [ctypes.c_void_p] * 6)                            # outs, stream
 
@@ -239,7 +263,8 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
     (cap, D) f32 rows; meta0/meta1: (cap,) f32 data_add/data_rescale, or
     squared norms and None; tomb: exclude-mode tombstone bitmap or None;
     labels/fb: exclude-mode label plane (cap, 4) uint8 + uint8[4] mask, or
-    None. Returns (ids (Q, L), dists (Q, L), n_hops (Q,)) — plus
+    None; n_valid: an int or a 0-d int32 tensor on the same device.
+    Returns (ids (Q, L), dists (Q, L), n_hops (Q,)) — plus
     (counters (Q, 3) [scored, masked, dups], occupancy (Q, max_iters))
     with telemetry. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version."""
@@ -249,9 +274,10 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
             f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency, data,
             meta0, meta1, tomb, labels, fb, n_valid, quantized=quantized,
             bits=bits, max_iters=max_iters, telemetry=telemetry)
-    qn, l_width, r, cap, dq, row_width, fbw = _check_operands(
+    qn, l_width, r, cap, dq, row_width, fbw, fb_dev = _check_operands(
         "fused_search", f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
         meta0, meta1, tomb, labels, fb, quantized=quantized, bits=bits)
+    nv, nv_dev = _n_valid_operand(n_valid, dev)
     build.require(schedule, "schedule", torch.int32, 1, dev)
     if schedule.shape[0] < max_iters:
         raise ValueError("fused_search: operand shapes disagree")
@@ -268,9 +294,10 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
         err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
                  qn, l_width, build.ptr(schedule), max_iters,
                  build.ptr(q), dq, build.ptr(qa), build.ptr(qb),
-                 build.ptr(adjacency), r, cap, int(n_valid),
+                 build.ptr(adjacency), r, cap, nv,
                  build.ptr(data), row_width, build.ptr(meta0),
                  build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
+                 build.ptr(nv_dev), build.ptr(fb_dev),
                  int(quantized), int(bits), int(telemetry),
                  build.ptr(out_ids), build.ptr(out_dists),
                  build.ptr(out_hops), build.ptr(counters), build.ptr(occ),
@@ -323,9 +350,10 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
             f_ids, f_dists, f_vis, width, q, qa, qb, adjacency, data, meta0,
             meta1, tomb, labels, fb, n_valid, quantized=quantized, bits=bits,
             telemetry=telemetry)
-    qn, l_width, r, cap, dq, row_width, fbw = _check_operands(
+    qn, l_width, r, cap, dq, row_width, fbw, fb_dev = _check_operands(
         "fused_hop", f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
         meta0, meta1, tomb, labels, fb, quantized=quantized, bits=bits)
+    nv, nv_dev = _n_valid_operand(n_valid, dev)
     if width < 0:
         raise ValueError(f"width must be >= 0, got {width}")
     out_ids = torch.empty((qn, l_width), dtype=torch.int32, device=dev)
@@ -338,9 +366,10 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
         fn = build.entry("search_step", "fused_hop_launch", _HOP_ARGTYPES)
         err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
                  qn, l_width, int(width), build.ptr(q), dq, build.ptr(qa),
-                 build.ptr(qb), build.ptr(adjacency), r, cap, int(n_valid),
+                 build.ptr(qb), build.ptr(adjacency), r, cap, nv,
                  build.ptr(data), row_width, build.ptr(meta0),
                  build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
+                 build.ptr(nv_dev), build.ptr(fb_dev),
                  int(quantized), int(bits), int(telemetry),
                  build.ptr(out_ids), build.ptr(out_dists), build.ptr(out_vis),
                  build.ptr(out_inc), build.ptr(counters),
@@ -353,6 +382,30 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
 
 
 fused_hop.launches = 0
+
+
+def _entry_ids(medoid, num_q: int, dev) -> torch.Tensor:
+    """(Q, 1) int32 of the entry point: a host int, or a 0-d device tensor
+    (read on the device, so a captured search follows its value)."""
+    if isinstance(medoid, torch.Tensor):
+        return medoid.to(device=dev, dtype=torch.int32).reshape(1, 1).expand(
+            num_q, 1).contiguous()
+    return torch.full((num_q, 1), medoid, dtype=torch.int32, device=dev)
+
+
+_SCHEDULES: dict = {}
+
+
+def _schedule_tensor(schedule: tuple, dev) -> torch.Tensor:
+    """The per-hop widths as an int32 tensor on `dev`, made once a
+    schedule and device and never written: a search captured in a CUDA
+    graph reads it without a host-to-device copy inside the capture."""
+    key = (schedule, str(dev))
+    t = _SCHEDULES.get(key)
+    if t is None:
+        t = _SCHEDULES[key] = torch.tensor(schedule, dtype=torch.int32,
+                                           device=dev)
+    return t
 
 
 def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
@@ -376,8 +429,7 @@ def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
     dev = adj.device
     if quantized:
         num_q = rq_query.q_rot.shape[0]
-        init_ids = torch.full((num_q, 1), graph.medoid, dtype=torch.int32,
-                              device=dev)
+        init_ids = _entry_ids(graph.medoid, num_q, dev)
         d0 = make_rabitq_scorer(codes, rq_query)(init_ids)
         bits = codes.bits
         d_need = codes.packed.shape[1] * (8 // bits)
@@ -389,8 +441,7 @@ def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
         data, meta0, meta1 = codes.packed, codes.data_add, codes.data_rescale
     else:
         num_q = queries.shape[0]
-        init_ids = torch.full((num_q, 1), graph.medoid, dtype=torch.int32,
-                              device=dev)
+        init_ids = _entry_ids(graph.medoid, num_q, dev)
         d0 = make_exact_scorer(vectors, queries, graph.n_valid,
                                vec_sqnorm)(init_ids)
         bits = 0
@@ -407,9 +458,8 @@ def fused_operands(graph: VamanaGraph, *, beam_width: int, max_iters: int,
 
     f_ids, f_dists, f_vis = init_frontier(graph.medoid, d0, num_q,
                                           beam_width)
-    sched = torch.tensor(expand_schedule(beam_schedule, beam_width,
-                                         max_iters), dtype=torch.int32,
-                         device=dev)
+    sched = _schedule_tensor(expand_schedule(beam_schedule, beam_width,
+                                             max_iters), dev)
     return dict(f_ids=f_ids, f_dists=f_dists, f_vis=f_vis.to(torch.int32),
                 schedule=sched,
                 q=q.contiguous(), qa=qa.contiguous(), qb=qb.contiguous(),

@@ -1193,3 +1193,202 @@ def test_stablelm_3b_gradients_flash_vs_blockwise(cuda_device):
     assert abs(loss_k - loss_b) <= 1e-3 * abs(loss_b)
     cos = torch.nn.functional.cosine_similarity(g_k, g_b, dim=0)
     assert float(cos) >= 0.999
+
+
+# ------------------------------------------- plans: captured CUDA graphs
+PLAN_BUCKETS = (1, 8, 32, 128)
+PLAN_LANES = {
+    "quant": dict(quantized=True, use_kernels=True),
+    "exact": dict(quantized=False),
+}
+PLAN_FILTERS = {"nofilter": {}, "exclude": dict(filter=(1, 2),
+                                                filter_mode="exclude"),
+                "traverse": dict(filter=(0, 3), filter_mode="traverse")}
+PLAN_PARAMS = dict(degree_bound=24, beam_width=32, max_iters=48, rev_cap=24)
+
+
+def _plan_index(rng, n=4096, d=32, labels=True, capacity=None):
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    idx = JasperIndex(d, capacity or n, quantization="rabitq",
+                      construction=ConstructionParams(**PLAN_PARAMS))
+    idx.build(rng.normal(size=(n, d)).astype(np.float32),
+              labels=rng.integers(0, 4, n) if labels else None)
+    return idx
+
+
+@pytest.fixture(scope="module")
+def plan_index():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    rng = np.random.default_rng(21)
+    idx = _plan_index(rng)
+    idx.delete(np.sort(rng.choice(4096, 300, replace=False)))
+    queries = rng.normal(size=(128, 32)).astype(np.float32)
+    return idx, queries
+
+
+def _eager(idx, q, spec):
+    """The same search run eagerly on the index's core."""
+    from repro_torch.core.index_core import core_search
+    return core_search(idx.core, idx._prep_query(q), spec=spec.resolve(idx),
+                       filter_tombstones=idx._filter_tombstones,
+                       filter_bytes=spec.filter_bytes())
+
+
+def _assert_same(res, eager):
+    assert torch.equal(res.ids, eager[0]) and torch.equal(res.dists, eager[1])
+    assert torch.equal(res.n_hops, eager[2])
+    if len(eager) > 3:
+        for a, b in zip(res.telemetry, eager[3]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filt", list(PLAN_FILTERS))
+@pytest.mark.parametrize("telemetry", ["off", "on"])
+@pytest.mark.parametrize("lane", list(PLAN_LANES))
+@pytest.mark.parametrize("bucket", PLAN_BUCKETS)
+def test_plan_replay_equals_eager(plan_index, bucket, lane, telemetry, filt):
+    """A megakernel plan is a captured CUDA graph; its replays equal an
+    eager `core_search` bit for bit (ids, dists, hops, telemetry), and a
+    second search is a cache hit with no new trace."""
+    from repro_torch.core.plans import GraphPlan
+    from repro_torch.core.search_spec import SearchSpec
+    idx, queries = plan_index
+    spec = SearchSpec(k=10, beam_width=48, fusion="megakernel",
+                      telemetry=telemetry, **PLAN_LANES[lane],
+                      **PLAN_FILTERS[filt])
+    q = queries[:bucket]
+    ses = idx.searcher(spec)
+    first = ses.search(q)
+    plan = idx._search_plan(ses.resolved, (bucket, 32), idx._filter_tombstones)
+    assert isinstance(plan, GraphPlan) and plan._graph is not None
+    mid = idx.plans.stats.snapshot()
+    second = ses.search(q)
+    assert idx.plans.stats.traces == mid.traces
+    eager = _eager(idx, q, spec)
+    _assert_same(first, eager)
+    _assert_same(second, eager)
+    assert not idx.tombstoned(first.ids[first.ids >= 0].cpu().numpy()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", list(PLAN_LANES))
+def test_plan_counts_the_launches_of_an_eager_search(plan_index, lane):
+    """One search through a plan — the capturing one and each replay —
+    counts what one eager search counts: #1 once, and #2 once for the
+    quantized rerank."""
+    from repro_torch.core.plans import launch_counters
+    from repro_torch.core.search_spec import SearchSpec
+    idx, queries = plan_index
+    spec = SearchSpec(k=10, beam_width=40, fusion="megakernel",
+                      **PLAN_LANES[lane])
+    want = {n: 0 for n in launch_counters()}
+    want["fused_search"] = 1
+    want["gather_l2"] = 1 if lane == "quant" else 0
+    ses = idx.searcher(spec)
+    for _ in range(3):
+        for w in launch_counters().values():
+            w.launches = 0
+        ses.search(queries[:8])
+        assert {n: w.launches for n, w in launch_counters().items()} == want
+    for w in launch_counters().values():
+        w.launches = 0
+    _eager(idx, queries[:8], spec)
+    assert {n: w.launches for n, w in launch_counters().items()} == want
+
+
+@pytest.mark.cuda
+def test_plan_follows_mutations_without_recapture(cuda_device):
+    """After a delete, an insert and a consolidate a replay equals an
+    eager search bit for bit, returns no tombstoned id and captures
+    nothing new; a grow recaptures exactly once."""
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(22)
+    idx = _plan_index(rng, labels=False, capacity=8192)
+    idx.delete(np.arange(5))                      # the liveness mode: on
+    q = rng.normal(size=(32, 32)).astype(np.float32)
+    specs = [SearchSpec(k=10, beam_width=48, fusion="megakernel", **kw)
+             for kw in PLAN_LANES.values()]
+    for spec in specs:
+        idx.searcher(spec).search(q)
+    base = idx.plans.stats.snapshot()
+
+    def check(step):
+        for spec in specs:
+            res = idx.searcher(spec).search(q)
+            _assert_same(res, _eager(idx, q, spec))
+            assert not idx.tombstoned(res.ids[res.ids >= 0].cpu().numpy()
+                                      ).any(), step
+        assert idx.plans.stats.traces == base.traces, step
+
+    idx.delete(np.arange(100, 500))
+    check("delete")
+    idx.insert(rng.normal(size=(200, 32)).astype(np.float32))
+    check("insert")
+    idx.consolidate()
+    check("consolidate")
+    idx.insert(rng.normal(size=(300, 32)).astype(np.float32))
+    check("insert into freed slots")
+    cap = idx.capacity
+    idx.insert(rng.normal(size=(cap, 32)).astype(np.float32))
+    assert idx.capacity > cap
+    for spec in specs:
+        res = idx.searcher(spec).search(q)
+        _assert_same(res, _eager(idx, q, spec))
+    assert idx.plans.stats.traces == base.traces + len(specs)
+
+
+@pytest.mark.cuda
+def test_submit_insert_drain_reads_the_submit_snapshot(cuda_device):
+    """submit, insert, drain: the drained results equal the search before
+    the insert and carry its generation."""
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(23)
+    idx = _plan_index(rng, labels=False, capacity=8192)
+    q = rng.normal(size=(8, 32)).astype(np.float32)
+    new = np.repeat(q, 4, axis=0) + 1e-3      # rows right at the queries
+    ses = idx.searcher(SearchSpec(k=10, beam_width=48, quantized=True,
+                                  use_kernels=True, fusion="megakernel"))
+    before = ses.search(q)
+    gen = idx.generation
+    for _ in range(4):
+        ses.submit(q)
+    idx.insert(new)
+    out = ses.drain()
+    after = ses.search(q)
+    assert idx.generation > gen
+    for r in out:
+        assert r.generation == gen
+        assert np.array_equal(r.ids, before.ids.cpu().numpy())
+        assert np.array_equal(r.dists, before.dists.cpu().numpy())
+    assert not torch.equal(after.ids, before.ids)     # the insert shows
+
+
+@pytest.mark.cuda
+def test_scheduler_harvests_through_cuda_events(plan_index):
+    """The scheduler's batches are ready when their CUDA event is, and a
+    coalesced batch equals the same queries dispatched one at a time."""
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.serving.scheduler import StandingQueryScheduler
+    idx, queries = plan_index
+    spec = SearchSpec(k=10, beam_width=48, quantized=True, use_kernels=True,
+                      fusion="megakernel")
+    sched = StandingQueryScheduler(idx, spec, buckets=(1, 8),
+                                   slo_budget_s=10.0)
+    handles = [sched.submit(q) for q in queries[:5]]
+    sched.poll()
+    (inflight,) = sched._inflight
+    assert isinstance(inflight.batch._pending._event, torch.cuda.Event)
+    torch.cuda.synchronize()
+    assert inflight.batch.ready()
+    sched.drain()
+    for i, h in enumerate(handles):
+        solo = StandingQueryScheduler(idx, spec, buckets=(8,),
+                                      slo_budget_s=10.0)
+        solo.submit(queries[i])
+        (s,) = solo.drain()
+        assert h.status == "done"
+        assert np.array_equal(h.ids, s.ids) and np.array_equal(h.dists,
+                                                               s.dists)

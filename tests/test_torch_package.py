@@ -55,7 +55,9 @@ def test_package_has_the_slice_modules():
                  "models.convert", "serving.serve_loop", "serving.rag",
                  "launch.serve", "training", "training.optimizer",
                  "training.train_loop", "training.checkpoint",
-                 "launch.train"):
+                 "launch.train", "core.plans", "obs", "obs.tracing",
+                 "obs.metrics", "serving.loadgen", "serving.scheduler",
+                 "serving.anns_service"):
         assert f"repro_torch.{name}" in mods, name
 
 
