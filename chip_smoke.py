@@ -173,8 +173,47 @@ Phases:
                 tenants of 10,000 rows see only their own rows. (f) The
                 `metrics_snapshot()` keys and the span summary. Prints one
                 `{"serving": ...}` JSON line.
+ 11. the host rows tier — after 10, on its index (1.01M live rows,
+                capacity 4M). (a) `evict_rows_to_host`: the rows go to
+                pinned host memory; `memory_stats` shows no device rows,
+                capacity x (D + 1) x 4 B of host rows and a device
+                compression of (rows + codes) / codes;
+                `torch.cuda.memory_allocated()` falls by >= 0.95 x the rows.
+                (b) 10,000-query host-tier searches (rerank_source="host":
+                the traversal plan, the frontier ids to the host, the
+                store's gather, the captured rerank plan) on the megakernel,
+                hop, merge-kernel, telemetry and filtered lanes, bit-equal
+                to the same searches on the device tier (restore, search,
+                evict) in ids, dists, hops and telemetry; launches a search
+                as eager: megakernel #1 1 + #2 1. (c) One host-tier search
+                split (synchronised host clock, mean of 10): traversal
+                replay, ids to the host, host gather, host-to-device copy,
+                rerank replay, beside phase 10's device-tier replay.
+                (d) Delete 1,000, insert 1,000 (staged), consolidate: no
+                tombstoned id, no recapture of either stage, host == device
+                bit for bit after; the staged insert's seconds beside phase
+                10's device-tier insert. (e) `AnnsService.serve` on the host
+                tier, saturation at the ladder (20,000 arrivals): no trace
+                or miss after the warm-up, completed + rejected = arrivals,
+                no tombstoned id, `storage.*` in the snapshot and one
+                `storage.fetch_latency_us` entry a batch; QPS, p50, p99.
+                (f) Restore. Prints one `{"host_tier": ...}` JSON line.
+ 12. the PQ baseline — after 11, once phase 4's index is freed:
+                `JasperIndex(quantization="pq")` (16 subspaces x 256
+                centroids, 8 iterations) over the first 100,000 rows of
+                phase 4's data — a second 1M graph for a deprecated baseline
+                costs more run time than it tells — with phase 4's build
+                parameters; `search_pq` with rerank on 2,000 queries at
+                beams 64 and 256 (printed) and 512: recall@10 >= 0.85 at 512
+                against `brute_force`, no kernel
+                launched (merge="kernel": `topk` only, same ids), no
+                tombstoned id after a 1 % delete; Fig 12's comparison at
+                2,000 x 64 candidates: `pq_distance` against #2 `gather_l2`
+                and #5 `rabitq_gather_distance` (CUDA events).
 
-Prints the serving JSON line, the kernel JSON line, the card's name and
+Prints the serving and host-tier JSON lines, the kernel JSON line (with
+each search kernel's launches a host-tier search of its lane as
+`launches_host_tier`), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
@@ -2051,6 +2090,395 @@ def anns_serving(idx, q_dev, phase4_profile, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------ host rows tier (phase 11)
+HOST_SPLIT_REPS = 10           # host-tier searches in the time split
+
+
+def _host_lanes() -> dict:
+    """Phase 11's lanes: the device-tier specs; each host-tier spec is the
+    same with rerank_source="host"."""
+    main = _mk_spec()
+    return {"megakernel": main,
+            "hop": main.with_(fusion="hop"),
+            "merge-kernel": main.with_(fusion="none", merge="kernel"),
+            "telemetry": main.with_(telemetry="on"),
+            "filtered": main.with_(filter=(0,), filter_mode="exclude")}
+
+
+def _same_result(a, b) -> bool:
+    """Two SearchResults bit-equal in ids, dists, hops and telemetry."""
+    same = (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.n_hops, b.n_hops))
+    if a.telemetry is not None or b.telemetry is not None:
+        same = same and all(torch.equal(x, y)
+                            for x, y in zip(a.telemetry, b.telemetry))
+    return same
+
+
+def _device_twin(idx, specs: dict, q_dev) -> dict:
+    """The same searches on the device tier: restore, search, evict."""
+    idx.restore_rows_to_device()
+    out = {name: idx.searcher(spec).search(q_dev)
+           for name, spec in specs.items()}
+    idx.evict_rows_to_host()
+    return out
+
+
+def host_tier_evict(idx) -> dict:
+    """Phase 11 (a): evict the rows; device memory and tier statistics."""
+    cap, d = idx.capacity, idx.store_dims
+    rows_bytes = cap * (d + 1) * 4
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    idx.evict_rows_to_host()
+    secs = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    ms = idx.memory_stats()
+    codes = ms["device_codes_bytes"]
+    log(f"  evict: {secs:.3f} s; device memory in use {before / 1e9:.3f} -> "
+        f"{after / 1e9:.3f} GB (fell {(before - after) / 1e9:.3f} GB; the "
+        f"rows are {rows_bytes / 1e9:.3f} GB: {cap} x ({d} + 1) x 4 B); "
+        f"memory_stats: device rows {ms['device_rows_bytes']:.0f} B, device "
+        f"codes {codes:.0f} B, host rows {ms['host_rows_bytes']:.0f} B, "
+        f"device compression {ms['device_compression_ratio']:.3f}x")
+    check(idx.rows_tier == "host" and idx.vectors is None,
+          "the rows are still on the card")
+    check(idx.store._vectors.is_pinned(), "the host rows are not pinned")
+    check(ms["device_rows_bytes"] == 0.0
+          and ms["host_rows_bytes"] == rows_bytes,
+          f"tier statistics after the eviction: {ms}")
+    check(ms["device_compression_ratio"] == (rows_bytes + codes) / codes,
+          "device_compression_ratio is not (rows + codes) / codes")
+    check(before - after >= 0.95 * rows_bytes,
+          f"eviction freed {before - after} B of device memory, less than "
+          f"0.95 x the rows' {rows_bytes} B")
+    return dict(evict_s=secs, before_gb=before / 1e9, after_gb=after / 1e9,
+                rows_gb=rows_bytes / 1e9,
+                compression=ms["device_compression_ratio"])
+
+
+def host_tier_identity(idx, q_dev) -> dict:
+    """Phase 11 (b): every lane's host-tier search bit-equal to the same
+    search on the device tier; launches a host-tier search."""
+    specs = _host_lanes()
+    host, launched = {}, {}
+    for name, spec in specs.items():
+        ses = idx.searcher(spec.with_(rerank_source="host"))
+        ses.search(q_dev)                                # both stages
+        host[name], secs, launched[name] = counted(
+            lambda: ses.search(q_dev))
+        log(f"  host tier, {name}: {secs:.3f} s, launches "
+            f"{ {k: v for k, v in launched[name].items() if v} }")
+    device = _device_twin(idx, specs, q_dev)
+    for name in specs:
+        check(_same_result(host[name], device[name]),
+              f"host tier {name} differs from the device tier")
+        ids = host[name].ids.cpu().numpy()
+        check(not idx.tombstoned(ids[ids >= 0]).any(),
+              f"host tier {name}: a tombstoned id")
+    filt = host["filtered"].ids
+    log(f"  host == device bit for bit (ids, dists, hops, telemetry) on "
+        f"{', '.join(specs)}; the filtered lane returned "
+        f"{int((filt >= 0).sum())} ids")
+    iters = {n: int(host[n].n_hops.max()) for n in ("hop", "merge-kernel")}
+    want = {"megakernel": counts(fused_search=1, gather_l2=1),
+            "telemetry": counts(fused_search=1, gather_l2=1),
+            "filtered": counts(fused_search=1, gather_l2=1),
+            "hop": counts(fused_hop=iters["hop"], gather_l2=1),
+            "merge-kernel": counts(topk=iters["merge-kernel"],
+                                   rabitq_search_step=1
+                                   + iters["merge-kernel"], gather_l2=1)}
+    for name, w in want.items():
+        check(launched[name] == w, f"host tier {name} launched "
+              f"{launched[name]}, expected {w}")
+    return launched
+
+
+def host_tier_split(idx, q_dev, device_replay_ms: float) -> dict:
+    """Phase 11 (c): one 10,000-query host-tier search, split."""
+    spec = _mk_spec().with_(rerank_source="host")
+    ses = idx.searcher(spec)
+    ses.search(q_dev)
+    plan = idx._search_plan(ses.resolved, tuple(q_dev.shape),
+                            idx._filter_tombstones)
+    q = idx._prep_query(q_dev)
+    parts = dict(traversal=0.0, ids_to_host=0.0, gather=0.0, upload=0.0,
+                 rerank=0.0)
+    for _ in range(HOST_SPLIT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plan.traversal(q)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host_ids = plan.rerank.ids_to_host(out[0])
+        t2 = time.perf_counter()
+        rows, sq = idx.store.gather(host_ids)
+        t3 = time.perf_counter()
+        plan.rerank.upload(q, out[0], rows, sq)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        plan.rerank.replay()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                   t5 - t4)):
+            parts[key] += dt * 1e3 / HOST_SPLIT_REPS
+    total = _host_ms(lambda: ses.search(q_dev), reps=HOST_SPLIT_REPS)
+    n_rows = int(host_ids.numel())
+    gb = n_rows * (idx.store_dims + 1) * 4 / 1e9
+    log(f"  one host-tier search of {q_dev.shape[0]} queries, synchronised "
+        f"host clock, mean of {HOST_SPLIT_REPS}: {total:.3f} ms against the "
+        f"device tier's replay {device_replay_ms:.3f} ms (phase 10); split: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f" ({n_rows} rows, {gb:.3f} GB: gather {gb / parts['gather'] * 1e3:.1f}"
+        f" GB/s, copy {gb / parts['upload'] * 1e3:.1f} GB/s)")
+    return dict(total_ms=total, device_replay_ms=device_replay_ms,
+                rows=n_rows, gb=gb, **{f"{k}_ms": v for k, v in parts.items()})
+
+
+def host_tier_churn(idx, q_dev, device_insert_s: float) -> dict:
+    """Phase 11 (d): delete, insert (staged), consolidate on the host
+    tier: no tombstoned id, no recapture, host == device after."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    spec = _mk_spec()
+    ses = idx.searcher(spec.with_(rerank_source="host"))
+    ses.search(q_dev)
+    base = idx.plans.stats.snapshot()
+    gen = torch.Generator().manual_seed(SEED + 12)
+    live = np.flatnonzero(idx.live_mask())
+    dead = np.sort(live[torch.randperm(live.size, generator=gen)[:1000]
+                        .numpy()])
+    rows = make_anns_dataset(ANNS_DATASETS["bigann"], n=1000, seed=SEED + 12)
+    out = {}
+    for step, fn in (("delete 1,000", lambda: idx.delete(dead)),
+                     ("insert 1,000", lambda: idx.insert(rows)),
+                     ("consolidate", lambda: idx.consolidate())):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[step] = time.perf_counter() - t0
+        res = ses.search(q_dev)
+        ids = res.ids.cpu().numpy()
+        check(not idx.tombstoned(ids[ids >= 0]).any(),
+              f"host tier, {step}: a tombstoned id")
+        check(idx.rows_tier == "host" and idx.vectors is None,
+              f"host tier, {step}: the rows stayed on the card")
+        delta = idx.plans.stats.delta(base)
+        check(delta["traces"] == 0, f"host tier, {step} recaptured: {delta}")
+        log(f"  {step} (staged): {out[step]:.3f} s; no tombstoned id, no "
+            f"recapture ({delta})")
+    device = _device_twin(idx, {"megakernel": spec}, q_dev)
+    check(_same_result(res, device["megakernel"]),
+          "after the churn the host tier differs from the device tier")
+    log(f"  after the churn host == device bit for bit; a staged insert of "
+        f"1,000 {out['insert 1,000']:.3f} s against phase 10's device-tier "
+        f"insert {device_insert_s:.3f} s")
+    return out
+
+
+def host_tier_serving(idx, pool: np.ndarray) -> dict:
+    """Phase 11 (e): `AnnsService.serve` on the host tier, saturation at
+    the ladder."""
+    from repro_torch.core.search_spec import BUCKET_LADDER
+    from repro_torch.serving.anns_service import AnnsService
+    from repro_torch.serving.loadgen import poisson_trace
+    spec = _mk_spec().with_(rerank_source="host")
+    svc = AnnsService(idx, spec=spec, verify=True)
+    svc.metrics()
+    ses = idx.searcher(spec)
+    for b in BUCKET_LADDER:
+        ses.search(pool[:b])
+    torch.cuda.synchronize()
+    before = idx.plans.stats.snapshot()
+    hist0 = svc.metrics_snapshot()["storage.fetch_latency_us"]["count"]
+    sat = poisson_trace(1e6, SERVE_ARRIVALS, n_queries=pool.shape[0], seed=3,
+                        slo_budget_s=10.0)
+    rep, handles = svc.serve(sat, pool, realtime=False,
+                             buckets=BUCKET_LADDER,
+                             max_queue=SERVE_ARRIVALS + 1, slo_budget_s=10.0)
+    delta = idx.plans.stats.delta(before)
+    check(delta["traces"] == 0 and delta["misses"] == 0,
+          f"host-tier serving traced or missed after the warm-up: {delta}")
+    check(rep["completed"] + rep["rejected"] == len(sat),
+          "host-tier serving: completed + rejected != arrivals")
+    done = [h for h in handles if h.status == "done"]
+    ids = np.concatenate([h.ids for h in done])
+    check(not idx.tombstoned(ids[ids >= 0]).any(),
+          "host-tier serving: a tombstoned id")
+    snap = svc.metrics_snapshot()
+    storage = sorted(k for k in snap if k.startswith("storage."))
+    fetches = snap["storage.fetch_latency_us"]["count"] - hist0
+    check({"storage.rows_tier", "storage.device_rows_bytes",
+           "storage.fetch_n_fetches", "storage.fetch_latency_us"}
+          <= set(storage), f"the snapshot's storage keys: {storage}")
+    check(snap["storage.rows_tier"] == "host", "storage.rows_tier")
+    check(fetches == rep["batches"], f"storage.fetch_latency_us counted "
+          f"{fetches} fetches for {rep['batches']} batches")
+    log(_serve_line("host tier, saturation ladder", rep))
+    log(f"  plan cache {delta}; storage keys {storage}; "
+        f"storage.fetch_latency_us {fetches} entries, one a batch (mean "
+        f"{snap['storage.fetch_latency_us']['mean']:.0f} us)")
+    return {k: rep[k] for k in ("qps", "p50_ms", "p99_ms", "completed",
+                                "rejected", "batches",
+                                "mean_batch_occupancy", "wall_s")}
+
+
+def host_rows_tier(idx, q_dev, phase10: dict) -> dict:
+    """Phase 11 on phase 10's index: evict, bit identity, the time split,
+    staged churn, host-tier serving, restore."""
+    t_phase = time.perf_counter()
+    pool = q_dev.cpu().numpy()
+    out = {}
+    log("  (a) evict the rows to pinned host memory")
+    out["evict"] = host_tier_evict(idx)
+    log("  (b) host tier == device tier on five lanes")
+    out["launches"] = host_tier_identity(idx, q_dev)
+    log("  (c) the time of a host-tier search, split")
+    out["split"] = host_tier_split(idx, q_dev,
+                                   phase10["plans"]["replay_ms"])
+    log("  (d) staged churn")
+    out["churn_s"] = host_tier_churn(idx, q_dev,
+                                     phase10["mutations_s"]["insert 1,000"])
+    log("  (e) host-tier serving")
+    out["serving"] = host_tier_serving(idx, pool)
+    t0 = time.perf_counter()
+    idx.restore_rows_to_device()
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    check(idx.rows_tier == "device" and idx.vectors is not None,
+          "restore left the rows on the host")
+    log(f"  (f) restore: {out['restore_s']:.3f} s; device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {out['seconds']:.1f} s")
+    print(json.dumps({"host_tier": out}, default=float), flush=True)
+    return out
+
+
+# ------------------------------------------------- the PQ baseline (phase 12)
+# A second graph over 1M rows for a deprecated baseline costs more run time
+# than it tells: phase 12 indexes the first 100,000 rows of phase 4's data.
+PQ_ROWS = 100_000
+PQ_QUERIES = 2_000
+PQ_CANDIDATES = 64
+# search_pq's beam: PQ's 16-byte codes order the candidates too coarsely
+# for an exact rerank of a short frontier (recall@10 0.459 at beam 64 and
+# 0.808 at 256 on an H100, printed beside); the check is made at beam 512
+PQ_BEAMS = (64, 256)
+PQ_BEAM = 512
+
+
+def pq_baseline(args, q_dev) -> dict:
+    """Phase 12: `JasperIndex(quantization="pq")` over the first 100,000
+    rows of phase 4's data, `search_pq` recall and deletes, and Fig 12's
+    per-candidate comparison: `pq_distance` against #2 and #5."""
+    import warnings
+
+    from repro_torch.core import pq as tpq
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    from repro_torch.core.rabitq import (rabitq_encode,
+                                         rabitq_preprocess_query,
+                                         rabitq_train)
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    from repro_torch.kernels.distance.ops import gather_l2
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_gather_distance
+    t_phase = time.perf_counter()
+    data = make_anns_dataset(ANNS_DATASETS["bigann"], n=args.n,
+                             seed=SEED)[:PQ_ROWS]
+    q = q_dev[:PQ_QUERIES]
+    params = ConstructionParams(degree_bound=64, alpha=1.2, beam_width=64,
+                                max_iters=96, rev_cap=64,
+                                prune_chunk=PRUNE_CHUNK)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        idx = JasperIndex(data.shape[1], data.shape[0], quantization="pq",
+                          construction=params, seed=SEED)
+        t0 = time.perf_counter()
+        idx.build(data)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gt, _ = idx.brute_force(q, 10)
+        shorter = {b: counted(lambda: idx.search_pq(q, 10, beam_width=b)[0])
+                   for b in PQ_BEAMS}
+        (ids, _), secs, launched = counted(
+            lambda: idx.search_pq(q, 10, beam_width=PQ_BEAM))
+        (ids_k, _), secs_k, launched_k = counted(
+            lambda: idx.search_pq(q, 10, beam_width=PQ_BEAM, merge="kernel"))
+    check(any("NEGATIVE result" in str(w.message) for w in caught),
+          "quantization='pq' did not warn")
+    books = idx.pq_params.codebooks
+    check(tuple(books.shape) == (16, 256, 8) and idx.pq_codes.shape
+          == (PQ_ROWS, 16), f"PQ codebooks {tuple(books.shape)}")
+    rec = recall_at(ids, gt)
+    log(f"  build {PQ_ROWS} rows (PQ 16 x 256, 8 iterations): {build_s:.2f} s;"
+        f" search_pq with rerank, {PQ_QUERIES} queries: "
+        + "".join(f"beam {b}: {t:.3f} s ({PQ_QUERIES / t:.0f} QPS), recall@10"
+                  f" {recall_at(i, gt):.4f}; " for b, (i, t, _) in
+                  shorter.items())
+        + f"beam {PQ_BEAM}: "
+        f"{secs:.3f} s ({PQ_QUERIES / secs:.0f} QPS), recall@10 {rec:.4f}; "
+        f"launches {({k: v for k, v in launched.items() if v})}; "
+        f"merge='kernel': {secs_k:.3f} s, launches "
+        f"{({k: v for k, v in launched_k.items() if v})}")
+    check(rec >= RECALL_FLOOR, f"PQ recall@10 {rec:.4f} < {RECALL_FLOOR}")
+    check(launched == counts(), f"search_pq launched {launched}")
+    check(torch.equal(ids, ids_k), "search_pq merge='kernel' differs from "
+          "the default merge")
+    check(set(k for k, v in launched_k.items() if v) == {"topk"},
+          f"search_pq merge='kernel' launched {launched_k}")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    dead = np.sort(torch.randperm(PQ_ROWS, generator=gen)[:PQ_ROWS // 100]
+                   .numpy())
+    idx.delete(dead)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ids, _ = idx.search_pq(q, 10, beam_width=PQ_BEAM)
+    got = ids.cpu().numpy()
+    check(not idx.tombstoned(got[got >= 0]).any(),
+          "search_pq returned a tombstoned id")
+    log(f"  after deleting {dead.size} rows: no tombstoned id")
+
+    # Fig 12: per-candidate distances of Q x 64 candidates three ways
+    cand = torch.randint(0, PQ_ROWS, (PQ_QUERIES, PQ_CANDIDATES),
+                         generator=gen).to(q.device, torch.int32)
+    rows = idx.vectors[:PQ_ROWS]
+    rq = rabitq_train(torch.Generator().manual_seed(SEED), rows, bits=4)
+    codes = rabitq_encode(rq, rows)
+    qq = rabitq_preprocess_query(rq, q)
+    cl = cand.long()
+    gathered = (codes.packed[cl].contiguous(), codes.data_add[cl],
+                codes.data_rescale[cl], qq.q_rot, qq.query_add,
+                qq.query_sumq)
+    exact = gather_l2(q, idx.vectors, idx.vec_sqnorm, cand)
+    pqd = tpq.pq_distance(idx.pq_params, idx.pq_codes, q, cand)
+    check(bool(torch.isfinite(pqd).all()) and pqd.shape == exact.shape,
+          "pq_distance is not finite or of the wrong shape")
+    ms = {"pq_distance": cuda_ms(lambda: tpq.pq_distance(
+              idx.pq_params, idx.pq_codes, q, cand), 20),
+          "gather_l2": cuda_ms(lambda: gather_l2(q, idx.vectors,
+                                                 idx.vec_sqnorm, cand), 20),
+          "rabitq_gather_distance": cuda_ms(
+              lambda: rabitq_gather_distance(*gathered, bits=4), 20)}
+    rel = float(((pqd - exact).abs() / exact.clamp(min=1.0)).mean())
+    log(f"  Fig 12, {PQ_QUERIES} x {PQ_CANDIDATES} candidates, CUDA events, "
+        f"mean of 20: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f" (#5 without its gather of the code rows); PQ's mean relative "
+        f"error against the exact distance {rel:.4f}")
+    out = dict(build_s=build_s, qps=PQ_QUERIES / secs, recall=rec,
+               recall_shorter={b: recall_at(i, gt)
+                               for b, (i, _, _) in shorter.items()},
+               fig12_ms=ms,
+               seconds=time.perf_counter() - t_phase)
+    del idx
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------ flash attention (#10, #11)
 # name, b, sq, skv, h, hk, dh, causal, window, q_offset
 FLASH_GRID = [
@@ -3032,11 +3460,29 @@ def main() -> int:
 
     log("[10] ANNS serving on phase 6's index: captured plans, mutations "
         "under them, submit/drain, the scheduler, service ticks")
-    anns_serving(idx, q_dev, quant.get("profile", {}), smi)
+    phase10 = anns_serving(idx, q_dev, quant.get("profile", {}), smi)
+
+    log("[11] the host rows tier on phase 10's index: evict, host == device,"
+        " the time split, staged churn, host-tier serving, restore")
+    tier = host_rows_tier(idx, q_dev, phase10)
+    # each kernel's launches a host-tier search of its lane
+    lane_of = {"fused_search": "megakernel", "gather_l2": "megakernel",
+               "fused_hop": "hop", "rabitq_search_step": "merge-kernel",
+               "topk": "merge-kernel"}
+    for rec in records:
+        lane = lane_of.get(rec["name"])
+        if lane is not None:
+            rec["launches_host_tier"] = tier["launches"][lane][rec["name"]]
 
     # phase 8 needs the card's memory: free the ANNS index first (the grow
     # checker's closure holds it in a reference cycle)
-    del idx, q_dev, gt, gt_d
+    del idx, gt, gt_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[12] the PQ baseline over the first {PQ_ROWS} rows of phase 4's "
+        "data")
+    pq_baseline(args, q_dev)
+    del q_dev
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[8] RAG serving: {RAG_ARCH} at full width over the port's index "

@@ -366,6 +366,16 @@ def rerank_frontier(vectors: torch.Tensor, vec_sqnorm: torch.Tensor,
     return torch.cat(out)
 
 
+def sort_frontier(exact_d: torch.Tensor, ids: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rerank's epilogue: a stable sort of the frontier by its exact
+    distances, ids with no finite distance -> -1, the first k of each."""
+    sd, order = torch.sort(exact_d, dim=1, stable=True)
+    si = torch.gather(ids, 1, order)
+    si = torch.where(torch.isfinite(sd), si, torch.full_like(si, -1))
+    return si[:, :k], sd[:, :k]
+
+
 def beam_search_quantized(graph: VamanaGraph, codes: RaBitQCodes,
                           query: RaBitQQuery, *, beam_width: int,
                           max_iters: int,

@@ -1,14 +1,16 @@
 """JasperIndex — thin host-side layer over one IndexCore (PyTorch port).
 
-The subset of `repro.core.index.JasperIndex` the port carries: bulk
-build, the mutation lifecycle ("built for change": streaming insert with
-slot reuse and auto-grow, tombstone delete, consolidate, grow), exact and
+Port of `repro.core.index.JasperIndex`: bulk build, the mutation
+lifecycle ("built for change": streaming insert with slot reuse and
+auto-grow, tombstone delete, consolidate, grow), exact and
 RaBitQ-quantized search through the session surface it inherits from
 `SearchSurface` (`searcher(spec)` sessions over the index's `PlanCache`
-of search plans, `recall`), brute force, memory statistics, and save/load
-in the JAX package's `.npz` + `.meta.json` format (an index either
-package saved loads in the other). The host rows tier and PQ are not
-ported yet (ROADMAP queue A).
+of search plans, `recall`), brute force, the host rows tier
+(`rows_tier="host"`, `evict_rows_to_host`, core/storage.py), the
+deprecated PQ baseline (`quantization="pq"`, `search_pq`), memory and
+storage statistics, and save/load in the JAX package's `.npz` +
+`.meta.json` format (an index either package saved, on either tier, with
+RaBitQ or PQ, loads in the other).
 
 Search plans (core/plans.py) are captured CUDA graphs on the card's
 megakernel lanes. So that a graph stays valid, mutations that keep the
@@ -28,11 +30,13 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from dataclasses import asdict
 
 import numpy as np
 import torch
 
+from repro_torch.core.beam_search import beam_search, make_exact_scorer
 from repro_torch.core.construction import ConstructionParams
 from repro_torch.core.distances import mips_augment_query
 from repro_torch.core.index_core import (
@@ -55,14 +59,24 @@ from repro_torch.core.index_core import (
     init_core,
     tombstoned_lookup,
 )
-from repro_torch.core.mutations import MutationState, pack_label_rows
+from repro_torch.core.mutations import (MutationState, grow_rows,
+                                        pack_label_rows)
+from repro_torch.core.pq import PQParams, make_pq_scorer, pq_encode, pq_train
 from repro_torch.core.rabitq import (
     RaBitQCodes,
+    RaBitQParams,
     packed_bytes_per_vector,
     rabitq_train,
 )
-from repro_torch.core.plans import DeviceScalars, keep_buffers, make_plan
+from repro_torch.core.plans import (DeviceScalars, HostRerankPlan,
+                                    HostTierPlan, keep_buffers, make_plan)
 from repro_torch.core.search_spec import PlanCache, SearchSpec, SearchSurface
+from repro_torch.core.storage import (
+    TIER_STAT_KEYS,
+    VectorStore,
+    rows_staged,
+    tier_memory_stats,
+)
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.device import resolve_device
 from repro_torch.obs.tracing import span as obs_span
@@ -75,16 +89,20 @@ class JasperIndex(SearchSurface):
                  quantization: str | None = None, bits: int = 4,
                  construction: ConstructionParams | None = None,
                  seed: int = 0, plan_cache_capacity: int | None = None,
-                 device=None):
+                 rows_tier: str = "device", device=None):
         if metric not in ("l2", "mips"):
             raise ValueError(f"metric must be l2|mips, got {metric!r}")
-        if quantization == "pq":
-            raise NotImplementedError(
-                "quantization='pq' (the paper's deprecated PQ baseline) is "
-                "not ported: use quantization='rabitq'")
-        if quantization not in (None, "rabitq"):
+        if quantization not in (None, "rabitq", "pq"):
             raise ValueError(
-                f"quantization must be None or 'rabitq', got {quantization!r}")
+                "quantization must be None, 'rabitq', or 'pq' "
+                "(explicit opt-in; PQ is deprecated)")
+        if quantization == "pq":
+            warnings.warn(
+                "quantization='pq' is the paper's NEGATIVE result: the "
+                "unpacked LUT-based PQ path scatters over memory and has no "
+                "kernel backing. It is kept only as a comparison baseline — "
+                "use quantization='rabitq' for the kernel-backed quantized "
+                "search path.", DeprecationWarning, stacklevel=2)
         self.device = resolve_device(device)
         self.dims = dims
         self.metric = metric
@@ -103,6 +121,19 @@ class JasperIndex(SearchSurface):
         self.plans = PlanCache(capacity=plan_cache_capacity)
         self._scalars: DeviceScalars | None = None
         self._mips_max_sqnorm: float | None = None
+        # PQ is the deprecated comparison baseline: side tensors outside
+        # the core (the kernels and the search plans only see RaBitQ)
+        self.pq_params: PQParams | None = None
+        self.pq_codes: torch.Tensor | None = None
+        # the rows tier (core/storage.py): "device" keeps the f32 rows on
+        # the core; "host" moves them to pinned host memory, so only the
+        # packed codes stay on the card
+        self.store = VectorStore(pin=self.device.type == "cuda")
+        if rows_tier == "host":
+            self.evict_rows_to_host()
+        elif rows_tier != "device":
+            raise ValueError(
+                f"rows_tier must be device|host, got {rows_tier!r}")
 
     @property
     def core(self) -> IndexCore:
@@ -127,8 +158,12 @@ class JasperIndex(SearchSurface):
         return self.core.capacity
 
     @property
-    def vectors(self) -> torch.Tensor:
+    def vectors(self) -> torch.Tensor | None:
         return self.core.vectors
+
+    @property
+    def vec_sqnorm(self) -> torch.Tensor | None:
+        return self.core.vec_sqnorm
 
     @property
     def graph(self) -> VamanaGraph:
@@ -143,9 +178,38 @@ class JasperIndex(SearchSurface):
         return self.core.codes
 
     @property
+    def rabitq_params(self) -> RaBitQParams | None:
+        return self.core.rq_params
+
+    # ---------------------------------------------------------- tiered rows
+    @property
     def rows_tier(self) -> str:
-        """Where the f32 rows live; only "device" is ported."""
-        return "device"
+        """Where the f32 rows live: "device" (core tensors) or "host"
+        (evicted to `self.store`; traversal runs on packed codes only and
+        the rerank fetches the frontier's rows from the host)."""
+        return self.store.tier
+
+    def evict_rows_to_host(self) -> "JasperIndex":
+        """device -> host: move the f32 rows off the device, leaving only
+        packed codes (+ graph/metadata) device-resident. Searches must
+        then use `rerank_source="host"` (bit-identical) or "none";
+        mutations keep working through write-through staging. The plans
+        are dropped (with them the captured graphs that read the rows)."""
+        if self.quantization != "rabitq":
+            raise ValueError(
+                "evict_rows_to_host requires quantization='rabitq': "
+                "without device-resident packed codes there is nothing "
+                "left to traverse on (an exact-only core cannot serve "
+                "any search with its rows evicted)")
+        self.core = self.store.evict(self.core)
+        self.plans.clear()
+        return self
+
+    def restore_rows_to_device(self) -> "JasperIndex":
+        """host -> device: re-attach the f32 rows as core tensors."""
+        self.core = self.store.restore(self.core)
+        self.plans.clear()
+        return self
 
     @property
     def size(self) -> int:
@@ -223,6 +287,7 @@ class JasperIndex(SearchSurface):
         core.vec_sqnorm[:n] += delta
         core_encode_rows(core, torch.arange(n, device=self.device),
                          core.vectors[:n])
+        self._pq_write(torch.arange(n, device=self.device), core.vectors[:n])
 
     def _prep_query(self, q) -> torch.Tensor:
         if self.device.type == "cuda" and not isinstance(q, torch.Tensor):
@@ -241,6 +306,20 @@ class JasperIndex(SearchSurface):
             gen = torch.Generator().manual_seed(self.seed)
             self.core = attach_quantizer(
                 self.core, rabitq_train(gen, rows, bits=self.bits))
+        elif self.quantization == "pq" and self.pq_params is None:
+            for nsub in (16, 8, 4, 2, 1):
+                if self.store_dims % nsub == 0:
+                    break
+            gen = torch.Generator().manual_seed(self.seed)
+            self.pq_params = pq_train(gen, rows, n_subspaces=nsub)
+            self.pq_codes = torch.zeros(
+                (self.capacity, self.pq_params.n_subspaces),
+                dtype=torch.uint8, device=self.device)
+
+    def _pq_write(self, ids, rows: torch.Tensor) -> None:
+        if self.pq_codes is not None:
+            ids = torch.as_tensor(ids, device=self.device).long()
+            self.pq_codes[ids] = pq_encode(self.pq_params, rows)
 
     # ------------------------------------------------------------- build
     def build(self, data, *, labels=None, refine: bool = False,
@@ -249,7 +328,7 @@ class JasperIndex(SearchSurface):
         all mutation state. `labels`: optional per-row label ids (scalar
         or per-row sets) for filtered search."""
         with obs_span("index.build", n=int(np.shape(data)[0]),
-                      sharded=False):
+                      sharded=False), rows_staged(self):
             x = self._prep_data(data)
             self._ensure_quantizer(x)
             self.core = core_build(self.core, x, params=self.params,
@@ -257,6 +336,7 @@ class JasperIndex(SearchSurface):
             if labels is not None:
                 self.set_labels(np.arange(x.shape[0], dtype=np.int32),
                                 labels)
+            self._pq_write(torch.arange(x.shape[0], device=self.device), x)
         return self
 
     def _grow_to_fit(self, n_rows: int) -> None:
@@ -290,22 +370,24 @@ class JasperIndex(SearchSurface):
         """
         if np.shape(data)[0] == 0:       # empty tick from a stream: no-op
             return np.empty((0,), np.int32)
-        x = self._prep_data(data)
-        b = x.shape[0]
-        if self.size == 0:
-            # empty index (fresh, or everything was deleted): a clean
-            # build over this batch beats stitching onto a dead graph
-            self._grow_to_fit(b)
-            self._ensure_quantizer(x)
-            self.core = core_build(self.core, x, params=self.params)
-            ids = np.arange(b, dtype=np.int32)
-        else:
-            ids = self._allocate_slots(b)
-            self.core = core_insert_at(
-                self.core, torch.as_tensor(ids, device=self.device), x,
-                params=self.params)
-        if labels is not None:
-            self.set_labels(ids, labels)
+        with rows_staged(self):
+            x = self._prep_data(data)
+            b = x.shape[0]
+            if self.size == 0:
+                # empty index (fresh, or everything was deleted): a clean
+                # build over this batch beats stitching onto a dead graph
+                self._grow_to_fit(b)
+                self._ensure_quantizer(x)
+                self.core = core_build(self.core, x, params=self.params)
+                ids = np.arange(b, dtype=np.int32)
+            else:
+                ids = self._allocate_slots(b)
+                self.core = core_insert_at(
+                    self.core, torch.as_tensor(ids, device=self.device), x,
+                    params=self.params)
+            if labels is not None:
+                self.set_labels(ids, labels)
+            self._pq_write(ids, x)
         return ids
 
     def set_labels(self, ids, labels) -> None:
@@ -349,8 +431,10 @@ class JasperIndex(SearchSurface):
         slots join the free pool, and the medoid refreshes over live rows.
         Returns {"n_freed", "n_repaired"}.
         """
-        self.core, stats = core_consolidate(self.core, params=self.params,
-                                            refine=refine)
+        with rows_staged(self):
+            self.core, stats = core_consolidate(self.core,
+                                                params=self.params,
+                                                refine=refine)
         return stats
 
     def grow(self, new_capacity: int | None = None) -> "JasperIndex":
@@ -360,7 +444,12 @@ class JasperIndex(SearchSurface):
         new_cap = new_capacity or 2 * self.capacity
         if new_cap < self.capacity:
             raise ValueError(f"cannot shrink {self.capacity} -> {new_cap}")
-        self.core = core_grow(self.core, new_cap)
+        if new_cap == self.capacity:
+            return self
+        with rows_staged(self):
+            self.core = core_grow(self.core, new_cap)
+            if self.pq_codes is not None:
+                self.pq_codes = grow_rows(self.pq_codes, new_cap, 0)
         return self
 
     # ------------------------------------------------------------ search
@@ -370,9 +459,18 @@ class JasperIndex(SearchSurface):
         dists, n_hops[, telemetry])`. The filter value is a run-time
         operand: the key carries only its presence (in `rspec.filtered`),
         so every filter value shares one plan."""
-        key = ("search", rspec, tuple(q_shape), filt)
-        return self.plans.get(
-            key, lambda: make_plan(self, rspec, tuple(q_shape), filt))
+        q_shape = tuple(q_shape)
+        plan = self.plans.get(("search", rspec, q_shape, filt),
+                              lambda: make_plan(self, rspec, q_shape, filt))
+        if rspec.rerank_source == "host":
+            # two-stage host-tier plan: the traversal above returns the
+            # full-width estimator frontier, then the frontier's rows are
+            # fetched from the host tier and reranked by a separately
+            # keyed plan (core/storage.py, core/plans.py)
+            rerank = self.plans.get(("rerank_host", rspec, q_shape),
+                                    lambda: HostRerankPlan(self, rspec))
+            return HostTierPlan(self, plan, rerank)
+        return plan
 
     def search(self, queries, k: int = 10, *, beam_width: int | None = None,
                max_iters: int | None = None, expand: int = 1,
@@ -399,9 +497,59 @@ class JasperIndex(SearchSurface):
             merge=merge, traverse_deleted=traverse_deleted)).search(queries)
         return res.ids, res.dists
 
+    def search_pq(self, queries, k: int = 10, *,
+                  beam_width: int | None = None,
+                  max_iters: int | None = None, rerank: bool = True,
+                  expand: int = 1, merge: str = "topk",
+                  traverse_deleted: bool = True):
+        """PQ LUT-based beam search — DEPRECATED comparison baseline.
+
+        The paper's negative result (§5, Fig 12): scattered 256-entry
+        table lookups, no kernel of its own, kept only so benchmarks can
+        reproduce the comparison. Needs the explicit quantization='pq'
+        opt-in. Not a core op or a SearchSpec mode: it runs eagerly, with
+        no plan. rerank: exact distances of the final frontier from the
+        rows, then a stable sort.
+        """
+        if self.pq_codes is None:
+            raise RuntimeError("index was not built with quantization='pq'")
+        warnings.warn(
+            "search_pq is deprecated (the paper's negative-result baseline); "
+            "use quantization='rabitq' with searcher(SearchSpec(quantized="
+            "True)) for the kernel-backed quantized path.",
+            DeprecationWarning, stacklevel=2)
+        # defaults resolve through the one definition site (SearchSpec)
+        rspec = SearchSpec(
+            k=k, beam_width=beam_width, max_iters=max_iters, expand=expand,
+            merge=merge, traverse_deleted=traverse_deleted).resolve()
+        q = self._prep_query(queries)
+        core = self.core
+        tomb = core.mut.tombstone_bits if self._filter_tombstones else None
+        res = beam_search(core.graph, make_pq_scorer(self.pq_params,
+                                                     self.pq_codes, q),
+                          q.shape[0], beam_width=rspec.beam_width,
+                          max_iters=rspec.max_iters, expand_per_iter=expand,
+                          merge_strategy=merge, tombstone_bits=tomb,
+                          traverse_deleted=traverse_deleted)
+        f_ids, f_dists = res.frontier_ids, res.frontier_dists
+        if rerank:
+            exact = make_exact_scorer(core.vectors, q, core.n_valid,
+                                      core.vec_sqnorm)(f_ids)
+            exact = torch.where(f_ids >= 0, exact,
+                                torch.full_like(exact, float("inf")))
+            f_dists, order = torch.sort(exact, dim=1, stable=True)
+            f_ids = torch.gather(f_ids, 1, order)
+        return f_ids[:, :k], f_dists[:, :k]
+
     def brute_force(self, queries, k: int = 10):
-        """Exact top-k by full scan over LIVE rows (recall ground truth)."""
-        return core_brute_force(self.core, self._prep_query(queries), k=k)
+        """Exact top-k by full scan over LIVE rows (recall ground truth);
+        on the host tier over the staged rows."""
+        q = self._prep_query(queries)
+        with rows_staged(self):
+            out = core_brute_force(self.core, q, k=k)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream().synchronize()  # before detach
+        return out
 
     # ------------------------------------------------------------ memory
     def memory_stats(self) -> dict[str, float]:
@@ -425,7 +573,19 @@ class JasperIndex(SearchSurface):
                 stats["rabitq_resident_bytes"] = float(resident)
                 stats["rabitq_resident_bytes_per_row"] = (
                     resident / self.capacity)
+        stats.update(tier_memory_stats(
+            self.core, self.store, capacity=self.capacity,
+            store_dims=self.store_dims))
         return stats
+
+    def storage_stats(self) -> dict:
+        """Tier residence + host-fetch counters for the `storage.*`
+        metrics namespace (obs/metrics.py `storage_stats_collector`)."""
+        ms = self.memory_stats()
+        out = {k: ms[k] for k in TIER_STAT_KEYS if k in ms}
+        out.update({f"fetch_{k}": v
+                    for k, v in self.store.fetch_stats.as_dict().items()})
+        return out
 
     # --------------------------------------------------------- save/load
     def _meta(self) -> dict:
@@ -439,28 +599,44 @@ class JasperIndex(SearchSurface):
         }
 
     def save(self, path: str) -> None:
-        """Atomic checkpoint (tmp + rename) in the JAX package's format."""
-        save_npz_atomic(path, core_to_arrays(self.core), self._meta())
+        """Atomic checkpoint (tmp + rename) in the JAX package's format.
+        Host-tier rows stage back in, so the payload keeps the one form
+        both packages read; the meta records the tier and load re-evicts."""
+        with rows_staged(self):
+            arrays = core_to_arrays(self.core)
+        if self.pq_codes is not None:
+            arrays |= {
+                "pq_codes": self.pq_codes.cpu().numpy(),
+                "pq_codebooks": self.pq_params.codebooks.cpu().numpy(),
+            }
+        save_npz_atomic(path, arrays, self._meta())
 
     @classmethod
     def load(cls, path: str, device=None) -> "JasperIndex":
-        """Load a checkpoint either package saved, onto `device`."""
+        """Load a checkpoint either package saved, onto `device`, on the
+        rows tier it was saved from."""
         with open(path + ".meta.json") as f:
             meta = json.load(f)
-        if meta.get("rows_tier", "device") != "device":
-            raise NotImplementedError(
-                "host-tier checkpoints need core/storage.py, which is not "
-                "ported yet: ROADMAP queue A")
-        idx = cls(meta["dims"], meta["capacity"], metric=meta["metric"],
-                  quantization=meta["quantization"], bits=meta["bits"],
-                  construction=ConstructionParams(**meta["construction"]),
-                  seed=meta["seed"], device=device)
+        with warnings.catch_warnings():
+            # loading a PQ checkpoint does not re-fire the opt-in warning
+            warnings.simplefilter("ignore", DeprecationWarning)
+            idx = cls(meta["dims"], meta["capacity"], metric=meta["metric"],
+                      quantization=meta["quantization"], bits=meta["bits"],
+                      construction=ConstructionParams(**meta["construction"]),
+                      seed=meta["seed"], device=device)
         idx._mips_max_sqnorm = meta["mips_max_sqnorm"]
         with np.load(path) as data:
             idx.core = core_from_arrays(
                 data, bits=meta["bits"], store_dims=idx.store_dims,
                 quantized=meta["quantization"] == "rabitq",
                 device=idx.device)
+            if meta["quantization"] == "pq" and "pq_codes" in data:
+                idx.pq_params = PQParams(codebooks=torch.from_numpy(
+                    np.array(data["pq_codebooks"])).to(idx.device))
+                idx.pq_codes = torch.from_numpy(
+                    np.array(data["pq_codes"])).to(idx.device)
+        if meta.get("rows_tier", "device") == "host":
+            idx.evict_rows_to_host()    # the checkpoint's tier
         return idx
 
 

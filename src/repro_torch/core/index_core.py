@@ -28,6 +28,7 @@ from repro_torch.core.beam_search import (
     beam_search_quantized,
     make_exact_scorer,
     rerank_frontier,
+    sort_frontier,
 )
 from repro_torch.core.construction import (
     ConstructionParams,
@@ -66,8 +67,9 @@ _ENCODE_CHUNK = 65536
 class IndexCore:
     """One index's complete state.
 
-    vectors:    f32[cap, D]      full-precision rows (rerank / exact path)
-    vec_sqnorm: f32[cap]         cached |row|^2
+    vectors:    f32[cap, D]|None full-precision rows (rerank / exact path);
+                                 None with the rows on the host tier
+    vec_sqnorm: f32[cap]|None    cached |row|^2 (None with the rows)
     adjacency:  int32[cap, R]    Vamana out-edges, -1 padded
     n_valid:    int              high-water mark (prefix of written rows)
     medoid:     int              search/construction entry point
@@ -76,8 +78,8 @@ class IndexCore:
     rq_params:  RaBitQParams|None dataset-level quantizer
     """
 
-    vectors: torch.Tensor
-    vec_sqnorm: torch.Tensor
+    vectors: torch.Tensor | None
+    vec_sqnorm: torch.Tensor | None
     adjacency: torch.Tensor
     n_valid: int
     medoid: int
@@ -91,6 +93,8 @@ class IndexCore:
 
     @property
     def store_dims(self) -> int:
+        if self.vectors is None:        # rows evicted to the host tier
+            return self.codes.dims
         return self.vectors.shape[1]
 
     @property
@@ -99,7 +103,7 @@ class IndexCore:
 
     @property
     def device(self) -> torch.device:
-        return self.vectors.device
+        return self.adjacency.device
 
     @property
     def graph(self) -> VamanaGraph:
@@ -232,7 +236,9 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
     stable sort. fusion == "hop": one `fused_hop` launch a hop behind a
     host convergence check. fusion == "none": the unfused loop, scoring
     through the `rabitq_search_step` / `gather_l2` kernels when
-    spec.use_kernels. rerank_source == "host" is not ported yet.
+    spec.use_kernels. rerank_source == "host" (quantized): the full-width
+    estimator frontier, for the host tier's rerank outside (the core's
+    rows may be evicted).
 
     filter_bytes: the uint8[4] filter value, as numpy or as a tensor (a
     device tensor is used as it is, so a captured plan reads its static
@@ -249,10 +255,6 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
             "spec.filtered and the filter_bytes operand must agree: "
             f"filtered={filtered}, filter_bytes "
             f"{'present' if filter_bytes is not None else 'absent'}")
-    if spec.rerank_source == "host":
-        raise NotImplementedError(
-            "rerank_source='host' needs the host rows tier (core/storage.py),"
-            " which is not ported yet: ROADMAP queue A")
     labels = core.mut.labels if filtered else None
     fb = None
     if filtered:
@@ -271,10 +273,7 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
         exact_d = rerank_frontier(core.vectors, core.vec_sqnorm, queries,
                                   res.frontier_ids, tile_q=spec.rerank_tile,
                                   use_kernels=spec.use_kernels)
-        sd, order = torch.sort(exact_d, dim=1, stable=True)
-        si = torch.gather(res.frontier_ids, 1, order)
-        si = torch.where(torch.isfinite(sd), si, torch.full_like(si, -1))
-        return _out(si[:, :k], sd[:, :k], res)
+        return _out(*sort_frontier(exact_d, res.frontier_ids, k), res)
 
     if spec.fusion != "none":
         from repro_torch.kernels.search_step.ops import fused_beam_search
@@ -289,6 +288,11 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
                 traverse_deleted=spec.traverse_deleted,
                 labels=labels, filter_bytes=fb,
                 filter_exclude=filter_exclude, telemetry=tel_on)
+            if spec.rerank_source == "host":
+                # host-tier rerank: core.vectors may be evicted (None), so
+                # hand the index the full-width estimator frontier; the
+                # gather + exact rerank run outside (core/storage.py)
+                return _out(res.frontier_ids, res.frontier_dists, res)
             if spec.rerank:
                 return _rerank(res)
         else:
@@ -312,6 +316,9 @@ def core_search(core: IndexCore, queries: torch.Tensor, *, spec,
             tombstone_bits=tomb, traverse_deleted=spec.traverse_deleted,
             labels=labels, filter_bytes=fb, filter_exclude=filter_exclude,
             beam_schedule=spec.beam_schedule, telemetry=tel_on)
+        if spec.rerank_source == "host":
+            # the full-width frontier for the host rerank (see above)
+            return _out(res.frontier_ids, res.frontier_dists, res)
         if spec.rerank:
             return _rerank(res)
     else:

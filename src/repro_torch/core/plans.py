@@ -14,6 +14,12 @@ counterpart of the JAX package's jitted `core_search`.
   * `EagerPlan` — on the CPU, and for the lanes whose loops synchronise
     with the host (hop: a convergence check a hop; unfused: one an
     iteration): `core_search` run eagerly at each call.
+  * `HostTierPlan` — a search of an index whose rows are on the host
+    tier (`rerank_source="host"`, core/storage.py): two plans of the
+    cache, the traversal above (keyed as any search) and a
+    `HostRerankPlan` keyed ("rerank_host", resolved spec, query shape),
+    captured on the card, with the frontier ids' trip to the host and
+    the store's gather of their rows between them.
 
 A capture counts one trace in the cache's stats, as a jit trace does; so
 does an eager plan's first call, and its first call after the core's
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.index_core import IndexCore, core_search
+from repro_torch.core.storage import build_host_rerank_plan
 
 def launch_counters() -> dict:
     """The search path's kernel wrappers by name (each counts its
@@ -179,6 +186,51 @@ def _capture_stream(device) -> torch.cuda.Stream:
     return _STREAMS[key]
 
 
+def capture(run, device, what: str):
+    """`run()` captured in a CUDA graph after an eager warm-up, both on
+    the device's capture stream. Returns (graph, the captured outputs,
+    {kernel: launches a replay}); the wrappers' launch counters are put
+    back to their values before the warm-up. A failed capture raises."""
+    counters = launch_counters()
+    before = {n: w.launches for n, w in counters.items()}
+    # first use builds the kernels and sets each instance's launch
+    # attributes, and the schedule tensor is made and cached: all in an
+    # eager warm-up before the capture, on the capture's own stream
+    cur = torch.cuda.current_stream()
+    stream = _capture_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        run()
+        warmed = {n: w.launches for n, w in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = run()
+        except Exception as e:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+            raise RuntimeError(f"capturing {what} failed: {e}") from e
+        graph.capture_end()
+    cur.wait_stream(stream)
+    launched = {n: w.launches - warmed[n] for n, w in counters.items()
+                if w.launches != warmed[n]}
+    for n, w in counters.items():
+        w.launches = before[n]
+    return graph, out, launched
+
+
+def replay(graph, out, launched: dict):
+    """Replay a captured graph, add its launches to the wrappers'
+    counters and return clones of its outputs."""
+    graph.replay()
+    counters = launch_counters()
+    for name, n in launched.items():
+        counters[name].launches += n
+    return _clone(out)
+
+
 def _clone(out):
     """A search output with every tensor copied out of the graph's
     memory (the next replay overwrites it)."""
@@ -220,39 +272,11 @@ class GraphPlan:
                            filter_bytes=self._fb)
 
     def _capture(self, core: IndexCore) -> None:
-        counters = launch_counters()
-        before = {n: w.launches for n, w in counters.items()}
-        # first use builds the kernels and sets each instance's launch
-        # attributes, and the schedule tensor is made and cached: all in an
-        # eager warm-up before the capture, on the capture's own stream
-        cur = torch.cuda.current_stream()
-        stream = _capture_stream(self._q.device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            self._run(core)
-            warmed = {n: w.launches for n, w in counters.items()}
-            graph = torch.cuda.CUDAGraph()
-            self._graph = self._out = self._fingerprint = None
-            graph.capture_begin()
-            try:
-                out = self._run(core)
-            except Exception as e:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise RuntimeError(
-                    f"capturing the {self.rspec.fusion} search plan failed "
-                    f"(q {tuple(self._q.shape)}, quantized="
-                    f"{self.rspec.quantized}): {e}") from e
-            graph.capture_end()
-        cur.wait_stream(stream)
-        self._launched = {n: w.launches - warmed[n]
-                          for n, w in counters.items()
-                          if w.launches != warmed[n]}
-        for n, w in counters.items():
-            w.launches = before[n]
-        self._graph, self._out = graph, out
+        self._graph = self._out = self._fingerprint = None
+        self._graph, self._out, self._launched = capture(
+            lambda: self._run(core), self._q.device,
+            f"the {self.rspec.fusion} search plan (q {tuple(self._q.shape)}, "
+            f"quantized={self.rspec.quantized})")
         self._fingerprint = fingerprint(core)
         self.index.plans.count_trace()
 
@@ -278,8 +302,99 @@ class GraphPlan:
             self._fb.copy_(self._filter_value(filter_bytes))
         if fingerprint(core) != self._fingerprint:
             self._capture(core)
-        self._graph.replay()
-        counters = launch_counters()
-        for name, n in self._launched.items():
-            counters[name].launches += n
-        return _clone(self._out)
+        return replay(self._graph, self._out, self._launched)
+
+
+# ---------------------------------------------------------------------------
+# Host-tier plans: the traversal, the rows' fetch, then the rerank
+# ---------------------------------------------------------------------------
+
+class HostRerankPlan:
+    """Stage two of a host-tier search, keyed ("rerank_host", resolved
+    spec, query shape): `storage.build_host_rerank_plan`'s rerank over the
+    gathered frontier rows.
+
+    On the card it owns static query, frontier-id and row-table buffers
+    (made at the first call, from the frontier's width) and a CUDA graph
+    of the rerank over them, captured once (one trace) and replayed: the
+    gathered rows reach the table by a non-blocking copy from the store's
+    pinned staging buffer (`upload`). On the CPU the rerank runs eagerly
+    and counts one trace at its first call, where a jit would trace (its
+    operands' shapes never depend on the core's).
+    """
+
+    def __init__(self, index, rspec) -> None:
+        self.index = index
+        self.rspec = rspec
+        self._body = build_host_rerank_plan(rspec)
+        self._traced = False
+        self._bufs = None          # (queries, ids, table, table_sq)
+        self._ids_host = None      # pinned copy of the frontier ids
+        self._graph = self._out = None
+        self._launched: dict = {}
+
+    def ids_to_host(self, frontier_ids: torch.Tensor) -> torch.Tensor:
+        """The frontier ids on the host: the search's one synchronisation
+        (through a pinned buffer on the card)."""
+        if not frontier_ids.is_cuda:
+            return frontier_ids
+        if self._ids_host is None:
+            self._ids_host = torch.empty(frontier_ids.shape,
+                                         dtype=frontier_ids.dtype,
+                                         pin_memory=True)
+        self._ids_host.copy_(frontier_ids, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return self._ids_host
+
+    def upload(self, queries, frontier_ids, rows, sq) -> None:
+        """Copy one batch's operands into the static buffers (card)."""
+        if self._bufs is None:
+            dev = queries.device
+            self._bufs = (torch.empty_like(queries),
+                          torch.empty_like(frontier_ids),
+                          torch.empty(rows.shape, dtype=torch.float32,
+                                      device=dev),
+                          torch.empty(sq.shape, dtype=torch.float32,
+                                      device=dev))
+        q, ids, table, table_sq = self._bufs
+        q.copy_(queries)
+        ids.copy_(frontier_ids)
+        self.index.store.upload(rows, sq, table, table_sq)
+
+    def replay(self) -> tuple:
+        """The rerank over the static buffers (captured at first use)."""
+        if self._graph is None:
+            self._graph, self._out, self._launched = capture(
+                lambda: self._body(*self._bufs), self._bufs[0].device,
+                f"the host-tier rerank plan (q {tuple(self._bufs[0].shape)})")
+            self.index.plans.count_trace()
+        return replay(self._graph, self._out, self._launched)
+
+    def __call__(self, queries, frontier_ids, rows, sq) -> tuple:
+        if not queries.is_cuda:
+            if not self._traced:
+                self.index.plans.count_trace()
+                self._traced = True
+            return self._body(queries, frontier_ids, rows, sq)
+        self.upload(queries, frontier_ids, rows, sq)
+        return self.replay()
+
+
+class HostTierPlan:
+    """A host-tier search (rerank_source="host"): the traversal plan
+    (keyed as any search; captured on the megakernel lanes) returns the
+    full-width estimator frontier; its ids come to the host, the store
+    gathers their rows, and the rerank plan scores them. Returns what
+    `core_search` returns on the device tier, bit for bit."""
+
+    def __init__(self, index, traversal, rerank: HostRerankPlan) -> None:
+        self.index = index
+        self.traversal = traversal
+        self.rerank = rerank
+
+    def __call__(self, queries, filter_bytes=None) -> tuple:
+        out = self.traversal(queries, filter_bytes)
+        f_ids = out[0]
+        rows, sq = self.index.store.gather(self.rerank.ids_to_host(f_ids))
+        ids, dists = self.rerank(queries, f_ids, rows, sq)
+        return (ids, dists, out[2]) + tuple(out[3:])

@@ -1,0 +1,340 @@
+"""Tiered vector storage — device-resident packed codes, host-resident rows.
+
+Port of `repro.core.storage` (its single-device half). `VectorStore`
+manages where one index's f32 rows live:
+
+  * tier "device" — the rows are core tensors (`core.vectors` /
+    `core.vec_sqnorm`) and the exact rerank runs inside the search.
+  * tier "host"   — the rows live here as CPU tensors, pinned when the
+    index is on the card; `core.vectors is None`. Traversal runs on the
+    device-resident packed codes only; the final frontier's rows are
+    gathered here (`gather`) and copied to the card for the exact rerank.
+
+The search-time knob is `SearchSpec(rerank_source=...)`: "device" reranks
+from core.vectors (tier "device"), "host" from this store (tier "host"),
+"none" serves estimator distances on either tier (`SearchResult.estimated`).
+
+Write-through contract: mutations run the unchanged core ops on staged
+rows — `rows_staged(index)` attaches the host rows to the core, the op
+runs exactly as on the device tier (so the graph evolves bit for bit as
+it would there), and detach syncs the host tier from the result and
+strips the rows off the device again. A grow syncs for free: detach
+copies whatever shape the op produced.
+
+Bit identity of the two tiers (`build_host_rerank_plan`): the device
+tier reranks with `rerank_frontier(core.vectors, core.vec_sqnorm,
+queries, frontier_ids)`; the host tier gathers those same rows into a
+(Q*L, D) table, relabels candidate (q, j) to table row q*L + j (-1 stays
+-1) and calls the same `rerank_frontier` on the table, then the same
+stable sort. Every candidate meets the same row bits through the same
+ops, on the plain path and through the `gather_l2` kernel.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from repro_torch.core.beam_search import rerank_frontier, sort_frontier
+
+__all__ = [
+    "FetchStats", "VectorStore", "rows_resident", "strip_rows",
+    "attach_rows", "rows_staged", "build_host_rerank_plan",
+    "tier_memory_stats", "TIER_STAT_KEYS",
+]
+
+# The per-tier residence keys memory_stats() reports: device codes vs
+# device rows vs host rows, and the device-memory compression eviction buys.
+TIER_STAT_KEYS = ("rows_tier", "device_rows_bytes", "device_codes_bytes",
+                  "host_rows_bytes", "device_compression_ratio")
+
+
+def tier_memory_stats(core, store, *, capacity: int,
+                      store_dims: int) -> dict:
+    """Per-tier resident bytes for one core + its VectorStore.
+
+    device_compression_ratio is the effective device-memory compression:
+    what the vector payload (f32 rows + sqnorm + packed codes) would cost
+    fully device-resident, over what is device-resident now — 1.0 on the
+    device tier, (rows+codes)/codes after eviction.
+    """
+    rows_full = float(capacity * (store_dims + 1) * 4)  # f32 rows + sqnorm
+    device_rows = rows_full if rows_resident(core) else 0.0
+    codes = 0.0
+    if core.codes is not None:
+        c = core.codes
+        codes = float(sum(t.numel() * t.element_size()
+                          for t in (c.packed, c.data_add, c.data_rescale)))
+    stats = {"rows_tier": store.tier,
+             "device_rows_bytes": device_rows,
+             "device_codes_bytes": codes,
+             "host_rows_bytes": float(store.host_bytes)}
+    device_vec = device_rows + codes
+    if device_vec:
+        stats["device_compression_ratio"] = (rows_full + codes) / device_vec
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Fetch accounting
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FetchStats:
+    """Monotonic host-fetch counters (one per VectorStore).
+
+    n_fetches counts gather calls (one per served host-tier batch);
+    n_rows/n_bytes count only valid frontier entries (-1 slots cost
+    nothing).
+    """
+
+    n_fetches: int = 0
+    n_rows: int = 0
+    n_bytes: int = 0
+    total_s: float = 0.0
+    last_s: float = 0.0
+    last_rows: int = 0
+
+    def record(self, rows: int, nbytes: int, dt: float) -> None:
+        self.n_fetches += 1
+        self.n_rows += int(rows)
+        self.n_bytes += int(nbytes)
+        self.total_s += float(dt)
+        self.last_s = float(dt)
+        self.last_rows = int(rows)
+
+    def as_dict(self) -> dict:
+        d = dict(self.__dict__)
+        d["bytes_per_fetch"] = (self.n_bytes / self.n_fetches
+                                if self.n_fetches else 0.0)
+        return d
+
+
+# ---------------------------------------------------------------------------
+# Core row-residence helpers
+# ---------------------------------------------------------------------------
+
+def rows_resident(core) -> bool:
+    """True when the core's f32 rows are device-resident tensors."""
+    return core.vectors is not None
+
+
+def strip_rows(core):
+    """Evicted form of a core: rows become None."""
+    return replace(core, vectors=None, vec_sqnorm=None)
+
+
+def attach_rows(core, vectors: torch.Tensor, vec_sqnorm: torch.Tensor):
+    """Inverse of `strip_rows` (staging / restore): copies of the rows on
+    the core's device (non-blocking from pinned memory)."""
+    dev = core.device
+    return replace(core,
+                   vectors=vectors.to(dev, torch.float32, non_blocking=True,
+                                      copy=True),
+                   vec_sqnorm=vec_sqnorm.to(dev, torch.float32,
+                                            non_blocking=True, copy=True))
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the current stream of `t`'s card (no-op on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The tier manager
+# ---------------------------------------------------------------------------
+
+class VectorStore:
+    """Residence manager for one index's f32 rows (see module docstring).
+
+    On tier "device" it holds nothing. On tier "host" it holds the
+    canonical f32 rows + cached |row|^2 as CPU tensors — pinned when
+    `pin` (an index on the card; a failed pin raises) — synced from every
+    mutation through the staged write-through, and serves the rerank's
+    fetch through `gather`.
+
+    `fetch_hist` is an optional observability hook (the serving layer
+    puts a `Histogram` there): every gather observes its latency in µs.
+    """
+
+    def __init__(self, tier: str = "device", *, pin: bool = False) -> None:
+        if tier not in ("device", "host"):
+            raise ValueError(f"rows tier must be device|host, got {tier!r}")
+        self.tier = tier
+        self.pin = pin
+        self._vectors: torch.Tensor | None = None
+        self._sqnorm: torch.Tensor | None = None
+        # gather's pinned staging buffers by row count: [rows, sqnorm, the
+        # event recorded after the last copy that reads them, or None]
+        self._staging: dict = {}
+        self.fetch_stats = FetchStats()
+        self.fetch_hist = None          # optional obs Histogram (us/gather)
+
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, pin_memory=self.pin)
+
+    # ------------------------------------------------------------- residence
+    def sync_from(self, core) -> None:
+        """Write-through: refresh the host rows from a (staged) core.
+        Same-shaped rows are written into the existing buffers; new shapes
+        (a grow) allocate new ones. Returns once the host copy is whole."""
+        v, s = core.vectors, core.vec_sqnorm
+        if self._vectors is None or self._vectors.shape != v.shape:
+            self._vectors = self._empty(tuple(v.shape))
+            self._sqnorm = self._empty(tuple(s.shape))
+        self._vectors.copy_(v, non_blocking=True)
+        self._sqnorm.copy_(s, non_blocking=True)
+        _sync(v)
+
+    def evict(self, core):
+        """device -> host: copy the rows here, return the stripped core."""
+        if not rows_resident(core):
+            raise ValueError("core rows are already evicted")
+        self.sync_from(core)
+        self.tier = "host"
+        return strip_rows(core)
+
+    def restore(self, core):
+        """host -> device: re-attach the rows, drop the host copy."""
+        if self.tier != "host":
+            raise ValueError("rows are already device-resident")
+        core = attach_rows(core, self._vectors, self._sqnorm)
+        _sync(core.vectors)
+        self.tier = "device"
+        self._vectors = self._sqnorm = None
+        self._staging.clear()
+        return core
+
+    def attach(self, core):
+        """Staging attach (tier stays "host"; detach must follow)."""
+        return attach_rows(core, self._vectors, self._sqnorm)
+
+    def detach(self, core):
+        """Staging detach: sync the host tier from the mutated core
+        (write-through; capacity growth syncs for free) and strip."""
+        self.sync_from(core)
+        return strip_rows(core)
+
+    # ----------------------------------------------------------- fetch path
+    def _staging_for(self, m: int, d: int) -> list:
+        """The pinned staging buffers for m rows, once no copy reads them."""
+        buf = self._staging.get(m)
+        if buf is None or buf[0].shape[1] != d:
+            buf = self._staging[m] = [self._empty((m, d)), self._empty((m,)),
+                                      None]
+        if buf[2] is not None:
+            buf[2].synchronize()
+            buf[2] = None
+        return buf
+
+    def gather(self, positions) -> tuple[torch.Tensor, torch.Tensor]:
+        """Fetch frontier rows for the host-tier rerank.
+
+        positions: int array or CPU tensor (any shape) of row ids; -1
+        marks invalid frontier slots. Returns (rows f32[M, D], sqnorm
+        f32[M]) with M = positions.size, in flat order — invalid slots
+        come back as zero rows (the rerank masks them to +inf). With
+        pinned rows the result lies in a staging buffer kept for M rows,
+        valid until the next gather of M rows (`upload` makes that gather
+        wait for the copies that read it). Records fetch latency / bytes
+        in `fetch_stats`.
+        """
+        if self.tier != "host":
+            raise ValueError("gather on a device-tier store")
+        t0 = time.perf_counter()
+        pos = torch.as_tensor(np.asarray(positions)).reshape(-1).long()
+        valid = pos >= 0
+        safe = pos.clamp(min=0)
+        if self.pin:
+            rows, sq, _ = self._staging_for(pos.numel(),
+                                            self._vectors.shape[1])
+            torch.index_select(self._vectors, 0, safe, out=rows)
+            torch.index_select(self._sqnorm, 0, safe, out=sq)
+        else:
+            rows = self._vectors.index_select(0, safe)
+            sq = self._sqnorm.index_select(0, safe)
+        bad = torch.nonzero(~valid).reshape(-1)
+        if bad.numel():
+            rows.index_fill_(0, bad, 0.0)
+            sq.index_fill_(0, bad, 0.0)
+        dt = time.perf_counter() - t0
+        n_valid = pos.numel() - bad.numel()
+        nbytes = n_valid * (self._vectors.shape[1] + 1) * 4
+        self.fetch_stats.record(n_valid, nbytes, dt)
+        if self.fetch_hist is not None:
+            self.fetch_hist.observe(dt * 1e6)
+        return rows, sq
+
+    def upload(self, rows: torch.Tensor, sq: torch.Tensor,
+               table: torch.Tensor, table_sq: torch.Tensor) -> None:
+        """Copy gathered rows into device tensors without blocking; the
+        next gather into the same staging buffer waits for these copies."""
+        table.copy_(rows, non_blocking=True)
+        table_sq.copy_(sq, non_blocking=True)
+        buf = self._staging.get(rows.shape[0])
+        if (table.is_cuda and buf is not None
+                and buf[0].data_ptr() == rows.data_ptr()):
+            buf[2] = torch.cuda.Event()
+            buf[2].record()
+
+    # ------------------------------------------------------------ accounting
+    @property
+    def host_bytes(self) -> int:
+        """Host-resident row bytes (0 on the device tier)."""
+        if self._vectors is None:
+            return 0
+        return int((self._vectors.numel() + self._sqnorm.numel()) * 4)
+
+    def stats(self) -> dict:
+        return {"tier": self.tier, "host_rows_bytes": self.host_bytes,
+                **{f"fetch_{k}": v
+                   for k, v in self.fetch_stats.as_dict().items()}}
+
+
+@contextmanager
+def rows_staged(index):
+    """Write-through staging for mutations on a host-tier index.
+
+    Attaches the host rows to `index.core`, yields (the mutation runs the
+    unchanged core ops), then syncs the host tier from the result and
+    strips the rows back off. Re-entrant: a no-op when the rows are
+    already resident (device tier, or an outer staging block).
+    """
+    store = getattr(index, "store", None)
+    if (store is None or store.tier != "host"
+            or rows_resident(index.core)):
+        yield
+        return
+    index.core = store.attach(index.core)
+    try:
+        yield
+    finally:
+        index.core = store.detach(index.core)
+
+
+# ---------------------------------------------------------------------------
+# The host-tier rerank (see the module docstring for its bit identity)
+# ---------------------------------------------------------------------------
+
+def build_host_rerank_plan(rspec):
+    """The single-device host-tier rerank: (queries (Q, D), frontier ids
+    (Q, L), gathered rows (Q*L, D), gathered sqnorm (Q*L,)) -> (ids (Q,
+    k), dists (Q, k)), the exact epilogue `core_search` runs on the device
+    tier. `core/plans.py` makes it a plan (captured on the card)."""
+
+    def rerank(queries, frontier_ids, table, table_sqnorm):
+        q_n, l = frontier_ids.shape
+        flat = torch.arange(q_n * l, dtype=torch.int32,
+                            device=frontier_ids.device).reshape(q_n, l)
+        local = torch.where(frontier_ids >= 0, flat, torch.full_like(flat, -1))
+        exact_d = rerank_frontier(table, table_sqnorm, queries, local,
+                                  tile_q=rspec.rerank_tile,
+                                  use_kernels=rspec.use_kernels)
+        return sort_frontier(exact_d, frontier_ids, rspec.k)
+
+    return rerank

@@ -1392,3 +1392,142 @@ def test_scheduler_harvests_through_cuda_events(plan_index):
         assert h.status == "done"
         assert np.array_equal(h.ids, s.ids) and np.array_equal(h.dists,
                                                                s.dists)
+
+
+# ------------------------------------------- the host rows tier on the card
+HOST_TIER_LANES = {
+    "megakernel": dict(use_kernels=True, fusion="megakernel"),
+    "megakernel-telemetry": dict(use_kernels=True, fusion="megakernel",
+                                 telemetry="on"),
+    "megakernel-filtered": dict(use_kernels=True, fusion="megakernel",
+                                filter=(1, 2), filter_mode="exclude"),
+    "hop": dict(use_kernels=True, fusion="hop"),
+    "merge-kernel": dict(use_kernels=True, fusion="none", merge="kernel"),
+}
+
+
+def _host_spec(lane, **kw):
+    from repro_torch.core.search_spec import SearchSpec
+    return SearchSpec(k=10, beam_width=48, quantized=True,
+                      **HOST_TIER_LANES[lane], **kw)
+
+
+@pytest.fixture(scope="module")
+def host_tier_index():
+    """An index, each lane's device-tier eager result, then the same
+    index with its rows evicted to pinned host memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    rng = np.random.default_rng(24)
+    idx = _plan_index(rng, capacity=8192)
+    idx.delete(np.sort(rng.choice(4096, 300, replace=False)))
+    queries = rng.normal(size=(2, 64, 32)).astype(np.float32)
+    device = {(lane, b): _eager(idx, queries[b], _host_spec(lane))
+              for lane in HOST_TIER_LANES for b in range(2)}
+    idx.evict_rows_to_host()
+    return idx, queries, device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", list(HOST_TIER_LANES))
+def test_host_tier_replay_equals_device_eager(host_tier_index, lane):
+    """A host-tier search (the traversal plan, the rows' gather, the
+    captured rerank plan) equals the device tier's eager search bit for
+    bit, capture and replay alike; the megakernel lane counts #1 1 + #2 1
+    a search and its rerank stage is a captured graph."""
+    from repro_torch.core.plans import (GraphPlan, HostRerankPlan,
+                                        HostTierPlan, launch_counters)
+    idx, queries, device = host_tier_index
+    assert idx.core.vectors is None and idx.store._vectors.is_pinned()
+    spec = _host_spec(lane, rerank_source="host")
+    ses = idx.searcher(spec)
+    for _ in range(2):
+        for w in launch_counters().values():
+            w.launches = 0
+        res = ses.search(queries[0])
+        _assert_same(res, device[(lane, 0)])
+        launched = {n: w.launches for n, w in launch_counters().items()
+                    if w.launches}
+        assert launched.get("gather_l2") == 1
+        if lane.startswith("megakernel"):
+            assert launched == {"fused_search": 1, "gather_l2": 1}
+    plan = idx._search_plan(ses.resolved, (64, 32), idx._filter_tombstones)
+    assert isinstance(plan, HostTierPlan)
+    assert isinstance(plan.rerank, HostRerankPlan)
+    assert plan.rerank._graph is not None
+    assert isinstance(plan.traversal, GraphPlan) == lane.startswith(
+        "megakernel")
+
+
+@pytest.mark.cuda
+def test_host_tier_staging_buffer_survives_back_to_back_batches(
+        host_tier_index):
+    """Two batches of different queries submitted back to back reuse one
+    pinned staging buffer; each drained result equals its own device-tier
+    eager search (the second gather never overwrote rows the first
+    batch's copy still read)."""
+    idx, queries, device = host_tier_index
+    ses = idx.searcher(_host_spec("megakernel", rerank_source="host"))
+    for _ in range(2):
+        for b in range(2):
+            ses.submit(queries[b])
+        out = ses.drain()
+        for b, r in enumerate(out):
+            want = device[("megakernel", b)]
+            assert np.array_equal(r.ids, want[0].cpu().numpy())
+            assert np.array_equal(r.dists, want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_host_tier_staged_churn_keeps_both_stages(cuda_device):
+    """Delete, insert and consolidate on a host-tier index recapture
+    neither stage and keep the tiers in sync: host == device bit for bit
+    after the churn."""
+    rng = np.random.default_rng(25)
+    idx = _plan_index(rng, labels=False, capacity=8192)
+    idx.evict_rows_to_host()
+    idx.delete(np.arange(5))
+    q = rng.normal(size=(32, 32)).astype(np.float32)
+    ses = idx.searcher(_host_spec("megakernel", rerank_source="host"))
+    ses.search(q)
+    base = idx.plans.stats.snapshot()
+    idx.delete(np.arange(100, 500))
+    ses.search(q)
+    idx.insert(rng.normal(size=(200, 32)).astype(np.float32))
+    ses.search(q)
+    idx.consolidate()
+    host = ses.search(q)
+    assert idx.plans.stats.delta(base)["traces"] == 0
+    assert idx.vectors is None and idx.rows_tier == "host"
+    ids = host.ids.cpu().numpy()
+    assert not idx.tombstoned(ids[ids >= 0]).any()
+    idx.restore_rows_to_device()
+    _assert_same(host, _eager(idx, q, _host_spec("megakernel")))
+
+
+@pytest.mark.cuda
+def test_evict_frees_the_device_rows(cuda_device):
+    """Eviction releases the rows' device memory, captured device-tier
+    plans included; restore brings them back, equal bit for bit."""
+    import gc
+    rng = np.random.default_rng(26)
+    cap, d = 65536, 128
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.index import JasperIndex
+    idx = JasperIndex(d, cap, quantization="rabitq",
+                      construction=ConstructionParams(**PLAN_PARAMS))
+    idx.build(rng.normal(size=(2048, d)).astype(np.float32))
+    q = rng.normal(size=(16, d)).astype(np.float32)
+    idx.searcher(_host_spec("megakernel")).search(q)   # a captured plan
+    rows = idx.vectors.clone()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    idx.evict_rows_to_host()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    assert before - after >= 0.95 * cap * (d + 1) * 4
+    ms = idx.memory_stats()
+    assert ms["device_rows_bytes"] == 0.0
+    assert ms["host_rows_bytes"] == cap * (d + 1) * 4
+    idx.restore_rows_to_device()
+    assert torch.equal(idx.vectors, rows)

@@ -455,23 +455,41 @@ def test_jax_topk_pallas_repeats_into_the_inf_tail():
     assert np.asarray(jk[2]).tolist() == [[True, False, True, True]]
 
 
-def test_unported_modes_raise():
-    """What the port still leaves out raises: the host rows tier
-    (`rerank_source="host"`) and the PQ baseline."""
+def test_host_tier_and_pq_run():
+    """The host rows tier and the PQ baseline run in the port: the
+    host-source `core_search` returns the full-width estimator frontier,
+    equal to the device-source search's frontier before its rerank; with
+    the rows evicted it needs no rows; `quantization="pq"` builds and
+    searches behind its DeprecationWarning."""
     from repro_torch.core.construction import ConstructionParams
     from repro_torch.core.index import JasperIndex
     from repro_torch.core.index_core import core_search
     from repro_torch.core.search_spec import ResolvedSearchSpec, SearchSpec
     c = Case(9)
+    params = ConstructionParams(degree_bound=R, beam_width=16, max_iters=16,
+                                rev_cap=R, prune_chunk=64)
     idx = JasperIndex(D, N, quantization="rabitq", device="cpu",
-                      construction=ConstructionParams(
-                          degree_bound=R, beam_width=16, max_iters=16,
-                          rev_cap=R, prune_chunk=64))
+                      construction=params)
     idx.build(c.vectors[:64])
-    host = ResolvedSearchSpec(**{
-        **SearchSpec(quantized=True, fusion="hop").resolve().__dict__,
-        "rerank_source": "host"})
-    with pytest.raises(NotImplementedError, match="queue A"):
-        core_search(idx.core, _t(c.queries), spec=host)
-    with pytest.raises(NotImplementedError, match="PQ"):
-        JasperIndex(D, N, quantization="pq", device="cpu")
+    base = SearchSpec(quantized=True, fusion="hop").resolve()
+    host = ResolvedSearchSpec(**{**base.__dict__, "rerank_source": "host"})
+    none = ResolvedSearchSpec(**{**base.__dict__, "rerank_source": "none",
+                                 "rerank": False, "k": base.beam_width})
+    q = _t(c.queries)
+    got = core_search(idx.core, q, spec=host)
+    want = core_search(idx.core, q, spec=none)
+    assert got[0].shape == (Q, base.beam_width)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    idx.evict_rows_to_host()
+    assert idx.core.vectors is None
+    for a, b in zip(core_search(idx.core, q, spec=host), want):
+        assert torch.equal(a, b)
+    with pytest.warns(DeprecationWarning, match="NEGATIVE"):
+        pq = JasperIndex(D, N, quantization="pq", device="cpu",
+                         construction=params)
+    pq.build(c.vectors[:64])
+    with pytest.warns(DeprecationWarning, match="search_pq"):
+        ids, dists = pq.search_pq(q, 5, beam_width=16)
+    assert ids.shape == dists.shape == (Q, 5)
+    assert bool((ids >= 0).all()) and bool(torch.isfinite(dists).all())

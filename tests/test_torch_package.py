@@ -57,7 +57,7 @@ def test_package_has_the_slice_modules():
                  "training.train_loop", "training.checkpoint",
                  "launch.train", "core.plans", "obs", "obs.tracing",
                  "obs.metrics", "serving.loadgen", "serving.scheduler",
-                 "serving.anns_service"):
+                 "serving.anns_service", "core.storage", "core.pq"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -298,7 +298,7 @@ def test_expand_schedule_matches(sched):
 
 def test_index_surface_on_cpu():
     """The port's JasperIndex on the CPU: build (l2 and mips), searcher,
-    recall, memory stats; unported options raise."""
+    recall, memory stats; the host rows tier and the PQ baseline."""
     from repro_torch.core.construction import ConstructionParams as TParams
     rng = np.random.default_rng(8)
     data = rng.normal(size=(400, 12)).astype(np.float32)
@@ -320,12 +320,36 @@ def test_index_surface_on_cpu():
         for key in ("vector_bytes_per_row", "graph_bytes_per_row",
                     "rabitq_bytes_per_row", "compression_ratio"):
             assert stats[key] == jstats[key], key
-    host = tss.ResolvedSearchSpec(**{
+    # the host rows tier: the same search, bit for bit, and the JAX
+    # package's tier statistics
+    spec = dict(k=5, beam_width=32, quantized=True, use_kernels=True,
+                fusion="megakernel")
+    dev = idx.searcher(**spec).search(q)
+    idx.evict_rows_to_host()
+    host = idx.searcher(**spec, rerank_source="host").search(q)
+    assert torch.equal(host.ids, dev.ids) and torch.equal(host.dists,
+                                                          dev.dists)
+    from repro.core.storage import TIER_STAT_KEYS
+    stats = idx.memory_stats()
+    assert set(TIER_STAT_KEYS) <= set(stats)
+    rows, codes = 400 * (13 + 1) * 4, stats["rabitq_resident_bytes"]
+    assert (stats["rows_tier"], stats["device_rows_bytes"],
+            stats["host_rows_bytes"], stats["device_codes_bytes"]) == (
+        "host", 0.0, rows, codes)
+    assert stats["device_compression_ratio"] == (rows + codes) / codes
+    host_spec = tss.ResolvedSearchSpec(**{
         **tss.SearchSpec(quantized=True).resolve().__dict__,
         "rerank_source": "host"})
-    with pytest.raises(NotImplementedError, match="host"):
-        core_search(idx.core, torch.as_tensor(q), spec=host)
-    with pytest.raises(NotImplementedError):
-        TIndex(12, 10, quantization="pq", device="cpu")
+    out = core_search(idx.core, idx._prep_query(q), spec=host_spec)
+    assert out[0].shape == (16, host_spec.beam_width)
+    # the PQ baseline: opt-in behind its warning, as in the JAX package
+    with pytest.warns(DeprecationWarning):
+        pq = TIndex(12, 400, quantization="pq", construction=TParams(**PARAMS),
+                    device="cpu")
+    pq.build(data)
+    assert pq.pq_codes.shape == (400, 4)
+    with pytest.warns(DeprecationWarning):
+        ids, _ = pq.search_pq(q, 5, beam_width=32)
+    assert ids.shape == (16, 5)
     with pytest.raises(ValueError):
         TIndex(12, 10, metric="cosine", device="cpu")

@@ -8,9 +8,8 @@ by its checkpoint; integer-valued rows, so every distance is exact and
 both packages build the same graph). The tickets' ids agree to the
 conformance bar (>= 0.95) and their dists within rtol 1e-3 / atol 1e-2;
 generations, `ServiceStats`, tenant stats, the tick that consolidates and
-the `metrics_snapshot()` keys are equal. The keys differ only by the
-JAX package's `storage.*` namespace (its tiered store), which the port
-adds with its port of `core/storage.py`.
+the `metrics_snapshot()` keys, `storage.*` (the tiered store) included,
+are equal.
 
 Then the service's own cases: the generation stamp through consolidate,
 auto-grow mid-churn, refused deletes, the single-device rebalance no-op,
@@ -117,10 +116,9 @@ def test_op_stream_matches_jax(tmp_path):
     assert t["stats"] == j["stats"]
     assert t["tenants"] == j["tenants"]
     assert t["generation"] == j["generation"]
-    # storage.* is the JAX package's tiered store (not ported yet)
-    assert t["keys"] == {k for k in j["keys"] if not k.startswith("storage.")}
+    assert t["keys"] == j["keys"]
     assert {k.split(".")[0] for k in t["keys"]} >= {
-        "service", "plan_cache", "shards", "search", "tenants"}
+        "service", "plan_cache", "shards", "search", "tenants", "storage"}
 
 
 # ------------------------------------------------------ the service's cases
