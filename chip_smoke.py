@@ -211,9 +211,38 @@ Phases:
                 2,000 x 64 candidates: `pq_distance` against #2 `gather_l2`
                 and #5 `rabitq_gather_distance` (CUDA events).
 
-Prints the serving and host-tier JSON lines, the kernel JSON line (with
-each search kernel's launches a host-tier search of its lane as
-`launches_host_tier`), the card's name and
+ 13. the row-sharded index — after 12, before 8: `ShardedJasperIndex` on
+                a mesh of 4 shards on the card, phase 4's data (1M x 128,
+                4 x 262,144 rows, R 64, 4-bit). (a) Build: seconds, live
+                rows a shard. (b) The main spec through its captured plan
+                (one CUDA graph for the four shard searches and the
+                merge): the first search captures once; the replays are
+                bit-equal to eager and to the merge of the four
+                `shard_core(s)` searches, each launching #1 4 and #2 4
+                times; telemetry = the sum of the shards' counters;
+                recall@10 >= 0.85 and >= phase 4's - 0.02; eager and
+                replay host-clock times (mean of 10). (c) The hop lane ==
+                the megakernel lane and merge-kernel == topk-merge, bit for
+                bit, with the launches a shard (#4 / #9 = each shard's
+                iterations, #3 = iterations + 1 a shard, #2 4). (d) Delete
+                1 % of all rows from shard 0, consolidate, insert 2 %
+                (shard 0 reuses its slots), rebalance (tolerance 0.01):
+                no tombstoned id, no recapture, replays == eager, moved
+                rows at their translated ids, recall >= 0.85; then (after
+                (e)) a grow: one recapture, the same results. (e) Save;
+                load at 4 shards (bit-equal searches) and at 2 (a reshard,
+                relink "auto"): translated ids at their rows, the exact
+                top-10 kept, no dead id; recall at beam 64 and 128
+                printed. (f) Evict: device memory falls >= 0.95 x the rows,
+                host tier == device tier bit for bit, #1 4 + #2 4. (g)
+                `AnnsService.run`, 10 ticks of deletes from shard 0: the
+                rebalance trigger fires, `shards.*` gauges, recall >= 0.85.
+                Prints one `{"sharded": ...}` JSON line.
+
+Prints the serving, host-tier and sharded JSON lines, the kernel JSON
+line (with each search kernel's launches a host-tier search of its lane
+as `launches_host_tier` and a sharded search as `launches_sharded`), the
+card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
@@ -2479,6 +2508,481 @@ def pq_baseline(args, q_dev) -> dict:
     return out
 
 
+# ------------------------------------------------ the sharded index (phase 13)
+SHARDS = 4
+SHARD_CAP = 262_144            # rows a shard (4 x 262,144 >= 1M)
+SHARD_RECALL_SLACK = 0.02      # tests/test_conformance.py's sharded slack
+SHARD_REBALANCE_TOL = 0.01     # the churn round's skew is ~4 %: level it
+SHARD_TICKS = 10
+SHARD_TICK_QUERIES = 1_000
+SHARD_REBALANCE_AT = 0.06      # the service's imbalance trigger
+SHARD_CHECK_IDS = 10_000       # translated ids whose rows are compared
+
+
+def _parts(r) -> tuple:
+    """(ids, dists, hops[, telemetry]) of a SearchResult or of a
+    core_search tuple."""
+    if hasattr(r, "generation"):
+        tel = () if r.telemetry is None else (r.telemetry,)
+        return (r.ids, r.dists, r.n_hops) + tel
+    return tuple(r)
+
+
+def _same_res(a, b) -> bool:
+    """Two search results bit-equal in ids, dists, hops and any
+    telemetry."""
+    a, b = _parts(a), _parts(b)
+    if len(a) != len(b) or not all(torch.equal(x, y)
+                                   for x, y in zip(a[:3], b[:3])):
+        return False
+    return len(a) == 3 or all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
+
+
+def _sharded_eager(idx, spec, q) -> tuple:
+    """The sharded search run eagerly: every shard's core_search, then the
+    merge."""
+    return idx._plan_search(idx.core, q, spec.resolve(idx),
+                            idx._filter_tombstones, spec.filter_bytes(),
+                            mirrors=False)
+
+
+def _per_shard(idx, spec, q) -> list:
+    """Each shard's own core_search on `shard_core(s)`."""
+    from repro_torch.core.index_core import core_search
+    rspec = spec.resolve(idx)
+    return [core_search(idx.shard_core(s), q, spec=rspec,
+                        filter_tombstones=idx._filter_tombstones,
+                        filter_bytes=spec.filter_bytes())
+            for s in range(idx.n_shards)]
+
+
+def _no_dead(idx, res) -> bool:
+    ids = res.ids.cpu().numpy()
+    return not idx.tombstoned(ids[ids >= 0]).any()
+
+
+def sharded_search(idx, q_dev, gt, single_recall: float) -> dict:
+    """Phase 13 (b): the main spec over four shards through its captured
+    plan: replay == eager == the merge of the four shard searches,
+    launches, telemetry, recall, host-clock times."""
+    from repro_torch.core.distributed import merge_topk
+    from repro_torch.core.plans import GraphPlan
+    main = _mk_spec()
+    s_n = idx.n_shards
+    want = counts(fused_search=s_n, gather_l2=s_n)
+    before = idx.plans.stats.snapshot()
+    ses = idx.searcher(main)
+    res, secs, launched = counted(lambda: ses.search(q_dev))
+    delta = idx.plans.stats.delta(before)
+    check(delta["misses"] == 1 and delta["traces"] == 1,
+          f"the first sharded search did not capture once: {delta}")
+    check(launched == want, f"a captured sharded search counted {launched}, "
+          f"expected {want}")
+    plan = idx._search_plan(ses.resolved, tuple(q_dev.shape),
+                            idx._filter_tombstones)
+    check(isinstance(plan, GraphPlan) and plan._graph is not None,
+          "the sharded main spec's plan is not one captured CUDA graph")
+    eager = _sharded_eager(idx, main, q_dev)
+    check(_same_res(res, eager), "the captured sharded search differs from "
+          "the eager one")
+    per = _per_shard(idx, main, q_dev)
+    row0 = torch.arange(s_n, dtype=torch.int32, device=q_dev.device) \
+        * idx.id_stride
+    ids = torch.stack([o[0] for o in per])
+    gids = torch.where(ids >= 0, ids + row0[:, None, None],
+                       torch.full_like(ids, -1))
+    m_ids, m_d = merge_topk(gids, torch.stack([o[1] for o in per]),
+                            idx.axis_sizes, 10)
+    hops = torch.stack([o[2] for o in per]).amax(0)
+    check(torch.equal(res.ids, m_ids) and torch.equal(res.dists, m_d)
+          and torch.equal(res.n_hops, hops),
+          "the sharded search is not the merge of the four shard searches")
+    for _ in range(3):
+        r, _, launched = counted(lambda: ses.search(q_dev))
+        check(launched == want, f"a sharded replay counted {launched}")
+        check(_same_res(r, eager), "a sharded replay differs from eager")
+    tel = main.with_(telemetry="on")
+    t_res = idx.searcher(tel).search(q_dev)
+    t_per = _per_shard(idx, tel, q_dev)
+    for i, name in enumerate(("scored", "masked", "duplicates", "occupancy")):
+        total = t_per[0][3][i].clone()
+        for o in t_per[1:]:
+            total += o[3][i]
+        check(torch.equal(t_res.telemetry[i], total),
+              f"sharded telemetry {name} is not the sum over the shards")
+    check(torch.equal(t_res.ids, res.ids), "telemetry changed the ids")
+    rec = recall_at(res.ids, gt)
+    log(f"  first search (captures): {secs:.3f} s, plan cache {delta}, "
+        f"launches {({k: v for k, v in launched.items() if v})}; 3 replays "
+        "bit-equal to eager and to the merge of the four shard_core "
+        "searches; telemetry = the sum of the shards' counters")
+    check(rec >= RECALL_FLOOR, f"sharded recall@10 {rec:.4f} < {RECALL_FLOOR}")
+    check(rec >= single_recall - SHARD_RECALL_SLACK,
+          f"sharded recall@10 {rec:.4f} more than {SHARD_RECALL_SLACK} below "
+          f"phase 4's single-device {single_recall:.4f}")
+    rspec = main.resolve(idx)
+    filt = idx._filter_tombstones
+    eager_ms = _host_ms(lambda: idx._plan_search(idx.core, q_dev, rspec, filt,
+                                                 None, mirrors=False))
+    replay_ms = _host_ms(lambda: ses.search(q_dev))
+    prof = {}
+    profile_device(lambda: ses.search(q_dev), "phase 13, one replayed "
+                   "4-shard search", stats=prof)
+    log(f"  recall@10 {rec:.4f} (phase 4's single-device {single_recall:.4f})"
+        f"; {q_dev.shape[0]} queries, synchronised host clock, mean of 10: "
+        f"eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms; device busy "
+        f"{_share(prof)} of a replay")
+    return dict(recall=rec, single_recall=single_recall, eager_ms=eager_ms,
+                replay_ms=replay_ms, launches=launched, capture_s=secs,
+                busy=prof.get("share"), mk=res)
+
+
+def sharded_lanes(idx, q_dev, mk) -> dict:
+    """Phase 13 (c): the hop lane == the megakernel lane bit for bit, and
+    the merge-kernel lane == its topk-merge twin; launches a shard."""
+    from repro_torch.core.search_spec import SearchSpec
+    base = dict(k=10, beam_width=64, quantized=True, use_kernels=True)
+    lanes = {"hop": SearchSpec(fusion="hop", **base),
+             "merge-kernel": SearchSpec(merge="kernel", **base),
+             "topk-merge": SearchSpec(merge="topk", **base)}
+    out = {}
+    for name, spec in lanes.items():
+        res, secs, launched = counted(
+            lambda: idx.searcher(spec).search(q_dev))
+        iters = [int(o[2].max()) for o in _per_shard(idx, spec, q_dev)]
+        n = sum(iters)
+        want = {"hop": counts(fused_hop=n, gather_l2=SHARDS),
+                "merge-kernel": counts(topk=n, gather_l2=SHARDS,
+                                       rabitq_search_step=n + SHARDS),
+                "topk-merge": counts(gather_l2=SHARDS,
+                                     rabitq_search_step=n + SHARDS)}[name]
+        log(f"  {name:12s} {secs:.3f} s ({q_dev.shape[0] / secs:.0f} QPS), "
+            f"iterations a shard {iters}, launches "
+            f"{({k: v for k, v in launched.items() if v})}")
+        check(launched == want, f"sharded {name} launched {launched}, "
+              f"expected {want}")
+        out[name] = dict(res=res, secs=secs, launches=launched, iters=iters)
+    check(_same_res(out["hop"]["res"], mk),
+          "the sharded hop lane differs from the megakernel lane")
+    check(_same_res(out["merge-kernel"]["res"], out["topk-merge"]["res"]),
+          "the sharded merge-kernel lane differs from its topk-merge twin")
+    log("  hop == megakernel and merge-kernel == topk-merge, bit for bit")
+    return {k: dict(secs=v["secs"], launches=v["launches"],
+                    iters=v["iters"]) for k, v in out.items()}
+
+
+def sharded_churn(idx, q_dev, ckpt_dir: Path) -> dict:
+    """Phase 13 (d) and (e): a delete of 1 % of all rows, all from shard
+    0; consolidate; insert 2 %; rebalance; the checkpoints; then a grow —
+    each followed by a search through the captured plan."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    main = _mk_spec()
+    ses = idx.searcher(main)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    n0 = idx.size
+    n_del = n0 // 100
+    live0 = np.flatnonzero(~idx.tombstoned(np.arange(idx.cap)))
+    dead = np.sort(live0[torch.randperm(live0.size, generator=gen)[:n_del]
+                         .numpy()])
+    out = {}
+    t0 = time.perf_counter()
+    n = idx.delete(dead)
+    torch.cuda.synchronize()
+    out["delete_s"] = time.perf_counter() - t0
+    check(n == n_del and idx.size == n0 - n_del, "sharded delete counts")
+    res = ses.search(q_dev)          # the liveness mode's plan: one capture
+    check(_no_dead(idx, res), "a search after the delete returned a "
+          "tombstoned id")
+    check(_same_res(res, _sharded_eager(idx, main, q_dev)),
+          "the replay after the delete differs from eager")
+    base = idx.plans.stats.snapshot()
+    live = idx.shard_live_counts().tolist()
+    log(f"  delete {n_del} rows of shard 0: {out['delete_s']:.3f} s; live "
+        f"a shard {live}, imbalance {idx.shard_imbalance:.4f}; no "
+        "tombstoned id")
+
+    def step(what):
+        r = ses.search(q_dev)
+        check(_no_dead(idx, r), f"a search after {what} returned a "
+              "tombstoned id")
+        check(_same_res(r, _sharded_eager(idx, main, q_dev)),
+              f"the replay after {what} differs from eager")
+        d = idx.plans.stats.delta(base)
+        check(d["traces"] == 0, f"{what} recaptured the plan: {d}")
+        return r
+
+    t0 = time.perf_counter()
+    stats = idx.consolidate()
+    torch.cuda.synchronize()
+    out["consolidate_s"] = time.perf_counter() - t0
+    check(stats["n_freed"] == n_del, f"consolidate freed {stats}")
+    step("the consolidate")
+    new = make_anns_dataset(ANNS_DATASETS["bigann"], n=2 * n_del,
+                            seed=SEED + 2)
+    new = new[:new.shape[0] - new.shape[0] % SHARDS]
+    t0 = time.perf_counter()
+    ids = idx.insert(new)
+    torch.cuda.synchronize()
+    out["insert_s"] = time.perf_counter() - t0
+    b = new.shape[0] // SHARDS
+    check(np.array_equal(ids[:b], dead[:b]), "shard 0 did not reuse its "
+          "freed slots in ascending order")
+    step("the insert")
+    before = idx.shard_live_counts().tolist()
+    vecs = idx.core.vectors.clone()
+    t0 = time.perf_counter()
+    reb = idx.rebalance(tolerance=SHARD_REBALANCE_TOL)
+    torch.cuda.synchronize()
+    out["rebalance_s"] = time.perf_counter() - t0
+    after = idx.shard_live_counts()
+    check(reb["n_moved"] > 0 and reb["translation"] is not None,
+          f"rebalance moved nothing: {reb['counts_before']}")
+    check(int(after.max() - after.min()) <= max(1.0, SHARD_REBALANCE_TOL
+                                                * after.mean()),
+          f"rebalance left the shards at {after.tolist()}")
+    t = reb["translation"]
+
+    def pos(g, cap):
+        g = np.asarray(g, np.int64)
+        return torch.as_tensor((g // idx.id_stride) * cap + g % idx.id_stride,
+                               device=q_dev.device)
+
+    check(torch.equal(vecs[pos(t.old_ids, idx.cap)],
+                      idx.core.vectors[pos(t.apply(t.old_ids), idx.cap)]),
+          "a moved row is not at its translated id")
+    del vecs
+    res = step("the rebalance")
+    gt, _ = idx.brute_force(q_dev, 10)
+    rec = recall_at(res.ids, gt)
+    check(rec >= RECALL_FLOOR, f"recall after the rebalance {rec:.4f}")
+    log(f"  consolidate {out['consolidate_s']:.2f} s ({stats}); insert "
+        f"{new.shape[0]} {out['insert_s']:.2f} s (shard 0 reuses its freed "
+        f"slots); rebalance (tolerance {SHARD_REBALANCE_TOL}) "
+        f"{out['rebalance_s']:.2f} s: {before} -> {after.tolist()}, "
+        f"{reb['n_moved']} rows moved, their rows at their translated ids; "
+        f"no recapture; recall@10 {rec:.4f}")
+    out.update(n_moved=reb["n_moved"], live_before=before,
+               live_after=after.tolist(), recall=rec)
+
+    out["checkpoints"] = sharded_checkpoints(idx, q_dev, res, ckpt_dir)
+
+    t0 = time.perf_counter()
+    idx.grow()
+    torch.cuda.synchronize()
+    out["grow_s"] = time.perf_counter() - t0
+    g = ses.search(q_dev)
+    d = idx.plans.stats.delta(base)
+    check(d["traces"] == 1, f"the grow recaptured {d['traces']} times")
+    check(_same_res(g, res), "the search after the grow differs from the "
+          "one before it")
+    check(_same_res(g, _sharded_eager(idx, main, q_dev)),
+          "the replay after the grow differs from eager")
+    log(f"  grow to {idx.cap} rows a shard: {out['grow_s']:.3f} s, one "
+        "recapture, the same results")
+    return out
+
+
+def sharded_checkpoints(idx, q_dev, res, ckpt_dir: Path) -> dict:
+    """Phase 13 (e): save; load at 4 shards (bit-equal searches) and at 2
+    (a reshard: translated ids at their rows, the exact top-10 kept, no
+    dead id; recall measured)."""
+    import shutil
+
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.launch.mesh import make_mesh
+    main = _mk_spec()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    path = str(ckpt_dir / "sharded")
+    out = {}
+    t0 = time.perf_counter()
+    idx.save(path)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = ShardedJasperIndex.load(make_mesh((SHARDS,), ("data",)), path)
+    torch.cuda.synchronize()
+    out["load4_s"] = time.perf_counter() - t0
+    check(four.reshard_translation is None and four.n_shards == SHARDS,
+          "a same-count load resharded")
+    check(_same_res(four.searcher(main).search(q_dev), res),
+          "the index loaded at 4 shards searches differently")
+    del four
+    gc.collect()
+    t0 = time.perf_counter()
+    two = ShardedJasperIndex.load(make_mesh((2,), ("data",)), path)
+    torch.cuda.synchronize()
+    out["load2_s"] = time.perf_counter() - t0
+    t = two.reshard_translation
+    check(two.n_shards == 2 and t is not None and len(t) == idx.size,
+          "the 2-shard load did not reshard every live row")
+    gen = torch.Generator().manual_seed(SEED + 19)
+    old = t.old_ids[torch.randperm(len(t), generator=gen)[:SHARD_CHECK_IDS]
+                    .numpy()]
+    new = t.apply(old)
+
+    def rows(index, g):
+        p = (g // index.id_stride) * index.cap + g % index.id_stride
+        return index.core.vectors[torch.as_tensor(p, device=q_dev.device)]
+
+    check(bool((new >= 0).all()) and torch.equal(rows(idx, old),
+                                                 rows(two, new)),
+          "translated ids do not find their rows after the reshard")
+    # the reshard keeps every live row: the same exact top-10 distances,
+    # and the same ids through the translation wherever a distance is
+    # not tied within its row
+    gt4, gd4 = idx.brute_force(q_dev, 10)
+    gt2, gd2 = two.brute_force(q_dev, 10)
+    check(torch.equal(gd4, gd2), "the reshard changed the exact top-10")
+    d = gd4.cpu().numpy()
+    untied = np.ones(d.shape, bool)
+    untied[:, 1:] &= d[:, 1:] != d[:, :-1]
+    untied[:, :-1] &= d[:, :-1] != d[:, 1:]
+    untied[:, -1] = False
+    check(np.array_equal(t.apply(gt4.cpu().numpy())[untied],
+                         gt2.cpu().numpy()[untied]),
+          "the exact top-10 ids do not map through the translation")
+    res2 = two.searcher(main).search(q_dev)
+    check(_no_dead(two, res2), "the resharded index returned a dead id")
+    rec = recall_at(res2.ids, gt2)
+    wide = main.with_(beam_width=128)
+    rec_wide = recall_at(two.searcher(wide).search(q_dev).ids, gt2)
+    log(f"  checkpoint: save {out['save_s']:.2f} s; load at 4 shards "
+        f"{out['load4_s']:.2f} s, searches bit-equal; load at 2 shards "
+        f"(reshard, relink auto) {out['load2_s']:.2f} s, capacity "
+        f"{two.cap} a shard, {SHARD_CHECK_IDS} translated ids at their "
+        f"rows, the exact top-10 kept; recall@10 {rec:.4f} at beam 64, "
+        f"{rec_wide:.4f} at the equal total budget (beam 128) — each "
+        "merged shard holds two graphs joined by the medoid's bridge "
+        "edges, as in the JAX package")
+    out["recall2_wide"] = rec_wide
+    out["recall2"] = rec
+    del two
+    gc.collect()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def sharded_host_tier(idx, q_dev) -> dict:
+    """Phase 13 (f): evict the stacked rows; host == device on the
+    megakernel lane, launches #1 4 + #2 4, no tombstoned id; restore."""
+    main = _mk_spec()
+    host = main.with_(rerank_source="host")
+    device = idx.searcher(main).search(q_dev)
+    rows = idx.capacity * (idx.store_dims + 1) * 4
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    idx.evict_rows_to_host()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(before - after >= 0.95 * rows,
+          f"eviction freed {before - after} B of device memory, less than "
+          f"0.95 x the rows' {rows} B")
+    ses = idx.searcher(host)
+    ses.search(q_dev)
+    res, secs, launched = counted(lambda: ses.search(q_dev))
+    want = counts(fused_search=SHARDS, gather_l2=SHARDS)
+    check(launched == want, f"a sharded host-tier search counted {launched}")
+    check(_same_res(res, device), "the sharded host tier differs from the "
+          "device tier")
+    check(_no_dead(idx, res), "the host tier returned a tombstoned id")
+    ms = _host_ms(lambda: ses.search(q_dev))
+    log(f"  evict: device memory fell {(before - after) / 1e9:.3f} GB (rows "
+        f"{rows / 1e9:.3f} GB); host tier == device tier bit for bit, "
+        f"launches {({k: v for k, v in launched.items() if v})}, "
+        f"{ms:.2f} ms a 10,000-query search (host clock, mean of 10)")
+    idx.restore_rows_to_device()
+    return dict(freed_gb=(before - after) / 1e9, rows_gb=rows / 1e9,
+                host_ms=ms, launches=launched)
+
+
+def sharded_serving(idx, q_dev) -> dict:
+    """Phase 13 (g): `AnnsService.run` over ticks of deletes skewed onto
+    shard 0: the rebalance trigger fires, the `shards.*` gauges report the
+    four shards, recall holds."""
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    from repro_torch.serving.anns_service import AnnsService
+    main = _mk_spec()
+    svc = AnnsService(idx, spec=main, consolidate_threshold=0.012,
+                      rebalance_threshold=SHARD_REBALANCE_AT, verify=True)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    n_del = idx.size // 400           # the trigger fires about tick 5
+    n_ins = idx.size // 1000 // SHARDS * SHARDS
+    new = make_anns_dataset(ANNS_DATASETS["bigann"], n=n_ins * SHARD_TICKS,
+                            seed=SEED + 8)
+    queries = q_dev[:SHARD_TICK_QUERIES].cpu().numpy()
+    fired = []
+    t0 = time.perf_counter()
+    for tick in range(SHARD_TICKS):
+        live0 = np.flatnonzero(~idx.tombstoned(np.arange(idx.cap)))
+        dead = np.sort(live0[torch.randperm(live0.size, generator=gen)[:n_del]
+                             .numpy()])
+        n_reb = svc.stats.n_rebalances
+        svc.run([("delete", dead),
+                 ("insert", new[tick * n_ins:(tick + 1) * n_ins]),
+                 ("search", queries)])
+        if svc.stats.n_rebalances > n_reb:
+            fired.append(tick)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    snap = svc.metrics_snapshot()
+    gauges = {k: v for k, v in snap.items() if k.startswith("shards.")}
+    check(fired, "the service's rebalance never fired")
+    check(gauges.get("shards.count") == SHARDS
+          and gauges.get("shards.live") == idx.shard_live_counts().tolist(),
+          f"shards.* gauges {gauges}")
+    rec = idx.recall(q_dev, 10, spec=main)
+    check(rec >= RECALL_FLOOR, f"recall after the service ticks {rec:.4f}")
+    log(f"  {SHARD_TICKS} ticks of delete {n_del} (shard 0) / insert {n_ins}"
+        f" / search {SHARD_TICK_QUERIES}: {secs:.2f} s; rebalance fired at "
+        f"ticks {fired} ({svc.stats.n_rebalance_rows} rows moved), "
+        f"consolidations {svc.stats.n_consolidations}; {gauges}; recall@10 "
+        f"{rec:.4f}")
+    return dict(seconds=secs, rebalanced_at=fired,
+                moved=svc.stats.n_rebalance_rows, gauges=gauges, recall=rec)
+
+
+def sharded_phase(args, q_dev, single_recall: float) -> dict:
+    """Phase 13: the row-sharded index on phase 4's data, four shards on
+    the card."""
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    n = args.n - args.n % SHARDS
+    per = n // SHARDS
+    data = make_anns_dataset(ANNS_DATASETS["bigann"], n=args.n, seed=SEED)[:n]
+    params = ConstructionParams(degree_bound=64, alpha=1.2, beam_width=64,
+                                max_iters=96, rev_cap=64,
+                                prune_chunk=PRUNE_CHUNK)
+    cap = max(SHARD_CAP, -(-per // 8) * 8)
+    idx = ShardedJasperIndex(make_mesh((SHARDS,), ("data",)), data.shape[1],
+                             cap, quantization="rabitq", bits=4,
+                             construction=params, seed=SEED)
+    (_, build_s, launched) = counted(lambda: idx.build(data))
+    del data
+    check(not any(launched.values()), "construction launched a search kernel")
+    live = idx.shard_live_counts().tolist()
+    log(f"  build {n} rows in {SHARDS} shards of {cap}: {build_s:.2f} s "
+        f"({n / build_s:.0f} rows/s); live a shard {live}; device memory in "
+        f"use {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    gt, _ = idx.brute_force(q_dev, 10)
+    out = dict(build_s=build_s, live=live, capacity_per_shard=cap)
+    search = sharded_search(idx, q_dev, gt, single_recall)
+    out["lanes"] = sharded_lanes(idx, q_dev, search.pop("mk"))
+    out["search"] = search
+    out["churn"] = sharded_churn(
+        idx, q_dev, Path(__file__).resolve().parent / "build" / "phase13")
+    out["host_tier"] = sharded_host_tier(idx, q_dev)
+    out["serving"] = sharded_serving(idx, q_dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    del idx
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------ flash attention (#10, #11)
 # name, b, sq, skv, h, hk, dh, causal, window, q_offset
 FLASH_GRID = [
@@ -3482,6 +3986,26 @@ def main() -> int:
     log(f"[12] the PQ baseline over the first {PQ_ROWS} rows of phase 4's "
         "data")
     pq_baseline(args, q_dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[13] the row-sharded index: {SHARDS} shards of phase 4's data on "
+        "the card — build, the captured 4-shard plan, the hop and "
+        "merge-kernel lanes, skewed churn, rebalance, checkpoints and a "
+        "4 -> 2 reshard, the host tier, serving")
+    sharded = sharded_phase(args, q_dev, quant["recall"])
+    # each search kernel's launches in one sharded search of its lane
+    lanes = sharded["lanes"]
+    launches_sharded = {
+        "fused_search": sharded["search"]["launches"]["fused_search"],
+        "gather_l2": sharded["search"]["launches"]["gather_l2"],
+        "fused_hop": lanes["hop"]["launches"]["fused_hop"],
+        "rabitq_search_step":
+            lanes["merge-kernel"]["launches"]["rabitq_search_step"],
+        "topk": lanes["merge-kernel"]["launches"]["topk"]}
+    for rec in records:
+        if rec["name"] in launches_sharded:
+            rec["launches_sharded"] = launches_sharded[rec["name"]]
+    print(json.dumps({"sharded": sharded}, default=str))
     del q_dev
     gc.collect()
     torch.cuda.empty_cache()

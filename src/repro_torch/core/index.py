@@ -46,6 +46,7 @@ from repro_torch.core.index_core import (
     bitmap_test_np,
     core_build,
     core_consolidate,
+    core_search,
     core_delete,
     core_encode_rows,
     core_from_arrays,
@@ -454,6 +455,21 @@ class JasperIndex(SearchSurface):
 
     # ------------------------------------------------------------ search
     # searcher()/recall() come from SearchSurface
+    def _sync_mirrors(self, core: IndexCore) -> None:
+        """Bring the device mirrors up to `core`'s scalars (a plan, before
+        a replay)."""
+        self.scalars.sync(core)
+
+    def _plan_search(self, core: IndexCore, queries, rspec, filt: bool,
+                     filter_bytes, *, mirrors: bool) -> tuple:
+        """What a plan runs: `core_search` on `core`, reading n_valid and
+        medoid through the device mirrors when `mirrors` (a captured
+        plan)."""
+        if mirrors:
+            core = self.scalars.view(core)
+        return core_search(core, queries, spec=rspec, filter_tombstones=filt,
+                           filter_bytes=filter_bytes)
+
     def _search_plan(self, rspec, q_shape, filt: bool):
         """Plan-cache lookup/build: `(queries, filter_bytes) -> (ids,
         dists, n_hops[, telemetry])`. The filter value is a run-time

@@ -3,9 +3,10 @@
 Port of `repro.core.index_core`. One capacity-allocated frozen dataclass
 of tensors holds everything a search needs — f32 rows, packed RaBitQ
 codes, adjacency, tombstone bitmap, label plane, medoid — and plain
-functions operate on it: `core_build`, `core_search`, `core_brute_force`
-and the mutation lifecycle `core_insert_at`, `core_delete`,
-`core_consolidate`, `core_take_free_slots`, `core_grow`. Rows, codes and
+functions operate on it: `core_build`, `core_bootstrap` (the sharded
+build's base case), `core_search`, `core_brute_force` and the mutation
+lifecycle `core_insert_at`, `core_delete`, `core_consolidate`,
+`core_take_free_slots`, `core_grow`. Rows, codes and
 adjacency are written in place; `core_grow` allocates the larger buffers
 and copies the resident prefix. `JasperIndex` is a thin host-side layer
 over one core.
@@ -33,6 +34,7 @@ from repro_torch.core.beam_search import (
 from repro_torch.core.construction import (
     ConstructionParams,
     batch_insert_at,
+    bootstrap_graph,
     build_graph,
 )
 from repro_torch.core.mutations import (
@@ -201,6 +203,17 @@ def core_insert_at(core: IndexCore, ids: torch.Tensor, rows: torch.Tensor,
     core = with_graph(core, graph)
     return replace(core, mut=replace(core.mut,
                                      generation=core.mut.generation + 1))
+
+
+def core_bootstrap(core: IndexCore, rows: torch.Tensor, *, n0: int,
+                   params: ConstructionParams) -> IndexCore:
+    """All-pairs bootstrap over the first n0 rows (the empty-core base
+    case of the sharded build): write rows 0..n0, then `bootstrap_graph`.
+    The generation is left as it is, as in the JAX version."""
+    core = core_write_rows(
+        core, torch.arange(n0, dtype=torch.int32, device=core.device), rows)
+    return with_graph(core, bootstrap_graph(core.vectors, core.graph, n0=n0,
+                                            params=params))
 
 
 def core_build(core: IndexCore, data: torch.Tensor, *,

@@ -33,6 +33,16 @@ core's existing buffers (`keep_buffers`), and `n_valid` and `medoid`,
 host ints on the core, reach a captured search as 0-d int32 device
 mirrors (`DeviceScalars`) that the kernels read through a pointer.
 
+A plan runs its index's `_plan_search(core, queries, spec, liveness,
+filter_bytes, mirrors=...)` and syncs its mirrors through
+`_sync_mirrors(core)`: for a `JasperIndex` that is `core_search` on its
+core; for a `ShardedJasperIndex` (core/distributed.py) every shard's
+`core_search` on its slices of the stacked core, then the merge — so a
+sharded megakernel search is ONE captured graph, each shard reading its
+own mirrors, and `fingerprint` of the stacked core covers every shard's
+buffers. `ShardedHostTierPlan` is the sharded host-tier search: one
+gather of the stacked frontier's rows, then the sharded rerank plan.
+
 Launch counters: the kernel wrappers count their launches in Python, and
 a replay bypasses them. So a capture takes back what its warm-up and the
 capture itself counted, and each replay adds the captured launches: one
@@ -46,7 +56,7 @@ from dataclasses import fields, is_dataclass, replace
 import numpy as np
 import torch
 
-from repro_torch.core.index_core import IndexCore, core_search
+from repro_torch.core.index_core import IndexCore
 from repro_torch.core.storage import build_host_rerank_plan
 
 def launch_counters() -> dict:
@@ -168,10 +178,9 @@ class EagerPlan:
         if sig != self._signature:
             self.index.plans.count_trace()
             self._signature = sig
-        return core_search(core, queries, spec=self.rspec,
-                           filter_tombstones=self.filt,
-                           filter_bytes=(filter_bytes if self.rspec.filtered
-                                         else None))
+        return self.index._plan_search(
+            core, queries, self.rspec, self.filt,
+            filter_bytes if self.rspec.filtered else None, mirrors=False)
 
 
 _STREAMS: dict = {}
@@ -267,9 +276,8 @@ class GraphPlan:
         self._launched: dict = {}
 
     def _run(self, core: IndexCore) -> tuple:
-        return core_search(self.index.scalars.view(core), self._q,
-                           spec=self.rspec, filter_tombstones=self.filt,
-                           filter_bytes=self._fb)
+        return self.index._plan_search(core, self._q, self.rspec, self.filt,
+                                       self._fb, mirrors=True)
 
     def _capture(self, core: IndexCore) -> None:
         self._graph = self._out = self._fingerprint = None
@@ -296,7 +304,7 @@ class GraphPlan:
         if tuple(queries.shape) != tuple(self._q.shape):
             raise ValueError(f"plan for queries {tuple(self._q.shape)} got "
                              f"{tuple(queries.shape)}")
-        index.scalars.sync(core)
+        index._sync_mirrors(core)
         self._q.copy_(queries)
         if self._fb is not None:
             self._fb.copy_(self._filter_value(filter_bytes))
@@ -311,24 +319,26 @@ class GraphPlan:
 
 class HostRerankPlan:
     """Stage two of a host-tier search, keyed ("rerank_host", resolved
-    spec, query shape): `storage.build_host_rerank_plan`'s rerank over the
-    gathered frontier rows.
+    spec, query shape): the rerank over the gathered frontier rows —
+    `storage.build_host_rerank_plan`'s, or the one given as `body`
+    (`storage.build_sharded_host_rerank_plan`'s, which also takes the
+    per-shard hops and merges the shards).
 
-    On the card it owns static query, frontier-id and row-table buffers
-    (made at the first call, from the frontier's width) and a CUDA graph
-    of the rerank over them, captured once (one trace) and replayed: the
-    gathered rows reach the table by a non-blocking copy from the store's
-    pinned staging buffer (`upload`). On the CPU the rerank runs eagerly
-    and counts one trace at its first call, where a jit would trace (its
-    operands' shapes never depend on the core's).
+    On the card it owns static buffers for its operands (made at the
+    first call, from their shapes) and a CUDA graph of the rerank over
+    them, captured once (one trace) and replayed: the gathered rows reach
+    the table by a non-blocking copy from the store's pinned staging
+    buffer (`upload`). On the CPU the rerank runs eagerly and counts one
+    trace at its first call, where a jit would trace (its operands'
+    shapes never depend on the core's).
     """
 
-    def __init__(self, index, rspec) -> None:
+    def __init__(self, index, rspec, body=None) -> None:
         self.index = index
         self.rspec = rspec
-        self._body = build_host_rerank_plan(rspec)
+        self._body = build_host_rerank_plan(rspec) if body is None else body
         self._traced = False
-        self._bufs = None          # (queries, ids, table, table_sq)
+        self._bufs = None          # (queries, ids, table, table_sq, *extra)
         self._ids_host = None      # pinned copy of the frontier ids
         self._graph = self._out = None
         self._launched: dict = {}
@@ -346,7 +356,7 @@ class HostRerankPlan:
         torch.cuda.current_stream().synchronize()
         return self._ids_host
 
-    def upload(self, queries, frontier_ids, rows, sq) -> None:
+    def upload(self, queries, frontier_ids, rows, sq, *extra) -> None:
         """Copy one batch's operands into the static buffers (card)."""
         if self._bufs is None:
             dev = queries.device
@@ -355,10 +365,13 @@ class HostRerankPlan:
                           torch.empty(rows.shape, dtype=torch.float32,
                                       device=dev),
                           torch.empty(sq.shape, dtype=torch.float32,
-                                      device=dev))
-        q, ids, table, table_sq = self._bufs
+                                      device=dev),
+                          *(torch.empty_like(e) for e in extra))
+        q, ids, table, table_sq, *ex = self._bufs
         q.copy_(queries)
         ids.copy_(frontier_ids)
+        for buf, e in zip(ex, extra):
+            buf.copy_(e)
         self.index.store.upload(rows, sq, table, table_sq)
 
     def replay(self) -> tuple:
@@ -370,13 +383,13 @@ class HostRerankPlan:
             self.index.plans.count_trace()
         return replay(self._graph, self._out, self._launched)
 
-    def __call__(self, queries, frontier_ids, rows, sq) -> tuple:
+    def __call__(self, queries, frontier_ids, rows, sq, *extra) -> tuple:
         if not queries.is_cuda:
             if not self._traced:
                 self.index.plans.count_trace()
                 self._traced = True
-            return self._body(queries, frontier_ids, rows, sq)
-        self.upload(queries, frontier_ids, rows, sq)
+            return self._body(queries, frontier_ids, rows, sq, *extra)
+        self.upload(queries, frontier_ids, rows, sq, *extra)
         return self.replay()
 
 
@@ -398,3 +411,27 @@ class HostTierPlan:
         rows, sq = self.index.store.gather(self.rerank.ids_to_host(f_ids))
         ids, dists = self.rerank(queries, f_ids, rows, sq)
         return (ids, dists, out[2]) + tuple(out[3:])
+
+
+class ShardedHostTierPlan(HostTierPlan):
+    """A host-tier search of a `ShardedJasperIndex`: the traversal returns
+    each shard's frontier stacked (S, Q, L), the store holds the stacked
+    rows (S*cap, D), so a frontier entry's row is at shard*cap + local;
+    one gather a search, then the sharded rerank plan reranks each shard
+    and merges them. Telemetry, stacked by the traversal, sums over the
+    shards in int32. Returns what the device tier returns, bit for bit."""
+
+    def __call__(self, queries, filter_bytes=None) -> tuple:
+        out = self.traversal(queries, filter_bytes)
+        f_ids = out[0]
+        ids_h = self.rerank.ids_to_host(f_ids).to(torch.int64)
+        shard = torch.arange(ids_h.shape[0]).reshape(-1, 1, 1) \
+            * self.index.cap
+        positions = torch.where(ids_h >= 0, ids_h + shard,
+                                torch.full_like(ids_h, -1))
+        rows, sq = self.index.store.gather(positions)
+        merged = tuple(self.rerank(queries, f_ids, rows, sq, out[2]))
+        if len(out) > 3:
+            tel = out[3]
+            merged += (type(tel)(*(t.sum(0, dtype=t.dtype) for t in tel)),)
+        return merged

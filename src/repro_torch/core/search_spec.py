@@ -45,7 +45,7 @@ FUSION_MODES = ("none", "hop", "megakernel")
 TELEMETRY_MODES = ("off", "on")
 
 # Where the exact rerank reads its f32 rows: "device" (core.vectors),
-# "host" (host-tier rows; not ported yet), "none" (estimator distances,
+# "host" (the host rows tier, core/storage.py), "none" (estimator distances,
 # `SearchResult.estimated`). Quantized rerank=False normalises to "none".
 RERANK_SOURCES = ("device", "host", "none")
 

@@ -1,7 +1,8 @@
 """Tiered vector storage — device-resident packed codes, host-resident rows.
 
-Port of `repro.core.storage` (its single-device half). `VectorStore`
-manages where one index's f32 rows live:
+Port of `repro.core.storage`. `VectorStore` manages where one index's
+f32 rows live (for a `ShardedJasperIndex`, the stacked rows of all its
+shards, (S*cap, D)):
 
   * tier "device" — the rows are core tensors (`core.vectors` /
     `core.vec_sqnorm`) and the exact rerank runs inside the search.
@@ -44,7 +45,8 @@ from repro_torch.core.beam_search import rerank_frontier, sort_frontier
 __all__ = [
     "FetchStats", "VectorStore", "rows_resident", "strip_rows",
     "attach_rows", "rows_staged", "build_host_rerank_plan",
-    "tier_memory_stats", "TIER_STAT_KEYS",
+    "build_sharded_host_rerank_plan", "tier_memory_stats",
+    "TIER_STAT_KEYS",
 ]
 
 # The per-tier residence keys memory_stats() reports: device codes vs
@@ -336,5 +338,40 @@ def build_host_rerank_plan(rspec):
                                   tile_q=rspec.rerank_tile,
                                   use_kernels=rspec.use_kernels)
         return sort_frontier(exact_d, frontier_ids, rspec.k)
+
+    return rerank
+
+
+def build_sharded_host_rerank_plan(rspec, *, axis_sizes: tuple,
+                                   id_stride: int):
+    """The sharded host-tier rerank + merge: (queries (Q, D), per-shard
+    stacked frontier local ids (S, Q, L), gathered rows (S*Q*L, D),
+    gathered sqnorm (S*Q*L,), per-shard hops (S, Q)) -> (GLOBAL ids (Q,
+    k), dists (Q, k), n_hops (Q,)). S is stacked in row-major shard order
+    over the row axes; `axis_sizes` are the row axes' sizes in order
+    (their product is S).
+
+    Each shard's block of the table is reranked by the single-device body
+    (`build_host_rerank_plan`), exactly as that shard's device-tier search
+    reranks (one `gather_l2` a shard with use_kernels); the local ids
+    become global and the shards merge through `merge_topk`, as on the
+    device tier — so both tiers agree bit for bit."""
+    from repro_torch.core.distributed import merge_topk
+    single = build_host_rerank_plan(rspec)
+
+    def rerank(queries, frontier_ids, table, table_sqnorm, n_hops):
+        s, q_n, l = frontier_ids.shape
+        block = q_n * l
+        ids, dists = [], []
+        for i in range(s):
+            a, b = single(queries, frontier_ids[i],
+                          table[i * block:(i + 1) * block],
+                          table_sqnorm[i * block:(i + 1) * block])
+            ids.append(torch.where(a >= 0, a + i * id_stride,
+                                   torch.full_like(a, -1)))
+            dists.append(b)
+        gids, d = merge_topk(torch.stack(ids), torch.stack(dists),
+                             axis_sizes, rspec.k)
+        return gids, d, n_hops.amax(0)
 
     return rerank

@@ -1,7 +1,7 @@
 """Online ANNS update/serve loop over one index (port of
-`repro.serving.anns_service`: the same names, stats and contract; the
-single-device half — the sharded backend waits for the port of
-`core/distributed.py`).
+`repro.serving.anns_service`: the same names, stats and contract), a
+`JasperIndex` or a row-sharded `ShardedJasperIndex`
+(core/distributed.py).
 
 The paper's deployment ("built for change"): one index serves
 interleaved insert / delete / search batches with no rebuilds and no
@@ -28,8 +28,11 @@ downtime.
 `step()` is one tick (deletes -> maybe-consolidate -> inserts ->
 searches); `run()` drives a whole op stream; `serve()` replays an
 open-loop arrival trace through the standing-query scheduler
-(serving/scheduler.py). `maybe_rebalance` is the sharded backend's hook
-and returns None on a single-device index.
+(serving/scheduler.py). With a `rebalance_threshold`, a tick over a
+sharded index whose per-shard live counts drift apart (skewed deletes)
+runs `index.rebalance()` and surfaces the old->new id translation for
+outstanding tickets in `StepResult.rebalanced`; on a single-device index
+`maybe_rebalance` returns None.
 """
 
 from __future__ import annotations
@@ -631,13 +634,14 @@ class AnnsService:
     def maybe_rebalance(self, force: bool = False) -> dict | None:
         """Level shard loads if the live-count imbalance warrants it.
 
-        The elastic half of the serving story: skewed deletes drift
-        shards uneven, and the serve loop can repair that BETWEEN ticks
-        (rebalance is host-driven, so no in-flight search observes a
-        half-moved row — purity gives each search a consistent
-        snapshot). Returns the index's rebalance stats (including the
-        old->new `translation` for outstanding tickets) or None when the
-        trigger did not fire or the backend has no shards to level.
+        Skewed deletes drift a `ShardedJasperIndex`'s shards uneven; the
+        loop repairs that BETWEEN ticks, when `shard_imbalance` reaches
+        `rebalance_threshold` (or with `force`). The rebalance runs on
+        the one stream after every search queued before it, so no search
+        observes a half-moved row. Returns the index's rebalance stats
+        (the old->new `translation` for outstanding tickets included), or
+        None when the trigger did not fire, nothing moved, or the index
+        has no shards (a `JasperIndex`).
         """
         idx = self.index
         if not hasattr(idx, "rebalance"):

@@ -1531,3 +1531,136 @@ def test_evict_frees_the_device_rows(cuda_device):
     assert ms["host_rows_bytes"] == cap * (d + 1) * 4
     idx.restore_rows_to_device()
     assert torch.equal(idx.vectors, rows)
+
+
+# ------------------------------------------------------ the sharded index
+SHARDED_LANES = {
+    "quant": dict(quantized=True, use_kernels=True),
+    "quant-telemetry": dict(quantized=True, use_kernels=True,
+                            telemetry="on"),
+    "quant-filtered": dict(quantized=True, use_kernels=True, filter=(1,),
+                           filter_mode="exclude"),
+    "exact": dict(quantized=False),
+}
+
+
+def _sharded_index(rng, per=1536, d=32, cap=2048):
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.launch.mesh import make_mesh
+    idx = ShardedJasperIndex(make_mesh((4,), ("data",)), d, cap,
+                             quantization="rabitq",
+                             construction=ConstructionParams(**PLAN_PARAMS))
+    idx.build(rng.normal(size=(4 * per, d)).astype(np.float32),
+              labels=rng.integers(0, 4, 4 * per))
+    return idx
+
+
+def _sharded_eager(idx, q, spec):
+    """The same sharded search run eagerly: every shard's core_search on
+    its slices, then the merge."""
+    return idx._plan_search(idx.core, idx._prep_query(q), spec.resolve(idx),
+                            idx._filter_tombstones, spec.filter_bytes(),
+                            mirrors=False)
+
+
+@pytest.fixture(scope="module")
+def sharded_index():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    rng = np.random.default_rng(31)
+    idx = _sharded_index(rng)
+    idx.delete(np.arange(0, 4 * idx.id_stride, 13)[
+        ~idx.tombstoned(np.arange(0, 4 * idx.id_stride, 13))])
+    return idx, rng.normal(size=(64, 32)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", list(SHARDED_LANES))
+def test_sharded_plan_replay_equals_eager(sharded_index, lane):
+    """A megakernel search over four shards and their merge is ONE
+    captured graph; its replays equal the eager sharded search bit for
+    bit, and each counts #1 four times (and #2 four times quantized)."""
+    from repro_torch.core.plans import GraphPlan, launch_counters
+    from repro_torch.core.search_spec import SearchSpec
+    idx, q = sharded_index
+    spec = SearchSpec(k=10, beam_width=48, fusion="megakernel",
+                      **SHARDED_LANES[lane])
+    ses = idx.searcher(spec)
+    want = {n: 0 for n in launch_counters()}
+    want["fused_search"] = 4
+    want["gather_l2"] = 4 if spec.quantized else 0
+    for _ in range(3):
+        for w in launch_counters().values():
+            w.launches = 0
+        res = ses.search(q)
+        assert {n: w.launches for n, w in launch_counters().items()} == want
+        _assert_same(res, _sharded_eager(idx, q, spec))
+    plan = idx._search_plan(ses.resolved, (64, 32), idx._filter_tombstones)
+    assert isinstance(plan, GraphPlan) and plan._graph is not None
+    ids = res.ids.cpu().numpy()
+    assert not idx.tombstoned(ids[ids >= 0]).any()
+
+
+@pytest.mark.cuda
+def test_sharded_plan_follows_mutations_without_recapture(cuda_device):
+    """Sharded delete, insert and consolidate recapture nothing (the
+    shards write into the stacked buffers, the mirrors carry n_valid and
+    medoid); a grow recaptures once a spec."""
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(32)
+    idx = _sharded_index(rng, per=1024, cap=1280)
+    idx.delete(np.arange(5))
+    q = rng.normal(size=(32, 32)).astype(np.float32)
+    specs = [SearchSpec(k=10, beam_width=48, fusion="megakernel", **kw)
+             for kw in (SHARDED_LANES["quant"], SHARDED_LANES["exact"])]
+    for spec in specs:
+        idx.searcher(spec).search(q)
+    base = idx.plans.stats.snapshot()
+
+    def check(step, traces):
+        for spec in specs:
+            res = idx.searcher(spec).search(q)
+            _assert_same(res, _sharded_eager(idx, q, spec))
+            ids = res.ids.cpu().numpy()
+            assert not idx.tombstoned(ids[ids >= 0]).any(), step
+        assert idx.plans.stats.traces == base.traces + traces, step
+
+    idx.delete(np.arange(100, 600))               # all on shard 0
+    check("delete", 0)
+    idx.insert(rng.normal(size=(4 * 50, 32)).astype(np.float32))
+    check("insert", 0)
+    idx.consolidate()
+    check("consolidate", 0)
+    idx.insert(rng.normal(size=(4 * 300, 32)).astype(np.float32))  # grows
+    assert idx.cap == 2560
+    check("grow", len(specs))
+
+
+@pytest.mark.cuda
+def test_sharded_host_tier_equals_device_tier(cuda_device):
+    """The sharded host tier (one gather a search, a captured rerank that
+    merges the shards) equals the device tier bit for bit."""
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(33)
+    idx = _sharded_index(rng)
+    idx.delete(np.arange(0, 900, 7))
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    lanes = {"megakernel": dict(fusion="megakernel"),
+             "telemetry": dict(fusion="megakernel", telemetry="on"),
+             "hop": dict(fusion="hop"),
+             "merge-kernel": dict(merge="kernel")}
+
+    def spec(kw, source):
+        return SearchSpec(k=10, beam_width=48, quantized=True,
+                          use_kernels=True, rerank_source=source, **kw)
+
+    device = {n: idx.searcher(spec(kw, "device")).search(q)
+              for n, kw in lanes.items()}
+    idx.evict_rows_to_host()
+    for _ in range(2):
+        for n, kw in lanes.items():
+            res = idx.searcher(spec(kw, "host")).search(q)
+            d = device[n]
+            _assert_same(res, (d.ids, d.dists, d.n_hops)
+                         + ((d.telemetry,) if d.telemetry is not None else ()))

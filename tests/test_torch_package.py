@@ -57,7 +57,8 @@ def test_package_has_the_slice_modules():
                  "training.train_loop", "training.checkpoint",
                  "launch.train", "core.plans", "obs", "obs.tracing",
                  "obs.metrics", "serving.loadgen", "serving.scheduler",
-                 "serving.anns_service", "core.storage", "core.pq"):
+                 "serving.anns_service", "core.storage", "core.pq",
+                 "core.distributed", "core.resharding", "launch.mesh"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -156,6 +157,28 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     idx = JasperIndex(8, 16, device="cpu")
     assert idx.core.vectors.device.type == "cpu"
     assert init_core(16, 8, 4, device="cpu").adjacency.shape == (16, 4)
+
+
+def test_sharded_mesh_needs_the_card(monkeypatch):
+    """The sharded index's mesh resolves to the card unless "cpu" is
+    given; a mesh over more than one card is refused."""
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.launch.mesh import make_mesh
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((4, 2), ("data", "model"))
+    with pytest.raises(RuntimeError):
+        make_mesh((4,), ("data",), device="cuda")
+    mesh = make_mesh((4, 2), ("data", "model"), device="cpu")
+    assert mesh.shape == {"data": 4, "model": 2}
+    idx = ShardedJasperIndex(mesh, 8, 16)
+    assert idx.n_shards == 4 and idx.core.adjacency.device.type == "cpu"
+    assert idx.core.adjacency.shape == (64, 64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        make_mesh((2,), ("data",), device=["cuda:0", "cuda:1"])
+    with pytest.raises(ValueError, match="distinct"):
+        make_mesh((2, 2), ("data", "data"), device="cpu")
 
 
 def test_lm_entry_points_raise_without_gpu(monkeypatch):
