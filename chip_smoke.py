@@ -120,7 +120,7 @@ Phases:
                 >= 0.85 against brute force, the prompts unchanged in the
                 output; the same index searched through the megakernel
                 lane (quantized, D = 4,608) for its recall and launches.
-  9. training — runs last: minicpm-2b (40 layers, d_model 2,304, 36
+  9. training — after 8: minicpm-2b (40 layers, d_model 2,304, 36
                 heads, Dh 64, vocab 122,753, tied embeddings), float32
                 master weights, bf16 compute, remat "full". (a) #10/#11
                 and #12 against their plain versions at minicpm's attention
@@ -238,15 +238,45 @@ Phases:
                 `AnnsService.run`, 10 ticks of deletes from shard 0: the
                 rebalance trigger fires, `shards.*` gauges, recall >= 0.85.
                 Prints one `{"sharded": ...}` JSON line.
+ 14. the other LM families — last, after 9: random bf16 weights from seed
+                0 at the published widths and depths, `use_flash_kernel`,
+                each model freed before the next. (a) #10 against its plain
+                version (B=1, bf16) at the three attention shapes this
+                phase adds — hubert-xlarge's (1,024, 16/16, Dh 80,
+                bidirectional), zamba2-2.7b's (4,096, 32/32, Dh 80, window
+                4,096), olmoe-1b-7b's (1,024, 16/16, Dh 128, causal) — and
+                timed at B=4 beside the plain version, SDPA and the bound.
+                (b) olmoe-1b-7b, zamba2-2.7b, xlstm-125m: the kernel path
+                against the blockwise path on 2 x 512 tokens (the cosine of
+                each sequence's logits >= 0.999; not xlstm, which has no
+                attention); a forward of 4 x the prompt (1,024; zamba2
+                4,096 = its window) launching #10 16 / 9 / 0 times and no
+                blockwise attention; `generate` of 4 prompts + 32 greedy
+                tokens (the same launches, the prompts unchanged, prefill
+                seconds, decode ms a step, tokens/s; zamba2's ring cache
+                wraps); olmoe's routes dropped at capacity factor 1.25 in
+                one forward, and layer 0's routing on the card against the
+                CPU's (positions and keep mask bit-equal); the prefill and
+                three decode steps profiled; each decode step's logits
+                against one forward over prompt + generated (olmoe at
+                capacity factor 8), in bf16 (printed, with the MoE routes
+                whose experts differ between the two paths) and in float32
+                (the same draws: cosine >= 0.999). (c) hubert-xlarge: the
+                kernel path against blockwise, a forward of 4 x 1,024
+                frames (48 launches of #10), bidirectional (the last frame
+                moves position 0's hidden state), profiled. Prints one
+                `{"families": ...}` JSON line.
 
-Prints the serving, host-tier and sharded JSON lines, the kernel JSON
-line (with each search kernel's launches a host-tier search of its lane
-as `launches_host_tier` and a sharded search as `launches_sharded`), the
-card's name and
+Prints the serving, host-tier, sharded and families JSON lines, the
+kernel JSON line (with each search kernel's launches a host-tier search
+of its lane as `launches_host_tier` and a sharded search as
+`launches_sharded`; #10's launches a forward of each family as
+`launches_families` and its times at phase 14's shapes as
+`at_family_shapes`), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
-churn or serving check fails, or a training check fails.
+churn or serving check fails, or a training or family check fails.
 """
 
 from __future__ import annotations
@@ -3892,6 +3922,364 @@ def training() -> tuple[dict, dict]:
     return records, launched
 
 
+# ---------------------------------------- the other LM families (phase 14)
+# arch, prompt length (frames for the encoder), #10 launches a forward,
+# the prompt length profiled: xlstm's sLSTM launches ~21 kernels a token a
+# layer, so a profiled 4 x 1,024 prefill records 132,187 device
+# activities and the profiler's summary of them took over a minute on the
+# card; 128 tokens show the same launch-bound step
+FAMILY_RUNS = (("olmoe-1b-7b", 1024, 16, 1024),
+               ("zamba2-2.7b", 4096, 9, 4096),
+               ("xlstm-125m", 1024, 0, 128),
+               ("hubert-xlarge", 1024, 48, 1024))
+FAMILY_BATCH, FAMILY_NEW_TOKENS = 4, 32
+FAMILY_CHECK = (2, 512)        # the kernel path against the blockwise path
+FAMILY_COSINE_FLOOR = 0.999
+DECODE_CHECK_CF = 8.0          # no MoE route drops: decode == forward
+# #10 at the attention shapes phase 14 adds: name, S, H, Hk, Dh, causal,
+# window (zamba2's window is its prompt, so SDPA's causal mask is its mask)
+FAMILY_FLASH = (("hubert-xlarge", 1024, 16, 16, 80, False, 0),
+                ("zamba2-2.7b", 4096, 32, 32, 80, True, 4096),
+                ("olmoe-1b-7b", 1024, 16, 16, 128, True, 0))
+
+
+def flash_at_family_shapes() -> list:
+    """#10 against its plain version (B=1, bf16) at the three attention
+    shapes phase 14 adds — bidirectional at Dh 80, window 4,096 at Dh 80,
+    16/16 heads at Dh 128 — then timed at B=4 beside the plain version,
+    SDPA and the bound. Returns one record a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    out = []
+    for arch, s, h, hk, dh, causal, window in FAMILY_FLASH:
+        kw = dict(causal=causal, window=window, block_q=256, block_kv=1024)
+
+        def qkv(b):
+            return [torch.randn((b, s, n, dh), generator=gen, device="cuda"
+                                ).to(torch.bfloat16) for n in (h, hk, hk)]
+        q, k, v = qkv(1)
+        err = compare_flash(q, k, v, kw, f"flash at {arch}'s (1, {s}, "
+                            f"{h}/{hk}, {dh})")
+        b = FAMILY_BATCH
+        q, k, v = qkv(b)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal), 5)
+        flops = 4.0 * b * h * s * s * dh / (2 if causal else 1)
+        b_ms, b_by = bound(b * s * (2 * h + 2 * hk) * dh * 2, flops,
+                           peak=BF16_FLOPS)
+        log(f"  flash at {arch}'s (B={b}, S={s}, H={h}, Hk={hk}, Dh={dh}, "
+            f"{'causal' if causal else 'bidirectional'}"
+            f"{f', window {window}' if window else ''}) bf16: #10 "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); #10 reaches "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; max |err| vs plain (B=1) "
+            f"{err:.3g}")
+        out.append(dict(arch=arch, shape=[b, s, h, hk, dh], causal=causal,
+                        window=window, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                        max_abs_err=err))
+        del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
+
+
+class RecordRoutes:
+    """Record every `moe_routing` call while the block runs: its routes,
+    kept routes and top experts (device tensors, no sync) and the first
+    call's logits."""
+
+    def __init__(self, module):
+        self.module, self.first = module, None
+        self.routes, self.kept, self.top_e = [], [], []
+
+    def __enter__(self):
+        self.orig = self.module.moe_routing
+
+        def wrapped(logits, k, cap):
+            r = self.orig(logits, k, cap)
+            if self.first is None:
+                self.first = (logits.clone(), k, cap, r)
+            self.routes.append(r["keep"].numel())
+            self.kept.append(r["keep"].sum())
+            self.top_e.append(r["top_e"])
+            return r
+        self.module.moe_routing = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_routing = self.orig
+
+
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine of each leading row of a and b, flattened, in float32."""
+    return torch.nn.functional.cosine_similarity(
+        a.float().flatten(1), b.float().flatten(1), dim=1)
+
+
+def _family_inputs(cfg, b: int, s: int, gen) -> dict:
+    if cfg.frontend == "frames":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device="cuda")}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+
+
+def moe_routes(params, cfg, batch) -> dict:
+    """Routes dropped at the configuration's capacity factor in one
+    forward of `batch`, and the card's routing of the first layer's
+    router logits against the CPU's (positions and keep mask bit-equal)."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.models.model import forward
+    with RecordRoutes(moe_mod) as rec:
+        forward(params, cfg, batch)
+    kept = [int(n) for n in torch.stack(rec.kept).cpu()]
+    dropped = [n - k for n, k in zip(rec.routes, kept)]
+    logits, k, cap, card = rec.first
+    cpu = moe_mod.moe_routing(logits.cpu(), k, cap)
+    same = {key: torch.equal(card[key].cpu(), cpu[key])
+            for key in ("pos", "keep", "top_e")}
+    log(f"  {cfg.name} routing at capacity factor {cfg.capacity_factor} "
+        f"(cap {cap} a expert, {rec.routes[0]} routes a layer): dropped "
+        f"{sum(dropped)} of {sum(rec.routes)} routes "
+        f"({100 * sum(dropped) / sum(rec.routes):.2f} %), by layer "
+        f"{dropped}; layer 0 on the card vs the CPU's plain routing: "
+        f"{same}")
+    check(same["pos"] and same["keep"], f"{cfg.name}: the card's routing "
+          f"positions / keep mask differ from the CPU's ({same})")
+    return {"routes": sum(rec.routes), "dropped": sum(dropped),
+            "dropped_by_layer": dropped, "layer0_card_equals_cpu": same}
+
+
+def decode_against_forward(params, cfg, out: torch.Tensor, prompt: int
+                           ) -> tuple[list, int | None]:
+    """Prefill + each decode step over `out`'s generated tokens against one
+    forward over all of them: the cosine of each step's logits (the
+    batch's rows flattened), and for MoE the routes whose expert set
+    differs between the two paths (layers x steps x rows)."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.models.model import decode_step, forward, prefill
+    b, n = out.shape
+    new = n - prompt
+    with RecordRoutes(moe_mod) as rec:
+        logits, state = prefill(params, cfg, {"tokens": out[:, :prompt]},
+                                max_len=n, last_only=True)
+        steps = [logits[:, 0]]
+        for t in range(new - 1):
+            logits, state = decode_step(params, cfg, state,
+                                        out[:, prompt + t:prompt + t + 1])
+            steps.append(logits[:, 0])
+        del state
+        n_dec = len(rec.top_e)
+        full = forward(params, cfg, {"tokens": out})[:, prompt - 1:-1]
+    cos = [float(c) for c in _cosines(torch.stack(steps),
+                                      full.transpose(0, 1))]
+    check(all(bool(torch.isfinite(s).all()) for s in steps),
+          f"{cfg.name}: a decode step's logits are not finite")
+    if cfg.family != "moe":
+        return cos, None
+    layers = cfg.num_layers
+    # the decode path's experts of positions prompt-1 .. n-2, by layer
+    dec = [[rec.top_e[i].reshape(b, prompt, -1)[:, -1]
+            for i in range(layers)]]
+    dec += [[rec.top_e[layers * (1 + t) + i].reshape(b, -1)
+             for i in range(layers)] for t in range(new - 1)]
+    fwd = [rec.top_e[n_dec + i].reshape(b, n, -1)[:, prompt - 1:-1]
+           for i in range(layers)]
+    flips = sum(int((dec[t][i].sort(-1).values
+                     != fwd[i][:, t].sort(-1).values).any(-1).sum())
+                for t in range(new) for i in range(layers))
+    return cos, flips
+
+
+def decode_check_f32(cfg, out: torch.Tensor, prompt: int) -> dict:
+    """The decode check held to FAMILY_COSINE_FLOOR: the model again in
+    float32 (the same draws from seed 0), each decode step's logits over
+    `out`'s generated tokens against one forward over all of them. bf16
+    runs of the same check drift with the depth (54 Mamba2 layers) and
+    flip MoE routes between the two paths; they are measured and printed
+    beside it."""
+    from repro_torch.models.model import init_params
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(f32, SEED)
+    cos, flips = decode_against_forward(params, f32, out, prompt)
+    del params
+    log(f"  the same in float32: cosine min {min(cos):.6f}, at steps "
+        f"{[round(c, 5) for c in cos[::8]]}"
+        + ("" if flips is None else f"; routes whose experts differ {flips}")
+        + f"; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(min(cos) >= FAMILY_COSINE_FLOOR, f"{cfg.name}: a decode step's "
+          f"cosine {min(cos):.6f} against the forward (float32)")
+    return {"decode_vs_forward_cosine_min": min(cos), "route_flips": flips}
+
+
+def family_model(arch: str, prompt: int, n_flash: int, profiled: int
+                 ) -> dict:
+    """Phase 14, one model at its published width and depth (random bf16
+    weights from seed 0, `use_flash_kernel=True`)."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          param_count, prefill)
+    from repro_torch.serving.serve_loop import generate
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                              use_flash_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED)
+    torch.cuda.synchronize()
+    rec = {"arch": arch, "family": cfg.family,
+           "params": param_count(params),
+           "init_s": time.perf_counter() - t0}
+    log(f"  {arch} ({cfg.family}; {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}): {rec['params']:,} parameters in bf16, initialised "
+        f"in {rec['init_s']:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    with torch.inference_mode():
+        # ---- the kernel path against the blockwise path, 2 x 512 (the
+        # cosine of each sequence's logits: a route the rounding flips
+        # moves one position of an MoE model, not the sequence)
+        if n_flash:
+            small = _family_inputs(cfg, *FAMILY_CHECK, gen)
+            a = forward(params, cfg, small)
+            b = forward(params, dataclasses.replace(
+                cfg, use_flash_kernel=False), small)
+            seq_cos = _cosines(a, b)
+            pos_cos = _cosines(a.flatten(0, 1), b.flatten(0, 1))
+            rec["kernel_vs_blockwise_cosine"] = float(seq_cos.min())
+            log(f"  kernel vs blockwise logits at {FAMILY_CHECK}: cosine of "
+                f"each sequence {[round(float(c), 6) for c in seq_cos]}, of "
+                f"each position min {float(pos_cos.min()):.6f}")
+            check(float(seq_cos.min()) >= FAMILY_COSINE_FLOOR,
+                  f"{arch}: kernel vs blockwise cosine "
+                  f"{float(seq_cos.min())}")
+            del a, b
+
+        # ---- one forward at the served shape: #10 launches, no blockwise
+        batch = _family_inputs(cfg, FAMILY_BATCH, prompt, gen)
+        with CountCalls(attention_mod, "blockwise_attention") as bw:
+            logits, secs, launched = counted(
+                lambda: forward(params, cfg, batch))
+        rec["flash_launches_a_forward"] = launched["flash_attention"]
+        rec["forward_s"] = secs
+        check(launched == counts(flash_attention=n_flash) and bw.n == 0,
+              f"{arch}: a forward launched {launched} (blockwise {bw.n}), "
+              f"expected {n_flash} flash_attention and nothing else")
+        check(bool(torch.isfinite(logits).all()), f"{arch}: NaN in logits")
+        log(f"  forward of {FAMILY_BATCH} x {prompt}: {secs:.3f} s, "
+            f"flash_attention launches {launched['flash_attention']}")
+        del logits
+        if cfg.is_encoder:
+            frames = batch["frames"].clone()
+            frames[:, -1] += 1.0
+            h1 = forward(params, cfg, batch, return_hidden=True)[:, 0]
+            h2 = forward(params, cfg, {"frames": frames},
+                         return_hidden=True)[:, 0]
+            moved = float((h1.float() - h2.float()).abs().max())
+            log(f"  bidirectional: the last frame moved position 0's "
+                f"hidden state by {moved:.4g}")
+            check(moved > 0, f"{arch}: the last frame did not reach "
+                  "position 0 (not bidirectional)")
+            profile_device(lambda: forward(params, cfg, batch),
+                           f"{arch} forward of {FAMILY_BATCH} x {prompt}")
+            rec["tokens_per_s"] = FAMILY_BATCH * prompt / secs
+        else:
+            if cfg.family == "moe":
+                rec["routing"] = moe_routes(params, cfg, batch)
+            prompts = batch["tokens"]
+            timings = {}
+            with CountCalls(attention_mod, "blockwise_attention") as bw:
+                out, secs, launched = counted(lambda: generate(
+                    params, cfg, prompts, max_new_tokens=FAMILY_NEW_TOKENS,
+                    timings=timings))
+            n_dec = FAMILY_BATCH * (FAMILY_NEW_TOKENS - 1)
+            rec.update(prefill_s=timings["prefill_s"],
+                       decode_ms_a_step=1e3 * timings["decode_s"]
+                       / (FAMILY_NEW_TOKENS - 1),
+                       tokens_per_s=n_dec / timings["decode_s"],
+                       generate_s=secs,
+                       flash_launches_generate=launched["flash_attention"])
+            log(f"  generate {FAMILY_BATCH} x {prompt} + "
+                f"{FAMILY_NEW_TOKENS} greedy tokens: {secs:.2f} s; prefill "
+                f"{rec['prefill_s']:.3f} s "
+                f"({FAMILY_BATCH * prompt / rec['prefill_s']:.0f} tokens/s)"
+                f", decode {rec['decode_ms_a_step']:.2f} ms a step "
+                f"({rec['tokens_per_s']:.1f} tokens/s); launches "
+                f"{launched}; sample {out[0, -8:].tolist()}")
+            check(launched == counts(flash_attention=n_flash)
+                  and bw.n == 0, f"{arch}: generate launched {launched} "
+                  f"(blockwise {bw.n})")
+            check(tuple(out.shape) == (FAMILY_BATCH,
+                                       prompt + FAMILY_NEW_TOKENS),
+                  f"{arch}: generate returned {tuple(out.shape)}")
+            check(torch.equal(out[:, :prompt], prompts),
+                  f"{arch}: generate changed the prompts")
+            check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+                  f"{arch}: generated ids out of the vocab")
+            # where a request's time goes
+            _, state = profile_device(lambda: prefill(
+                params, cfg, {"tokens": prompts[:, :profiled]},
+                max_len=profiled + FAMILY_NEW_TOKENS, last_only=True),
+                f"{arch} prefill of {FAMILY_BATCH} x {profiled}")
+
+            def three_steps(state=state):
+                for t in range(3):
+                    _, state = decode_step(params, cfg, state,
+                                           out[:, profiled + t, None])
+            profile_device(three_steps, f"{arch} three decode steps")
+            del state
+            # each decode step against one forward over prompt + generated
+            # (MoE: no route drops, as the JAX package's own test)
+            dcfg = (dataclasses.replace(cfg, capacity_factor=DECODE_CHECK_CF)
+                    if cfg.family == "moe" else cfg)
+            cos, flips = decode_against_forward(params, dcfg, out, prompt)
+            rec.update(decode_vs_forward_cosine_min_bf16=min(cos),
+                       route_flips_bf16=flips)
+            n_routes = cfg.num_layers * FAMILY_BATCH * FAMILY_NEW_TOKENS
+            log(f"  each decode step vs one forward over prompt + generated"
+                f" (capacity factor {dcfg.capacity_factor}), bf16: cosine "
+                f"min {min(cos):.6f}, at steps "
+                f"{[round(c, 5) for c in cos[::8]]}"
+                + ("" if flips is None else f"; routes whose experts differ "
+                   f"between the paths {flips} of {n_routes}"))
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cfg.is_encoder:
+        with torch.inference_mode():
+            rec.update(decode_check_f32(dcfg, out, prompt))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_model
+    log(f"  {arch}: {rec['seconds']:.1f} s, max memory allocated "
+        f"{rec['peak_memory_gb']:.2f} GB (bf16)")
+    return rec
+
+
+def families() -> dict:
+    """Phase 14; returns {"flash": #10 at the new shapes, "models": one
+    record a model, "launches": #10 on the phase's path}."""
+    t_phase = time.perf_counter()
+    flash = flash_at_family_shapes()
+    models = [family_model(*run) for run in FAMILY_RUNS]
+    launches = sum(m["flash_launches_a_forward"]
+                   + m.get("flash_launches_generate", 0) for m in models)
+    out = {"flash": flash, "models": models, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 14: {out['seconds']:.1f} s; flash launches on the "
+        f"phase's path (a forward and a generate a model) {launches}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -4028,6 +4416,19 @@ def main() -> int:
                + train_launches["flash_attention_fwd"])
     records.append(dict(train_records["flash_attention_bwd"],
                         launches=train_launches["flash_attention_bwd"]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14] the other LM families at full width: "
+        f"{', '.join(r[0] for r in FAMILY_RUNS)} (device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    fam = families()
+    print(json.dumps({"families": fam}))
+    flash = next(r for r in records if r["name"] == "flash_attention")
+    flash.update(launches=flash["launches"] + fam["launches"],
+                 launches_families={m["arch"]: m["flash_launches_a_forward"]
+                                    for m in fam["models"]},
+                 at_family_shapes=fam["flash"])
 
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))

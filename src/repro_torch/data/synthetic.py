@@ -1,11 +1,10 @@
 """Deterministic synthetic data (port of `repro.data.synthetic`).
 
-LM batches (`make_lm_batch`, `TokenDataset`) are a pure function of
-(seed, step), so a restarted job replays the exact token stream. They are
-drawn from a CPU `torch.Generator`, the same on every device; the tokens
-differ from the JAX package's `jax.random` draws, so the tests feed both
-packages one numpy batch. The frame datasets of the audio family are not
-ported (ROADMAP.md A7).
+LM batches (`make_lm_batch`, `TokenDataset`, `FrameDataset`) are a pure
+function of (seed, step), so a restarted job replays the exact stream.
+They are drawn from a CPU `torch.Generator`, the same on every device;
+the numbers differ from the JAX package's `jax.random` draws, so the
+tests feed both packages one numpy batch.
 
 The ANNS half is pure numpy and therefore bit-identical to the JAX
 package's.
@@ -40,13 +39,17 @@ class ANNSDatasetConfig:
 
 def make_lm_batch(cfg, batch: int, seq_len: int, seed: int, step: int
                   ) -> dict[str, torch.Tensor]:
-    """One next-token batch on the CPU: {"tokens", "labels"} (B, S) int32,
-    labels the tokens shifted left by one. Uniform over the vocab."""
-    if cfg.frontend != "token":
-        raise NotImplementedError(
-            f"{cfg.name}: frame batches are not ported (ROADMAP.md A7)")
+    """One batch on the CPU. Token frontends: {"tokens", "labels"} (B, S)
+    int32, labels the tokens shifted left by one, uniform over the vocab.
+    Frames (encoder archs): {"frames" (B, S, d_model) float32 standard
+    normal, "labels" (B, S) int32 frame labels uniform over the vocab}."""
     sub = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
     gen = torch.Generator().manual_seed(sub)
+    if cfg.frontend == "frames":
+        frames = torch.randn((batch, seq_len, cfg.d_model), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                               generator=gen, dtype=torch.int32)
+        return {"frames": frames, "labels": labels}
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len + 1),
                            generator=gen, dtype=torch.int32)
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
@@ -62,6 +65,10 @@ class TokenDataset:
     def __call__(self, step: int) -> dict[str, torch.Tensor]:
         return make_lm_batch(self.cfg, self.batch, self.seq_len, self.seed,
                              step)
+
+
+# the JAX package's two datasets are one function of (seed, step)
+FrameDataset = TokenDataset
 
 
 ANNS_DATASETS: dict[str, ANNSDatasetConfig] = {

@@ -2,12 +2,14 @@
 
     python -m repro_torch.launch.serve --arch starcoder2-7b --batch 4 \
         --prompt-len 4096 --new-tokens 32
-    python -m repro_torch.launch.serve --arch stablelm-1.6b --reduced \
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced \
         --device cpu
 
-Runs on the card unless `--device cpu` is given. Parameters are random,
-from `--seed`. Full-sequence attention goes through the flash-attention
-kernel (`use_flash_kernel=True`).
+Serves every decoder family (dense, vlm, moe, ssm, hybrid); an encoder
+(hubert-xlarge) has nothing to decode and is refused. Runs on the card
+unless `--device cpu` is given. Parameters are random, from `--seed`.
+Full-sequence attention goes through the flash-attention kernel
+(`use_flash_kernel=True`).
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@
     python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --device cpu --steps 3
 
-Runs on the card unless `--device cpu` is given. Parameters are random,
+Trains every family: token batches, or frame batches for an encoder
+(hubert-xlarge). Runs on the card unless `--device cpu` is given.
+Parameters are random,
 from `--seed`, kept as float32 masters and cast to the config's dtype at
 use. Full-sequence attention goes through the flash-attention kernels
 (`use_flash_kernel=True`): the forward #11 and the backward #12, inside
@@ -18,7 +20,7 @@ Fault tolerance, as in the JAX launcher:
     pure function of (seed, step), so the replay is exact;
   * the step loop retries once from the last checkpoint on a failure.
 `--mesh debug|production` (the multi-device data-parallel step) is not
-ported: it raises, naming ROADMAP.md A5.
+ported: it raises, naming ROADMAP.md A6.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def run(args) -> dict:
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the multi-device data-parallel step is not "
-            "ported (ROADMAP.md A5)")
+            "ported (ROADMAP.md A6)")
     cfg, opt, step_fn = build(args)
     dev = resolve_device(args.device)
     params = init_params(cfg, args.seed, device=dev,

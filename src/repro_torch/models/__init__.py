@@ -1,4 +1,4 @@
-"""LM model substrate (PyTorch port of `repro.models`, dense family):
+"""LM model substrate (PyTorch port of `repro.models`, all six families):
 `nn.Module` parameters + plain functions, as the JAX package's pytrees +
 pure functions."""
 

@@ -1,17 +1,31 @@
-"""Model assembly: init / forward / prefill / decode (PyTorch port of
-`repro.models.model`, dense family).
+"""Model assembly: init / forward / loss / prefill / decode for all ten
+architectures (PyTorch port of `repro.models.model`).
 
-The dense family is pre-norm GQA attention + SwiGLU MLP. The JAX package
-stacks the layers along a leading axis and scans them; here they are an
-`nn.ModuleList` walked by a Python loop (`models/convert.py` splits JAX's
-stacked tree). `cfg.remat == "full"` wraps each block in
-`torch.utils.checkpoint` under autograd, as `_maybe_remat` wraps the scan
-body. `loss_fn` is the JAX package's. The other families (moe, vlm,
-audio, ssm, hybrid) are not ported yet: they raise, naming ROADMAP.md A7.
+Families, as in the JAX package:
+  dense/vlm/audio  pre-norm GQA attention + SwiGLU MLP (`blocks`); vlm
+                   reads token ids (its image frontend is a stub of the
+                   spec), audio precomputed frames through `frontend.proj`
+                   and attends bidirectionally (an encoder: no decode)
+  moe              pre-norm GQA attention + top-k routed experts
+                   (`models/moe.py`); the loss adds AUX_LOSS_WEIGHT x the
+                   summed load-balance losses
+  ssm (xlstm)      (mLSTM, sLSTM) pairs (`pairs`, `models/ssm.py`)
+  hybrid (zamba2)  groups of `attn_every` Mamba2 blocks (`mamba_groups`),
+                   each group followed by ONE attention block shared by
+                   every group (`shared_attn`), with a KV cache per
+                   application
+The JAX package stacks the layers along leading axes and scans them; here
+they are `nn.ModuleList`s walked by Python loops (`models/convert.py`
+splits JAX's stacked trees). `cfg.remat == "full"` wraps each block, pair
+or group in `torch.utils.checkpoint` under autograd, as `_maybe_remat`
+wraps the scan body.
 
-Decode threads an explicit state dict {"k", "v": (L, B, S_cache, Hk, Dh)
-caches in `cfg.dtype`, "pos": int}. `prefill` and `decode_step` write the
-caches in place (see `decode_attention`).
+Decode threads an explicit state dict, the JAX package's: {"k", "v": (L,
+B, S_cache, Hk, Dh) caches in `cfg.dtype`, "pos": int} for the attention
+families; {"mlstm", "slstm": dicts of (L/2, ...) float32 states, "pos"}
+for ssm; {"mamba": dict of (groups, attn_every, ...) float32 states, "k",
+"v": (groups, ...) caches, "pos"} for hybrid. `prefill` and `decode_step`
+write the caches and states in place (see `decode_attention`).
 
 Entry points that create state (`init_params`, `init_decode_state`) run on
 the card unless given `device="cpu"`; with no GPU they raise.
@@ -25,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     Attention,
     attention,
@@ -36,6 +51,8 @@ from repro_torch.models.layers import (
     Embedding,
     RMSNorm,
     Unembed,
+    _init_linear,
+    dense,
     embed,
     embedding_init,
     mlp,
@@ -46,33 +63,72 @@ from repro_torch.models.layers import (
     unembed,
     unembed_init,
 )
+from repro_torch.models.moe import MoE, moe_init, moe_with_aux
 
-PORTED_FAMILIES = ("dense",)
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 AUX_LOSS_WEIGHT = 0.01
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md A7); the port runs {PORTED_FAMILIES}")
-
-
 class Block(nn.Module):
-    def __init__(self, ln1: RMSNorm, attn: Attention, ln2: RMSNorm, mlp: MLP):
+    """Attention + MLP (dense, vlm, audio) or + routed experts (moe)."""
+
+    def __init__(self, ln1: RMSNorm, attn: Attention, ln2: RMSNorm,
+                 mlp: MLP | None = None, moe: MoE | None = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.mlp, self.moe = mlp, moe
+
+
+class Pair(nn.Module):
+    """One xLSTM pair: an mLSTM block, then an sLSTM block."""
+
+    def __init__(self, ln1: RMSNorm, mlstm: ssm_mod.MLSTM, ln2: RMSNorm,
+                 slstm: ssm_mod.SLSTM):
+        super().__init__()
+        self.ln1, self.mlstm, self.ln2, self.slstm = ln1, mlstm, ln2, slstm
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, ln: RMSNorm, mamba: ssm_mod.Mamba2):
+        super().__init__()
+        self.ln, self.mamba = ln, mamba
+
+
+class SharedAttention(nn.Module):
+    def __init__(self, ln: RMSNorm, attn: Attention):
+        super().__init__()
+        self.ln, self.attn = ln, attn
+
+
+class Frontend(nn.Module):
+    """The frames frontend: one (D, D) projection of precomputed frame
+    embeddings."""
+
+    def __init__(self, proj: nn.Linear):
+        super().__init__()
+        self.proj = proj
 
 
 class Model(nn.Module):
-    """The parameters: embedding, blocks, final norm, unembed (None when
-    the embeddings are tied)."""
+    """The parameters of one architecture: `embed` (token frontends) or
+    `frontend` (frames); the family's layers (`blocks`, `pairs`, or
+    `mamba_groups` + `shared_attn`); `final_norm`; `unembed` (None when
+    the embeddings are tied). `cfg` is the configuration the layout
+    follows."""
 
-    def __init__(self, embed: Embedding, blocks: list[Block],
-                 final_norm: RMSNorm, unembed: Unembed | None):
+    def __init__(self, cfg: ModelConfig, final_norm: RMSNorm,
+                 unembed: Unembed | None, *, embed: Embedding | None = None,
+                 frontend: Frontend | None = None, blocks=None, pairs=None,
+                 mamba_groups=None,
+                 shared_attn: SharedAttention | None = None):
         super().__init__()
-        self.embed = embed
-        self.blocks = nn.ModuleList(blocks)
+        self.cfg = cfg
+        self.embed, self.frontend = embed, frontend
+        self.blocks = None if blocks is None else nn.ModuleList(blocks)
+        self.pairs = None if pairs is None else nn.ModuleList(pairs)
+        self.mamba_groups = (None if mamba_groups is None else nn.ModuleList(
+            nn.ModuleList(g) for g in mamba_groups))
+        self.shared_attn = shared_attn
         self.final_norm = final_norm
         self.unembed = unembed
 
@@ -86,24 +142,50 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
                 device=None, param_dtype: torch.dtype | None = None) -> Model:
     """Random parameters from a seed (or a generator on `device`), frozen:
     matrices in `param_dtype` (None: `cfg.dtype`, the serving storage;
-    torch.float32: training's master weights, the same draws), norm
-    scales float32."""
-    _require_dense(cfg)
+    torch.float32: training's master weights, the same draws); norm
+    scales, and what the JAX package reads in float32 (the MoE router, the
+    SSM blocks' conv kernels and vectors), float32."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{dev}")
-    emb = embedding_init(generator, cfg, param_dtype)
-    unemb = (None if cfg.tie_embeddings
-             else unembed_init(generator, cfg, param_dtype))
-    blocks = [Block(rmsnorm_init(cfg, device=dev),
-                    attention_init(generator, cfg, param_dtype),
-                    rmsnorm_init(cfg, device=dev),
-                    mlp_init(generator, cfg, dtype=param_dtype))
-              for _ in range(cfg.num_layers)]
-    return Model(emb, blocks, rmsnorm_init(cfg, device=dev), unemb)
+    gen, dt = generator, param_dtype
+
+    def norm():
+        return rmsnorm_init(cfg, device=dev)
+
+    kw: dict = {}
+    if cfg.frontend == "frames":
+        kw["frontend"] = Frontend(_init_linear(gen, cfg, cfg.d_model,
+                                               cfg.d_model, dt))
+    else:
+        kw["embed"] = embedding_init(gen, cfg, dt)
+    unemb = None if cfg.tie_embeddings else unembed_init(gen, cfg, dt)
+    fam = cfg.family
+    if fam == "moe":
+        kw["blocks"] = [Block(norm(), attention_init(gen, cfg, dt), norm(),
+                              moe=moe_init(gen, cfg, dt))
+                        for _ in range(cfg.num_layers)]
+    elif fam == "ssm":
+        kw["pairs"] = [Pair(norm(), ssm_mod.mlstm_init(gen, cfg, dt), norm(),
+                            ssm_mod.slstm_init(gen, cfg, dt))
+                       for _ in range(cfg.num_layers // 2)]
+    elif fam == "hybrid":
+        kw["mamba_groups"] = [
+            [MambaLayer(norm(), ssm_mod.mamba2_init(gen, cfg, dt))
+             for _ in range(cfg.attn_every)]
+            for _ in range(cfg.num_layers // cfg.attn_every)]
+        kw["shared_attn"] = SharedAttention(norm(),
+                                            attention_init(gen, cfg, dt))
+    else:
+        kw["blocks"] = [Block(norm(), attention_init(gen, cfg, dt), norm(),
+                              mlp=mlp_init(gen, cfg, dtype=dt))
+                        for _ in range(cfg.num_layers)]
+    return Model(cfg, norm(), unemb, **kw)
 
 
 def param_count(params: Model) -> int:
@@ -111,8 +193,13 @@ def param_count(params: Model) -> int:
 
 
 # ================================================================ forward
-def _tokens(params: Model, batch: dict) -> torch.Tensor:
-    return torch.as_tensor(batch["tokens"], device=params.device)
+def _embed_inputs(params: Model, cfg: ModelConfig, batch: dict
+                  ) -> torch.Tensor:
+    if cfg.frontend == "frames":
+        x = torch.as_tensor(batch["frames"], device=params.device)
+        return dense(x.to(torch_dtype(cfg)), params.frontend.proj)
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    return embed(params.embed, tokens, cfg)
 
 
 def _logits(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -124,44 +211,81 @@ def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :]
 
 
-def _block(blk: Block, x: torch.Tensor, cfg: ModelConfig,
-           positions: torch.Tensor) -> torch.Tensor:
+def _ffn(blk: Block, x: torch.Tensor, cfg: ModelConfig):
+    """The block's second half on its normed input: (out, aux loss or
+    None)."""
+    h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+    if blk.moe is not None:
+        return moe_with_aux(blk.moe, h, cfg)
+    return mlp(blk.mlp, h, cfg), None
+
+
+def _block(blk: Block, x, cfg: ModelConfig, positions):
+    x = x + attention(blk.attn, rmsnorm(blk.ln1, x, cfg.norm_eps), cfg,
+                      positions)
+    h, aux = _ffn(blk, x, cfg)
+    return x + h, aux
+
+
+def _pair(pair: Pair, x, cfg: ModelConfig, positions):
     eps = cfg.norm_eps
-    x = x + attention(blk.attn, rmsnorm(blk.ln1, x, eps), cfg, positions)
-    return x + mlp(blk.mlp, rmsnorm(blk.ln2, x, eps), cfg)
+    x = x + ssm_mod.mlstm_forward(pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg)
+    x = x + ssm_mod.slstm_forward(pair.slstm, rmsnorm(pair.ln2, x, eps), cfg)
+    return x, None
+
+
+def _group(group: nn.ModuleList, shared: SharedAttention, x,
+           cfg: ModelConfig, positions):
+    eps = cfg.norm_eps
+    for layer in group:
+        x = x + ssm_mod.mamba2_forward(layer.mamba, rmsnorm(layer.ln, x, eps),
+                                       cfg)
+    x = x + attention(shared.attn, rmsnorm(shared.ln, x, eps), cfg, positions)
+    return x, None
+
+
+def _layers(params: Model) -> list[tuple]:
+    """(apply fn, its leading arguments) for each remat unit, in order."""
+    if params.pairs is not None:
+        return [(_pair, (p,)) for p in params.pairs]
+    if params.mamba_groups is not None:
+        return [(_group, (g, params.shared_attn))
+                for g in params.mamba_groups]
+    return [(_block, (b,)) for b in params.blocks]
 
 
 def forward(params: Model, cfg: ModelConfig, batch: dict,
             with_aux: bool = False, return_hidden: bool = False):
-    """Full-sequence forward. batch: {"tokens": (B, S)}. Returns logits
-    (B, S, padded V) [, aux loss (0 for the dense family)];
-    return_hidden=True returns the final-norm hidden states instead
-    (retrieval embeddings for serving/rag.py)."""
-    _require_dense(cfg)
-    x = embed(params.embed, _tokens(params, batch), cfg)
+    """Full-sequence forward. batch: {"tokens": (B, S)} or {"frames": (B,
+    S, D)}. Returns logits (B, S, padded V) [, the summed MoE aux loss,
+    float32, 0 for the other families]; return_hidden=True returns the
+    final-norm hidden states instead (retrieval embeddings for
+    serving/rag.py)."""
+    x = _embed_inputs(params, cfg, batch)
     positions = _positions(x.shape[1], x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for blk in params.blocks:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for fn, args in _layers(params):
         if remat:
-            # the recompute in the backward re-runs the block's forward
+            # the recompute in the backward re-runs the unit's forward
             # (and so relaunches the flash forward #11)
-            x = checkpoint(_block, blk, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(fn, *args, x, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(blk, x, cfg, positions)
+            x, a = fn(*args, x, cfg, positions)
+        if a is not None:
+            aux = aux + a
     out = (rmsnorm(params.final_norm, x, cfg.norm_eps) if return_hidden
            else _logits(params, cfg, x))
-    if with_aux:
-        return out, torch.zeros((), dtype=torch.float32, device=x.device)
-    return out
+    return (out, aux) if with_aux else out
 
 
 def loss_fn(params: Model, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross-entropy + AUX_LOSS_WEIGHT * aux (JAX
-    `model.py:233-252`). batch: {"tokens", "labels": (B, S) int}; negative
-    labels are masked out. Logits in float32, the vocab padding columns
-    at -1e30. Returns (total, {"ce", "aux"})."""
+    """Mean next-token (or frame-label) cross-entropy + AUX_LOSS_WEIGHT *
+    aux (JAX `model.py:233-252`). batch: {"tokens" or "frames", "labels":
+    (B, S) int}; negative labels are masked out. Logits in float32, the
+    vocab padding columns at -1e30. Returns (total, {"ce", "aux"})."""
     logits, aux = forward(params, cfg, batch, with_aux=True)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     loss = cross_entropy(logits, labels, cfg.vocab_size)
@@ -191,35 +315,88 @@ def _kv_shape(cfg: ModelConfig, batch: int, max_len: int, n_stack: int):
     return (n_stack, batch, s, cfg.num_kv_heads, cfg.head_dim)
 
 
+def _stacked(one: dict, *lead: int) -> dict:
+    """A layer's state dict stacked along leading axes of sizes `lead`."""
+    return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """Zero KV caches (L, B, S_cache, Hk, Dh) in cfg.dtype and pos 0."""
+    """The family's zero decode state at pos 0: KV caches (n, B, S_cache,
+    Hk, Dh) in cfg.dtype, recurrent states float32."""
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
-    _require_dense(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
-    shape = _kv_shape(cfg, batch, max_len, cfg.num_layers)
-    dt = torch_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+
+    def kv(n_stack):
+        shape = _kv_shape(cfg, batch, max_len, n_stack)
+        dt = torch_dtype(cfg)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    if cfg.family == "ssm":
+        n = cfg.num_layers // 2
+        return {"mlstm": _stacked(ssm_mod.mlstm_state_init(cfg, batch, dev),
+                                  n),
+                "slstm": _stacked(ssm_mod.slstm_state_init(cfg, batch, dev),
+                                  n),
+                "pos": 0}
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        return {"mamba": _stacked(ssm_mod.mamba2_state_init(cfg, batch, dev),
+                                  groups, cfg.attn_every),
+                **kv(groups), "pos": 0}
+    return {**kv(cfg.num_layers), "pos": 0}
+
+
+def _store(states: dict, index: tuple, new: dict) -> None:
+    """Write one layer's new recurrent state into the stacked state."""
+    for key, val in new.items():
+        states[key][index].copy_(val)
 
 
 def decode_step(params: Model, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """One token for the whole batch. tokens: (B, 1) int. Returns
-    (logits (B, 1, V), new state); the caches are updated in place."""
-    _require_dense(cfg)
-    x = embed(params.embed, _tokens(params, {"tokens": tokens}), cfg)
+    """One token for the whole batch. tokens: (B, 1) int. Returns (logits
+    (B, 1, V), new state); the caches and states are updated in place."""
+    x = _embed_inputs(params, cfg, {"tokens": tokens})
     pos = int(state["pos"])
     eps = cfg.norm_eps
-    for i, blk in enumerate(params.blocks):
-        h, _, _ = decode_attention(
-            blk.attn, rmsnorm(blk.ln1, x, eps), cfg, state["k"][i],
-            state["v"][i], pos, window=cfg.sliding_window)
-        x = x + h
-        x = x + mlp(blk.mlp, rmsnorm(blk.ln2, x, eps), cfg)
-    logits = _logits(params, cfg, x)
-    return logits, {"k": state["k"], "v": state["v"], "pos": pos + 1}
+
+    def attend(attn, ln, x, i):
+        h, _, _ = decode_attention(attn, rmsnorm(ln, x, eps), cfg,
+                                   state["k"][i], state["v"][i], pos,
+                                   window=cfg.sliding_window)
+        return x + h
+
+    if params.pairs is not None:
+        ml, sl = state["mlstm"], state["slstm"]
+        for i, pair in enumerate(params.pairs):
+            h, new = ssm_mod.mlstm_step(pair.mlstm, rmsnorm(pair.ln1, x, eps),
+                                        {k: v[i] for k, v in ml.items()}, cfg)
+            _store(ml, (i,), new)
+            x = x + h
+            h, new = ssm_mod.slstm_step(pair.slstm, rmsnorm(pair.ln2, x, eps),
+                                        {k: v[i] for k, v in sl.items()}, cfg)
+            _store(sl, (i,), new)
+            x = x + h
+    elif params.mamba_groups is not None:
+        mam, shared = state["mamba"], params.shared_attn
+        for g, group in enumerate(params.mamba_groups):
+            for j, layer in enumerate(group):
+                h, new = ssm_mod.mamba2_step(
+                    layer.mamba, rmsnorm(layer.ln, x, eps),
+                    {k: v[g, j] for k, v in mam.items()}, cfg)
+                _store(mam, (g, j), new)
+                x = x + h
+            x = attend(shared.attn, shared.ln, x, g)
+    else:
+        for i, blk in enumerate(params.blocks):
+            x = attend(blk.attn, blk.ln1, x, i)
+            x = x + _ffn(blk, x, cfg)[0]
+    return _logits(params, cfg, x), {**state, "pos": pos + 1}
 
 
 def _place_kv(cache: torch.Tensor, kv: torch.Tensor) -> None:
@@ -235,23 +412,48 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Process a prompt, returning (logits, primed decode state).
 
-    Assumes prompt length <= cache capacity (and <= window for windowed
-    archs). last_only=True computes logits ONLY for the final position:
-    serving samples from it alone, and the (B, S, V) logits go away.
+    Assumes prompt length <= cache capacity; a windowed cache keeps the
+    prompt's last `window` positions. last_only=True computes logits ONLY
+    for the final position: serving samples from it alone, and the (B, S,
+    V) logits go away.
     """
-    _require_dense(cfg)
-    x = embed(params.embed, _tokens(params, batch), cfg)
+    x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = _positions(s, x.device)
     eps = cfg.norm_eps
     state = init_decode_state(cfg, b, max_len, device=x.device)
-    for i, blk in enumerate(params.blocks):
-        h, (k, v) = attention(blk.attn, rmsnorm(blk.ln1, x, eps), cfg,
-                              positions, return_kv=True)
+
+    def attend(attn, ln, x, i):
+        h, (k, v) = attention(attn, rmsnorm(ln, x, eps), cfg, positions,
+                              return_kv=True)
         _place_kv(state["k"][i], k)
         _place_kv(state["v"][i], v)
-        x = x + h
-        x = x + mlp(blk.mlp, rmsnorm(blk.ln2, x, eps), cfg)
+        return x + h
+
+    if params.pairs is not None:
+        for i, pair in enumerate(params.pairs):
+            h, new = ssm_mod.mlstm_forward(
+                pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg, return_state=True)
+            _store(state["mlstm"], (i,), new)
+            x = x + h
+            h, new = ssm_mod.slstm_forward(
+                pair.slstm, rmsnorm(pair.ln2, x, eps), cfg, return_state=True)
+            _store(state["slstm"], (i,), new)
+            x = x + h
+    elif params.mamba_groups is not None:
+        shared = params.shared_attn
+        for g, group in enumerate(params.mamba_groups):
+            for j, layer in enumerate(group):
+                h, new = ssm_mod.mamba2_forward(
+                    layer.mamba, rmsnorm(layer.ln, x, eps), cfg,
+                    return_state=True)
+                _store(state["mamba"], (g, j), new)
+                x = x + h
+            x = attend(shared.attn, shared.ln, x, g)
+    else:
+        for i, blk in enumerate(params.blocks):
+            x = attend(blk.attn, blk.ln1, x, i)
+            x = x + _ffn(blk, x, cfg)[0]
     state["pos"] = s
     if last_only:
         x = x[:, -1:]

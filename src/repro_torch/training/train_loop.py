@@ -8,7 +8,7 @@ float32 because training keeps float32 master weights (the JAX package
 accumulates in float32 zeros, `train_loop.py:161-175`); loss and
 gradients are then averaged over the microbatches. The multi-device
 sharded step (`train_state_specs`, `dp_step.py`) is not ported
-(ROADMAP.md A5).
+(ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig,
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
-        n = len(batch["tokens"])
+        n = len(batch["labels"])
         if n % grad_accum:
             raise ValueError(f"batch {n} is not a multiple of grad_accum "
                              f"{grad_accum}")

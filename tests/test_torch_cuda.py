@@ -1044,6 +1044,64 @@ def test_model_forward_flash_vs_blockwise(cuda_device):
     assert float(cos.min()) >= 0.999
 
 
+FAMILY_ARCHS = ["olmoe-1b-7b", "granite-moe-1b-a400m", "chameleon-34b",
+                "hubert-xlarge", "xlstm-125m", "zamba2-2.7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Each family's reduced config in float32, the same parameters on the
+    card (the flash kernel) and on the CPU (its plain version): forward
+    logits, then (decoders) a prefill of 16 tokens and 4 decode steps, the
+    cosine of each position's logits >= 0.9999 (cuDNN's float32 conv runs
+    in TF32); #10 launched once per attention application a forward."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              use_flash_kernel=True)
+    cpu = init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    if cfg.frontend == "frames":
+        batch = {"frames": torch.randn((2, 32, cfg.d_model), generator=gen)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                         generator=gen)}
+
+    def close(got, want):
+        cos = torch.nn.functional.cosine_similarity(
+            got.float().cpu().flatten(0, -2), want.flatten(0, -2), dim=-1)
+        assert float(cos.min()) >= 0.9999, float(cos.min())
+
+    applications = {"ssm": 0, "hybrid": cfg.num_layers // max(
+        cfg.attn_every, 1)}.get(cfg.family, cfg.num_layers)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        close(forward(card, cfg, {k: v.to(cuda_device)
+                                  for k, v in batch.items()}),
+              forward(cpu, cfg, batch))
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + applications
+        if cfg.is_encoder:
+            return
+        toks = batch["tokens"]
+        got, g_state = prefill(card, cfg, {"tokens": toks[:, :16].to(
+            cuda_device)}, max_len=32)
+        want, w_state = prefill(cpu, cfg, {"tokens": toks[:, :16]},
+                                max_len=32)
+        close(got, want)
+        for t in range(16, 20):
+            got, g_state = decode_step(card, cfg, g_state,
+                                       toks[:, t:t + 1].to(cuda_device))
+            want, w_state = decode_step(cpu, cfg, w_state, toks[:, t:t + 1])
+            close(got, want)
+
+
 # ------------------------------------------------ flash attention backward (#12)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -58,7 +58,8 @@ def test_package_has_the_slice_modules():
                  "launch.train", "core.plans", "obs", "obs.tracing",
                  "obs.metrics", "serving.loadgen", "serving.scheduler",
                  "serving.anns_service", "core.storage", "core.pq",
-                 "core.distributed", "core.resharding", "launch.mesh"):
+                 "core.distributed", "core.resharding", "launch.mesh",
+                 "models.moe", "models.ssm"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -46,7 +46,11 @@ from repro.training import checkpoint as jckpt
 from repro.training import optimizer as jopt
 from repro.training import train_loop as jtl
 from repro_torch.configs import ARCHS
-from repro_torch.data.synthetic import TokenDataset, make_lm_batch
+from repro_torch.data.synthetic import (
+    FrameDataset,
+    TokenDataset,
+    make_lm_batch,
+)
 from repro_torch.launch import train as ttrain
 from repro_torch.models import model as tm
 from repro_torch.models.convert import params_from_jax, to_jax_layout
@@ -410,8 +414,21 @@ def test_lm_batches_are_a_function_of_seed_and_step():
     assert a["tokens"].dtype == torch.int32 and a["tokens"].shape == (2, 16)
     assert torch.equal(a["tokens"][:, 1:], a["labels"][:, :-1])
     assert int(a["tokens"].max()) < cfg.vocab_size
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_lm_batch(ARCHS["hubert-xlarge"].reduced(), 1, 4, 0, 0)
+    # frames (the encoder's frontend): shapes, dtypes, (seed, step)
+    enc = ARCHS["hubert-xlarge"].reduced()
+    f = make_lm_batch(enc, 2, 16, seed=3, step=5)
+    assert set(f) == {"frames", "labels"}
+    assert f["frames"].dtype == torch.float32
+    assert f["frames"].shape == (2, 16, enc.d_model)
+    assert f["labels"].dtype == torch.int32 and f["labels"].shape == (2, 16)
+    assert 0 <= int(f["labels"].min()) and int(f["labels"].max()) < \
+        enc.vocab_size
+    again = FrameDataset(enc, 2, 16, seed=3)(5)
+    assert all(torch.equal(f[k], again[k]) for k in f)
+    assert not torch.equal(f["frames"], make_lm_batch(enc, 2, 16, 3, 6)[
+        "frames"])
+    assert not torch.equal(f["frames"], make_lm_batch(enc, 2, 16, 4, 5)[
+        "frames"])
 
 
 def test_jax_layout_round_trip():
@@ -589,5 +606,5 @@ def test_train_launcher_grad_accum_and_minicpm():
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         ttrain.run(_args(mesh="debug"))
