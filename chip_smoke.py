@@ -266,13 +266,45 @@ Phases:
                 frames (48 launches of #10), bidirectional (the last frame
                 moves position 0's hidden state), profiled. Prints one
                 `{"families": ...}` JSON line.
+ 15. training the families — last, after 14: float32 masters, bf16
+                compute, remat "full", the flash kernels. (a) #11 and #12
+                against their plain versions (B=1, bf16) at the attention
+                shapes (b) trains — granite-moe-1b-a400m's (2,048, 16/8,
+                Dh 64, causal), zamba2-2.7b's (4,096, 32/32, Dh 80, window
+                4,096), hubert-xlarge's (1,024, 16/16, Dh 80,
+                bidirectional) — and timed at the training microbatch
+                beside the plain versions, SDPA's forward and backward and
+                the bounds. (b) granite-moe-1b-a400m, zamba2-2.7b,
+                hubert-xlarge (frame batches), xlstm-125m and olmoe-1b-7b
+                at 4 of its 16 layers (a depth cut: ~111 GB of float32
+                state at 16) at full width through `launch/train.py` `run`
+                (FAMILY_TRAIN: 2 steps each): finite losses, aux losses and
+                grad norms, the first cross-entropy within [ln V - 0.5,
+                ln V + 3], #11 / #12 launches a step 2 / 1 x the attention
+                applications x the microbatches (remat recomputes the
+                forward) and no blockwise attention, memory < 80 GB; then
+                3 steps at lr 1e-3 on one fixed batch from a fresh state
+                (the loss falls; the MoE aux loss printed); xlstm's sLSTM
+                forward and sequential backward timed alone. (c) On a
+                one-process NCCL group: `make_dp_train_step_compressed` on
+                a 1 x 1 mesh, granite-moe at full width, 12 steps on one
+                fixed batch, compressed and exact: both fall, the last
+                compressed loss within 10 % of the exact one; the bytes of
+                int8 codes against float32 a step. (d) The `--mesh debug`
+                step (`make_sharded_train_step`) on `make_debug_mesh(1, 1)`
+                for stablelm-1.6b at full width: parameters and moments
+                bit-equal to the single-device step's after 2 steps. The
+                group is destroyed after. Prints one
+                `{"training_families": ...}` JSON line.
 
 Prints the serving, host-tier, sharded and families JSON lines, the
 kernel JSON line (with each search kernel's launches a host-tier search
 of its lane as `launches_host_tier` and a sharded search as
 `launches_sharded`; #10's launches a forward of each family as
 `launches_families` and its times at phase 14's shapes as
-`at_family_shapes`), the card's name and
+`at_family_shapes`; #11's and #12's launches in phase 15 (b) by family as
+`launches_families`, added to `launches`, and their times at phase 15's
+shapes as `at_family_shapes`), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
@@ -3643,9 +3675,11 @@ def flash_at_train_shapes(cfg) -> dict:
     flops11 = 2.0 * b * h * s * s * dh
     b11_ms, b11_by = bound(b * s * dh * 2 * (2 * h + 2 * hk)
                            + b * h * s * 4, flops11, peak=BF16_FLOPS)
-    # the backward: 7 products (s and dp twice, dq, dk, dv); q, o, dO in
-    # and dq out (H heads), k, v in and dk, dv out (Hk), lse
-    flops12 = 7.0 * b * h * s * s * dh
+    # the backward's work: 5 products of B*H*S^2*Dh/2 multiply-adds (s
+    # recomputed, dp, dv, dq, dk; the kernel pair's second s and dp are
+    # its own cost, not counted); q, o, dO in and dq out (H heads), k, v
+    # in and dk, dv out (Hk), lse
+    flops12 = 5.0 * b * h * s * s * dh
     b12_ms, b12_by = bound(b * s * dh * 2 * (4 * h + 4 * hk)
                            + b * h * s * 4, flops12, peak=BF16_FLOPS)
     log(f"  flash at the training microbatch (B={b}, S={s}, H={h}, Hk={hk}, "
@@ -4280,6 +4314,394 @@ def families() -> dict:
     return out
 
 
+# ------------------------------------ training the families (phase 15)
+# arch, batch, sequence, grad_accum, layers (None: the published depth):
+# one card's cut of each family's global batch. olmoe-1b-7b's float32
+# masters, gradients and AdamW moments come to ~111 GB at 16 layers, so it
+# trains 4 of them (1.85 B parameters, ~30 GB). xlstm-125m's sLSTM is
+# 6 x S sequential steps of ~21 launches each way: S = 256 keeps its five
+# steps near 10 s.
+FAMILY_TRAIN = (("granite-moe-1b-a400m", 4, 2048, 2, None),
+                ("zamba2-2.7b", 2, 4096, 2, None),
+                ("hubert-xlarge", 4, 1024, 1, None),
+                ("xlstm-125m", 4, 256, 1, None),
+                ("olmoe-1b-7b", 4, 1024, 2, 4))
+FAMILY_TRAIN_STEPS = 2         # through launch/train.py run
+# #11 and #12 at the attention shapes of (b): arch, S, H, Hk, Dh, causal,
+# window (zamba2's window is its training length: the causal mask)
+TRAIN_FLASH = (("granite-moe-1b-a400m", 2048, 16, 8, 64, True, 0),
+               ("zamba2-2.7b", 4096, 32, 32, 80, True, 4096),
+               ("hubert-xlarge", 1024, 16, 16, 80, False, 0))
+# the data-parallel step at world size 1 (tests/test_distributed.py:566's
+# run: 12 steps on one fixed batch at peak lr 1e-3, compressed within
+# 10 % of exact) and the --mesh debug step on a 1 x 1 mesh
+DP_ARCH, DP_BATCH, DP_SEQ, DP_STEPS, DP_REL_TOL = (
+    "granite-moe-1b-a400m", 4, 1024, 12, 0.1)
+MESH_ARCH, MESH_BATCH, MESH_SEQ, MESH_STEPS = "stablelm-1.6b", 2, 2048, 2
+
+
+def flash_at_family_training_shapes() -> tuple[list, list]:
+    """Phase 15 (a): #11 and #12 against their plain versions (B=1, bf16)
+    at the families' training shapes, then timed at the training
+    microbatch beside the plain versions, SDPA's forward and backward and
+    the bounds. Returns (#11's records, #12's records), one a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    micro = {a: b // acc for a, b, _, acc, _ in FAMILY_TRAIN}
+    fwd, bwd = [], []
+    for arch, s, h, hk, dh, causal, window in TRAIN_FLASH:
+        kw = dict(causal=causal, window=window, block_q=256, block_kv=1024)
+
+        def qkv(b):
+            return [torch.randn((b, s, n, dh), generator=gen, device="cuda"
+                                ).to(torch.bfloat16) for n in (h, hk, hk)]
+        q, k, v = qkv(1)
+        shape = f"{arch}'s (1, {s}, {h}/{hk}, {dh})"
+        err_f = compare_flash(q, k, v, kw, f"flash at {shape}")
+        err_b = compare_flash_bwd(q, k, v, kw, f"flash bwd at {shape}", gen)
+        b = micro[arch]
+        q, k, v = qkv(b)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        ms11 = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5)
+        plain11 = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, **kw),
+                          2)
+        ms12 = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   **kw), 5)
+        plain12 = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 2)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = dict(is_causal=causal, enable_gqa=h != hk)
+        lib11 = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, **sdpa), 5)
+        oh = F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
+        doh = do.transpose(1, 2).contiguous()
+        lib12 = cuda_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), 5)
+        half = 2 if causal else 1
+        # the forward 2 products, the backward 5 (s recomputed, dp, dv,
+        # dq, dk), of B*H*S^2*Dh (halved when causal); q, k, v (and o, dO,
+        # dq, dk, dv) once, the lse
+        flops11 = 4.0 * b * h * s * s * dh / half
+        flops12 = 10.0 * b * h * s * s * dh / half
+        b11, by11 = bound(b * s * dh * 2 * (2 * h + 2 * hk) + b * h * s * 4,
+                          flops11, peak=BF16_FLOPS)
+        b12, by12 = bound(b * s * dh * 2 * (4 * h + 4 * hk) + b * h * s * 4,
+                          flops12, peak=BF16_FLOPS)
+        log(f"  flash at {arch}'s training shape (B={b}, S={s}, H={h}, "
+            f"Hk={hk}, Dh={dh}, {'causal' if causal else 'bidirectional'}"
+            f"{f', window {window}' if window else ''}) bf16: #11 "
+            f"{ms11:.3f} ms, plain {plain11:.3f} ms, SDPA {lib11:.3f} ms, "
+            f"bound {b11:.4f} ms ({by11}), {flops11 / ms11 / 1e9:.1f} "
+            f"TFLOP/s; #12 {ms12:.3f} ms, plain {plain12:.3f} ms, SDPA "
+            f"backward {lib12:.3f} ms, bound {b12:.4f} ms ({by12}), "
+            f"{flops12 / ms12 / 1e9:.1f} TFLOP/s; max |err| vs plain (B=1) "
+            f"o {err_f:.3g}, dq/dk/dv {err_b:.3g}")
+        common = dict(arch=arch, shape=[b, s, h, hk, dh], causal=causal,
+                      window=window)
+        fwd.append(dict(common, ms=ms11, plain_ms=plain11, library_ms=lib11,
+                        bound_ms=b11, bound_by=by11, max_abs_err=err_f))
+        bwd.append(dict(common, ms=ms12, plain_ms=plain12, library_ms=lib12,
+                        bound_ms=b12, bound_by=by12, max_abs_err=err_b))
+        del q, k, v, do, o, lse, qh, kh, vh, oh, doh
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+class DepthCut:
+    """`module.get_config` with the depth cut to `layers` (None: as
+    published) while the block runs."""
+
+    def __init__(self, module, layers):
+        self.module, self.layers = module, layers
+
+    def __enter__(self):
+        self.orig = self.module.get_config
+        if self.layers:
+            self.module.get_config = lambda name: dataclasses.replace(
+                self.orig(name), num_layers=self.layers)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.get_config = self.orig
+
+
+def slstm_times(params, cfg, batch: int, seq: int) -> dict:
+    """The first pair's sLSTM alone at (batch, seq): its forward and its
+    sequential backward (the gradients of the input and its parameters),
+    CUDA-event ms."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import torch_dtype
+    slstm = params.pairs[0].slstm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda"
+                    ).to(torch_dtype(cfg)).requires_grad_()
+    fwd_ms = cuda_ms(lambda: ssm.slstm_forward(slstm, x, cfg), 2)
+    y = ssm.slstm_forward(slstm, x, cfg)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    inputs = (x, *slstm.parameters())
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, inputs, dy,
+                                                 retain_graph=True), 2)
+    log(f"  the sLSTM alone (one layer, B={batch}, S={seq}: {seq} "
+        f"sequential steps): forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} "
+        f"ms ({bwd_ms / seq:.3f} ms a step)")
+    return {"slstm_forward_ms": fwd_ms, "slstm_backward_ms": bwd_ms}
+
+
+def train_family(arch: str, batch: int, seq: int, accum: int, layers
+                 ) -> dict:
+    """Phase 15 (b), one family at full width: FAMILY_TRAIN_STEPS steps
+    through `launch/train.py` `run`, then MEMO_STEPS at lr 1e-3 on one
+    fixed batch from a fresh state."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    argv = ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--grad-accum", str(accum),
+            "--seed", str(SEED), "--log-every", "1"]
+    args = train.parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    with DepthCut(train, layers), CountCalls(
+            attention_mod, "blockwise_attention") as bw:
+        out, secs, launched = counted(lambda: train.run(args))
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hist = out["history"]
+    apps = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)
+            }.get(cfg.family, cfg.num_layers)
+    per_step = counts(flash_attention_fwd=2 * apps * accum,
+                      flash_attention_bwd=apps * accum)
+    want = {k: v * FAMILY_TRAIN_STEPS for k, v in per_step.items()}
+    losses = [h["loss"] for h in hist]
+    ce = [h["ce"] for h in hist]
+    ln_v = float(np.log(cfg.vocab_size))
+    log(f"  {arch} ({cfg.family}; {cfg.num_layers} layers"
+        f"{f' of {get_config(arch).num_layers}' if layers else ''}) through "
+        f"launch/train.py run ({' '.join(argv)}): {secs:.1f} s with init; "
+        f"losses {[round(x, 4) for x in losses]}, cross-entropy "
+        f"{[round(x, 4) for x in ce]} (ln V = {ln_v:.4f}), aux "
+        f"{[round(h['aux'], 5) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}, seconds a step "
+        f"{[round(h['seconds'], 3) for h in hist]}; max memory allocated "
+        f"{peak / 1e9:.2f} GB; launches #11 "
+        f"{launched['flash_attention_fwd']}, #12 "
+        f"{launched['flash_attention_bwd']} ({apps} attention applications"
+        f" x {accum} microbatches a step, #11 twice with remat)")
+    check(out["steps"] == FAMILY_TRAIN_STEPS, f"{arch}: run did "
+          f"{out['steps']} steps")
+    check(all(np.isfinite([h[k] for h in hist for k in ("loss", "grad_norm",
+                                                          "aux")])),
+          f"{arch}: a loss, aux loss or grad norm is not finite")
+    # the cross-entropy: an MoE loss adds AUX_LOSS_WEIGHT x the aux loss
+    check(ln_v - 0.5 <= ce[0] <= ln_v + 3, f"{arch}: first cross-entropy "
+          f"{ce[0]:.4f} outside [ln V - 0.5, ln V + 3]")
+    check(launched == want, f"{arch}: launched {launched}, expected {want}")
+    check(bw.n == 0, f"{arch}: training ran blockwise_attention {bw.n} "
+          "times")
+    check(peak < 80e9, f"{arch}: max memory allocated {peak / 1e9:.2f} GB")
+
+    params = init_params(cfg, SEED, param_dtype=torch.float32)
+    n_params = param_count(params)
+    state = init_train_state(cfg, params)
+    step_fn = make_train_step(cfg, OptimizerConfig(
+        peak_lr=MEMO_LR, schedule="constant", warmup_steps=0,
+        total_steps=MEMO_STEPS), grad_accum=accum)
+    fixed = make_lm_batch(cfg, batch, seq, SEED, 0)
+    memo, aux, memo_s = [], [], []
+    for _ in range(MEMO_STEPS):
+        t_step = time.perf_counter()
+        state, m = step_fn(state, fixed)
+        memo.append(float(m["loss"]))
+        aux.append(float(m["aux"]))
+        memo_s.append(time.perf_counter() - t_step)
+    tokens = batch * seq
+    step_t = float(np.mean(memo_s[1:]))
+    log(f"  {arch}: {n_params:,} parameters; {MEMO_STEPS} steps at lr "
+        f"{MEMO_LR} on one fixed batch: losses {[round(x, 4) for x in memo]}"
+        f", aux {[round(x, 5) for x in aux]}, seconds "
+        f"{[round(x, 3) for x in memo_s]} ({tokens / step_t:.0f} tokens/s "
+        f"after the first)")
+    check(all(np.isfinite(memo)) and memo[-1] < memo[0],
+          f"{arch}: the loss did not fall on a fixed batch: {memo}")
+    rec = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "params": n_params, "batch": batch, "seq": seq,
+           "grad_accum": accum, "losses": losses, "ce": ce,
+           "aux": [h["aux"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["seconds"] for h in hist], "memo_losses": memo,
+           "memo_aux": aux, "memo_step_s": memo_s,
+           "tokens_per_s": tokens / step_t, "peak_memory_gb": peak / 1e9,
+           "launches": {k: launched[k] for k in ("flash_attention_fwd",
+                                                 "flash_attention_bwd")}}
+    if cfg.family == "ssm":
+        rec.update(slstm_times(state.params, cfg, batch, seq))
+    del state, params, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def nccl_world_of_one() -> None:
+    """A one-process NCCL group (a rendezvous on a free local port)."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+
+
+def dp_at_world_size_one() -> dict:
+    """Phase 15 (c): `make_dp_train_step_compressed` on a 1 x 1 mesh over
+    NCCL, DP_STEPS on one fixed batch, compressed and exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.training import OptimizerConfig, init_train_state
+    from repro_torch.training.dp_step import make_dp_train_step_compressed
+    cfg = dataclasses.replace(get_config(DP_ARCH), use_flash_kernel=True)
+    mesh = make_debug_mesh(1, 1)
+    opt = OptimizerConfig(peak_lr=MEMO_LR, total_steps=20, warmup_steps=0)
+    fixed = make_lm_batch(cfg, DP_BATCH, DP_SEQ, SEED, 0)
+    out = {}
+    for compress in (True, False):
+        state = init_train_state(cfg, init_params(
+            cfg, SEED, param_dtype=torch.float32))
+        n = param_count(state.params)
+        step = make_dp_train_step_compressed(cfg, opt, mesh,
+                                             compress=compress)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        losses, secs = [], []
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, fixed, gen)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        out["compressed" if compress else "exact"] = {
+            "losses": losses, "step_s": secs,
+            "grad_norm": float(m["grad_norm"])}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    lc, le = out["compressed"]["losses"], out["exact"]["losses"]
+    rel = abs(lc[-1] - le[-1]) / le[-1]
+    out.update(params=n, rel=rel, int8_bytes=n, float32_bytes=4 * n)
+    log(f"  DP step at world size 1 (NCCL) on {DP_ARCH} at full width, "
+        f"{DP_STEPS} steps of {DP_BATCH} x {DP_SEQ} on one fixed batch: "
+        f"compressed losses {[round(x, 4) for x in lc]}, exact "
+        f"{[round(x, 4) for x in le]}; last relative difference {rel:.4f}; "
+        f"seconds a step {np.mean(out['compressed']['step_s'][1:]):.3f} "
+        f"compressed, {np.mean(out['exact']['step_s'][1:]):.3f} exact; int8 "
+        f"codes {n:,} B a step against {4 * n:,} B of float32 gradients "
+        f"(the codes are summed as int32, as the JAX package's psum: 4 B an "
+        f"element on the wire)")
+    check(all(np.isfinite(lc + le)), "DP step: a loss is not finite")
+    check(lc[-1] < lc[0] and le[-1] < le[0],
+          f"DP step: a loss did not fall: {lc}, {le}")
+    check(rel < DP_REL_TOL, f"DP step: compressed {lc[-1]:.4f} vs exact "
+          f"{le[-1]:.4f} (relative {rel:.4f})")
+    return out
+
+
+def mesh_step_at_world_size_one() -> dict:
+    """Phase 15 (d): `--mesh debug`'s sharded step on `make_debug_mesh(1,
+    1)` for MESH_ARCH at full width against the single-device step: the
+    parameters and both moments bit-equal after MESH_STEPS."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.dp_step import make_sharded_train_step
+    cfg = dataclasses.replace(get_config(MESH_ARCH), use_flash_kernel=True)
+    opt = OptimizerConfig(peak_lr=MEMO_LR, total_steps=10, warmup_steps=0)
+    mesh = make_debug_mesh(1, 1)
+    batches = [make_lm_batch(cfg, MESH_BATCH, MESH_SEQ, SEED, t)
+               for t in range(MESH_STEPS)]
+    ref = init_train_state(cfg, init_params(cfg, SEED,
+                                            param_dtype=torch.float32))
+    step = make_train_step(cfg, opt)
+    ref_losses = []
+    for b in batches:
+        ref, m = step(ref, b)
+        ref_losses.append(float(m["loss"]))
+    sharded, _ = train.sharded_state(cfg, SEED, mesh, torch.device(
+        "cuda", torch.cuda.current_device()))
+    sstep = make_sharded_train_step(cfg, opt, mesh)
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        sharded, m = sstep(sharded, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    full = dict(sharded.params.named_parameters())
+    diff = max(float((full[n].to_local() - p.detach()).abs().max())
+               for n, p in ref.params.named_parameters())
+    same = all(torch.equal(full[n].to_local(), p)
+               for n, p in ref.params.named_parameters())
+    same_m = all(torch.equal(sharded.opt_state[k][n].to_local(),
+                             ref.opt_state[k][n])
+                 for k in ("m", "v") for n in ref.opt_state[k])
+    log(f"  --mesh debug step on a 1 x 1 mesh (NCCL), {MESH_ARCH} at full "
+        f"width, {MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ}: losses "
+        f"{[round(x, 6) for x in losses]} vs single-device "
+        f"{[round(x, 6) for x in ref_losses]}; parameters bit-equal {same} "
+        f"(max |diff| {diff:.3g}), moments bit-equal {same_m}; seconds a "
+        f"step {[round(x, 3) for x in secs]}")
+    check(same and same_m and losses == ref_losses
+          and sharded.opt_state["step"] == ref.opt_state["step"],
+          f"--mesh debug step at world size 1 differs from the "
+          f"single-device step (max |param diff| {diff:.3g})")
+    del ref, sharded, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": secs, "bit_equal": True}
+
+
+def training_families() -> dict:
+    """Phase 15; returns {"flash_fwd", "flash_bwd": #11's and #12's
+    records at the training shapes, "models": one record a family, "dp",
+    "mesh", "launches": #11 and #12 on (b)'s path}."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    fwd, bwd = flash_at_family_training_shapes()
+    models = [train_family(*run) for run in FAMILY_TRAIN]
+    nccl_world_of_one()
+    try:
+        dp = dp_at_world_size_one()
+        mesh = mesh_step_at_world_size_one()
+    finally:
+        dist.destroy_process_group()
+    launches = {k: sum(m["launches"][k] for m in models)
+                for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    out = {"flash_fwd": fwd, "flash_bwd": bwd, "models": models, "dp": dp,
+           "mesh": mesh, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 15: {out['seconds']:.1f} s; launches on (b)'s path: #11 "
+        f"{launches['flash_attention_fwd']}, #12 "
+        f"{launches['flash_attention_bwd']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -4429,6 +4851,22 @@ def main() -> int:
                  launches_families={m["arch"]: m["flash_launches_a_forward"]
                                     for m in fam["models"]},
                  at_family_shapes=fam["flash"])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15] training the families at full width: "
+        f"{', '.join(r[0] for r in FAMILY_TRAIN)}; the DP step and the "
+        f"--mesh debug step at world size 1 (device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    tf = training_families()
+    print(json.dumps({"training_families": tf}))
+    for name, shapes in (("flash_attention_fwd", tf["flash_fwd"]),
+                         ("flash_attention_bwd", tf["flash_bwd"])):
+        rec = next(r for r in records if r["name"] == name)
+        rec.update(launches=rec["launches"] + tf["launches"][name],
+                   launches_families={m["arch"]: m["launches"][name]
+                                      for m in tf["models"]},
+                   at_family_shapes=shapes)
 
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))

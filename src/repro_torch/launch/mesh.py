@@ -1,20 +1,30 @@
-"""The device mesh of the row-sharded index (port of `repro.launch.mesh`'s
-`make_mesh`).
+"""Device meshes (port of `repro.launch.mesh`).
 
-A `Mesh` names its axes and their sizes, as a JAX mesh does, and holds
-ONE device: every shard of a `ShardedJasperIndex` lives on it, and the
-shard merge runs there. Shards on more than one card (with the merge as a
-collective) are not supported yet: a mesh over more than one CUDA device
-raises.
+Two kinds, as the JAX package uses them:
+  * the row-sharded index's `Mesh` (`make_mesh`): axis names and sizes,
+    as a JAX mesh has, on ONE device: every shard of a
+    `ShardedJasperIndex` lives on it, and the shard merge runs there.
+    Shards on more than one card (with the merge as a collective) are not
+    supported yet: a mesh over more than one CUDA device raises;
+  * the training meshes (`make_debug_mesh`, `make_production_mesh`): a
+    `torch.distributed` `DeviceMesh` over ("data", "model") or ("pod",
+    "data", "model"), one process a device, on the process group that is
+    already initialised (`init_distributed` does that from torchrun's
+    environment). The card takes NCCL; `gloo` only when the CPU is asked
+    for; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+
+_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
 
 @dataclass(frozen=True)
@@ -50,7 +60,64 @@ def make_mesh(shape, axes, device=None) -> Mesh:
             raise NotImplementedError(
                 f"a mesh over {len(devs)} devices: every shard lives on one "
                 "card in this port (ROADMAP A9, shards on more than one "
-                "card)")
+                "card); the training meshes over several devices are "
+                "make_debug_mesh and make_production_mesh")
         device = next(iter(devs)) if devs else None
     return Mesh(axis_names=axes, axis_sizes=shape,
                 device=resolve_device(device))
+
+
+def init_distributed(device=None) -> bool:
+    """Initialise the default process group from torchrun's environment
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT; LOCAL_RANK picks the
+    card): NCCL on the card, `gloo` on the CPU. Returns False, and does
+    nothing, when WORLD_SIZE is not set; a group already initialised must
+    have the device's backend."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        _check_backend(dev)
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(_BACKEND[dev.type], init_method="env://")
+    return True
+
+
+def _check_backend(dev: torch.device) -> None:
+    backend = dist.get_backend()
+    if backend != _BACKEND[dev.type]:
+        raise RuntimeError(f"the process group's backend is {backend}; a "
+                           f"{dev.type} mesh takes {_BACKEND[dev.type]}")
+
+
+def _training_mesh(shape: tuple, axes: tuple, device):
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    size = 1
+    for s in shape:
+        size *= s
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != size:
+        have = ("no process group is initialised" if world is None
+                else f"the process group has world size {world}")
+        raise RuntimeError(
+            f"a {' x '.join(map(str, shape))} mesh over {axes} needs a "
+            f"process group of world size {size}, one process a device "
+            f"({have}; run under torchrun --nproc-per-node {size})")
+    _check_backend(dev)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production training mesh: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model") — 256 or 512 processes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _training_mesh(shape, axes, device)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, device=None):
+    """A small (n_data, n_model) training mesh over ("data", "model")."""
+    return _training_mesh((n_data, n_model), ("data", "model"), device)

@@ -4,6 +4,8 @@
         --batch 4 --seq 4096 --grad-accum 2
     python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --device cpu --steps 3
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch stablelm-1.6b --reduced --device cpu --mesh debug --steps 2
 
 Trains every family: token batches, or frame batches for an encoder
 (hubert-xlarge). Runs on the card unless `--device cpu` is given.
@@ -19,8 +21,29 @@ Fault tolerance, as in the JAX launcher:
   * --resume restarts from the newest complete checkpoint — the data is a
     pure function of (seed, step), so the replay is exact;
   * the step loop retries once from the last checkpoint on a failure.
-`--mesh debug|production` (the multi-device data-parallel step) is not
-ported: it raises, naming ROADMAP.md A6.
+
+`--mesh debug|production` trains on a `torch.distributed` mesh, one
+process a device, as torchrun starts them (RANK, WORLD_SIZE; NCCL on the
+card, `gloo` with `--device cpu`): debug is 2 x 2 over ("data", "model"),
+production 16 x 16 (`--multi-pod`: 2 x 16 x 16 with "pod"), so the world
+size must be 4, 256 or 512. The step is `training/dp_step.py`'s
+`make_sharded_train_step`, the JAX launcher's sharded step
+(`src/repro/launch/train.py:51-72`) as DTensors: the parameters and both
+AdamW moments are stored at `sanitize_shardings(train_state_shardings(
+mesh, cfg))` (ZeRO-3 over "data" plus the "model" splits), so between
+steps each rank holds what the JAX device at its mesh coordinates holds.
+Within a step a rank all-gathers every parameter into the model as a
+plain tensor and all-reduces full gradients over the data axes, so its
+peak memory is the full float32 parameters plus the full float32
+gradients (plus its shards and activations) whatever the mesh's size: a
+config too big for one device does not train under `--mesh` yet, and the
+all-reduce moves about twice the bytes of a reduce-scatter onto the
+local shards (ROADMAP A9 queues a block-by-block gather and the
+reduce-scatter). No DTensor reaches a hand-written kernel (the flash ops
+have no DTensor sharding rule). Tensor-parallel compute is not
+reproduced: the ranks of a model axis repeat the same compute (ROADMAP
+A9). A MoE architecture under `--mesh` raises (ROADMAP A6:
+`_moe_shard_map`).
 """
 
 from __future__ import annotations
@@ -30,16 +53,24 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_lm_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import shardings as shd
+from repro_torch.launch.mesh import (
+    init_distributed,
+    make_debug_mesh,
+    make_production_mesh,
+)
 from repro_torch.models.model import init_params, param_count
 from repro_torch.training.checkpoint import (
     latest_step,
     restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.training.dp_step import make_sharded_train_step
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_loop import init_train_state, make_train_step
 
@@ -57,29 +88,58 @@ def build(args):
     return cfg, opt, step_fn
 
 
+def sharded_state(cfg, seed: int, mesh, device) -> tuple:
+    """(state, its shardings): `init_params` from `seed` on every rank,
+    float32 masters, then stored at the sanitized train-state shardings."""
+    state = init_train_state(cfg, init_params(
+        cfg, seed, device=device, param_dtype=torch.float32))
+    s_shd = shd.sanitize_shardings(shd.train_state_shardings(mesh, cfg),
+                                   shd.state_shapes(state), mesh)
+    return shd.shard_train_state(state, s_shd), s_shd
+
+
+def _mesh(args, dev):
+    if args.mesh == "debug":
+        return make_debug_mesh(device=dev)
+    return make_production_mesh(multi_pod=args.multi_pod, device=dev)
+
+
 def run(args) -> dict:
     """Train `args.steps` steps; returns the last step's metrics (floats),
     "steps", and "history": each step's metrics with its "seconds" (host
     clock to a synchronised finish)."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-device data-parallel step is not "
-            "ported (ROADMAP.md A6)")
     cfg, opt, step_fn = build(args)
     dev = resolve_device(args.device)
-    params = init_params(cfg, args.seed, device=dev,
-                         param_dtype=torch.float32)
-    state = init_train_state(cfg, params)
-    print(f"arch={cfg.name} params={param_count(state.params) / 1e6:.2f}M "
-          f"device={dev}", flush=True)
+    s_shd = None
+    if args.mesh != "none":
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                f"--mesh {args.mesh} with {cfg.name}: the sharded MoE "
+                "(_moe_shard_map) is not ported (ROADMAP.md A6; queued "
+                "under A9)")
+        init_distributed(dev)
+        mesh = _mesh(args, dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        state, s_shd = sharded_state(cfg, args.seed, mesh, dev)
+        step_fn = make_sharded_train_step(cfg, opt, mesh, args.grad_accum)
+    else:
+        params = init_params(cfg, args.seed, device=dev,
+                             param_dtype=torch.float32)
+        state = init_train_state(cfg, params)
+    # one line per step from rank 0 of a mesh
+    say = (print if not dist.is_initialized() or dist.get_rank() == 0
+           else lambda *a, **k: None)
+    say(f"arch={cfg.name} params={param_count(state.params) / 1e6:.2f}M "
+        f"device={dev} mesh={args.mesh}", flush=True)
 
     start = 0
     if args.resume and args.ckpt_dir:
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            state = restore_checkpoint(args.ckpt_dir, last, state)
+            state = restore_checkpoint(args.ckpt_dir, last, state, s_shd)
             start = last
-            print(f"resumed from step {last}", flush=True)
+            say(f"resumed from step {last}", flush=True)
 
     metrics, history = {}, []
     t0 = time.perf_counter()
@@ -95,10 +155,10 @@ def run(args) -> dict:
             step += 1
             if step % args.log_every == 0 or step == args.steps:
                 dt = (time.perf_counter() - t0) / max(step - start, 1)
-                print(f"step {step:5d} loss {metrics['loss']:.4f} "
-                      f"ce {metrics['ce']:.4f} lr {metrics['lr']:.2e} "
-                      f"gnorm {metrics['grad_norm']:.2f} ({dt:.2f}s/step)",
-                      flush=True)
+                say(f"step {step:5d} loss {metrics['loss']:.4f} "
+                    f"ce {metrics['ce']:.4f} lr {metrics['lr']:.2e} "
+                    f"gnorm {metrics['grad_norm']:.2f} ({dt:.2f}s/step)",
+                    flush=True)
             if args.ckpt_dir and step % args.ckpt_every == 0:
                 save_checkpoint(args.ckpt_dir, step, state)
         except (RuntimeError, ValueError):
@@ -109,8 +169,8 @@ def run(args) -> dict:
             last = latest_step(args.ckpt_dir)
             if last is None:
                 raise
-            print(f"step failed; retrying from checkpoint {last}", flush=True)
-            state = restore_checkpoint(args.ckpt_dir, last, state)
+            say(f"step failed; retrying from checkpoint {last}", flush=True)
+            state = restore_checkpoint(args.ckpt_dir, last, state, s_shd)
             step = last
     if args.ckpt_dir:
         save_checkpoint(args.ckpt_dir, step, state)
@@ -130,6 +190,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "debug", "production"],
                     default="none")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="--mesh production over 2 pods (512 processes)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")

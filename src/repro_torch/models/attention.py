@@ -7,8 +7,10 @@ flash_attention`: CUDA on the card, its plain version on the CPU; under
 autograd its `torch.autograd.Function`, forward #11 and backward #12), or
 `blockwise_attention`, a plain copy of the JAX blockwise loop that is the
 alternative and the numerical reference (differentiable by autograd).
-The JAX package's sharding constraints are the identity on one device
-and have no counterpart here.
+The JAX package's sharding constraints (`constrain`, ported in
+`models/sharding_ctx.py`) are not threaded here: the sharded train step
+all-gathers the parameters and runs this code on plain local tensors, so
+no DTensor reaches the kernels.
 
 GQA: q heads H = G * Hk grouped as (B, S, Hk, G, Dh), so query head `hi`
 reads KV head `hi // G`.
@@ -40,6 +42,11 @@ def attention_init(generator, cfg: ModelConfig,
                      _init_linear(generator, cfg, d, hk * dh, dtype),
                      _init_linear(generator, cfg, d, hk * dh, dtype),
                      _init_linear(generator, cfg, h * dh, d, dtype))
+
+
+def attention_spec(cfg: ModelConfig) -> dict:
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
 
 
 def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -19,6 +19,10 @@ maps the port's parameters (or a moment dict keyed by their names) back
 to the JAX tree as numpy arrays, so the tests compare leaf by leaf and
 `training/checkpoint.py` writes and reads the JAX package's checkpoints.
 Both take the layout from a `ModelConfig` or from a `Model` (its `cfg`).
+`named_specs` maps a tree of logical sharding names in the JAX layout
+(`models/model.py` `param_specs`) the same way: a stacked leaf drops its
+leading names, one for each stacked axis, and a transposed leaf reverses
+its two names.
 """
 
 from __future__ import annotations
@@ -104,6 +108,20 @@ def named_from_jax(arrays: dict, cfg: ModelConfig | Model
             a = a[key]
         a = np.asarray(a[index] if index else a, np.float32)
         out[name] = np.ascontiguousarray(a.T if transposed else a)
+    return out
+
+
+def named_specs(spec_tree: dict, cfg: ModelConfig | Model
+                ) -> dict[str, tuple]:
+    """{port parameter name: logical spec in the port's layout} from a
+    JAX-layout spec tree (`param_specs(cfg)`)."""
+    out = {}
+    for name, path, index, transposed in _leaves(cfg):
+        spec = spec_tree
+        for key in path:
+            spec = spec[key]
+        spec = tuple(spec)[len(index):]
+        out[name] = spec[::-1] if transposed else spec
     return out
 
 

@@ -12,6 +12,10 @@ Conventions:
   * projections are bias-free `nn.Linear` holders, so a weight is stored
     (out, in), the transpose of the JAX package's (in, out) matrix
     (`models/convert.py` carries JAX parameters across);
+  * matching *_spec fns return the JAX tree's shape holding LOGICAL
+    axis names (tuples in the JAX layout: (in, out) matrices);
+    `models/convert.py` `named_specs` keys them by the port's parameter
+    names and `launch/shardings.py` maps them to the mesh;
   * every init fn draws from an explicit `torch.Generator` on the
     parameters' device, in float32 before any cast, so the float32 and
     the `cfg.dtype` storage come from the same draws. Its numbers differ
@@ -79,6 +83,10 @@ def rmsnorm_init(cfg: ModelConfig, dim: int | None = None,
                               device=device))
 
 
+def rmsnorm_spec(cfg: ModelConfig, dim_name: str = "embed") -> dict:
+    return {"scale": (dim_name,)}
+
+
 def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     """float32 statistics and scale, cast back to x's dtype."""
     xf = x.float()
@@ -123,6 +131,11 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: int | None = None,
                _init_linear(generator, cfg, d_ff, cfg.d_model, dtype))
 
 
+def mlp_spec(cfg: ModelConfig) -> dict:
+    return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+            "w_down": ("ff", "embed")}
+
+
 def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = F.silu(dense(x, params.w_gate)) * dense(x, params.w_up)
     return dense(h, params.w_down)
@@ -141,6 +154,10 @@ def embedding_init(generator, cfg: ModelConfig,
                                 in_axis=1, dtype=dtype or torch_dtype(cfg)))
 
 
+def embedding_spec(cfg: ModelConfig) -> dict:
+    return {"table": ("vocab", "embed")}
+
+
 def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
     return params.table.to(torch_dtype(cfg))[tokens.long()]
@@ -156,6 +173,10 @@ def unembed_init(generator, cfg: ModelConfig,
                  dtype: torch.dtype | None = None) -> Unembed:
     return Unembed(_init_linear(generator, cfg, cfg.d_model,
                                 cfg.padded_vocab, dtype))
+
+
+def unembed_spec(cfg: ModelConfig) -> dict:
+    return {"w_out": ("embed", "vocab")}
 
 
 def unembed(params: Unembed | None, x: torch.Tensor, cfg: ModelConfig,

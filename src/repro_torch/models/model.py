@@ -44,6 +44,7 @@ from repro_torch.models.attention import (
     Attention,
     attention,
     attention_init,
+    attention_spec,
     decode_attention,
 )
 from repro_torch.models.layers import (
@@ -55,15 +56,19 @@ from repro_torch.models.layers import (
     dense,
     embed,
     embedding_init,
+    embedding_spec,
     mlp,
     mlp_init,
+    mlp_spec,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_spec,
     torch_dtype,
     unembed,
     unembed_init,
+    unembed_spec,
 )
-from repro_torch.models.moe import MoE, moe_init, moe_with_aux
+from repro_torch.models.moe import MoE, moe_init, moe_spec, moe_with_aux
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 AUX_LOSS_WEIGHT = 0.01
@@ -190,6 +195,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
 
 def param_count(params: Model) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+# ============================================ logical sharding names
+def _prepend_spec(tree, axis_name=None):
+    """Every spec of `tree` with one leading (stacked-axis) name."""
+    if isinstance(tree, dict):
+        return {k: _prepend_spec(v, axis_name) for k, v in tree.items()}
+    return (axis_name,) + tuple(tree)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical-axis names of every parameter, in the JAX package's tree
+    (layers stacked, (in, out) matrices): `repro.models.param_specs`.
+    `models/convert.py` `named_specs` keys them by the port's names."""
+    specs: dict = {"final_norm": rmsnorm_spec(cfg)}
+    if cfg.frontend == "frames":
+        specs["frontend"] = {"proj": ("embed", None)}
+    else:
+        specs["embed"] = embedding_spec(cfg)
+    if not cfg.tie_embeddings:
+        specs["unembed"] = unembed_spec(cfg)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio", "moe"):
+        blk = {"ln1": rmsnorm_spec(cfg), "ln2": rmsnorm_spec(cfg),
+               "attn": attention_spec(cfg)}
+        blk["moe" if fam == "moe" else "mlp"] = (
+            moe_spec(cfg) if fam == "moe" else mlp_spec(cfg))
+        specs["blocks"] = _prepend_spec(blk)
+    elif fam == "ssm":
+        specs["pairs"] = _prepend_spec({
+            "ln1": rmsnorm_spec(cfg), "mlstm": ssm_mod.mlstm_spec(cfg),
+            "ln2": rmsnorm_spec(cfg), "slstm": ssm_mod.slstm_spec(cfg)})
+    elif fam == "hybrid":
+        mam = {"ln": rmsnorm_spec(cfg), "mamba": ssm_mod.mamba2_spec(cfg)}
+        specs["mamba_groups"] = _prepend_spec(_prepend_spec(mam))
+        specs["shared_attn"] = {"ln": rmsnorm_spec(cfg),
+                                "attn": attention_spec(cfg)}
+    return specs
 
 
 # ================================================================ forward
@@ -349,6 +392,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                                   groups, cfg.attn_every),
                 **kv(groups), "pos": 0}
     return {**kv(cfg.num_layers), "pos": 0}
+
+
+def state_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding names of the decode state (`init_decode_state`'s
+    tree, the JAX package's): `repro.models.state_specs`. The cache
+    sequence axis is "kv_seq", remapped to the model axis by
+    `launch/shardings.py` where the kv heads do not tile it (split-KV)."""
+    fam = cfg.family
+    kv = (None, "batch", "kv_seq", "kv_heads", None)
+    if fam in ("dense", "vlm", "moe"):
+        return {"k": kv, "v": kv, "pos": ()}
+    if fam == "ssm":
+        ml = {"c": (None, "batch", "heads", None, None),
+              "n": (None, "batch", "heads", None),
+              "m": (None, "batch", "heads"),
+              "conv": (None, "batch", None, "ssm_inner")}
+        sl = {k: (None, "batch", None) for k in ("c", "n", "h", "m")}
+        return {"mlstm": ml, "slstm": sl, "pos": ()}
+    if fam == "hybrid":
+        mam = {"h": (None, None, "batch", "heads", None, None),
+               "conv": (None, None, "batch", None, "ssm_inner")}
+        return {"mamba": mam, "k": kv, "v": kv, "pos": ()}
+    raise ValueError(fam)
 
 
 def _store(states: dict, index: tuple, new: dict) -> None:

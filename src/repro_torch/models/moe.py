@@ -59,6 +59,12 @@ def moe_init(generator, cfg: ModelConfig,
                dense_init(generator, (e, f, d), in_axis=1, dtype=dt))
 
 
+def moe_spec(cfg: ModelConfig) -> dict:
+    return {"router": ("embed", None), "w_gate": ("expert", "embed", None),
+            "w_up": ("expert", "embed", None),
+            "w_down": ("expert", None, "embed")}
+
+
 def capacity(cfg: ModelConfig, tokens: int) -> int:
     """Buffer slots an expert takes for `tokens` routed tokens: the
     capacity factor's share rounded up to a multiple of 8, at least 8."""

@@ -180,6 +180,13 @@ def mamba2_init(generator, cfg: ModelConfig,
         _init_linear(generator, cfg, di, d, dtype))
 
 
+def mamba2_spec(cfg: ModelConfig) -> dict:
+    return {"in_proj": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "a_log": ("ssm_inner",),
+            "d_skip": ("ssm_inner",), "dt_bias": ("ssm_inner",),
+            "norm_scale": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
+
 def _mamba2_pre(params: Mamba2, x: torch.Tensor, cfg: ModelConfig):
     di, n, h = cfg.d_inner, cfg.ssm_state_dim, cfg.n_ssm_heads
     zxbcdt = dense(x, params.in_proj)
@@ -265,6 +272,16 @@ def mlstm_init(generator, cfg: ModelConfig,
                  lin(di, di), lin(di, h), lin(di, h),
                  torch.full((h,), 3.0, device=dev), lin(d, di),
                  RMSNorm(torch.ones((di,), device=dev)), lin(di, d))
+
+
+def mlstm_spec(cfg: ModelConfig) -> dict:
+    return {
+        "w_up": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",), "w_q": ("ssm_inner", None),
+        "w_k": ("ssm_inner", None), "w_v": ("ssm_inner", None),
+        "w_i": ("ssm_inner", None), "w_f": ("ssm_inner", None),
+        "f_bias": (None,), "w_o_gate": ("embed", "ssm_inner"),
+        "norm_scale": ("ssm_inner",), "w_down": ("ssm_inner", "embed")}
 
 
 def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -431,6 +448,12 @@ def slstm_init(generator, cfg: ModelConfig,
                  dense_init(generator, (SLSTM_HEADS, dh, 4 * dh), in_axis=1),
                  bias, _init_linear(generator, cfg, d, ff, dtype),
                  _init_linear(generator, cfg, ff, d, dtype))
+
+
+def slstm_spec(cfg: ModelConfig) -> dict:
+    return {"w_in": ("embed", None), "r": (None, None, None),
+            "bias": (None,), "w_ff_up": ("embed", "ff"),
+            "w_ff_down": ("ff", "embed")}
 
 
 def _slstm_cell(params: SLSTM, g_x: torch.Tensor, carry: tuple, d: int):

@@ -1,6 +1,6 @@
 """Training substrate (PyTorch port of `repro.training`): optimizer, train
-loop, checkpointing. The gradient compression and the multi-device
-data-parallel step are not ported (ROADMAP.md A6)."""
+loop, checkpointing (sharded states too), the int8 gradient compression
+(`compression.py`) and the data-parallel step (`dp_step.py`)."""
 
 from repro_torch.training.checkpoint import (
     latest_step,

@@ -71,7 +71,7 @@ def adamw_init(params: nn.Module) -> dict:
     return {"m": zeros(), "v": zeros(), "step": 0}
 
 
-def _global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32."""
     norms = [torch.linalg.vector_norm(t, dtype=torch.float32)
              for t in tensors]
@@ -80,13 +80,16 @@ def _global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, grads: dict[str, torch.Tensor],
-                 opt_state: dict, params: nn.Module
-                 ) -> tuple[nn.Module, dict, dict]:
+                 opt_state: dict, params: nn.Module | dict,
+                 grad_norm: torch.Tensor | None = None
+                 ) -> tuple[nn.Module | dict, dict, dict]:
     """One AdamW step with global-norm clipping, in place (see the module
-    note); `grads` is keyed by parameter name. Returns (params, new
-    opt_state, {"lr", "grad_norm"})."""
+    note); `grads` is keyed by parameter name, `params` a module or a dict
+    {name: tensor}. `grad_norm`, when given, is the clipping norm of the
+    full gradients (the sharded step updates local shards). Returns
+    (params, new opt_state, {"lr", "grad_norm"})."""
     step = opt_state["step"] + 1
-    gnorm = _global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     t = np.float32(step)
@@ -94,7 +97,9 @@ def adamw_update(cfg: OptimizerConfig, grads: dict[str, torch.Tensor],
     vhat_c = float(np.float32(1) / (np.float32(1) - np.float32(b2) ** t))
     lr = schedule_fn(cfg, step)
     m_all, v_all = opt_state["m"], opt_state["v"]
-    for name, p in params.named_parameters():
+    named = (params.named_parameters() if isinstance(params, nn.Module)
+             else params.items())
+    for name, p in named:
         g = grads[name].float().mul_(scale)
         m = m_all[name].mul_(b1).add_(g, alpha=1 - b1)
         v = v_all[name].mul_(b2).addcmul_(g, g, value=1 - b2)

@@ -6,9 +6,10 @@ the JAX package's, run eagerly. Microbatches run as a Python loop: each
 `backward()` adds its gradients into the parameters' `.grad`, which are
 float32 because training keeps float32 master weights (the JAX package
 accumulates in float32 zeros, `train_loop.py:161-175`); loss and
-gradients are then averaged over the microbatches. The multi-device
-sharded step (`train_state_specs`, `dp_step.py`) is not ported
-(ROADMAP.md A6).
+gradients are then averaged over the microbatches (`loss_and_grads`).
+`train_state_specs` gives the logical sharding names of a TrainState;
+the steps over a mesh (the sharded step of `launch/train.py --mesh` and
+the int8-compressed data-parallel step) are `training/dp_step.py`'s.
 """
 
 from __future__ import annotations
@@ -65,6 +66,38 @@ def train_state_from_jax(state, cfg: ModelConfig, device=None) -> TrainState:
                               "step": int(opt["step"])})
 
 
+def loss_and_grads(params: nn.Module, cfg: ModelConfig, batch: dict,
+                   grad_accum: int = 1, weights=None) -> tuple:
+    """(loss, the last microbatch's metrics, {name: gradient}) averaged
+    over `grad_accum` microbatches of the batch's leading dimension, in
+    order (it must divide). The gradients are the parameters' `.grad`.
+    `weights` (one scalar a microbatch) scales each microbatch's loss,
+    gradients and metrics before the average: the sharded step's share of
+    the global mean."""
+    n = len(batch["labels"])
+    if n % grad_accum:
+        raise ValueError(f"batch {n} is not a multiple of grad_accum "
+                         f"{grad_accum}")
+    mb = n // grad_accum
+    params.zero_grad(set_to_none=True)
+    loss_sum = None
+    for i in range(grad_accum):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        loss, metrics = loss_fn(params, cfg, micro)
+        if weights is not None:
+            loss = loss * weights[i]
+            metrics = {k: v * weights[i] for k, v in metrics.items()}
+        loss.backward()
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    grads = {name: p.grad for name, p in params.named_parameters()}
+    if grad_accum > 1:
+        for g in grads.values():
+            g.div_(grad_accum)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss_sum / grad_accum, metrics, grads
+
+
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig,
                     grad_accum: int = 1):
     """Build the train step. grad_accum > 1 splits the batch's leading
@@ -72,29 +105,20 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig,
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
-        n = len(batch["labels"])
-        if n % grad_accum:
-            raise ValueError(f"batch {n} is not a multiple of grad_accum "
-                             f"{grad_accum}")
-        mb = n // grad_accum
-        params.zero_grad(set_to_none=True)
-        loss_sum = None
-        for i in range(grad_accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics = loss_fn(params, cfg, micro)
-            loss.backward()
-            loss = loss.detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads = {name: p.grad for name, p in params.named_parameters()}
-        if grad_accum > 1:
-            for g in grads.values():
-                g.div_(grad_accum)
+        loss, metrics, grads = loss_and_grads(params, cfg, batch, grad_accum)
         params, opt_state, opt_metrics = adamw_update(
             opt, grads, state.opt_state, params)
         del grads
         params.zero_grad(set_to_none=True)
-        metrics = ({k: v.detach() for k, v in metrics.items()}
-                   | opt_metrics | {"loss": loss_sum / grad_accum})
+        metrics = metrics | opt_metrics | {"loss": loss}
         return TrainState(params=params, opt_state=opt_state), metrics
 
     return train_step
+
+
+def train_state_specs(param_spec_tree) -> TrainState:
+    """Sharding spec tree for TrainState given the param logical specs
+    (optimizer moments shard exactly like their params)."""
+    return TrainState(params=param_spec_tree,
+                      opt_state={"m": param_spec_tree, "v": param_spec_tree,
+                                 "step": ()})

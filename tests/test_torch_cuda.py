@@ -1102,6 +1102,107 @@ def test_family_on_the_card_matches_the_cpu(cuda_device, arch):
             close(got, want)
 
 
+# the attention shapes the families train at (B=1, bf16): granite-moe's
+# 16/8 heads at Dh 64, causal; zamba2's 32/32 at Dh 80 with its 4,096
+# window, at 4,608 tokens so that the window cuts; hubert's 16/16 at Dh 80,
+# bidirectional. The model path's blocks (256 x 1,024).
+FAMILY_TRAIN_FLASH = [("granite-moe-16-8-d64", 2048, 16, 8, 64, True, 0),
+                      ("zamba2-window4096-d80", 4608, 32, 32, 80, True, 4096),
+                      ("hubert-bidir-d80", 1024, 16, 16, 80, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FAMILY_TRAIN_FLASH,
+                         ids=[c[0] for c in FAMILY_TRAIN_FLASH])
+def test_flash_fwd_bwd_at_family_training_shapes(cuda_device, case):
+    """#11 and #12 against their plain versions at the families' training
+    shapes in bf16 (the tolerances of the grid above); #12 twice,
+    bit-equal."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    _, s, h, hk, dh, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h + dh)
+    q, k, v, do = (torch.randn((1, s, n, dh), generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for n in (h, hk, hk, h))
+    kw = dict(causal=causal, window=window, block_q=256, block_kv=1024)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    got = flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, want, want_lse, do, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, want, want_lse, do, **kw)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=2e-2,
+            atol=2e-2 * float(w.float().abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+def test_dp_and_mesh_steps_at_world_size_one_nccl(cuda_device):
+    """A one-process NCCL group on a 1 x 1 mesh: the DP step's exact twin
+    and the `--mesh debug` sharded step equal the single-device step bit
+    for bit (stablelm-1.6b reduced, float32, the flash kernels); the
+    compressed step's loss falls."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.dp_step import (
+        make_dp_train_step_compressed, make_sharded_train_step)
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              dtype="float32", use_flash_kernel=True)
+    opt = OptimizerConfig(peak_lr=1e-3, total_steps=10, warmup_steps=0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+
+        def fresh():
+            return init_train_state(cfg, init_params(
+                cfg, 0, device=cuda_device, param_dtype=torch.float32))
+        ref, dp, comp = fresh(), fresh(), fresh()
+        sharded, _ = ltrain.sharded_state(cfg, 0, mesh, cuda_device)
+        ref_step = make_train_step(cfg, opt)
+        dp_step = make_dp_train_step_compressed(cfg, opt, mesh,
+                                                compress=False)
+        c_step = make_dp_train_step_compressed(cfg, opt, mesh)
+        s_step = make_sharded_train_step(cfg, opt, mesh)
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        batch = make_lm_batch(cfg, 4, 64, 0, 0)
+        losses = []
+        for _ in range(3):
+            ref, mr = ref_step(ref, batch)
+            dp, md = dp_step(dp, batch, gen)
+            sharded, ms = s_step(sharded, batch)
+            comp, mc = c_step(comp, batch, gen)
+            assert torch.equal(mr["loss"], md["loss"])
+            assert torch.equal(mr["loss"], ms["loss"])
+            losses.append(float(mc["loss"]))
+        full = dict(sharded.params.named_parameters())
+        for (n, p), q in zip(ref.params.named_parameters(),
+                             dp.params.parameters()):
+            assert torch.equal(p, q), n
+            assert torch.equal(p, full[n].full_tensor()), n
+        assert losses[-1] < losses[0]
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------ flash attention backward (#12)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

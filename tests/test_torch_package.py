@@ -59,7 +59,9 @@ def test_package_has_the_slice_modules():
                  "obs.metrics", "serving.loadgen", "serving.scheduler",
                  "serving.anns_service", "core.storage", "core.pq",
                  "core.distributed", "core.resharding", "launch.mesh",
-                 "models.moe", "models.ssm"):
+                 "models.moe", "models.ssm", "models.sharding_ctx",
+                 "launch.shardings", "training.compression",
+                 "training.dp_step"):
         assert f"repro_torch.{name}" in mods, name
 
 

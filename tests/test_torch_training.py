@@ -572,8 +572,9 @@ def test_checkpoints_cross_packages(tmp_path):
 # ----------------------------------------------------------------- launcher
 def _args(**kw):
     base = dict(arch="stablelm-1.6b", reduced=True, steps=6, batch=2, seq=32,
-                lr=1e-3, grad_accum=1, seed=0, mesh="none", ckpt_dir=None,
-                ckpt_every=3, resume=False, log_every=3, device="cpu")
+                lr=1e-3, grad_accum=1, seed=0, mesh="none", multi_pod=False,
+                ckpt_dir=None, ckpt_every=3, resume=False, log_every=3,
+                device="cpu")
     base.update(kw)
     return argparse.Namespace(**base)
 
@@ -606,5 +607,7 @@ def test_train_launcher_grad_accum_and_minicpm():
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A6"):
+    """--mesh debug needs a process group of world size 4 (torchrun);
+    without one it raises, naming the size."""
+    with pytest.raises(RuntimeError, match="world size 4"):
         ttrain.run(_args(mesh="debug"))
