@@ -296,9 +296,24 @@ Phases:
                 bit-equal to the single-device step's after 2 steps. The
                 group is destroyed after. Prints one
                 `{"training_families": ...}` JSON line.
+ 16. roofline shares — each run once eagerly under
+                `roofline.op_analyzer.OpAnalyzer` (the ops' products and
+                bytes, each kernel function's `roofline.kernel_costs`
+                formula), turned into the H100's three-term roofline
+                (`roofline.analysis`, the data-sheet peaks), and the
+                bound's share of the time the same work took where it was
+                timed, printed unclipped: (a) right after phase 10 (a), the
+                main search (10,000 queries, telemetry on, so #1's formula
+                reads the walk's hops and scored candidates; #1 and #2
+                each reported once) against (a)'s replay; (b) at the end
+                of phase 9, a minicpm-2b train step (#11 / #12 reported
+                2 / 1 x layers x microbatches) against the steady step,
+                with 6·N·T beside the counted flops; (c) in phase 8, a
+                starcoder2-7b decode step (no kernel) against generate's
+                mean step. Prints one `{"roofline": ...}` JSON line.
 
-Prints the serving, host-tier, sharded and families JSON lines, the
-kernel JSON line (with each search kernel's launches a host-tier search
+Prints the serving, host-tier, sharded, families and roofline JSON lines,
+the kernel JSON line (with each search kernel's launches a host-tier search
 of its lane as `launches_host_tier` and a sharded search as
 `launches_sharded`; #10's launches a forward of each family as
 `launches_families` and its times at phase 14's shapes as
@@ -326,9 +341,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS = 67e12              # H100 SXM float32, outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 dense tensor-core rate
 RECALL_FLOOR = 0.85
 RECALL_SLACK = 0.01
 SEED = 0                       # data, queries, the RaBitQ rotation
@@ -392,13 +404,6 @@ def graph_of(fn) -> torch.cuda.CUDAGraph:
     with torch.cuda.graph(graph):
         fn()
     return graph
-
-
-def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS
-          ) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nvidia_smi() -> str:
@@ -685,6 +690,91 @@ def counted(fn):
     return out, secs, {k: w.launches for k, w in wrappers.items()}
 
 
+# ------------------------------------------ roofline shares (phase 16)
+# each share of phase 16, by what it measures: filled in by phases 10
+# (the search), 9 (the train step) and 8 (the decode step)
+ROOFLINE: dict = {}
+
+
+def tensor_bytes(*trees) -> int:
+    """Bytes of every tensor in `trees` (a module by its parameters)."""
+    from torch.utils._pytree import tree_flatten
+    n = 0
+    for t in trees:
+        leaves = (list(t.parameters()) if isinstance(t, torch.nn.Module)
+                  else tree_flatten(t)[0])
+        n += sum(x.numel() * x.element_size() for x in leaves
+                 if isinstance(x, torch.Tensor))
+    return n
+
+
+def roofline_share(what: str, fn, measured_s: float,
+                   want_kernels: dict | None = None,
+                   fixed: tuple | None = None) -> dict:
+    """Phase 16: fn() run once eagerly under `roofline.op_analyzer`, and
+    two bounds on the H100's roofline (`roofline.analysis`), each beside
+    `measured_s`, the time the same work took where it was timed (shares
+    printed as they are, not clipped):
+
+      * the fixed-formula bound, the share a cell can hold a change to:
+        `fixed` = (bytes, flops, note) of the work by formula (flops at
+        the bf16 rate), or, when None, the kernel functions' own
+        `kernel_costs` formulas summed;
+      * the op-level bound, a diagnostic: the analyzer's count, whose
+        memory term is the eager ops' own operand and result traffic, so
+        it falls with the time when a change fuses or drops an op (above
+        1.0 the byte convention overstates the traffic).
+
+    `want_kernels`: the kernel functions the run must report, by calls."""
+    from repro_torch.roofline.analysis import H100, roofline_terms
+    from repro_torch.roofline.op_analyzer import OpAnalyzer
+    t0 = time.perf_counter()
+    with OpAnalyzer() as ana:
+        fn()
+    torch.cuda.synchronize()
+    c = ana.analyze()
+    rt = roofline_terms(c["flops"], c["bytes_accessed"],
+                        c["collectives"]["total"]["bytes"], 1, H100,
+                        f32_flops=c["flops_f32"])
+    calls = {k: v["calls"] for k, v in c["kernels"].items()}
+    if want_kernels is not None:
+        check(calls == want_kernels, f"{what}: the analyzer saw kernel "
+              f"calls {calls}, expected {want_kernels}")
+    if fixed is None:
+        kern = c["kernels"].values()
+        fb, ff = sum(k["bytes"] for k in kern), sum(k["flops"] for k in kern)
+        ff32 = sum(k["flops"] for k in kern if k["rate"] == "f32")
+        note = "the kernel formulas"
+    else:
+        (fb, ff, note), ff32 = fixed, 0.0
+    ft = roofline_terms(ff, fb, 0.0, 1, H100, f32_flops=ff32)
+    share = rt["bound_s"] / measured_s
+    rec = dict(flops=c["flops"], flops_f32=c["flops_f32"],
+               bytes=c["bytes_accessed"], compute_s=rt["compute_s"],
+               memory_s=rt["memory_s"], dominant=rt["dominant"],
+               bound_s=rt["bound_s"], measured_s=measured_s, share=share,
+               fixed=dict(formula=note, bytes=fb, flops=ff, flops_f32=ff32,
+                          dominant=ft["dominant"], bound_s=ft["bound_s"],
+                          share=ft["bound_s"] / measured_s),
+               kernels=c["kernels"], top_ops=dict(ana.top_ops(6)),
+               analyzer_s=time.perf_counter() - t0)
+    log(f"  [16] {what}: fixed-formula bound ({note}: "
+        f"{ff / 1e12:.4f} TFLOP, {fb / 1e9:.4f} GB) "
+        f"{1e3 * ft['bound_s']:.4f} ms, {ft['dominant']}: share "
+        f"{rec['fixed']['share']:.4f} of {1e3 * measured_s:.4f} ms measured. "
+        f"Op-level (diagnostic): {c['flops'] / 1e12:.4f} TFLOP counted "
+        f"({c['flops_f32'] / 1e12:.4f} at the float32 rate), "
+        f"{c['bytes_accessed'] / 1e9:.4f} GB; compute "
+        f"{1e3 * rt['compute_s']:.4f} ms, memory "
+        f"{1e3 * rt['memory_s']:.4f} ms, dominant {rt['dominant']}; "
+        f"bound {1e3 * rt['bound_s']:.4f} ms: share {share:.4f}; "
+        f"kernel calls {calls}; analyzed in {rec['analyzer_s']:.1f} s; "
+        f"the ops that move the most bytes: " + ", ".join(
+            f"{k} {v['count']}x {v['bytes'] / 1e9:.2f} GB"
+            for k, v in rec["top_ops"].items()))
+    return rec
+
+
 # --------------------------------------------------------------- phases
 def build_index(data, params, seed=0):
     from repro_torch.core.index import JasperIndex
@@ -860,6 +950,7 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
         rabitq_search_step, rabitq_search_step_plain)
     from repro_torch.kernels.search_step.ops import (
         fused_operands, fused_search, fused_search_plain, occupancy)
+    from repro_torch.roofline import kernel_costs as kc
 
     core = idx.core
     n_q = q_dev.shape[0]
@@ -895,18 +986,17 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
     ms = cuda_ms(lambda: fused_search(**ops), 3)
     med, lo, hi = cuda_ms_each(lambda: fused_search(**ops), 10)
     plain_ms = cuda_ms(lambda: fused_search_plain(**ops), 1)
-    f_bytes = (hops_total * r * 4 + scored_total * (p + 8)
-               + n_q * (beam * 12 + beam * 8 + 4 + p * 8 // core.codes.bits
-                        * 4 + 8))
-    f_ops = scored_total * 2 * d
-    b_ms, b_by = bound(f_bytes, f_ops)
+    b_ms, b_by = kc.fused_search(
+        n_q, beam, r, p, 8, p * 8 // core.codes.bits, hops=hops_total,
+        scored=scored_total, d=d).bound()
     occ = occupancy(hop=False, quantized=True, bits=core.codes.bits,
                     l_width=beam, r=r, dq=ops["q"].shape[1], row_width=p)
     log(f"  fused_search: {ms:.3f} ms (mean of 3); median of 10 {med:.3f} ms"
         f" (min {lo:.3f}, max {hi:.3f}); plain {plain_ms:.3f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / med:.1f} % of it at the "
         f"median; {hops_total / n_q:.2f} hops and "
-        f"{scored_total / n_q:.1f} scored candidates per query")
+        f"{scored_total / n_q:.1f} scored candidates per query "
+        f"({hops_total:.0f} and {scored_total:.0f} in all)")
     log(f"  fused_search main-path instance: {occ['registers']} registers, "
         f"{occ['queries_per_sm']} resident queries per SM "
         f"({occ['queries_per_block']} a block, {occ['smem_per_block']} B of "
@@ -948,15 +1038,15 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
     plain_ms = cuda_ms(
         lambda: rabitq_search_step_plain(*args, bits=core.codes.bits), 5)
     n_valid_ids = float(fin.sum())
-    s_bytes = ids.numel() * 8 + n_valid_ids * (p + 8) + n_q * (p * 8 // core.codes.bits * 4 + 8)
-    b_ms, b_by = bound(s_bytes, n_valid_ids * 2 * d)
+    b_ms, b_by = kc.rabitq_search_step(
+        n_q, r, p, p * 8 // core.codes.bits, d, n_valid=n_valid_ids).bound()
     occ = estimator_occupancy("rabitq_search_step", core.codes.bits, p)
     log(f"  rabitq_search_step ({n_q}, {r}): {ms:.4f} ms launched from the "
         f"wrapper (mean of 20); replayed from a CUDA graph (the kernel "
         f"alone) {g_ms:.4f} ms, median of 20 {g_med:.4f} (min {g_lo:.4f}, "
         f"max {g_hi:.4f}); plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}), {100 * b_ms / g_med:.1f} % of it at the graph median, "
-        f"max |err| {err:.3g}; {occ}")
+        f"max |err| {err:.3g}; {n_valid_ids:.0f} in-range ids; {occ}")
     records.append(dict(
         name="rabitq_search_step", route="cuda",
         source="src/repro_torch/csrc/rabitq_search_step.cu",
@@ -998,8 +1088,7 @@ def kernels_at_main_shapes(idx, q_dev, launches, gen):
 
     lib_ms = cuda_ms(yardstick, 20)
     n_valid_ids = float((frontier >= 0).sum())
-    g_bytes = frontier.numel() * 8 + n_valid_ids * (4 * d + 4) + n_q * d * 4
-    b_ms, b_by = bound(g_bytes, n_valid_ids * 2 * d)
+    b_ms, b_by = kc.gather_l2(n_q, beam, d, n_valid=n_valid_ids).bound()
     log(f"  gather_l2 ({n_q}, {beam}): {ms:.4f} ms, plain {plain_ms:.4f} ms,"
         f" index_select+bmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}),"
         f" max |err| {err:.3g}")
@@ -1025,6 +1114,7 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     from repro_torch.kernels.search_step.ops import (
         fused_hop, fused_hop_plain, hop_operands)
     from repro_torch.kernels.topk.ops import topk, topk_plain
+    from repro_torch.roofline import kernel_costs as kc
     f, hop_ops = hop_operands(ops)
     sched = ops["schedule"].tolist()
     n_q, beam = ops["f_ids"].shape
@@ -1070,12 +1160,8 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
                 lambda: fused_hop_plain(*f, sched[t], **hop_ops), 1))
             active = float(got[3].sum())
             scored = float(got[4][:, 0].sum())
-            # frontier in and out (ids, dists, visited: 12 B each way), the
-            # expanded rows' adjacency, each scored candidate's code row and
-            # metadata, the query operands, the increments
-            h_bytes = (n_q * beam * 24 + active * r * 4 + scored * (p + 8)
-                       + n_q * (dq * 4 + 8) + n_q * 4)
-            bounds.append(bound(h_bytes, scored * 2 * d)[0])
+            bounds.append(kc.fused_hop(n_q, beam, r, p, 8, dq, active=active,
+                                       scored=scored, d=d).bound()[0])
             if t == 10:
                 f10 = f
         if int(got[3].sum()) == 0:
@@ -1127,8 +1213,7 @@ def hop_and_topk_at_main_shapes(core, ops, rq) -> list:
     plain_ms = cuda_ms(lambda: topk_plain(all_d, pos, beam), 20)
     lib_ms = cuda_ms(lambda: torch.topk(all_d, beam, dim=1, largest=False,
                                         sorted=True), 20)
-    # read dists + ids once, write the k smallest; C*C rank compares per row
-    b_ms, b_by = bound(n_q * c * 8 + n_q * beam * 8, n_q * c * c)
+    b_ms, b_by = kc.topk(n_q, c, beam).bound()
     log(f"  topk ({n_q}, {c}) k={beam}: launched from the wrapper "
         f"{ms:.4f} ms (mean of 20); replayed from a CUDA graph (the kernel "
         f"alone) {g_ms:.4f} ms, median of 20 {g_med:.4f} (min {g_lo:.4f}, "
@@ -1430,6 +1515,7 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     from repro_torch.kernels.rabitq_dot.ops import (
         rabitq_distance, rabitq_distance_plain, rabitq_gather_distance,
         rabitq_gather_distance_plain)
+    from repro_torch.roofline import kernel_costs as kc
     n_q, d = q_dev.shape
     c_n = min(SCAN_CHUNK, core.n_valid)
     x = core.vectors[:c_n]
@@ -1447,8 +1533,9 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     kinds["real"] = (kinds["noisy"][0], x + 0.37 * torch.randn(
         x.shape, generator=gen).to(x.device))
     noisy_q = kinds["noisy"][0]
-    b32_ms, b32_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
-                           2.0 * n_q * c_n * d)
+    # the float32 bound beside the tensor-core one: 2·Q·C·D operations
+    b32_ms, b32_by = kc.bound(kc.pairwise_l2(n_q, c_n, d, tensor_flops=0).bytes,
+                              2.0 * n_q * c_n * d)
     per_kind = {}
     for kind, (qk, xk) in kinds.items():
         got = pairwise_l2(qk, xk)
@@ -1465,8 +1552,8 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
         ms = cuda_ms(lambda: pairwise_l2(qk, xk), 5)
         # the products the kernel takes on these operands (pairwise_l2's
         # votes) run at the bf16 tensor rate
-        b_ms, b_by = bound((n_q + c_n) * d * 4 + n_q * c_n * 4,
-                           pairwise_tensor_flops(qk, xk), peak=BF16_FLOPS)
+        b_ms, b_by = kc.pairwise_l2(
+            n_q, c_n, d, tensor_flops=pairwise_tensor_flops(qk, xk)).bound()
         per_kind[kind] = dict(ms=ms, err=err, bound_ms=b_ms, bound_by=b_by)
         log(f"  pairwise_l2 ({n_q}, {c_n}, {d}) {kind} operands: {ms:.3f} ms "
             f"(mean of 5), bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}"
@@ -1506,9 +1593,9 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     # the 2QCD products are exact on the tensor cores (integer codes times
     # a query split into three bf16 parts), so the least time for this work
     # is at the bf16 rate; the float32 bound is kept beside it
-    b_bytes = c_n * (p + 8) + n_q * (d * 4 + 8) + n_q * c_n * 4
-    b_ms, b_by = bound(b_bytes, 2.0 * n_q * c_n * d, peak=BF16_FLOPS)
-    b32_ms, b32_by = bound(b_bytes, 2.0 * n_q * c_n * d)
+    c6 = kc.rabitq_distance(n_q, c_n, p, d)
+    b_ms, b_by = c6.bound()
+    b32_ms, b32_by = kc.bound(c6.bytes, c6.flops)
     occ = estimator_occupancy("rabitq_distance", bits, p)
     log(f"  rabitq_distance ({n_q}, {c_n}, {bits} bits): {ms:.3f} ms (mean "
         f"of 5), median of 5 {med:.3f} (min {lo:.3f}, max {hi:.3f}); plain "
@@ -1543,8 +1630,7 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
     del graph
     plain_ms = cuda_ms(lambda: rabitq_gather_distance_plain(*args5,
                                                             bits=bits), 5)
-    b_ms, b_by = bound(n_q * k * (p + 8) + n_q * (d * 4 + 8) + n_q * k * 4,
-                       2.0 * n_q * k * d)
+    b_ms, b_by = kc.rabitq_gather_distance(n_q, k, p, d).bound()
     occ = estimator_occupancy("rabitq_gather_distance", bits, p)
     check(occ["spill_stores"] == 0 and occ["local_bytes"] == 0,
           f"rabitq_gather_distance spills: {occ}")
@@ -1594,8 +1680,7 @@ def scan_kernels_at_main_shapes(core, q_dev, rq, frontier, launches, errs,
         return torch.bmm(cand, real_q[:, :, None])
 
     lib_ms = cuda_ms(yardstick, 20)
-    g_bytes = frontier.numel() * 8 + frontier.numel() * (4 * d + 4) + n_q * d * 4
-    b_ms, b_by = bound(g_bytes, frontier.numel() * 2 * d)
+    b_ms, b_by = kc.gather_l2(n_q, k, d, n_valid=frontier.numel()).bound()
     tiled_launches = launches["tiled"]["gather_l2_tiled"]
     log(f"  gather_l2_tiled ({n_q}, {k}): {ms:.4f} ms, gather_l2 (chunked) "
         f"on the same inputs {chunked_ms:.4f} ms ({ms / chunked_ms:.2f}x), "
@@ -1911,6 +1996,22 @@ def plans_on_the_main_spec(idx, q_dev, phase4_profile) -> dict:
                 eager_profile=phase4_profile)
 
 
+def search_roofline(idx, q_dev, replay_ms: float) -> dict:
+    """Phase 16 (a), on phase 10 (a)'s index: the main search (10,000
+    queries, the main spec with telemetry, so #1's formula reads the
+    walk's hops and scored candidates) once eagerly under the analyzer,
+    against phase 10's replayed search (mean of 10)."""
+    from repro_torch.core.index_core import core_search
+    main, _ = _serving_specs()
+    tel = main.with_(telemetry="on").resolve(idx)
+    return roofline_share(
+        f"the main search ({q_dev.shape[0]} queries) against phase 10's "
+        "replay", lambda: core_search(
+            idx.core, q_dev, spec=tel,
+            filter_tombstones=idx._filter_tombstones), replay_ms / 1e3,
+        want_kernels={"fused_search": 1, "gather_l2": 1})
+
+
 def _share(prof: dict) -> str:
     if not prof or prof.get("share") is None:
         return "not measured"
@@ -2152,6 +2253,8 @@ def anns_serving(idx, q_dev, phase4_profile, smi: str) -> dict:
     with obs.use_tracer(tracer):
         log("  (a) plans on the main spec")
         out["plans"] = plans_on_the_main_spec(idx, q_dev, phase4_profile)
+        ROOFLINE["search"] = search_roofline(idx, q_dev,
+                                             out["plans"]["replay_ms"])
         log("  (b) mutations under captured plans")
         out["mutations_s"] = mutations_under_plans(idx, q_dev)
         log("  (c) submit and drain")
@@ -3330,6 +3433,7 @@ def flash_at_model_shapes(cfg) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_fwd, flash_attention_plain)
+    from repro_torch.roofline import kernel_costs as kc
     h, hk, dh, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, RAG_PROMPT
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     kw = dict(causal=True, block_q=min(cfg.attn_chunk_q, 256),
@@ -3361,11 +3465,12 @@ def flash_at_model_shapes(cfg) -> dict:
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True, enable_gqa=True), 5)
-    flops = 4.0 * b * h * s * s * dh / 2
-    b_bytes = b * s * (2 * h + 2 * hk) * dh * 2
-    b_ms, b_by = bound(b_bytes, flops, peak=BF16_FLOPS)
+    c10 = kc.flash_attention(b, s, s, h, hk, dh, causal=True)
+    flops = c10.flops
+    b_ms, b_by = c10.bound()
     # #11 also writes the (B, H, S) float32 lse
-    b11_ms, b11_by = bound(b_bytes + b * h * s * 4, flops, peak=BF16_FLOPS)
+    b11_ms, b11_by = kc.flash_attention_fwd(b, s, s, h, hk, dh,
+                                            causal=True).bound()
     log(f"  flash at (B={b}, S={s}) bf16: #10 {ms10:.3f} ms, #11 "
         f"{ms11:.3f} ms, plain {plain_ms:.3f} ms, SDPA (is_causal, "
         f"enable_gqa) {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
@@ -3575,6 +3680,19 @@ def rag_serving() -> list:
                 _, state = decode_step(params, cfg, state, out[:, RAG_PROMPT
                                                              + t, None])
         profile_device(three_steps, "three decode steps")
+        # by formula: the weights and the cache's first RAG_PROMPT + 1
+        # positions read once, 2·N·B products (attention's left out)
+        kv_read = (tensor_bytes(state["k"], state["v"]) * (RAG_PROMPT + 1)
+                   // state["k"].shape[2])
+        ROOFLINE["decode_step"] = roofline_share(
+            f"a {RAG_ARCH} decode step (B={RAG_GEN_BATCH}, cache "
+            f"{RAG_PROMPT + RAG_NEW_TOKENS}) against generate's mean step",
+            lambda: decode_step(params, cfg, state,
+                                out[:, RAG_PROMPT, None]),
+            timings["decode_s"] / (RAG_NEW_TOKENS - 1), want_kernels={},
+            fixed=(tensor_bytes(params) + kv_read,
+                   2.0 * n_params * RAG_GEN_BATCH,
+                   "the weights and the cache read once, 2·N·B"))
     total = {name: sum(p[name] for p in path_launches.values())
              for name in ("flash_attention", "flash_attention_fwd")}
     log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s; flash launches "
@@ -3609,6 +3727,7 @@ def flash_at_train_shapes(cfg) -> dict:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
+    from repro_torch.roofline import kernel_costs as kc
     s, b = TRAIN_SEQ, TRAIN_BATCH // TRAIN_ACCUM
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     kw = dict(causal=True, block_q=min(cfg.attn_chunk_q, 256),
@@ -3670,18 +3789,14 @@ def flash_at_train_shapes(cfg) -> dict:
     doh = do.transpose(1, 2).contiguous()
     lib12_ms = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
                                                    retain_graph=True), 5)
-    # the forward: 2 products of B*H*S^2*Dh/2 multiply-adds; q, k, v in,
-    # o and the float32 lse out
-    flops11 = 2.0 * b * h * s * s * dh
-    b11_ms, b11_by = bound(b * s * dh * 2 * (2 * h + 2 * hk)
-                           + b * h * s * 4, flops11, peak=BF16_FLOPS)
-    # the backward's work: 5 products of B*H*S^2*Dh/2 multiply-adds (s
-    # recomputed, dp, dv, dq, dk; the kernel pair's second s and dp are
-    # its own cost, not counted); q, o, dO in and dq out (H heads), k, v
-    # in and dk, dv out (Hk), lse
-    flops12 = 5.0 * b * h * s * s * dh
-    b12_ms, b12_by = bound(b * s * dh * 2 * (4 * h + 4 * hk)
-                           + b * h * s * 4, flops12, peak=BF16_FLOPS)
+    # the forward: 2 products of B*H*S^2*Dh/2 multiply-adds; the
+    # backward's work 5 (s recomputed, dp, dv, dq, dk; the kernel pair's
+    # second s and dp are its own cost, not counted)
+    c11 = kc.flash_attention_fwd(b, s, s, h, hk, dh, causal=True)
+    c12 = kc.flash_attention_bwd(b, s, s, h, hk, dh, causal=True)
+    flops11, flops12 = c11.flops, c12.flops
+    b11_ms, b11_by = c11.bound()
+    b12_ms, b12_by = c12.bound()
     log(f"  flash at the training microbatch (B={b}, S={s}, H={h}, Hk={hk}, "
         f"Dh={dh}) bf16: #11 {ms11:.3f} ms, plain {plain11_ms:.3f} ms, SDPA "
         f"(is_causal) {lib11_ms:.3f} ms, bound {b11_ms:.4f} ms ({b11_by}: "
@@ -3870,6 +3985,7 @@ def training() -> tuple[dict, dict]:
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.launch import train
     from repro_torch.models.model import init_params, param_count
+    from repro_torch.roofline.analysis import H100
     from repro_torch.training import (OptimizerConfig, init_train_state,
                                       make_train_step)
     t_phase = time.perf_counter()
@@ -3941,7 +4057,7 @@ def training() -> tuple[dict, dict]:
     check(all(np.isfinite(memo)) and memo[-1] < memo[0],
           f"the loss did not fall on a fixed batch: {memo}")
     step_t = float(np.mean(memo_s + step_s[1:]))
-    mfu = 6.0 * n_params * tokens / step_t / BF16_FLOPS
+    mfu = 6.0 * n_params * tokens / step_t / H100.peak_flops
     log(f"  {n_params:,} parameters ({n_params / 1e9:.3f} B); steady step "
         f"{step_t:.3f} s (launcher steps 2-{TRAIN_STEPS} {steady:.3f} s), "
         f"{tokens / step_t:.0f} tokens/s, 6*N*T/step time "
@@ -3949,6 +4065,23 @@ def training() -> tuple[dict, dict]:
         f"{100 * mfu:.2f} % of 989 TFLOP/s")
     state, _ = step_split(step_fn, state, batch)
     separate_times(cfg, state)
+    fwd_calls = 2 * n_layers * TRAIN_ACCUM
+    share = roofline_share(
+        f"a {TRAIN_ARCH} train step ({TRAIN_BATCH} x {TRAIN_SEQ}, accum "
+        f"{TRAIN_ACCUM}) against the steady step",
+        lambda: step_fn(state, batch), step_t,
+        want_kernels={"flash_attention_fwd": fwd_calls,
+                      "flash_attention_bwd": fwd_calls // 2},
+        # by formula: 6·N·T, the float32 parameters and both moments read
+        # and written once (activations left out)
+        fixed=(2 * tensor_bytes(state.params, state.opt_state),
+               6.0 * n_params * tokens,
+               "6·N·T, the train state read and written once"))
+    share["model_flops"] = 6.0 * n_params * tokens
+    log(f"  [16] 6*N*T = {share['model_flops'] / 1e12:.4f} TFLOP against "
+        f"{share['flops'] / 1e12:.4f} counted (ratio "
+        f"{share['model_flops'] / share['flops']:.4f})")
+    ROOFLINE["train_step"] = share
     del state, params, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -3985,6 +4118,7 @@ def flash_at_family_shapes() -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
+    from repro_torch.roofline import kernel_costs as kc
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     out = []
     for arch, s, h, hk, dh, causal, window in FAMILY_FLASH:
@@ -4003,9 +4137,10 @@ def flash_at_family_shapes() -> list:
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=causal), 5)
-        flops = 4.0 * b * h * s * s * dh / (2 if causal else 1)
-        b_ms, b_by = bound(b * s * (2 * h + 2 * hk) * dh * 2, flops,
-                           peak=BF16_FLOPS)
+        c10 = kc.flash_attention(b, s, s, h, hk, dh, causal=causal,
+                                 window=window)
+        flops = c10.flops
+        b_ms, b_by = c10.bound()
         log(f"  flash at {arch}'s (B={b}, S={s}, H={h}, Hk={hk}, Dh={dh}, "
             f"{'causal' if causal else 'bidirectional'}"
             f"{f', window {window}' if window else ''}) bf16: #10 "
@@ -4349,6 +4484,7 @@ def flash_at_family_training_shapes() -> tuple[list, list]:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
+    from repro_torch.roofline import kernel_costs as kc
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     micro = {a: b // acc for a, b, _, acc, _ in FAMILY_TRAIN}
     fwd, bwd = [], []
@@ -4382,16 +4518,16 @@ def flash_at_family_training_shapes() -> tuple[list, list]:
         doh = do.transpose(1, 2).contiguous()
         lib12 = cuda_ms(lambda: torch.autograd.grad(
             oh, (qh, kh, vh), doh, retain_graph=True), 5)
-        half = 2 if causal else 1
         # the forward 2 products, the backward 5 (s recomputed, dp, dv,
         # dq, dk), of B*H*S^2*Dh (halved when causal); q, k, v (and o, dO,
         # dq, dk, dv) once, the lse
-        flops11 = 4.0 * b * h * s * s * dh / half
-        flops12 = 10.0 * b * h * s * s * dh / half
-        b11, by11 = bound(b * s * dh * 2 * (2 * h + 2 * hk) + b * h * s * 4,
-                          flops11, peak=BF16_FLOPS)
-        b12, by12 = bound(b * s * dh * 2 * (4 * h + 4 * hk) + b * h * s * 4,
-                          flops12, peak=BF16_FLOPS)
+        c11 = kc.flash_attention_fwd(b, s, s, h, hk, dh, causal=causal,
+                                     window=window)
+        c12 = kc.flash_attention_bwd(b, s, s, h, hk, dh, causal=causal,
+                                     window=window)
+        flops11, flops12 = c11.flops, c12.flops
+        b11, by11 = c11.bound()
+        b12, by12 = c12.bound()
         log(f"  flash at {arch}'s training shape (B={b}, S={s}, H={h}, "
             f"Hk={hk}, Dh={dh}, {'causal' if causal else 'bidirectional'}"
             f"{f', window {window}' if window else ''}) bf16: #11 "
@@ -4868,6 +5004,14 @@ def main() -> int:
                                       for m in tf["models"]},
                    at_family_shapes=shapes)
 
+    check(set(ROOFLINE) == {"search", "train_step", "decode_step"},
+          f"phase 16 measured {sorted(ROOFLINE)}")
+    t16 = sum(r["analyzer_s"] for r in ROOFLINE.values())
+    log(f"[16] roofline shares on {smi}, fixed-formula (op-level): " +
+        ", ".join(f"{k} {r['fixed']['share']:.4f} ({r['share']:.4f})"
+                  for k, r in ROOFLINE.items())
+        + f"; {t16:.1f} s under the analyzer")
+    print(json.dumps({"roofline": ROOFLINE, "device": smi}, default=float))
     log(f"    total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)

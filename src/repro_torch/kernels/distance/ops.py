@@ -29,6 +29,8 @@ import torch
 
 from repro_torch.core.distances import pairwise_l2_squared
 from repro_torch.kernels import build
+from repro_torch.roofline import kernel_costs
+from repro_torch.roofline import op_analyzer as _oa
 
 _INF = float("inf")
 # pairwise_l2's block tile (queries and rows) and k-chunk (dims), the
@@ -85,6 +87,17 @@ def _gather_launch(kernel: str, q: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def _gather_cost(out, q, table, sqnorm, ids, *, fake):
+    """#2/#8's work on these operands: the valid ids' rows."""
+    n_q, k = ids.shape
+    n_valid = ids.numel() if fake else float((ids >= 0).sum())
+    return kernel_costs.gather_l2(n_q, k, table.shape[1], n_valid=n_valid)
+
+
+def _gather_out(q, table, sqnorm, ids):
+    return torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+
+
 def _device_of(t: torch.Tensor, kernel: str) -> torch.device:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel} runs on cuda or cpu tensors, got "
@@ -100,6 +113,9 @@ def gather_l2(q: torch.Tensor, table: torch.Tensor, sqnorm: torch.Tensor,
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel("gather_l2", gather_l2, _gather_cost,
+                                 _gather_out, q, table, sqnorm, ids)
     if _device_of(ids, "gather_l2").type == "cpu":
         return gather_l2_plain(q, table, sqnorm, ids)
     out = _gather_launch("gather_l2", q, table, sqnorm, ids)
@@ -118,6 +134,10 @@ def gather_l2_tiled(q: torch.Tensor, table: torch.Tensor,
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel("gather_l2_tiled", gather_l2_tiled,
+                                 _gather_cost, _gather_out, q, table, sqnorm,
+                                 ids)
     if _device_of(ids, "gather_l2_tiled").type == "cpu":
         return gather_l2_plain(q, table, sqnorm, ids)
     out = _gather_launch("gather_l2_tiled", q, table, sqnorm, ids)
@@ -211,12 +231,28 @@ def pairwise_occupancy() -> dict:
                      "local_bytes"), info))
 
 
+def _pairwise_cost(out, q, x, *, fake):
+    """#7's work: the products of parts its votes take on these operands
+    (on fake operands, all six products of every chunk)."""
+    (n_q, d), c = q.shape, x.shape[0]
+    flops = 12.0 * n_q * c * d if fake else pairwise_tensor_flops(q, x)
+    return kernel_costs.pairwise_l2(n_q, c, d, tensor_flops=flops)
+
+
+def _pairwise_out(q, x):
+    return torch.empty((q.shape[0], x.shape[0]), dtype=torch.float32,
+                       device=q.device)
+
+
 def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(Q, D) queries x (C, D) rows -> (Q, C) f32 squared L2. float32,
     bfloat16 or float16 inputs, computed in float32.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel("pairwise_l2", pairwise_l2, _pairwise_cost,
+                                 _pairwise_out, q, x)
     dev = _device_of(q, "pairwise_l2")
     if dev.type == "cpu":
         return pairwise_l2_plain(q, x)

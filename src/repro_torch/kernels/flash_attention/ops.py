@@ -50,6 +50,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import kernel_costs
+from repro_torch.roofline import op_analyzer as _oa
 
 _NEG = -1e30
 HEAD_DIMS = (32, 64, 80, 128)        # the kernels' template instances
@@ -289,6 +291,37 @@ def _launch(q, k, v, causal, window, q_offset, with_lse):
     return o, lse
 
 
+def _cost_of(formula):
+    """A kernel function's cost from its (B, Sq, H, Dh) q and (B, Skv,
+    Hk, Dh) k: `formula` (`kernel_costs.flash_attention*`) at this call's
+    shapes, masking and element size."""
+    def cost(out, q, k, *rest, causal, window, q_offset, fake, **blocks):
+        b, sq, h, dh = q.shape
+        return formula(b, sq, k.shape[1], h, k.shape[2], dh, causal=causal,
+                       window=window, q_offset=q_offset,
+                       itemsize=q.element_size())
+    return cost
+
+
+_flash_cost = _cost_of(kernel_costs.flash_attention)
+_fwd_cost = _cost_of(kernel_costs.flash_attention_fwd)
+_bwd_cost = _cost_of(kernel_costs.flash_attention_bwd)
+
+
+def _o_out(q, k, v, **kw):
+    return torch.empty_like(q)
+
+
+def _fwd_out(q, k, v, **kw):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32,
+                                            device=q.device)
+
+
+def _bwd_out(q, k, v, o, lse, do, **kw):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     block_q: int = 256, block_kv: int = 512) -> torch.Tensor:
@@ -301,6 +334,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
                                       block_q, block_kv)
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "flash_attention", flash_attention, _flash_cost, _o_out, q, k, v,
+            causal=causal, window=window, q_offset=q_offset,
+            block_q=block_q, block_kv=block_kv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, block_q=block_q,
@@ -323,6 +361,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward pass saves): (o (B, Sq, H, Dh), lse (B, H, Sq) float32).
     CUDA tensors launch kernel #11 (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "flash_attention_fwd", flash_attention_fwd, _fwd_cost, _fwd_out,
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            block_q=block_q, block_kv=block_kv)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, q_offset=q_offset,
@@ -397,6 +440,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (dq (B, Sq, H, Dh), dk, dv (B, Skv, Hk, Dh)) in the input dtype. CUDA
     tensors launch kernel #12 (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "flash_attention_bwd", flash_attention_bwd, _bwd_cost, _bwd_out,
+            q, k, v, o, lse, do, causal=causal, window=window,
+            q_offset=q_offset, block_q=block_q, block_kv=block_kv)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, q_offset=q_offset,

@@ -32,6 +32,8 @@ import torch
 from repro_torch.core.mutations import bitmap_gather, label_match_gather
 from repro_torch.core.rabitq import RaBitQCodes, RaBitQQuery, unpack_codes
 from repro_torch.kernels import build
+from repro_torch.roofline import kernel_costs
+from repro_torch.roofline import op_analyzer as _oa
 
 _INF = float("inf")
 BITS = (1, 2, 4, 8)
@@ -194,6 +196,18 @@ def rabitq_distance_plain(packed: torch.Tensor, data_add: torch.Tensor,
                      query_add, query_sumq)
 
 
+def _distance_cost(out, packed, data_add, data_rescale, q_rot, query_add,
+                   query_sumq, *, bits, fake):
+    return kernel_costs.rabitq_distance(q_rot.shape[0], packed.shape[0],
+                                        packed.shape[1], q_rot.shape[1])
+
+
+def _distance_out(packed, data_add, data_rescale, q_rot, query_add,
+                  query_sumq, *, bits):
+    return torch.empty((q_rot.shape[0], packed.shape[0]),
+                       dtype=torch.float32, device=packed.device)
+
+
 def rabitq_distance(packed: torch.Tensor, data_add: torch.Tensor,
                     data_rescale: torch.Tensor, q_rot: torch.Tensor,
                     query_add: torch.Tensor, query_sumq: torch.Tensor, *,
@@ -203,6 +217,11 @@ def rabitq_distance(packed: torch.Tensor, data_add: torch.Tensor,
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "rabitq_distance", rabitq_distance, _distance_cost,
+            _distance_out, packed, data_add, data_rescale, q_rot, query_add,
+            query_sumq, bits=bits)
     dev = packed.device
     if dev.type == "cpu":
         return rabitq_distance_plain(packed, data_add, data_rescale, q_rot,
@@ -255,6 +274,18 @@ def rabitq_gather_distance_plain(cand_packed: torch.Tensor,
                      cand_rescale, query_add, query_sumq)
 
 
+def _gather_cost(out, cand_packed, cand_add, cand_rescale, q_rot, query_add,
+                 query_sumq, *, bits, fake):
+    qn, k, p = cand_packed.shape
+    return kernel_costs.rabitq_gather_distance(qn, k, p, q_rot.shape[1])
+
+
+def _gather_out(cand_packed, cand_add, cand_rescale, q_rot, query_add,
+                query_sumq, *, bits):
+    return torch.empty(cand_packed.shape[:2], dtype=torch.float32,
+                       device=cand_packed.device)
+
+
 def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
                            cand_rescale: torch.Tensor, q_rot: torch.Tensor,
                            query_add: torch.Tensor, query_sumq: torch.Tensor,
@@ -265,6 +296,11 @@ def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "rabitq_gather_distance", rabitq_gather_distance, _gather_cost,
+            _gather_out, cand_packed, cand_add, cand_rescale, q_rot,
+            query_add, query_sumq, bits=bits)
     dev = cand_packed.device
     if dev.type == "cpu":
         return rabitq_gather_distance_plain(
@@ -330,6 +366,21 @@ def rabitq_search_step_plain(ids: torch.Tensor, packed: torch.Tensor,
     return torch.where(valid, est, torch.full_like(est, _INF))
 
 
+def _step_cost(out, ids, packed, data_add, data_rescale, n_valid, q_rot,
+               query_add, query_sumq, *, bits, fake, **filters):
+    """#3's work: the code row of each in-range (finite) id."""
+    qn, k = ids.shape
+    p = packed.shape[1]
+    valid = ids.numel() if fake else float(torch.isfinite(out).sum())
+    return kernel_costs.rabitq_search_step(qn, k, p, p * (8 // bits),
+                                           q_rot.shape[1], n_valid=valid)
+
+
+def _step_out(ids, packed, data_add, data_rescale, n_valid, q_rot,
+              query_add, query_sumq, *, bits, **filters):
+    return torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+
+
 def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
                        data_add: torch.Tensor, data_rescale: torch.Tensor,
                        n_valid: int, q_rot: torch.Tensor,
@@ -342,6 +393,12 @@ def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
     (Q, K) f32 masked estimates. q_rot is (Q, D) with D <= P * 8/bits
     (padding dims read as zero). CUDA tensors launch the kernel (or
     raise); CPU tensors take the plain version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "rabitq_search_step", rabitq_search_step, _step_cost, _step_out,
+            ids, packed, data_add, data_rescale, n_valid, q_rot, query_add,
+            query_sumq, bits=bits, tombstone_bits=tombstone_bits,
+            labels=labels, filter_bytes=filter_bytes)
     dev = ids.device
     if dev.type == "cpu":
         return rabitq_search_step_plain(

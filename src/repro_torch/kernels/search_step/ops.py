@@ -45,6 +45,8 @@ from repro_torch.kernels.search_step.ref import (
     init_frontier,
     search_loop,
 )
+from repro_torch.roofline import kernel_costs
+from repro_torch.roofline import op_analyzer as _oa
 
 _INF = float("inf")
 
@@ -249,6 +251,69 @@ def fused_search_plain(f_ids, f_dists, f_vis, schedule, q, qa, qb,
     return ids, dists, hops
 
 
+def _row_bytes(data, quantized: bool) -> tuple[int, int]:
+    """(row bytes, metadata bytes) of a scored candidate: a packed code
+    row and two floats, or a stored row and its squared norm."""
+    if quantized:
+        return data.shape[1], 8
+    return data.shape[1] * data.element_size(), 4
+
+
+def _search_cost(out, f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
+                 data, meta0, meta1, tomb, labels, fb, n_valid, *,
+                 quantized, bits, max_iters, telemetry, fake):
+    """#1's work from the walk: its hops (the hop counts it returns;
+    max_iters a query on fake operands) and its scored candidates (the
+    telemetry's counter; without telemetry, or on fake operands, all R
+    neighbours of every hop)."""
+    qn, beam = f_ids.shape
+    r = adjacency.shape[1]
+    hops = qn * max_iters if fake else float(out[2].sum())
+    scored = (float(out[3][:, 0].sum()) if telemetry and not fake
+              else hops * r)
+    return kernel_costs.fused_search(qn, beam, r, *_row_bytes(data,
+                                                              quantized),
+                                     q.shape[1], hops=hops, scored=scored)
+
+
+def _search_out(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency, data,
+                meta0, meta1, tomb, labels, fb, n_valid, *, quantized, bits,
+                max_iters, telemetry):
+    qn, beam = f_ids.shape
+    out = (torch.empty_like(f_ids), torch.empty_like(f_dists),
+           torch.empty((qn,), dtype=torch.int32, device=f_ids.device))
+    if telemetry:
+        out += (torch.empty((qn, 3), dtype=torch.int32, device=f_ids.device),
+                torch.empty((qn, max_iters), dtype=torch.int32,
+                            device=f_ids.device))
+    return out
+
+
+def _hop_cost(out, f_ids, f_dists, f_vis, width, q, qa, qb, adjacency, data,
+              meta0, meta1, tomb, labels, fb, n_valid, *, quantized, bits,
+              telemetry, fake):
+    """#4's work: the rows that expanded (every row on fake operands) and
+    their scored candidates (the telemetry's, else all R neighbours)."""
+    qn, beam = f_ids.shape
+    r = adjacency.shape[1]
+    active = qn if fake else float(out[3].sum())
+    scored = (float(out[4][:, 0].sum()) if telemetry and not fake
+              else active * r)
+    return kernel_costs.fused_hop(qn, beam, r, *_row_bytes(data, quantized),
+                                  q.shape[1], active=active, scored=scored)
+
+
+def _hop_out(f_ids, f_dists, f_vis, width, q, qa, qb, adjacency, data, meta0,
+             meta1, tomb, labels, fb, n_valid, *, quantized, bits, telemetry):
+    qn = f_ids.shape[0]
+    out = (torch.empty_like(f_ids), torch.empty_like(f_dists),
+           torch.empty_like(f_ids),
+           torch.empty((qn,), dtype=torch.int32, device=f_ids.device))
+    if telemetry:
+        out += (torch.empty((qn, 4), dtype=torch.int32, device=f_ids.device),)
+    return out
+
+
 def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
                  data, meta0, meta1, tomb, labels, fb, n_valid: int, *,
                  quantized: bool, bits: int, max_iters: int,
@@ -268,6 +333,12 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
     (counters (Q, 3) [scored, masked, dups], occupancy (Q, max_iters))
     with telemetry. CUDA tensors launch the kernel (or raise); CPU
     tensors take the plain version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "fused_search", fused_search, _search_cost, _search_out, f_ids,
+            f_dists, f_vis, schedule, q, qa, qb, adjacency, data, meta0,
+            meta1, tomb, labels, fb, n_valid, quantized=quantized, bits=bits,
+            max_iters=max_iters, telemetry=telemetry)
     dev = f_ids.device
     if dev.type == "cpu":
         return fused_search_plain(
@@ -344,6 +415,12 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
     [scored, masked, dups, occupancy] block with telemetry. A row with no
     unvisited slot comes back unchanged with increment 0. CUDA tensors
     launch the kernel (or raise); CPU tensors take the plain version."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel(
+            "fused_hop", fused_hop, _hop_cost, _hop_out, f_ids, f_dists,
+            f_vis, width, q, qa, qb, adjacency, data, meta0, meta1, tomb,
+            labels, fb, n_valid, quantized=quantized, bits=bits,
+            telemetry=telemetry)
     dev = f_ids.device
     if dev.type == "cpu":
         return fused_hop_plain(
@@ -398,8 +475,12 @@ _SCHEDULES: dict = {}
 
 def _schedule_tensor(schedule: tuple, dev) -> torch.Tensor:
     """The per-hop widths as an int32 tensor on `dev`, made once a
-    schedule and device and never written: a search captured in a CUDA
-    graph reads it without a host-to-device copy inside the capture."""
+    schedule and card and never written: a search captured in a CUDA
+    graph reads it without a host-to-device copy inside the capture. On
+    the CPU (no capture) it is made anew, so a dry run's fake tensor is
+    never kept."""
+    if torch.device(dev).type != "cuda":
+        return torch.tensor(schedule, dtype=torch.int32, device=dev)
     key = (schedule, str(dev))
     t = _SCHEDULES.get(key)
     if t is None:

@@ -16,6 +16,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import kernel_costs
+from repro_torch.roofline import op_analyzer as _oa
 
 # one row of distances sits in a block's (default 48 KB) shared memory
 MAX_COLUMNS = 12288
@@ -31,6 +33,17 @@ def topk_plain(dists: torch.Tensor, ids: torch.Tensor, k: int
     return sd[:, :k].contiguous(), torch.gather(ids, 1, order[:, :k])
 
 
+def _topk_cost(out, dists, ids, k, *, fake):
+    return kernel_costs.topk(dists.shape[0], dists.shape[1], k)
+
+
+def _topk_out(dists, ids, k):
+    return (torch.empty((dists.shape[0], k), dtype=torch.float32,
+                        device=dists.device),
+            torch.empty((dists.shape[0], k), dtype=torch.int32,
+                        device=dists.device))
+
+
 def topk(dists: torch.Tensor, ids: torch.Tensor, k: int
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(Q, C) f32 dists + (Q, C) int32 ids -> the k smallest per row,
@@ -42,6 +55,9 @@ def topk(dists: torch.Tensor, ids: torch.Tensor, k: int
     (distance, position) pairs in the warp's registers), wider rows up to
     MAX_COLUMNS one block a row (stable ranks). Both give the one order
     of `topk_plain`."""
+    if _oa.ACTIVE is not None:
+        return _oa.ACTIVE.kernel("topk", topk, _topk_cost, _topk_out, dists,
+                                 ids, k)
     dev = dists.device
     if dev.type == "cpu":
         return topk_plain(dists, ids, k)

@@ -110,12 +110,18 @@ def _training_mesh(shape: tuple, axes: tuple, device):
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
+def production_layout(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(shape, axes) of the production training mesh: (16, 16) over
+    ("data", "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    """The production training mesh: (16, 16) over ("data", "model"), or
-    (2, 16, 16) over ("pod", "data", "model") — 256 or 512 processes."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _training_mesh(shape, axes, device)
+    """The production training mesh (`production_layout`) — 256 or 512
+    processes."""
+    return _training_mesh(*production_layout(multi_pod), device)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, device=None):

@@ -88,7 +88,10 @@ def moe_routing(logits: torch.Tensor, k: int, cap: int) -> dict:
     group = (top_e.reshape(c, tc * k)
              + e * torch.arange(c, device=logits.device)[:, None]).reshape(-1)
     order = torch.sort(group, stable=True).indices
-    counts = torch.bincount(group, minlength=c * e)
+    # the routes to each (chunk, expert), at a static (C·E,) shape (a
+    # dry run's fake tensors cannot size bincount's data-dependent output)
+    counts = torch.zeros(c * e, dtype=torch.int64, device=logits.device
+                         ).index_add_(0, group, torch.ones_like(group))
     start = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=logits.device)

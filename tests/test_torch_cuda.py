@@ -1459,6 +1459,43 @@ def test_plan_counts_the_launches_of_an_eager_search(plan_index, lane):
 
 
 @pytest.mark.cuda
+def test_eager_main_search_under_the_analyzer(plan_index):
+    """The eager main search (4-bit megakernel + exact rerank) under
+    `roofline.op_analyzer.OpAnalyzer`: #1 reported once and #2 once, each
+    launched once as without the analyzer, the results unchanged, and
+    #1's formula fed by the telemetry's hops and scored candidates."""
+    from repro_torch.core.plans import launch_counters
+    from repro_torch.core.search_spec import SearchSpec
+    from repro_torch.roofline import kernel_costs
+    from repro_torch.roofline.op_analyzer import OpAnalyzer
+    idx, queries = plan_index
+    spec = SearchSpec(k=10, beam_width=40, fusion="megakernel",
+                      telemetry="on", **PLAN_LANES["quant"])
+    want = _eager(idx, queries, spec)
+    for w in launch_counters().values():
+        w.launches = 0
+    with OpAnalyzer() as ana:
+        got = _eager(idx, queries, spec)
+    launched = {n: w.launches for n, w in launch_counters().items()}
+    assert launched == {n: int(n in ("fused_search", "gather_l2"))
+                        for n in launch_counters()}
+    for a, b in zip(got, want):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    kernels = ana.analyze()["kernels"]
+    assert {n: k["calls"] for n, k in kernels.items()} == {
+        "fused_search": 1, "gather_l2": 1}
+    core, q = idx.core, queries.shape[0]
+    p = core.codes.packed.shape[1]
+    tel = got[3]
+    cost = kernel_costs.fused_search(
+        q, 40, core.degree_bound, p, 8, p * 8 // core.codes.bits,
+        hops=float(got[2].sum()), scored=float(tel.scored.sum()))
+    assert kernels["fused_search"]["bytes"] == cost.bytes
+    assert kernels["fused_search"]["flops"] == cost.flops
+
+
+@pytest.mark.cuda
 def test_plan_follows_mutations_without_recapture(cuda_device):
     """After a delete, an insert and a consolidate a replay equals an
     eager search bit for bit, returns no tombstoned id and captures
