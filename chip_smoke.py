@@ -237,6 +237,22 @@ Phases:
                 host tier == device tier bit for bit, #1 4 + #2 4. (g)
                 `AnnsService.run`, 10 ticks of deletes from shard 0: the
                 rebalance trigger fires, `shards.*` gauges, recall >= 0.85.
+                (h) (e)'s checkpoint loaded onto a mesh of four positions
+                on the one card (`make_mesh((4,), ("data",),
+                device=["cuda:0"] * 4)`: each shard in its own buffers,
+                one captured graph a position, the merge gathered home):
+                the megakernel lane eager and replayed, and the hop lane,
+                bit-equal to the stacked layout's, #1 and #2 launched once
+                a position a search, the replay's time beside (b)'s; then
+                the checkpoint on a (4, 2) ("data", "model") mesh of eight
+                positions (two replicas a shard, the query axis splitting
+                the batch): an insert timed on four and on eight positions,
+                every replica equal to the shard after it, the searches
+                bit-equal. (i)
+                With four cards or more, the same four shards on cuda:0..3:
+                the same checks, recall@10 equal to the stacked layout's,
+                the replay's time and the bytes gathered home a search;
+                with fewer, one line saying that (i) did not run and why.
                 Prints one `{"sharded": ...}` JSON line.
  14. the other LM families — last, after 9: random bf16 weights from seed
                 0 at the published widths and depths, `use_flash_kernel`,
@@ -2836,10 +2852,11 @@ def sharded_lanes(idx, q_dev, mk) -> dict:
                     iters=v["iters"]) for k, v in out.items()}
 
 
-def sharded_churn(idx, q_dev, ckpt_dir: Path) -> dict:
+def sharded_churn(idx, q_dev, ckpt_dir: Path, replay_b: float) -> dict:
     """Phase 13 (d) and (e): a delete of 1 % of all rows, all from shard
-    0; consolidate; insert 2 %; rebalance; the checkpoints; then a grow —
-    each followed by a search through the captured plan."""
+    0; consolidate; insert 2 %; rebalance; the checkpoints (with (h) and
+    (i)); then a grow — each followed by a search through the captured
+    plan. `replay_b` is (b)'s replay time."""
     from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
     main = _mk_spec()
     ses = idx.searcher(main)
@@ -2929,7 +2946,8 @@ def sharded_churn(idx, q_dev, ckpt_dir: Path) -> dict:
     out.update(n_moved=reb["n_moved"], live_before=before,
                live_after=after.tolist(), recall=rec)
 
-    out["checkpoints"] = sharded_checkpoints(idx, q_dev, res, ckpt_dir)
+    out["checkpoints"] = sharded_checkpoints(idx, q_dev, res, ckpt_dir,
+                                             replay_b)
 
     t0 = time.perf_counter()
     idx.grow()
@@ -2947,10 +2965,11 @@ def sharded_churn(idx, q_dev, ckpt_dir: Path) -> dict:
     return out
 
 
-def sharded_checkpoints(idx, q_dev, res, ckpt_dir: Path) -> dict:
-    """Phase 13 (e): save; load at 4 shards (bit-equal searches) and at 2
-    (a reshard: translated ids at their rows, the exact top-10 kept, no
-    dead id; recall measured)."""
+def sharded_checkpoints(idx, q_dev, res, ckpt_dir: Path,
+                        replay_b: float) -> dict:
+    """Phase 13 (e): save; load at 4 shards (bit-equal searches), then (h)
+    and (i) on the same checkpoint, and at 2 (a reshard: translated ids at
+    their rows, the exact top-10 kept, no dead id; recall measured)."""
     import shutil
 
     from repro_torch.core.distributed import ShardedJasperIndex
@@ -2972,6 +2991,8 @@ def sharded_checkpoints(idx, q_dev, res, ckpt_dir: Path) -> dict:
     check(_same_res(four.searcher(main).search(q_dev), res),
           "the index loaded at 4 shards searches differently")
     del four
+    gc.collect()
+    out["positions"] = sharded_positions(idx, q_dev, path, res, replay_b)
     gc.collect()
     t0 = time.perf_counter()
     two = ShardedJasperIndex.load(make_mesh((2,), ("data",)), path)
@@ -3024,6 +3045,215 @@ def sharded_checkpoints(idx, q_dev, res, ckpt_dir: Path) -> dict:
     del two
     gc.collect()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+# the device of every position in (h): one card, four positions
+SHARD_POSITION_DEVICE = "cuda:0"
+
+
+def _positions_check(idx, pos, q_dev, want: dict, what: str) -> dict:
+    """(h)/(i): `pos` (a mesh of four positions, loaded from the checkpoint
+    `idx` holds) against the stacked layout's results `want` ({"mk", "hop",
+    "eager"}): the megakernel lane through its plan (one captured graph a
+    position) and eagerly, and the hop lane, bit-equal; launches a search
+    and a position; the replay's host-clock time."""
+    from repro_torch.core.plans import GraphPlan, PositionsPlan
+    main = _mk_spec()
+    hop = main.with_(fusion="hop")
+    ses = pos.searcher(main)
+    first, cap_s, launched = counted(lambda: ses.search(q_dev))
+    plan = pos._search_plan(ses.resolved, tuple(q_dev.shape),
+                            pos._filter_tombstones)
+    check(isinstance(plan, PositionsPlan) and len(plan.plans) == SHARDS
+          and all(isinstance(g, GraphPlan) and g._graph is not None
+                  for g in plan.plans),
+          f"{what}: the plan is not one captured graph a position")
+    per_position = [{k: v for k, v in getattr(g, "_launched", {}).items()
+                     if v} for g in plan.plans]
+    check(all(p == {"fused_search": 1, "gather_l2": 1}
+              for p in per_position),
+          f"{what}: a position's graph launched {per_position}")
+    want_n = counts(fused_search=SHARDS, gather_l2=SHARDS)
+    check(launched == want_n, f"{what}: the first search counted "
+          f"{launched}, expected {want_n}")
+    check(_same_res(first, want["mk"]), f"{what}: the first (capturing) "
+          "search differs from the stacked layout's")
+    for _ in range(3):
+        r, _, launched = counted(lambda: ses.search(q_dev))
+        check(launched == want_n, f"{what}: a replay counted {launched}")
+        check(_same_res(r, want["mk"]), f"{what}: a replay differs from the "
+              "stacked layout's")
+    eager = pos._eager_search(pos._prep_query(q_dev), main.resolve(pos),
+                              pos._filter_tombstones, None)
+    check(_same_res(eager, want["eager"]), f"{what}: the eager search "
+          "differs from the stacked layout's")
+    h_res, h_s, h_launched = counted(lambda: pos.searcher(hop).search(q_dev))
+    check(_same_res(h_res, want["hop"]), f"{what}: the hop lane differs from "
+          "the stacked layout's")
+    check(h_launched["gather_l2"] == SHARDS
+          and h_launched["fused_hop"] == want["hop_launches"],
+          f"{what}: the hop lane launched {h_launched}")
+    check(_no_dead(pos, r), f"{what}: a tombstoned id came back")
+    replay_ms = _host_ms(lambda: ses.search(q_dev))
+    # what comes home a search: each position's (Q, k) ids and dists and
+    # (Q,) hops, from the positions on another device than the home's
+    outs = plan.local(q_dev)
+    home = pos.device
+    bytes_home = sum(t.numel() * t.element_size()
+                     for p, o in zip(plan.positions, outs) for t in o[:3])
+    bytes_peer = sum(t.numel() * t.element_size()
+                     for p, o in zip(plan.positions, outs) for t in o[:3]
+                     if p.device != home)
+    prof = {}
+    profile_device(lambda: ses.search(q_dev), f"phase 13 {what}, one "
+                   "replayed search on four positions", top=12, stats=prof)
+    return dict(capture_s=cap_s, replay_ms=replay_ms, hop_s=h_s,
+                launches=launched, per_position=per_position,
+                hop_launches=h_launched, bytes_gathered=bytes_home,
+                bytes_from_peers=bytes_peer, busy=prof.get("share"),
+                profile=prof, devices=[str(d) for d in pos.position_devices()])
+
+
+# rows a shard of (h)'s insert on four and on eight positions
+SHARD_INSERT_ROWS = 1_024
+
+
+def _replicas_insert(pos, path: str, q_dev) -> dict:
+    """(h), continued: the same checkpoint on a (4, 2) ("data", "model")
+    mesh of eight positions of the card — two replicas a shard, each
+    searching half of the queries. One insert of SHARD_INSERT_ROWS rows a
+    shard, timed on it and on `pos` (four positions): each replica runs
+    the core op itself, none is copied from another. Afterwards every
+    replica equals `pos`'s shard tensor for tensor, and the megakernel
+    lane is bit-equal to `pos`'s."""
+    from repro_torch.core.distributed import (ShardedJasperIndex, ShardSpec,
+                                              _row_tensors)
+    from repro_torch.data.synthetic import ANNS_DATASETS, make_anns_dataset
+    from repro_torch.launch.mesh import make_mesh
+    main = _mk_spec()
+    eight = ShardedJasperIndex.load(make_mesh(
+        (SHARDS, 2), ("data", "model"),
+        device=[SHARD_POSITION_DEVICE] * (2 * SHARDS)), path,
+        spec=ShardSpec(("data",), "model"))
+    check(eight.n_positions == 2 * SHARDS
+          and len(eight.searching_positions()) == 2 * SHARDS,
+          "(h): the checkpoint did not load onto eight searching positions")
+    check(_same_res(eight.searcher(main).search(q_dev),
+                    pos.searcher(main).search(q_dev)),
+          "(h): eight positions search differently from four")
+    new = make_anns_dataset(ANNS_DATASETS["bigann"],
+                            n=SHARDS * SHARD_INSERT_ROWS, seed=SEED + 27)
+    out = {}
+    for name, ix in (("four", pos), ("eight", eight)):
+        ix.insert(new[:SHARDS])          # first-use costs out of the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix.insert(new)
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    for s in range(SHARDS):
+        want = _row_tensors(pos.shard_core(s))
+        for r, rep in enumerate(eight.shard_replicas(s)):
+            check(all(a is None and b is None or torch.equal(a, b)
+                      for a, b in zip(_row_tensors(rep), want)),
+                  f"(h): replica {r} of shard {s} differs after the insert")
+    check(_same_res(eight.searcher(main).search(q_dev),
+                    pos.searcher(main).search(q_dev)),
+          "(h): after the insert eight positions search differently")
+    log(f"  (h) replicas: the checkpoint on a (4, 2) mesh of eight positions "
+        f"on {SHARD_POSITION_DEVICE} (two replicas a shard, the query axis "
+        f"splitting the batch) searches bit-equal to four; an insert of "
+        f"{SHARDS} x {SHARD_INSERT_ROWS} rows (host clock, one run): four "
+        f"positions {out['four_ms']:.1f} ms, eight {out['eight_ms']:.1f} ms "
+        f"(each replica runs the op); every replica equal to the four "
+        f"positions' shard after it, searches bit-equal")
+    del eight
+    gc.collect()
+    return out
+
+
+def sharded_positions(idx, q_dev, path: str, res, replay_b: float) -> dict:
+    """Phase 13 (h) and (i): (e)'s checkpoint on a mesh of four positions —
+    on the one card (h), and on four cards where the machine has them
+    (i) — against `idx`, the stacked layout of the same checkpoint
+    (`res` its main-spec result)."""
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.launch.mesh import make_mesh
+    main = _mk_spec()
+    hop = main.with_(fusion="hop")
+    # the stacked layout's references, eager (its plan cache untouched)
+    iters = [int(o[2].max()) for o in _per_shard(idx, hop, q_dev)]
+    want = dict(mk=res, hop=_sharded_eager(idx, hop, q_dev),
+                hop_launches=sum(iters),
+                eager=_sharded_eager(idx, main, q_dev))
+    gt, _ = idx.brute_force(q_dev, 10)
+    rec = recall_at(res.ids, gt)
+    # the stacked layout's replay of the same checkpoint (its plan is
+    # captured: no trace), timed in turns with (h)'s
+    stacked = idx.searcher(main)
+    stacked_ms = [_host_ms(lambda: stacked.search(q_dev))]
+    prof_s = {}
+    profile_device(lambda: stacked.search(q_dev), "phase 13 (h), the stacked "
+                   "layout of the same checkpoint, one replay", top=12,
+                   stats=prof_s)
+    out = {}
+    t0 = time.perf_counter()
+    pos = ShardedJasperIndex.load(make_mesh(
+        (SHARDS,), ("data",), device=[SHARD_POSITION_DEVICE] * SHARDS), path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(pos.n_positions == SHARDS and pos.reshard_translation is None,
+          "(h): the checkpoint did not load onto four positions")
+    h = _positions_check(idx, pos, q_dev, want, "(h)")
+    h["load_s"] = load_s
+    ses = pos.searcher(main)
+    h["replay_ms"] = [h["replay_ms"], _host_ms(lambda: ses.search(q_dev))]
+    stacked_ms.append(_host_ms(lambda: stacked.search(q_dev)))
+    h["stacked_ms"] = stacked_ms
+    h["stacked_busy"] = prof_s.get("share")
+    log(f"  (h) four positions on {SHARD_POSITION_DEVICE}: load "
+        f"{load_s:.2f} s; the megakernel lane (captured: one graph a "
+        f"position, #1 and #2 once each a position; and eager) and the hop "
+        f"lane bit-equal to the stacked layout; a {q_dev.shape[0]}-query "
+        f"search replayed (host clock, mean of 10, in turns): stacked "
+        f"{stacked_ms[0]:.3f}, positions {h['replay_ms'][0]:.3f}, "
+        f"{h['replay_ms'][1]:.3f}, stacked {stacked_ms[1]:.3f} ms ((b)'s "
+        f"fresh index {replay_b:.3f} ms); {h['bytes_gathered']} B gathered "
+        f"home a search; device busy {_share(h.pop('profile'))} of a "
+        f"replay (stacked {_share(prof_s)})")
+    h["replicas"] = _replicas_insert(pos, path, q_dev)
+    out["h"] = h
+    del pos
+    gc.collect()
+    n_cards = torch.cuda.device_count()
+    if n_cards < SHARDS:
+        log(f"  (i) did not run: this machine has {n_cards} CUDA device(s); "
+            f"shards on their own cards need {SHARDS}")
+        out["i"] = None
+        return out
+    t0 = time.perf_counter()
+    pos = ShardedJasperIndex.load(make_mesh(
+        (SHARDS,), ("data",), device=[f"cuda:{i}" for i in range(SHARDS)]),
+        path)
+    for i in range(SHARDS):
+        torch.cuda.synchronize(i)
+    load_s = time.perf_counter() - t0
+    i_res = _positions_check(idx, pos, q_dev, want, "(i)")
+    i_res["load_s"] = load_s
+    rec_i = recall_at(pos.searcher(main).search(q_dev).ids, gt)
+    check(rec_i == rec, f"(i): recall@10 {rec_i:.5f} differs from the "
+          f"stacked layout's {rec:.5f}")
+    log(f"  (i) four cards {i_res['devices']}: load {load_s:.2f} s; bit-equal "
+        f"as (h); recall@10 {rec_i:.4f} (stacked {rec:.4f}); replayed "
+        f"{i_res['replay_ms']:.3f} ms (host clock, mean of 10); "
+        f"{i_res['bytes_from_peers']} B from the three other cards a search "
+        f"({i_res['bytes_gathered']} B gathered in all); home card busy "
+        f"{_share(i_res.pop('profile'))} of a replay")
+    i_res["recall"] = rec_i
+    out["i"] = i_res
+    del pos
+    gc.collect()
     return out
 
 
@@ -3139,7 +3369,8 @@ def sharded_phase(args, q_dev, single_recall: float) -> dict:
     out["lanes"] = sharded_lanes(idx, q_dev, search.pop("mk"))
     out["search"] = search
     out["churn"] = sharded_churn(
-        idx, q_dev, Path(__file__).resolve().parent / "build" / "phase13")
+        idx, q_dev, Path(__file__).resolve().parent / "build" / "phase13",
+        search["replay_ms"])
     out["host_tier"] = sharded_host_tier(idx, q_dev)
     out["serving"] = sharded_serving(idx, q_dev)
     out["seconds"] = time.perf_counter() - t_phase
@@ -4948,9 +5179,14 @@ def main() -> int:
         "rabitq_search_step":
             lanes["merge-kernel"]["launches"]["rabitq_search_step"],
         "topk": lanes["merge-kernel"]["launches"]["topk"]}
+    per_position = sharded["churn"]["checkpoints"]["positions"]["h"][
+        "per_position"]
     for rec in records:
         if rec["name"] in launches_sharded:
             rec["launches_sharded"] = launches_sharded[rec["name"]]
+        if rec["name"] in ("fused_search", "gather_l2"):
+            rec["launches_per_position"] = [p.get(rec["name"], 0)
+                                            for p in per_position]
     print(json.dumps({"sharded": sharded}, default=str))
     del q_dev
     gc.collect()

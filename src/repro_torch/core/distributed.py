@@ -7,36 +7,55 @@ op of this driver is the single-device one run a shard at a time:
 `core_search`, `core_bootstrap`, `core_insert_at`, `core_delete`,
 `core_consolidate`. No search or insert logic lives here.
 
-Layout (the JAX package's stacked form):
+Layout (the JAX package's stacked form, a mesh position at a time):
 
   * database rows are dealt to shards; each shard owns an INDEPENDENT
-    core (graph edges never cross shards). Every capacity-major buffer is
-    one stacked tensor — rows (S*cap, D), packed RaBitQ codes (S*cap, P),
-    adjacency (S*cap, R), the tombstone bitmap (S*cap/8,) — and
-    `shard_core(s)` is an IndexCore of zero-copy slices of them with
-    shard s's host scalars. A shard op writes into those slices, so the
-    buffers keep their addresses and a captured search plan stays valid;
-  * `rq_params` (rotation/centroid) is dataset-level state, shared;
-  * search: each shard's `core_search` (the fused kernels over its
-    packed codes, its tombstone bits, its exact rerank) -> local top-k ->
+    core (graph edges never cross shards). The mesh's positions
+    (launch/mesh.py) hold them: a mesh of one device has one position
+    holding all S shards, a mesh over a list of devices a position an
+    entry, and position (r, m) holds a replica of row shard r (r the
+    row-major index over the row axes, as JAX's `_shard_index` computes
+    it) and searches query slice m (its index along the query axis; with
+    no query axis, every replica searches all queries — replicas along an
+    axis that neither shards rows nor splits queries are kept equal and
+    not searched). A position keeps its shards' capacity-major buffers
+    stacked, each one tensor on its device — rows (S'*cap, D), packed
+    RaBitQ codes (S'*cap, P), adjacency (S'*cap, R), the tombstone bitmap
+    (S'*cap/8,) — and `shard_core(s)` is an IndexCore of zero-copy slices
+    of them with shard s's host scalars, which the index keeps once a
+    shard. A shard op runs on each replica's slices, as JAX's shard_map
+    runs it on each device that holds the shard (O(batch) a replica, no
+    copy between replicas), so the buffers keep their addresses and a
+    captured search plan stays valid;
+  * `rq_params` (rotation/centroid) is dataset-level state, shared (a
+    copy a device);
+  * search: each position's `core_search` of each of its shards (the
+    fused kernels over its packed codes, its tombstone bits, its exact
+    rerank), on the position's device and its current stream, for its
+    query slice -> local top-k -> gathered onto the home device (the mesh's
+    first position's) in shard order, the query slices concatenated ->
     global ids -> `merge_topk`, hierarchical over the row axes.
 
-All S shards live on the mesh's one device (launch/mesh.py): the merge
-is a stable sort on that device, not a collective. Adjacency entries and
-free pools hold SHARD-LOCAL ids; global ids are `shard * id_stride +
-local`, int32, with `id_stride` FIXED at construction (default 4x the
-initial per-shard capacity), so ids handed to clients survive a grow.
-Growing past the stride raises.
+One process drives every position, as JAX's single controller does:
+"the merge as a collective" is here the gather of each position's (Q_m,
+k) ids and dists onto the home device, then the same merge. Adjacency
+entries and free pools hold SHARD-LOCAL ids; global ids are `shard *
+id_stride + local`, int32, with `id_stride` FIXED at construction
+(default 4x the initial per-shard capacity), so ids handed to clients
+survive a grow. Growing past the stride raises.
 
 Search plans come from core/plans.py with this driver's `_plan_search`:
-on the card a megakernel-lane search over all S shards and the merge is
-ONE captured CUDA graph (each shard reads its n_valid/medoid through its
-own device mirrors); other lanes and the CPU run eager plans.
+on the card a megakernel-lane search of a one-position mesh over all S
+shards and the merge is ONE captured CUDA graph (each shard reads its
+n_valid/medoid through its own device mirrors); a mesh of several
+positions captures one graph a position (`PositionsPlan`); other lanes
+and the CPU run eager plans.
 """
 
 from __future__ import annotations
 
 import json
+from contextlib import contextmanager
 from dataclasses import asdict, dataclass, replace
 from types import SimpleNamespace
 
@@ -63,18 +82,20 @@ from repro_torch.core.index_core import (
     init_core,
 )
 from repro_torch.core.index import save_npz_atomic
-from repro_torch.core.mutations import (MutationState, pack_bitmap,
-                                        pack_label_rows, unpack_bitmap)
-from repro_torch.core.plans import (DeviceScalars, HostRerankPlan,
-                                    ShardedHostTierPlan, keep_buffers,
-                                    make_plan, searched_tensors)
-from repro_torch.core.rabitq import RaBitQCodes, rabitq_train
+from repro_torch.core.mutations import (N_LABEL_BYTES, MutationState,
+                                        pack_bitmap, pack_label_rows,
+                                        unpack_bitmap)
+from repro_torch.core.plans import (DeviceScalars, HostTierPlan,
+                                    PlanTarget, PositionsPlan,
+                                    ShardedRerankPlan, keep_buffers,
+                                    make_plan, target_of)
+from repro_torch.core.rabitq import RaBitQCodes, RaBitQParams, rabitq_train
 from repro_torch.core.resharding import (IdTranslation, pow2_rung,
                                          rebalance_plan, reshard_cores)
 from repro_torch.core.search_spec import PlanCache, SearchSpec, SearchSurface
-from repro_torch.core.storage import (VectorStore,
-                                      build_sharded_host_rerank_plan,
-                                      rows_staged, tier_memory_stats)
+from repro_torch.core.storage import (VectorStore, rows_resident,
+                                      strip_rows, tier_memory_stats)
+from repro_torch.device import on_device
 from repro_torch.obs.tracing import span as obs_span
 
 _INF = float("inf")
@@ -82,6 +103,9 @@ _INF = float("inf")
 # distances held at once by brute_force: query chunks of this many
 # (query, row) pairs (4 GiB of float32)
 _BRUTE_FORCE_PAIRS = 1 << 30
+
+# the per-shard host scalars, kept once a shard by the index
+_SCALARS = ("n_valid", "medoid", "n_free", "n_deleted", "generation")
 
 
 def _pow2_pad_pairs(ids: np.ndarray, rows: torch.Tensor
@@ -186,13 +210,80 @@ def _shard_of(core: IndexCore, s: int, cap: int) -> IndexCore:
         codes=codes, rq_params=core.rq_params)
 
 
-def _buffers(core: IndexCore) -> list:
-    return searched_tensors(core) + [core.mut.free_ids]
+def _row_tensors(core: IndexCore) -> list:
+    """A core's capacity-major tensors (None where absent), in one order:
+    what a shard op writes and what a shard's slices are."""
+    codes = core.codes
+    return [core.vectors, core.vec_sqnorm, core.adjacency,
+            core.mut.tombstone_bits, core.mut.labels, core.mut.free_ids,
+            *((codes.packed, codes.data_add, codes.data_rescale)
+              if codes is not None else (None,) * 3)]
+
+
+def _stacked_like(core: IndexCore, n: int, device,
+                  rq: RaBitQParams | None) -> IndexCore:
+    """An uninitialised stacked core of n shards shaped as `core` (a
+    shard), on `device`, with no host scalars: `_place_cores` fills it."""
+
+    def e(t):
+        return None if t is None else torch.empty(
+            (n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+            device=device)
+
+    c = core.codes
+    codes = None if c is None else RaBitQCodes(
+        packed=e(c.packed), data_add=e(c.data_add),
+        data_rescale=e(c.data_rescale), bits=c.bits, dims=c.dims)
+    m = core.mut
+    return IndexCore(
+        vectors=e(core.vectors), vec_sqnorm=e(core.vec_sqnorm),
+        adjacency=e(core.adjacency), n_valid=None, medoid=None,
+        mut=MutationState(tombstone_bits=e(m.tombstone_bits),
+                          labels=e(m.labels), free_ids=e(m.free_ids),
+                          n_free=None, n_deleted=None, generation=None),
+        codes=codes, rq_params=rq)
+
+
+def _bare(core: IndexCore) -> IndexCore:
+    """A position's stored core: its buffers, no host scalars (the index
+    keeps those once a shard)."""
+    return replace(core, n_valid=None, medoid=None,
+                   mut=replace(core.mut, n_free=None, n_deleted=None,
+                               generation=None))
+
+
+def _rq_on(rq: RaBitQParams | None, device) -> RaBitQParams | None:
+    if rq is None or rq.rotation.device == torch.device(device):
+        return rq
+    return replace(rq, rotation=rq.rotation.to(device),
+                   centroid=rq.centroid.to(device))
+
+
+def _sync_devices(devices) -> None:
+    """Wait for the current stream of every card among `devices`."""
+    for dev in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+class _Position:
+    """One mesh position: its device, the row shards it holds (consecutive;
+    stacked in `core`'s buffers), the query slice it searches (of
+    `n_slices`), whether it searches, and its shards' device mirrors."""
+
+    def __init__(self, device: torch.device, shards: range,
+                 query_slice: int, n_slices: int, searches: bool) -> None:
+        self.device = device
+        self.shards = shards
+        self.query_slice = query_slice
+        self.n_slices = n_slices
+        self.searches = searches
+        self.core: IndexCore | None = None
+        self.mirrors: list[DeviceScalars] | None = None
 
 
 class ShardedJasperIndex(SearchSurface):
     """Row-sharded Jasper index: the IndexCore driver over S shards on the
-    mesh's device."""
+    mesh's positions."""
 
     def __init__(self, mesh, dims: int, capacity_per_shard: int, *,
                  spec: ShardSpec | None = None, metric: str = "l2",
@@ -204,6 +295,26 @@ class ShardedJasperIndex(SearchSurface):
         """id_stride: global ids are shard*id_stride + local, fixed for the
         index's lifetime (default 4x capacity_per_shard) — capacity can
         grow up to the stride without invalidating outstanding ids."""
+        self._configure(mesh, dims, capacity_per_shard, spec=spec,
+                        metric=metric, construction=construction,
+                        quantization=quantization, bits=bits, seed=seed,
+                        id_stride=id_stride,
+                        plan_cache_capacity=plan_cache_capacity)
+        for p in self._positions:
+            p.core = _bare(init_core(len(p.shards) * self.cap,
+                                     self.store_dims,
+                                     self.params.degree_bound, p.device))
+        if rows_tier == "host":
+            self.evict_rows_to_host()
+        elif rows_tier != "device":
+            raise ValueError(
+                f"rows_tier must be device|host, got {rows_tier!r}")
+
+    def _configure(self, mesh, dims: int, capacity_per_shard: int, *,
+                   spec, metric, construction, quantization, bits, seed,
+                   id_stride, plan_cache_capacity) -> None:
+        """Everything but the positions' buffers (`__init__` allocates
+        them empty; `load` deals a checkpoint's shards into them)."""
         if metric not in ("l2", "mips"):
             raise ValueError(f"metric must be l2|mips, got {metric!r}")
         if quantization not in (None, "rabitq"):
@@ -220,7 +331,7 @@ class ShardedJasperIndex(SearchSurface):
                 f"id_stride {self.id_stride} < capacity_per_shard "
                 f"{capacity_per_shard}")
         self.mesh = mesh
-        self.device = mesh.device
+        self.device = mesh.device       # home: queries in, the merge
         self.spec = spec or ShardSpec(
             row_axes=tuple(a for a in mesh.axis_names if a != "model")
             or (mesh.axis_names[0],),
@@ -244,55 +355,181 @@ class ShardedJasperIndex(SearchSurface):
         self.axis_sizes = tuple(mesh.shape[ax] for ax in self.spec.row_axes)
         self.n_shards = int(np.prod(self.axis_sizes))
 
-        self._core = self._empty_stacked_core()
+        self._positions = self._layout()
+        self._owners = [next(p for p in self._positions if s in p.shards)
+                        for s in range(self.n_shards)]
+        z = np.zeros((self.n_shards,), np.int64)
+        self._sc = {name: z.copy() for name in _SCALARS}
         # search plans + the mutation steps (insert/boot/delete), keyed as
         # the JAX package keys them; Searcher sessions share it
         self.plans = PlanCache(capacity=plan_cache_capacity)
-        self._mirrors: list[DeviceScalars] | None = None
         # old->new IdTranslation of the last shard-count-changing load
         self.reshard_translation = None
         # the rows tier (core/storage.py): host rows are the stacked
-        # (S*cap, D) tensor, so a frontier row is at shard*cap + local
+        # (S*cap, D) tensor, once a shard, so a frontier row is at
+        # shard*cap + local
         self.store = VectorStore(pin=self.device.type == "cuda")
-        if rows_tier == "host":
-            self.evict_rows_to_host()
-        elif rows_tier != "device":
-            raise ValueError(
-                f"rows_tier must be device|host, got {rows_tier!r}")
+
+    # ------------------------------------------------------- the positions
+    def _layout(self) -> list[_Position]:
+        """The mesh's positions: one holding every shard on a mesh of one
+        device; else one a device, (r, m) as the module docstring says."""
+        mesh, spec = self.mesh, self.spec
+        qa = spec.query_axis
+        n_slices = mesh.shape[qa] if qa is not None else 1
+        if len(mesh.devices) == 1:
+            return [_Position(mesh.devices[0], range(self.n_shards), 0, 1,
+                              True)]
+        out = []
+        for i, dev in enumerate(mesh.devices):
+            c = mesh.coords(i)
+            r = 0
+            for ax in spec.row_axes:
+                r = r * mesh.shape[ax] + c[ax]
+            others = [a for a in mesh.axis_names
+                      if a not in spec.row_axes and a != qa]
+            out.append(_Position(dev, range(r, r + 1),
+                                 c[qa] if qa is not None else 0, n_slices,
+                                 all(c[a] == 0 for a in others)))
+        return out
+
+    @property
+    def multi_position(self) -> bool:
+        """Whether the shards lie on several mesh positions."""
+        return len(self._positions) > 1
+
+    @property
+    def n_positions(self) -> int:
+        return len(self._positions)
+
+    def position_devices(self) -> list[torch.device]:
+        """Each position's device, in mesh order."""
+        return [p.device for p in self._positions]
+
+    def searching_positions(self) -> list[_Position]:
+        """The positions that search, in mesh order."""
+        return [p for p in self._positions if p.searches]
+
+    def slice_shape(self, p: _Position, q_shape: tuple) -> tuple:
+        """The shape of position p's slice of a query batch."""
+        return (q_shape[0] // p.n_slices,) + tuple(q_shape[1:])
+
+    def query_slice(self, p: _Position, queries: torch.Tensor
+                    ) -> torch.Tensor:
+        """Position p's slice of the queries, on its device."""
+        n = queries.shape[0] // p.n_slices
+        m = p.query_slice
+        return queries[m * n:(m + 1) * n].to(p.device)
+
+    def position_target(self, p: _Position, on_trace) -> PlanTarget:
+        """What a plan of position p searches (core/plans.py): its stacked
+        core, on its device, each of its shards' `core_search`
+        (`_shard_searches`), its mirrors; `on_trace` counts its traces."""
+        return PlanTarget(
+            p.device, lambda: self._pos_core(p),
+            lambda core, queries, rspec, filt, fb, *, mirrors:
+                self._shard_searches(p, core, queries, rspec, filt, fb,
+                                     mirrors=mirrors),
+            lambda core: self._sync_position_mirrors(p, core), on_trace)
+
+    def _pos_core(self, p: _Position) -> IndexCore:
+        sl = slice(p.shards.start, p.shards.stop)
+        sc = {k: v[sl].copy() for k, v in self._sc.items()}
+        return replace(p.core, n_valid=sc["n_valid"], medoid=sc["medoid"],
+                       mut=replace(p.core.mut, n_free=sc["n_free"],
+                                   n_deleted=sc["n_deleted"],
+                                   generation=sc["generation"]))
+
+    def _set_pos(self, p: _Position, core: IndexCore) -> None:
+        """Install a position's core: buffers kept where shapes allow
+        (`keep_buffers`), its scalar vectors into the index's."""
+        p.core = _bare(keep_buffers(self._pos_core(p), core))
+        sl = slice(p.shards.start, p.shards.stop)
+        self._sc["n_valid"][sl] = core.n_valid
+        self._sc["medoid"][sl] = core.medoid
+        for name in ("n_free", "n_deleted", "generation"):
+            self._sc[name][sl] = getattr(core.mut, name)
+
+    def _owner_positions(self) -> list[_Position]:
+        """One replica of every shard, in shard order."""
+        out, s = [], 0
+        while s < self.n_shards:
+            out.append(self._owners[s])
+            s = self._owners[s].shards.stop
+        return out
+
+    def _replicas(self, s: int) -> list[_Position]:
+        return [p for p in self._positions if s in p.shards]
+
+    def _shard_device(self, s: int) -> torch.device:
+        return self._owners[s].device
 
     # ------------------------------------------------------------ the core
     @property
     def core(self) -> IndexCore:
-        """The stacked core: (S*cap, ...) buffers, (S,) host scalars."""
-        return self._core
+        """The stacked core of a one-position mesh: (S*cap, ...) buffers,
+        (S,) host scalars. A mesh of several positions has none: its
+        shards are `shard_core(s)` and `shard_replicas(s)`."""
+        self._one_position("core")
+        return self._pos_core(self._positions[0])
 
     @core.setter
     def core(self, new: IndexCore) -> None:
         """Install a stacked core, its shape-preserving buffers written
         into the current ones (`keep_buffers`)."""
-        self._core = keep_buffers(self._core, new)
+        self._one_position("core")
+        self._set_pos(self._positions[0], new)
 
-    def _empty_stacked_core(self) -> IndexCore:
-        s, cap = self.n_shards, self.cap
-        core = init_core(s * cap, self.store_dims, self.params.degree_bound,
-                         self.device)
-        z = np.zeros((s,), np.int64)
-        return replace(core, n_valid=z, medoid=z.copy(),
-                       mut=replace(core.mut, n_free=z.copy(),
-                                   n_deleted=z.copy(), generation=z.copy()))
+    def _one_position(self, what: str) -> None:
+        if self.multi_position:
+            raise RuntimeError(
+                f"{what}: the shards of this index lie on "
+                f"{self.n_positions} mesh positions, with no one stacked "
+                "core (shard_core(s) and shard_replicas(s) give its shards)")
 
     def shard_core(self, s: int) -> IndexCore:
         """Shard s as a plain (local-id) IndexCore of zero-copy slices of
-        the stacked buffers — the unit of every shard op and of
-        checkpoint I/O."""
-        return _shard_of(self._core, s, self.cap)
+        its first replica's stacked buffers — the unit of every shard op
+        and of checkpoint I/O."""
+        p = self._owners[s]
+        return _shard_of(self._pos_core(p), s - p.shards.start, self.cap)
 
-    def _set_shard(self, s: int, local: IndexCore) -> None:
-        """Install shard s's result of a core op: its buffers written into
-        the stacked slices (where the op did not write in place), its
-        scalars into the (S,) vectors."""
-        view = self.shard_core(s)
-        for a, b in zip(_buffers(view), _buffers(local)):
+    def shard_replicas(self, s: int) -> list[IndexCore]:
+        """Shard s as each position that holds it holds it: zero-copy
+        views, in mesh order (the first is `shard_core(s)`'s)."""
+        return [_shard_of(self._pos_core(p), s - p.shards.start, self.cap)
+                for p in self._replicas(s)]
+
+    def _view(self, p: _Position, s: int) -> IndexCore:
+        """Shard s as position p holds it: zero-copy slices of p's
+        buffers, shard s's host scalars."""
+        return _shard_of(self._pos_core(p), s - p.shards.start, self.cap)
+
+    def _apply(self, s: int, op):
+        """Shard s's core op run on each of its replicas, as JAX's
+        shard_map runs it on each device that holds the shard: `op(view)`
+        takes a replica's zero-copy view (on that replica's device) and
+        returns (the shard's new core, a result). Each replica's core is
+        installed in its own slices (`_install`), the scalars once, after
+        every replica ran on the same ones. Returns the first replica's
+        result."""
+        first = None
+        for p in self._replicas(s):
+            core, res = op(self._view(p, s))
+            self._install(p, s, core)
+            if first is None:
+                first = (core, res)
+        core, res = first
+        self._sc["n_valid"][s] = int(core.n_valid)
+        self._sc["medoid"][s] = int(core.medoid)
+        for name in ("n_free", "n_deleted", "generation"):
+            self._sc[name][s] = int(getattr(core.mut, name))
+        return res
+
+    def _install(self, p: _Position, s: int, local: IndexCore) -> None:
+        """Shard s's new core written into position p's slices of it,
+        where the op did not already write in place."""
+        for a, b in zip(_row_tensors(self._view(p, s)), _row_tensors(local)):
             if a is None or b is None:
                 if (a is None) != (b is None):
                     raise ValueError("a shard op changed the core's "
@@ -303,52 +540,34 @@ class ShardedJasperIndex(SearchSurface):
                                  f"{tuple(a.shape)} -> {tuple(b.shape)}")
             if a.data_ptr() != b.data_ptr():
                 a.copy_(b)
-        c = self._core
 
-        def put(vec, value):
-            vec = vec.copy()
-            vec[s] = int(value)
-            return vec
-
-        m = c.mut
-        self._core = replace(
-            c, n_valid=put(c.n_valid, local.n_valid),
-            medoid=put(c.medoid, local.medoid),
-            mut=replace(m, n_free=put(m.n_free, local.mut.n_free),
-                        n_deleted=put(m.n_deleted, local.mut.n_deleted),
-                        generation=put(m.generation, local.mut.generation)))
-
-    def _stack_cores(self, locals_: list[IndexCore]) -> IndexCore:
-        """Assemble S per-shard (local-id) cores into one stacked core —
-        one concatenation a buffer."""
-        def cat(get):
-            return torch.cat([get(c) for c in locals_])
-
-        def vec(get):
-            return np.asarray([int(get(c)) for c in locals_], np.int64)
-
-        codes = None
-        if locals_[0].codes is not None:
-            c0 = locals_[0].codes
-            codes = RaBitQCodes(
-                packed=cat(lambda c: c.codes.packed),
-                data_add=cat(lambda c: c.codes.data_add),
-                data_rescale=cat(lambda c: c.codes.data_rescale),
-                bits=c0.bits, dims=c0.dims)
-        return IndexCore(
-            vectors=cat(lambda c: c.vectors),
-            vec_sqnorm=cat(lambda c: c.vec_sqnorm),
-            adjacency=cat(lambda c: c.adjacency),
-            n_valid=vec(lambda c: c.n_valid),
-            medoid=vec(lambda c: c.medoid),
-            mut=MutationState(
-                tombstone_bits=cat(lambda c: c.mut.tombstone_bits),
-                labels=cat(lambda c: c.mut.labels),
-                free_ids=cat(lambda c: c.mut.free_ids),
-                n_free=vec(lambda c: c.mut.n_free),
-                n_deleted=vec(lambda c: c.mut.n_deleted),
-                generation=vec(lambda c: c.mut.generation)),
-            codes=codes, rq_params=locals_[0].rq_params)
+    def _place_cores(self, read) -> None:
+        """Deal S per-shard (local-id) cores onto the positions: shard s's
+        core `read(s)` (on any device — the host for a load onto several
+        positions) is read once and copied into its slices of every
+        position that holds it, whose stacked buffers are allocated on its
+        device at its first shard (`_stacked_like`); `rq_params` a copy a
+        device. No position holds more than its own shards' buffers."""
+        rq: dict = {}
+        for s in range(self.n_shards):
+            local = read(s)
+            for p in self._replicas(s):
+                if s == p.shards.start:
+                    key = str(p.device)
+                    if key not in rq:
+                        rq[key] = _rq_on(local.rq_params, p.device)
+                    p.core = _stacked_like(local, len(p.shards), p.device,
+                                           rq[key])
+                i = s - p.shards.start
+                for a, b in zip(_row_tensors(p.core), _row_tensors(local)):
+                    if a is not None:
+                        n = a.shape[0] // len(p.shards)
+                        a[i * n:(i + 1) * n].copy_(b)
+            self._sc["n_valid"][s] = int(local.n_valid)
+            self._sc["medoid"][s] = int(local.medoid)
+            for name in ("n_free", "n_deleted", "generation"):
+                self._sc[name][s] = int(getattr(local.mut, name))
+        _sync_devices(self.position_devices())
 
     # ---------------------------------------------------------- tiered rows
     @property
@@ -358,30 +577,60 @@ class ShardedJasperIndex(SearchSurface):
 
     def evict_rows_to_host(self) -> "ShardedJasperIndex":
         """device -> host across every shard: packed codes, graph and
-        metadata stay on the device; the f32 rows move to one stacked
-        host tensor (pinned on the card). The plans are dropped."""
+        metadata stay on the positions' devices; the f32 rows move to one
+        stacked host tensor, once a shard (pinned on the card). The plans
+        are dropped."""
         if self.quantization != "rabitq":
             raise ValueError(
                 "evict_rows_to_host requires quantization='rabitq': "
                 "without device-resident packed codes there is nothing "
                 "left to traverse on (an exact-only core cannot serve "
                 "any search with its rows evicted)")
-        self.core = self.store.evict(self.core)
+        self.store.hold(*(p.core for p in self._owner_positions()))
+        for p in self._positions:
+            p.core = strip_rows(p.core)
         self.plans.clear()
         return self
 
     def restore_rows_to_device(self) -> "ShardedJasperIndex":
-        """host -> device: re-attach the stacked rows."""
-        self.core = self.store.restore(self.core)
+        """host -> device: re-attach the stacked rows to every position."""
+        if self.store.tier != "host":
+            raise ValueError("rows are already device-resident")
+        self._attach_rows()
+        _sync_devices(self.position_devices())
+        self.store.release()
         self.plans.clear()
         return self
+
+    def _attach_rows(self) -> None:
+        for p in self._positions:
+            p.core = self.store.attach(p.core, at=p.shards.start * self.cap)
+
+    @contextmanager
+    def _staged(self):
+        """Write-through staging for mutations on the host tier
+        (`storage.rows_staged` for every position): the host rows attached
+        to each position's core, the mutation runs the unchanged core
+        ops, then the host tier is synced from the result and the rows
+        stripped off again. Re-entrant."""
+        if (self.store.tier != "host"
+                or rows_resident(self._positions[0].core)):
+            yield
+            return
+        self._attach_rows()
+        try:
+            yield
+        finally:
+            self.store.sync_from(*(p.core for p in self._owner_positions()))
+            for p in self._positions:
+                p.core = strip_rows(p.core)
 
     # ----------------------------------------------------------------- util
     @property
     def size(self) -> int:
-        c = self._core
-        return int(c.n_valid.sum() - c.mut.n_deleted.sum()
-                   - c.mut.n_free.sum())
+        sc = self._sc
+        return int(sc["n_valid"].sum() - sc["n_deleted"].sum()
+                   - sc["n_free"].sum())
 
     @property
     def capacity(self) -> int:
@@ -391,26 +640,27 @@ class ShardedJasperIndex(SearchSurface):
     @property
     def generation(self) -> int:
         """Sum of the per-shard generation counters."""
-        return int(self._core.mut.generation.sum())
+        return int(self._sc["generation"].sum())
 
     @property
     def n_deleted(self) -> int:
-        return int(self._core.mut.n_deleted.sum())
+        return int(self._sc["n_deleted"].sum())
 
     @property
     def deleted_fraction(self) -> float:
-        n = int(self._core.n_valid.sum()) - int(self._core.mut.n_free.sum())
+        n = int(self._sc["n_valid"].sum()) - int(self._sc["n_free"].sum())
         return self.n_deleted / n if n else 0.0
 
     @property
     def _filter_tombstones(self) -> bool:
-        return self.n_deleted != 0 or int(self._core.mut.n_free.sum()) != 0
+        return self.n_deleted != 0 or int(self._sc["n_free"].sum()) != 0
 
     def shard_live_counts(self) -> np.ndarray:
         """int64[S] live rows per shard (skewed deletes drift these apart;
         `rebalance` levels them)."""
-        c = self._core
-        return (c.n_valid - c.mut.n_deleted - c.mut.n_free).astype(np.int64)
+        sc = self._sc
+        return (sc["n_valid"] - sc["n_deleted"] - sc["n_free"]).astype(
+            np.int64)
 
     @property
     def shard_imbalance(self) -> float:
@@ -431,23 +681,52 @@ class ShardedJasperIndex(SearchSurface):
         shard, local = ids // self.id_stride, ids % self.id_stride
         in_cap = local < self.cap
         bit_pos = shard * self.cap + np.minimum(local, self.cap - 1)
-        dead = bitmap_test_np(
-            self._core.mut.tombstone_bits.cpu().numpy(), bit_pos)
-        n_valid = self._core.n_valid
+        bits = torch.cat([p.core.mut.tombstone_bits.cpu()
+                          for p in self._owner_positions()])
+        dead = bitmap_test_np(bits.numpy(), bit_pos)
+        n_valid = self._sc["n_valid"]
         return dead | ~in_cap | (local >= n_valid[shard])
 
+    def label_rows(self, ids) -> np.ndarray:
+        """uint8[len(ids), NB] label rows of GLOBAL ids (each read from
+        its shard's first replica; ids out of range clamp into it)."""
+        ids = np.asarray(ids, np.int64).ravel()
+        pos = np.clip((ids // self.id_stride) * self.cap
+                      + ids % self.id_stride, 0, self.capacity - 1)
+        shard, local = pos // self.cap, pos % self.cap
+        out = np.zeros((ids.size, N_LABEL_BYTES), np.uint8)
+        for s in np.unique(shard):
+            out[shard == s] = self.shard_core(int(s)).mut.labels[
+                torch.as_tensor(local[shard == s],
+                                device=self._shard_device(int(s)))
+            ].cpu().numpy()
+        return out
+
     def _as_tensor(self, x) -> torch.Tensor:
+        """x as float32 on the home device."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(x, dtype=np.float32),
                                device=self.device)
+
+    def _rows_tensor(self, x) -> torch.Tensor:
+        """Rows to build or insert, as float32: on the home device on a
+        one-position mesh (every shard lives there); on a mesh of several
+        positions where they lie — a tensor stays on its device, an array
+        becomes a host tensor — so each shard's rows go straight to its
+        own positions and the home device never holds the whole batch."""
+        if not self.multi_position:
+            return self._as_tensor(x)
+        if isinstance(x, torch.Tensor):
+            return x.to(torch.float32)
+        return torch.as_tensor(np.asarray(x, dtype=np.float32))
 
     # ----------------------------------------------------------------- mips
     def _prep_data(self, x) -> torch.Tensor:
         """Metric prep BEFORE rows deal to shards: for MIPS, augment
         against the GLOBAL max-norm of everything inserted so far; a batch
         that raises it re-augments every written row of every shard."""
-        x = self._as_tensor(x)
+        x = self._rows_tensor(x)
         if self.metric != "mips":
             return x
         sq = (x * x).sum(dim=-1)
@@ -462,21 +741,23 @@ class ShardedJasperIndex(SearchSurface):
         return torch.cat([x, extra[..., None]], dim=-1)
 
     def _reaugment_mips(self, old_m2: float, new_m2: float) -> None:
-        """Re-augment every written row of every shard, in place:
-        e' = sqrt(e^2 + delta), |row'|^2 = |row|^2 + delta, codes
+        """Re-augment every written row of every shard, in place on each
+        replica: e' = sqrt(e^2 + delta), |row'|^2 = |row|^2 + delta, codes
         re-encoded (the quantizer itself is untouched)."""
-        c = self._core
         delta = new_m2 - old_m2
         for s in range(self.n_shards):
-            n = int(c.n_valid[s])
+            n = int(self._sc["n_valid"][s])
             if n == 0:
                 continue
-            lo = s * self.cap
-            last = c.vectors[lo:lo + n, -1]
-            c.vectors[lo:lo + n, -1] = torch.sqrt(last * last + delta)
-            c.vec_sqnorm[lo:lo + n] += delta
-            core_encode_rows(c, torch.arange(lo, lo + n, device=self.device),
-                             c.vectors[lo:lo + n])
+            for p in self._replicas(s):
+                c = p.core
+                lo = (s - p.shards.start) * self.cap
+                last = c.vectors[lo:lo + n, -1]
+                c.vectors[lo:lo + n, -1] = torch.sqrt(last * last + delta)
+                c.vec_sqnorm[lo:lo + n] += delta
+                core_encode_rows(c, torch.arange(lo, lo + n,
+                                                 device=p.device),
+                                 c.vectors[lo:lo + n])
 
     def _prep_query(self, q) -> torch.Tensor:
         if self.device.type == "cuda" and not isinstance(q, torch.Tensor):
@@ -489,10 +770,20 @@ class ShardedJasperIndex(SearchSurface):
 
     # --------------------------------------------------------- build/insert
     def _ensure_quantizer(self, rows: torch.Tensor) -> None:
-        if self.quantization == "rabitq" and self._core.rq_params is None:
+        """Train the quantizer on the first build's rows, where they lie
+        (the home device on a one-position mesh; see `_rows_tensor`), and
+        attach it, a copy a device, to every position."""
+        if (self.quantization == "rabitq"
+                and self._positions[0].core.rq_params is None):
             gen = torch.Generator().manual_seed(self.seed)
-            self.core = attach_quantizer(
-                self._core, rabitq_train(gen, rows, bits=self.bits))
+            rq = rabitq_train(gen, rows, bits=self.bits)
+            on: dict = {}
+            for p in self._positions:
+                key = str(p.device)
+                if key not in on:
+                    on[key] = _rq_on(rq, p.device)
+                self._set_pos(p, attach_quantizer(self._pos_core(p),
+                                                  on[key]))
             self.plans.clear()          # core structure changed
 
     def build(self, data, *, labels=None) -> "ShardedJasperIndex":
@@ -500,7 +791,7 @@ class ShardedJasperIndex(SearchSurface):
         owns data[s*per:(s+1)*per]. labels: optional per-row label sets
         (see `set_labels`), in the same dealt order."""
         with obs_span("index.build", n=int(np.shape(data)[0]),
-                      sharded=True), rows_staged(self):
+                      sharded=True), self._staged():
             self._build_impl(data)
             if labels is not None:
                 n = int(np.shape(data)[0])
@@ -521,16 +812,15 @@ class ShardedJasperIndex(SearchSurface):
         self._ensure_quantizer(data)
         # reset graph + mutation state (generation keeps advancing), keep
         # the trained quantizer and the buffers
-        c = self._core
-        c.adjacency.fill_(-1)
-        c.mut.tombstone_bits.zero_()
-        c.mut.labels.zero_()
-        c.mut.free_ids.fill_(-1)
-        z = np.zeros((self.n_shards,), np.int64)
-        self._core = replace(
-            c, n_valid=z, medoid=z.copy(),
-            mut=replace(c.mut, n_free=z.copy(), n_deleted=z.copy(),
-                        generation=c.mut.generation + 1))
+        for p in self._positions:
+            c = p.core
+            c.adjacency.fill_(-1)
+            c.mut.tombstone_bits.zero_()
+            c.mut.labels.zero_()
+            c.mut.free_ids.fill_(-1)
+        for name in ("n_valid", "medoid", "n_free", "n_deleted"):
+            self._sc[name] = np.zeros((self.n_shards,), np.int64)
+        self._sc["generation"] = self._sc["generation"] + 1
         dealt = data.reshape(self.n_shards, per, -1)
 
         n0 = min(1024, per)
@@ -550,8 +840,7 @@ class ShardedJasperIndex(SearchSurface):
         self._sync()
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        _sync_devices(self.position_devices())
 
     def insert(self, data, *, labels=None) -> np.ndarray:
         """Streaming insert of (S, b, D) — b rows per shard — or (N, D)
@@ -562,7 +851,7 @@ class ShardedJasperIndex(SearchSurface):
         ids (int32), shaped like the input batch ((S, b) or (N,)).
         labels: optional label sets for the batch, in the flat dealt order.
         """
-        data = self._as_tensor(data)
+        data = self._rows_tensor(data)
         flat_in = data.dim() == 2
         if flat_in:
             n = data.shape[0]
@@ -583,7 +872,7 @@ class ShardedJasperIndex(SearchSurface):
             ids = (np.arange(s)[:, None] * self.id_stride
                    + np.arange(b)[None, :]).astype(np.int32)
             return ids.reshape(-1) if flat_in else ids
-        with rows_staged(self):
+        with self._staged():
             data = self._prep_data(data)   # (S, b, D[+1]): global augment
             local_ids, global_ids = self._allocate_slots_per_shard(
                 data.shape[1])
@@ -597,13 +886,21 @@ class ShardedJasperIndex(SearchSurface):
     def set_labels(self, ids, labels) -> None:
         """Assign label bitsets to GLOBAL ids: one label id, one sequence
         of label ids per row, or one shared set for the batch
-        (`core.mutations.pack_label_rows`). Rows keep their labels through
-        consolidate, grow, rebalance and reshard."""
+        (`core.mutations.pack_label_rows`), on every replica of their
+        shards. Rows keep their labels through consolidate, grow,
+        rebalance and reshard."""
         ids = np.atleast_1d(np.asarray(ids)).astype(np.int64).ravel()
         rows = pack_label_rows(labels, ids.size)
-        pos = (ids // self.id_stride) * self.cap + ids % self.id_stride
-        self._core.mut.labels[torch.as_tensor(pos, device=self.device)] = \
-            torch.as_tensor(rows, dtype=torch.uint8, device=self.device)
+        shard = ids // self.id_stride
+        for p in self._positions:
+            mine = (shard >= p.shards.start) & (shard < p.shards.stop)
+            if not mine.any():
+                continue
+            pos = ((shard[mine] - p.shards.start) * self.cap
+                   + ids[mine] % self.id_stride)
+            p.core.mut.labels[torch.as_tensor(pos, device=p.device)] = \
+                torch.as_tensor(rows[mine], dtype=torch.uint8,
+                                device=p.device)
 
     def _allocate_slots_per_shard(self, b: int
                                   ) -> tuple[np.ndarray, np.ndarray]:
@@ -612,9 +909,8 @@ class ShardedJasperIndex(SearchSurface):
         rows, then advances its OWN tail. Returns (local (S, b), global
         (S, b)) int32 ids. Grows every shard when any tail overflows."""
         s = self.n_shards
-        c = self._core
-        n_free = c.mut.n_free.copy()
-        n_valid = c.n_valid.copy()
+        n_free = self._sc["n_free"].copy()
+        n_valid = self._sc["n_valid"].copy()
         take = np.minimum(b, n_free)
         need = n_valid + (b - take)
         if need.max() > self.cap:
@@ -626,8 +922,9 @@ class ShardedJasperIndex(SearchSurface):
         local = np.empty((s, b), np.int32)
         for i in range(s):
             t = int(take[i])
-            if t:
-                view = self.shard_core(i)
+            for p in self._replicas(i) if t else ():
+                # every replica pops its own copy of the pool alike
+                view = self._view(p, i)
                 fi = view.mut.free_ids
                 reused = fi[:t].clone()
                 local[i, :t] = reused.cpu().numpy()
@@ -638,8 +935,7 @@ class ShardedJasperIndex(SearchSurface):
                 view.mut.tombstone_bits.copy_(pack_bitmap(dense))
                 view.mut.labels[reused.long()] = 0
             local[i, t:] = n_valid[i] + np.arange(b - t, dtype=np.int32)
-        c = self._core
-        self._core = replace(c, mut=replace(c.mut, n_free=n_free - take))
+        self._sc["n_free"] = n_free - take
         global_ids = local + (np.arange(s, dtype=np.int32)
                               * self.id_stride)[:, None]
         return local, global_ids
@@ -676,16 +972,15 @@ class ShardedJasperIndex(SearchSurface):
     def consolidate(self, *, refine: bool = True) -> dict:
         """Per-shard graph repair: each shard with tombstones runs the
         single-device `core_consolidate`; repair never crosses shards."""
-        n_del = self._core.mut.n_deleted.copy()
+        n_del = self._sc["n_deleted"].copy()
         total = {"n_freed": 0, "n_repaired": 0}
         if not n_del.any():
             return total
-        with rows_staged(self):
+        with self._staged():
             for s in range(self.n_shards):
                 if n_del[s]:
-                    local, stats = core_consolidate(
-                        self.shard_core(s), params=self.params, refine=refine)
-                    self._set_shard(s, local)
+                    stats = self._apply(s, lambda v: core_consolidate(
+                        v, params=self.params, refine=refine))
                     total["n_freed"] += stats["n_freed"]
                     total["n_repaired"] += stats["n_repaired"]
         return total
@@ -709,39 +1004,41 @@ class ShardedJasperIndex(SearchSurface):
                 "id_stride for more growth headroom.")
         if new_cap == self.cap:
             return self
-        with rows_staged(self):
+        with self._staged():
             self._grow_impl(new_cap)
         return self
 
     def _grow_impl(self, new_cap: int) -> None:
-        s, cap = self.n_shards, self.cap
+        cap = self.cap
+        for p in self._positions:
+            s = len(p.shards)
 
-        def pad(t, fill):
-            # rows (cap -> new_cap) and the bitmap (cap/8 -> new_cap/8)
-            tail = tuple(t.shape[1:])
-            shaped = t.reshape((s, -1) + tail)
-            out = torch.full((s, shaped.shape[1] * new_cap // cap) + tail,
-                             fill, dtype=t.dtype, device=t.device)
-            out[:, :shaped.shape[1]] = shaped
-            return out.reshape((-1,) + tail)
+            def pad(t, fill):
+                # rows (cap -> new_cap) and the bitmap (cap/8 -> new_cap/8)
+                tail = tuple(t.shape[1:])
+                shaped = t.reshape((s, -1) + tail)
+                out = torch.full((s, shaped.shape[1] * new_cap // cap) + tail,
+                                 fill, dtype=t.dtype, device=t.device)
+                out[:, :shaped.shape[1]] = shaped
+                return out.reshape((-1,) + tail)
 
-        c = self._core
-        codes = c.codes
-        if codes is not None:
-            codes = RaBitQCodes(packed=pad(codes.packed, 0),
-                                data_add=pad(codes.data_add, 0.0),
-                                data_rescale=pad(codes.data_rescale, 0.0),
-                                bits=codes.bits, dims=codes.dims)
-        m = c.mut
-        self._core = replace(
-            c, vectors=pad(c.vectors, 0.0),
-            vec_sqnorm=pad(c.vec_sqnorm, 0.0),
-            adjacency=pad(c.adjacency, -1),
-            mut=replace(m, tombstone_bits=pad(m.tombstone_bits, 0),
-                        labels=pad(m.labels, 0),
-                        free_ids=pad(m.free_ids, -1),
-                        generation=m.generation + 1),
-            codes=codes)
+            c = p.core
+            codes = c.codes
+            if codes is not None:
+                codes = RaBitQCodes(packed=pad(codes.packed, 0),
+                                    data_add=pad(codes.data_add, 0.0),
+                                    data_rescale=pad(codes.data_rescale, 0.0),
+                                    bits=codes.bits, dims=codes.dims)
+            m = c.mut
+            p.core = replace(
+                c, vectors=pad(c.vectors, 0.0),
+                vec_sqnorm=pad(c.vec_sqnorm, 0.0),
+                adjacency=pad(c.adjacency, -1),
+                mut=replace(m, tombstone_bits=pad(m.tombstone_bits, 0),
+                            labels=pad(m.labels, 0),
+                            free_ids=pad(m.free_ids, -1)),
+                codes=codes)
+        self._sc["generation"] = self._sc["generation"] + 1
         self.cap = new_cap
         self.plans.clear()              # row offsets / shapes changed
 
@@ -750,14 +1047,34 @@ class ShardedJasperIndex(SearchSurface):
         onto underfull ones (`rebalance_plan`), through the core ops —
         `core_insert_at` on the receiver (its encode re-derives the packed
         code bit for bit: the quantizer is shared) and `core_delete` +
-        `core_consolidate` on the donor. Moved rows get new global ids;
-        the returned ``translation`` (IdTranslation, identity off-table)
-        remaps outstanding tickets. No-op inside `tolerance`."""
-        with rows_staged(self):
+        `core_consolidate` on the donor. Host-driven, as JAX's is: the
+        moved rows come to the host from their donor's device and go to
+        the receiver's. Moved rows get new global ids; the returned
+        ``translation`` (IdTranslation, identity off-table) remaps
+        outstanding tickets. No-op inside `tolerance`."""
+        with self._staged():
             return self._rebalance_impl(tolerance)
 
+    def _moved_rows(self, pairs) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows, label rows) on the host of (shard, local) pairs, in
+        order, each read from its shard's first replica."""
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        rows = torch.empty((len(pairs), self.store_dims), dtype=torch.float32)
+        labs = None
+        for s in np.unique(pairs[:, 0]):
+            at = np.flatnonzero(pairs[:, 0] == s)
+            sc = self.shard_core(int(s))
+            lo = torch.as_tensor(pairs[at, 1], device=sc.device)
+            lab = sc.mut.labels[lo].cpu()
+            if labs is None:
+                labs = torch.empty((len(pairs), lab.shape[1]),
+                                   dtype=torch.uint8)
+            rows[torch.as_tensor(at)] = sc.vectors[lo].cpu()
+            labs[torch.as_tensor(at)] = lab
+        return rows, labs
+
     def _rebalance_impl(self, tolerance: float) -> dict:
-        s_n, cap = self.n_shards, self.cap
+        s_n = self.n_shards
         live = [core_live_locals(self.shard_core(s)) for s in range(s_n)]
         plan = rebalance_plan(live, tolerance=tolerance)
         base = {"counts_before": plan.counts_before.tolist(),
@@ -773,23 +1090,21 @@ class ShardedJasperIndex(SearchSurface):
         # donors and receivers are disjoint, so a receiver's writes never
         # touch a row still to be read
         for dst, pairs in plan.moves.items():
-            src = torch.as_tensor([sh * cap + lo for sh, lo in pairs],
-                                  device=self.device)
-            rows = self._core.vectors[src]
-            lab_rows = self._core.mut.labels[src]
-            core, reused = core_take_free_slots(self.shard_core(dst),
-                                                len(pairs))
-            hw = core.n_valid
-            fresh = np.arange(hw, hw + len(pairs) - reused.size,
-                              dtype=np.int32)
-            ids = np.concatenate([reused, fresh]).astype(np.int32)
-            pad_ids, pad_rows = _pow2_pad_pairs(ids, rows)
-            core = core_insert_at(
-                core, torch.as_tensor(pad_ids, device=self.device), pad_rows,
-                params=self.params)
-            # moved rows keep their label rows bit for bit
-            core = core_set_labels(core, ids, lab_rows.cpu().numpy())
-            self._set_shard(dst, core)
+            rows, lab_rows = self._moved_rows(pairs)
+
+            def receive(view, rows=rows, lab_rows=lab_rows, n=len(pairs)):
+                core, reused = core_take_free_slots(view, n)
+                hw = core.n_valid
+                fresh = np.arange(hw, hw + n - reused.size, dtype=np.int32)
+                ids = np.concatenate([reused, fresh]).astype(np.int32)
+                pad_ids, pad_rows = _pow2_pad_pairs(ids, rows.to(view.device))
+                core = core_insert_at(
+                    core, torch.as_tensor(pad_ids, device=view.device),
+                    pad_rows, params=self.params)
+                # moved rows keep their label rows bit for bit
+                return core_set_labels(core, ids, lab_rows.numpy()), ids
+
+            ids = self._apply(dst, receive)
             old_gids += [sh * self.id_stride + lo for sh, lo in pairs]
             new_gids += (dst * self.id_stride + ids.astype(np.int64)).tolist()
         # 2. tombstone the moved-out rows on their donors, then repair
@@ -801,10 +1116,13 @@ class ShardedJasperIndex(SearchSurface):
             ids = np.asarray(sorted(locs), np.int32)
             padded = np.full((pow2_rung(ids.size),), -1, np.int32)
             padded[:ids.size] = ids
-            core, _ = core_delete(self.shard_core(src_shard),
-                                  torch.as_tensor(padded, device=self.device))
-            core, _ = core_consolidate(core, params=self.params)
-            self._set_shard(src_shard, core)
+
+            def give(view, padded=padded):
+                core, _ = core_delete(
+                    view, torch.as_tensor(padded, device=view.device))
+                return core_consolidate(core, params=self.params)
+
+            self._apply(src_shard, give)
         return base | {
             "n_moved": plan.n_moved,
             "translation": IdTranslation.build(old_gids, new_gids,
@@ -812,80 +1130,159 @@ class ShardedJasperIndex(SearchSurface):
 
     # -------------------------------------------------------------- search
     # searcher()/recall() come from SearchSurface
-    @property
-    def mirrors(self) -> list[DeviceScalars]:
-        """Each shard's device mirrors of its n_valid and medoid."""
-        if self._mirrors is None:
-            self._mirrors = [DeviceScalars(self.device)
-                             for _ in range(self.n_shards)]
-        return self._mirrors
+    def _mirrors_of(self, p: _Position) -> list[DeviceScalars]:
+        """Position p's device mirrors of its shards' n_valid and medoid
+        (made at first use)."""
+        if p.mirrors is None:
+            p.mirrors = [DeviceScalars(p.device) for _ in p.shards]
+        return p.mirrors
+
+    def _sync_position_mirrors(self, p: _Position, core: IndexCore) -> None:
+        for i, m in enumerate(self._mirrors_of(p)):
+            m.sync(SimpleNamespace(n_valid=int(core.n_valid[i]),
+                                   medoid=int(core.medoid[i])))
 
     def _sync_mirrors(self, core: IndexCore) -> None:
-        for s, m in enumerate(self.mirrors):
-            m.sync(SimpleNamespace(n_valid=int(core.n_valid[s]),
-                                   medoid=int(core.medoid[s])))
+        self._sync_position_mirrors(self._positions[0], core)
 
-    def _plan_search(self, core: IndexCore, queries, rspec, filt: bool,
-                     filter_bytes, *, mirrors: bool) -> tuple:
-        """What a plan runs: every shard's `core_search` on its slices of
-        `core` (reading n_valid and medoid through its device mirrors when
-        `mirrors`), then the local ids made global and `merge_topk`.
-        n_hops is the max over shards; telemetry the int32 sum over shards
-        (occupancy per hop too). With rerank_source="host" the per-shard
-        frontiers come back stacked, (S, Q, L), for the host tier's
-        gather and rerank (`ShardedHostTierPlan`)."""
+    def _shard_searches(self, p: _Position, core: IndexCore, queries, rspec,
+                        filt: bool, filter_bytes, *, mirrors: bool) -> tuple:
+        """Position p's `core_search` of each of its shards on its slices
+        of `core` (reading n_valid and medoid through its device mirrors
+        when `mirrors`), stacked: (local ids (S', Q, k), dists, n_hops
+        (S', Q)[, telemetry stacked the same way]); with
+        rerank_source="host" the ids and dists are the estimator frontier
+        (S', Q, L)."""
         outs = []
-        for s in range(self.n_shards):
-            local = _shard_of(core, s, self.cap)
+        for i in range(len(p.shards)):
+            local = _shard_of(core, i, self.cap)
             if mirrors:
-                local = self.mirrors[s].view(local)
+                local = self._mirrors_of(p)[i].view(local)
             outs.append(core_search(local, queries, spec=rspec,
                                     filter_tombstones=filt,
                                     filter_bytes=filter_bytes))
-        ids = torch.stack([o[0] for o in outs])
-        dists = torch.stack([o[1] for o in outs])
-        hops = torch.stack([o[2] for o in outs])
-        tel = None
+        out = (torch.stack([o[0] for o in outs]),
+               torch.stack([o[1] for o in outs]),
+               torch.stack([o[2] for o in outs]))
         if rspec.telemetry == "on":
-            tel = type(outs[0][3])(*(torch.stack(ts)
-                                     for ts in zip(*(o[3] for o in outs))))
+            out += (type(outs[0][3])(*(torch.stack(ts) for ts in
+                                       zip(*(o[3] for o in outs)))),)
+        return out
+
+    def _merge(self, out: tuple, rspec) -> tuple:
+        """Stacked per-shard outputs (all S shards, in order) -> the local
+        ids made global and `merge_topk`; n_hops the max over shards;
+        telemetry the int32 sum over shards (occupancy per hop too). With
+        rerank_source="host" the stacked frontiers are returned as they
+        are, for the host tier's gather and rerank."""
         if rspec.rerank_source == "host":
-            return (ids, dists, hops) + ((tel,) if tel is not None else ())
+            return out
+        ids = out[0]
         row0 = (torch.arange(self.n_shards, dtype=torch.int32,
                              device=ids.device) * self.id_stride)
         gids = torch.where(ids >= 0, ids + row0[:, None, None],
                            torch.full_like(ids, -1))
-        gids, dists = merge_topk(gids, dists, self.axis_sizes, rspec.k)
+        return self._merge_global(gids, out[1], out[2],
+                                  out[3] if len(out) > 3 else None, rspec.k)
+
+    def _merge_global(self, gids, dists, hops, tel, k: int) -> tuple:
+        gids, dists = merge_topk(gids, dists, self.axis_sizes, k)
         out = (gids, dists, hops.amax(0))
         if tel is not None:
             out += (type(tel)(*(t.sum(0, dtype=t.dtype) for t in tel)),)
         return out
+
+    def _plan_search(self, core: IndexCore, queries, rspec, filt: bool,
+                     filter_bytes, *, mirrors: bool) -> tuple:
+        """What a plan runs on a one-position mesh: every shard's
+        `core_search` on its slices of `core`, then `_merge`. With
+        rerank_source="host" the per-shard frontiers come back stacked,
+        (S, Q, L), for the host tier's gather and rerank
+        (`ShardedRerankPlan`)."""
+        return self._merge(self._shard_searches(
+            self._positions[0], core, queries, rspec, filt, filter_bytes,
+            mirrors=mirrors), rspec)
+
+    def _gather(self, positions, outs) -> tuple:
+        """Each searching position's stacked outputs gathered onto the home
+        device: shards in order, each shard's query slices concatenated.
+        On the card the home stream waits for an event recorded on each
+        other device's stream before the copies."""
+        home = self.device
+        if home.type == "cuda":
+            for dev in {p.device for p in positions} - {home}:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                torch.cuda.current_stream(home).wait_event(ev)
+        by_shard: dict = {}
+        for p, o in sorted(zip(positions, outs), key=lambda po: (
+                po[0].shards.start, po[0].query_slice)):
+            by_shard.setdefault(p.shards.start, []).append(o)
+
+        def cat(parts):
+            if isinstance(parts[0], torch.Tensor):
+                if len(parts) == 1:
+                    return parts[0].to(home)
+                return torch.cat([t.to(home) for t in parts], dim=1)
+            return type(parts[0])(*(cat(list(f)) for f in zip(*parts)))
+
+        per_shard = [tuple(cat(list(f)) for f in zip(*group))
+                     for _, group in sorted(by_shard.items())]
+
+        def stack(parts):
+            if isinstance(parts[0], torch.Tensor):
+                return torch.cat(parts, dim=0)
+            return type(parts[0])(*(stack(list(f)) for f in zip(*parts)))
+
+        return tuple(stack(list(f)) for f in zip(*per_shard))
+
+    def _eager_search(self, queries, rspec, filt: bool, filter_bytes
+                      ) -> tuple:
+        """A search run eagerly at every searching position, gathered and
+        merged: what a plan's replay must equal."""
+        if not self.multi_position:
+            return self._plan_search(self.core, queries, rspec, filt,
+                                     filter_bytes, mirrors=False)
+        positions = self.searching_positions()
+        outs = []
+        for p in positions:
+            with on_device(p.device):
+                outs.append(self._shard_searches(
+                    p, self._pos_core(p), self.query_slice(p, queries),
+                    rspec, filt, filter_bytes, mirrors=False))
+        return self._merge(self._gather(positions, outs), rspec)
 
     def _search_plan(self, rspec, q_shape, filt: bool):
         """Plan-cache lookup/build: `(queries, filter_bytes) -> (GLOBAL
         ids, dists, n_hops[, telemetry])`, keyed ("search", cap, spec,
         query shape, liveness) as the JAX package keys it (a grow changes
         cap: one new plan a spec). The filter value is a run-time
-        operand."""
+        operand. A one-position mesh's search is one plan over the stacked
+        core (one captured graph on the card's megakernel lanes); a mesh
+        of several positions' a `PositionsPlan`."""
         q_shape = tuple(q_shape)
         qa = self.spec.query_axis
         if qa is not None and q_shape[0] % self.mesh.shape[qa]:
             raise ValueError(
                 f"{q_shape[0]} queries are not divisible by the size "
                 f"{self.mesh.shape[qa]} of the query axis {qa!r}")
+
+        def build():
+            if self.multi_position:
+                return PositionsPlan(self, rspec, q_shape, filt)
+            return make_plan(target_of(self), rspec, q_shape, filt)
+
         plan = self.plans.get(("search", self.cap, rspec, q_shape, filt),
-                              lambda: make_plan(self, rspec, q_shape, filt))
+                              build)
         if rspec.rerank_source == "host":
             # two-stage: the traversal's per-shard frontiers, one gather
-            # of their rows from the host tier, then the sharded rerank +
-            # merge (core/storage.py), separately keyed
-            rerank = self.plans.get(
-                ("rerank_host", self.cap, rspec, q_shape),
-                lambda: HostRerankPlan(self, rspec,
-                                       build_sharded_host_rerank_plan(
-                                           rspec, axis_sizes=self.axis_sizes,
-                                           id_stride=self.id_stride)))
-            return ShardedHostTierPlan(self, plan, rerank)
+            # of their rows from the host tier, then each position's
+            # rerank and the merge, separately keyed
+            rerank = self.plans.get(("rerank_host", self.cap, rspec, q_shape),
+                                    lambda: ShardedRerankPlan(self, rspec))
+            traversal = (plan.local if self.multi_position
+                         else lambda q, fb=None: [plan(q, fb)])
+            return HostTierPlan(traversal, rerank)
         return plan
 
     def search(self, queries, k: int = 10, *, beam_width: int | None = None,
@@ -903,26 +1300,30 @@ class ShardedJasperIndex(SearchSurface):
 
     def search_rabitq(self, queries, k: int = 10, **kw):
         """Quantized search (symmetry with JasperIndex)."""
-        if self._core.codes is None:
+        if self._positions[0].core.codes is None:
             raise RuntimeError("index was not built with quantization='rabitq'")
         return self.search(queries, k, quantized=True, **kw)
 
     def brute_force(self, queries, k: int = 10):
         """Exact top-k over all LIVE rows of all shards (recall ground
-        truth): a full scan of the stacked rows, a chunk of queries at a
-        time, ties to the lower stacked position as in the JAX package.
-        Returns (GLOBAL ids (Q, k) int32, dists (Q, k))."""
+        truth): a chunked scan of each position's stacked rows (one replica
+        of each shard), each position's top-k gathered home and merged,
+        ties to the lower stacked position as in the JAX package. Returns
+        (GLOBAL ids (Q, k) int32, dists (Q, k))."""
         q = self._prep_query(queries)
-        with rows_staged(self):
+        with self._staged():
             out = self._brute_force_impl(q, k)
             self._sync()                  # computed before the rows detach
         return out
 
-    def _brute_force_impl(self, q, k):
-        c = self._core
-        rows = self.n_shards * self.cap
-        local = torch.arange(rows, device=self.device) % self.cap
-        nv = torch.as_tensor(c.n_valid, device=self.device).repeat_interleave(
+    def _scan_position(self, p: _Position, q, k):
+        """(stacked positions (Q, k), dists) of the k nearest live rows of
+        position p's shards: a chunk of queries at a time, ties to the
+        lower position."""
+        c = self._pos_core(p)
+        rows = len(p.shards) * self.cap
+        local = torch.arange(rows, device=p.device) % self.cap
+        nv = torch.as_tensor(c.n_valid, device=p.device).repeat_interleave(
             self.cap)
         mask = (local < nv) & ~unpack_bitmap(c.mut.tombstone_bits, rows)
         chunk = max(1, _BRUTE_FORCE_PAIRS // rows)
@@ -934,18 +1335,35 @@ class ShardedJasperIndex(SearchSurface):
             pos_out.append(pos)
             d_out.append(vals)
             del d
-        pos = torch.cat(pos_out)
+        return torch.cat(pos_out) + p.shards.start * self.cap, \
+            torch.cat(d_out)
+
+    def _brute_force_impl(self, q, k):
+        owners = self._owner_positions()
+        parts = []
+        for p in owners:
+            with on_device(p.device):
+                parts.append(self._scan_position(p, q.to(p.device), k))
+        if len(parts) == 1:
+            pos, dists = parts[0]
+        else:
+            # each position's k in ascending positions: the columns'
+            # order is the stacked positions' order among equal values
+            cand = torch.cat([t.to(self.device) for t, _ in parts], dim=1)
+            col, dists = _lowest_topk(
+                torch.cat([d.to(self.device) for _, d in parts], dim=1), k)
+            pos = torch.gather(cand, 1, col)
         gids = (torch.div(pos, self.cap, rounding_mode="floor")
                 * self.id_stride + pos % self.cap)
-        return gids.to(torch.int32), torch.cat(d_out)
+        return gids.to(torch.int32), dists
 
     # --------------------------------------------------------------- memory
     def memory_stats(self) -> dict[str, float]:
-        """Per-tier resident bytes over the stacked (all-shard) buffers —
-        the TIER_STAT_KEYS of the single-device driver."""
+        """Per-tier resident bytes over the stacked (all-shard) buffers,
+        one replica a shard — the TIER_STAT_KEYS of `JasperIndex`."""
         return dict(tier_memory_stats(
-            self._core, self.store, capacity=self.capacity,
-            store_dims=self.store_dims))
+            [p.core for p in self._owner_positions()], self.store,
+            capacity=self.capacity, store_dims=self.store_dims))
 
     def storage_stats(self) -> dict:
         """Tier residence + host-fetch counters (the `storage.*` metrics)."""
@@ -958,7 +1376,7 @@ class ShardedJasperIndex(SearchSurface):
     def _fn(self, kind: str, **key):
         """The mutation steps (insert/boot/delete), in the shared PlanCache
         under the JAX package's keys; each runs its core op a shard at a
-        time."""
+        time, on each of the shard's replicas (`_apply`)."""
         ck = (kind, self.cap, tuple(sorted(key.items())))
 
         def build():
@@ -974,20 +1392,20 @@ class ShardedJasperIndex(SearchSurface):
 
     def _insert_step(self, ids: torch.Tensor, rows: torch.Tensor) -> None:
         for s in range(self.n_shards):
-            self._set_shard(s, core_insert_at(self.shard_core(s), ids[s],
-                                              rows[s], params=self.params))
+            self._apply(s, lambda v: (core_insert_at(
+                v, ids[s].to(v.device), rows[s].to(v.device),
+                params=self.params), None))
 
     def _boot_step(self, rows: torch.Tensor, *, n0: int) -> None:
         for s in range(self.n_shards):
-            self._set_shard(s, core_bootstrap(self.shard_core(s), rows[s],
-                                              n0=n0, params=self.params))
+            self._apply(s, lambda v: (core_bootstrap(
+                v, rows[s].to(v.device), n0=n0, params=self.params), None))
 
     def _delete_step(self, padded: torch.Tensor) -> int:
         total = 0
         for s in range(self.n_shards):
-            core, n_new = core_delete(self.shard_core(s), padded[s])
-            self._set_shard(s, core)
-            total += int(n_new)
+            total += int(self._apply(s, lambda v: core_delete(
+                v, padded[s].to(v.device))))
         return total
 
     # ------------------------------------------------------------ save/load
@@ -1015,7 +1433,7 @@ class ShardedJasperIndex(SearchSurface):
             "mips_max_sqnorm": self._mips_max_sqnorm,
             "rows_tier": self.rows_tier,
         }
-        with rows_staged(self):
+        with self._staged():
             for s in range(self.n_shards):
                 save_npz_atomic(f"{path}.shard{s}",
                                 core_to_arrays(self.shard_core(s)),
@@ -1027,10 +1445,14 @@ class ShardedJasperIndex(SearchSurface):
     def load(cls, mesh, path: str, *, spec: ShardSpec | None = None,
              n_shards: int | None = None) -> "ShardedJasperIndex":
         """Restore a checkpoint either package saved, at the shard count
-        the mesh provides, onto the mesh's device.
+        the mesh provides, onto the mesh's positions.
 
-        Same count as saved -> bit-exact restore. Another count -> elastic
-        reshard (core/resharding.py); the old->new id map lands on
+        Same count as saved -> bit-exact restore: each shard's payload is
+        read to the host and copied into its slices of every position
+        that holds it, so no device holds more than its own shards. Another
+        count -> elastic reshard (core/resharding.py), on the mesh's one
+        device for a one-position mesh, on the host for a mesh of several
+        positions, then dealt alike; the old->new id map lands on
         ``idx.reshard_translation`` (None on an exact restore). `n_shards`
         is a guard: raise rather than reshard to an unintended count.
         """
@@ -1045,12 +1467,13 @@ class ShardedJasperIndex(SearchSurface):
                              query_axis=qa if qa in mesh.axis_names else None)
         params = ConstructionParams(**meta["construction"])
         quantized = meta["quantization"] == "rabitq"
-        locals_ = []
-        for s in range(meta["n_shards"]):
+
+        def read(s, device):
             with np.load(f"{path}.shard{s}") as data:
-                locals_.append(core_from_arrays(
+                return core_from_arrays(
                     data, bits=meta["bits"], store_dims=store_dims,
-                    quantized=quantized, device=mesh.device))
+                    quantized=quantized, device=device)
+
         row_axes = (spec.row_axes if spec is not None
                     else (tuple(a for a in mesh.axis_names if a != "model")
                           or (mesh.axis_names[0],)))
@@ -1064,20 +1487,24 @@ class ShardedJasperIndex(SearchSurface):
                 f"{n_shards} row shards")
         translation = None
         cap, stride = meta["capacity_per_shard"], meta.get("id_stride")
+        shard = (lambda s: read(s, "cpu"))
         if target != meta["n_shards"]:
-            res = reshard_cores(locals_, old_id_stride=stride or 4 * cap,
+            at = mesh.device if len(mesh.devices) == 1 else "cpu"
+            res = reshard_cores([read(s, at) for s in range(meta["n_shards"])],
+                                old_id_stride=stride or 4 * cap,
                                 n_shards=target, params=params)
             cap, stride = res.capacity_per_shard, res.id_stride
-            locals_, translation = res.cores, res.translation
-        idx = cls(mesh, meta["dims"], cap, id_stride=stride, spec=spec,
-                  metric=metric, construction=params,
-                  quantization=meta["quantization"], bits=meta["bits"],
-                  seed=meta["seed"])
+            translation = res.translation
+            shard = res.cores.__getitem__
+        idx = cls.__new__(cls)
+        idx._configure(mesh, meta["dims"], cap, spec=spec, metric=metric,
+                       construction=params,
+                       quantization=meta["quantization"], bits=meta["bits"],
+                       seed=meta["seed"], id_stride=stride,
+                       plan_cache_capacity=None)
         idx._mips_max_sqnorm = meta.get("mips_max_sqnorm")
-        idx.core = idx._stack_cores(locals_)
-        del locals_
+        idx._place_cores(shard)
         idx.reshard_translation = translation
-        idx.plans.clear()
         if meta.get("rows_tier", "device") == "host":
             idx.evict_rows_to_host()    # the checkpoint's tier
         return idx

@@ -70,7 +70,8 @@ from repro_torch.core.rabitq import (
     rabitq_train,
 )
 from repro_torch.core.plans import (DeviceScalars, HostRerankPlan,
-                                    HostTierPlan, keep_buffers, make_plan)
+                                    HostTierPlan, keep_buffers, make_plan,
+                                    target_of)
 from repro_torch.core.search_spec import PlanCache, SearchSpec, SearchSurface
 from repro_torch.core.storage import (
     TIER_STAT_KEYS,
@@ -477,15 +478,18 @@ class JasperIndex(SearchSurface):
         so every filter value shares one plan."""
         q_shape = tuple(q_shape)
         plan = self.plans.get(("search", rspec, q_shape, filt),
-                              lambda: make_plan(self, rspec, q_shape, filt))
+                              lambda: make_plan(target_of(self), rspec,
+                                                q_shape, filt))
         if rspec.rerank_source == "host":
             # two-stage host-tier plan: the traversal above returns the
             # full-width estimator frontier, then the frontier's rows are
             # fetched from the host tier and reranked by a separately
             # keyed plan (core/storage.py, core/plans.py)
-            rerank = self.plans.get(("rerank_host", rspec, q_shape),
-                                    lambda: HostRerankPlan(self, rspec))
-            return HostTierPlan(self, plan, rerank)
+            rerank = self.plans.get(
+                ("rerank_host", rspec, q_shape),
+                lambda: HostRerankPlan(rspec, store=self.store,
+                                       on_trace=self.plans.count_trace))
+            return HostTierPlan(plan, rerank)
         return plan
 
     def search(self, queries, k: int = 10, *, beam_width: int | None = None,

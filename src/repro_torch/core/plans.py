@@ -17,9 +17,10 @@ counterpart of the JAX package's jitted `core_search`.
   * `HostTierPlan` — a search of an index whose rows are on the host
     tier (`rerank_source="host"`, core/storage.py): two plans of the
     cache, the traversal above (keyed as any search) and a
-    `HostRerankPlan` keyed ("rerank_host", resolved spec, query shape),
-    captured on the card, with the frontier ids' trip to the host and
-    the store's gather of their rows between them.
+    `HostRerankPlan` keyed ("rerank_host", resolved spec, query shape)
+    (a sharded index's: a `ShardedRerankPlan`, one a position), captured
+    on the card, with the frontier ids' trip to the host and the store's
+    gather of their rows between them.
 
 A capture counts one trace in the cache's stats, as a jit trace does; so
 does an eager plan's first call, and its first call after the core's
@@ -33,15 +34,27 @@ core's existing buffers (`keep_buffers`), and `n_valid` and `medoid`,
 host ints on the core, reach a captured search as 0-d int32 device
 mirrors (`DeviceScalars`) that the kernels read through a pointer.
 
-A plan runs its index's `_plan_search(core, queries, spec, liveness,
-filter_bytes, mirrors=...)` and syncs its mirrors through
-`_sync_mirrors(core)`: for a `JasperIndex` that is `core_search` on its
-core; for a `ShardedJasperIndex` (core/distributed.py) every shard's
-`core_search` on its slices of the stacked core, then the merge — so a
-sharded megakernel search is ONE captured graph, each shard reading its
-own mirrors, and `fingerprint` of the stacked core covers every shard's
-buffers. `ShardedHostTierPlan` is the sharded host-tier search: one
-gather of the stacked frontier's rows, then the sharded rerank plan.
+A plan searches a `PlanTarget`: a device, the core to search (read at
+each call), the search itself `(core, queries, spec, liveness,
+filter_bytes, mirrors=...)`, the sync of the device mirrors before a
+replay, and what counts a trace. `target_of(index)` is an index's:
+for a `JasperIndex` `core_search` on its core; for a
+`ShardedJasperIndex` (core/distributed.py) on a mesh of one position
+every shard's `core_search` on its slices of the stacked core, then the
+merge — so a sharded megakernel search is ONE captured graph, each shard
+reading its own mirrors, and `fingerprint` of the stacked core covers
+every shard's buffers.
+
+On a mesh of several positions (each on its own device, or repeating
+one) a search is a `PositionsPlan`: one of the plans above a searching
+position, whose target is that position's core, device, search of its
+shards over its query slice and mirrors, run with the position's device
+current, so each position's graph is captured on its device's capture
+stream and replayed on its current stream; then the outputs gathered on
+the home device and merged there. A sharded index's host-tier search,
+on one position or several, reranks with a `ShardedRerankPlan`: one
+gather of every position's frontier rows, each position's part uploaded
+to its device and reranked there, then gathered and merged.
 
 Launch counters: the kernel wrappers count their launches in Python, and
 a replay bypasses them. So a capture takes back what its warm-up and the
@@ -51,13 +64,17 @@ search through a plan counts what one eager search counts.
 
 from __future__ import annotations
 
-from dataclasses import fields, is_dataclass, replace
+from dataclasses import dataclass, fields, is_dataclass, replace
+from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.index_core import IndexCore
-from repro_torch.core.storage import build_host_rerank_plan
+from repro_torch.core.storage import (build_host_rerank_plan,
+                                      build_shard_rerank)
+from repro_torch.device import on_device
+
 
 def launch_counters() -> dict:
     """The search path's kernel wrappers by name (each counts its
@@ -154,31 +171,52 @@ def capturable(rspec) -> bool:
     return rspec.fusion == "megakernel"
 
 
-def make_plan(index, rspec, q_shape: tuple, filt: bool):
+@dataclass(frozen=True)
+class PlanTarget:
+    """What a plan searches: `device`; `core()`, the core to search (read
+    at each call); `search(core, queries, rspec, filt, filter_bytes,
+    mirrors=...)`; `sync_mirrors(core)`, run before a replay; and
+    `on_trace()`, called at each (re)capture or trace."""
+
+    device: torch.device
+    core: Callable[[], IndexCore]
+    search: Callable[..., tuple]
+    sync_mirrors: Callable[[IndexCore], None]
+    on_trace: Callable[[], None]
+
+
+def target_of(index) -> PlanTarget:
+    """An index's own target: its device, its core, its `_plan_search`
+    and `_sync_mirrors`, and its plan cache's trace count."""
+    return PlanTarget(index.device, lambda: index.core, index._plan_search,
+                      index._sync_mirrors, index.plans.count_trace)
+
+
+def make_plan(target: PlanTarget, rspec, q_shape: tuple, filt: bool):
     """The plan for one cache key: captured on the card when the lane
     allows it, else eager."""
-    if index.device.type == "cuda" and capturable(rspec):
-        return GraphPlan(index, rspec, q_shape, filt)
-    return EagerPlan(index, rspec, filt)
+    if target.device.type == "cuda" and capturable(rspec):
+        return GraphPlan(target, rspec, q_shape, filt)
+    return EagerPlan(target, rspec, filt)
 
 
 class EagerPlan:
     """`core_search` at each call; a trace counted where a jit would
     trace: the first call, and the first after the shapes changed."""
 
-    def __init__(self, index, rspec, filt: bool) -> None:
-        self.index = index
+    def __init__(self, target: PlanTarget, rspec, filt: bool) -> None:
+        self.target = target
         self.rspec = rspec
         self.filt = filt
         self._signature = None
 
     def __call__(self, queries, filter_bytes=None) -> tuple:
-        core = self.index.core
+        core = self.target.core()
         sig = shape_signature(core)
         if sig != self._signature:
-            self.index.plans.count_trace()
+            self.target.on_trace()
             self._signature = sig
-        return self.index._plan_search(
+        return self.target.search(
             core, queries, self.rspec, self.filt,
             filter_bytes if self.rspec.filtered else None, mirrors=False)
 
@@ -205,10 +243,10 @@ def capture(run, device, what: str):
     # first use builds the kernels and sets each instance's launch
     # attributes, and the schedule tensor is made and cached: all in an
     # eager warm-up before the capture, on the capture's own stream
-    cur = torch.cuda.current_stream()
+    cur = torch.cuda.current_stream(device)
     stream = _capture_stream(device)
     stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
+    with torch.cuda.device(device), torch.cuda.stream(stream):
         run()
         warmed = {n: w.launches for n, w in counters.items()}
         graph = torch.cuda.CUDAGraph()
@@ -261,9 +299,10 @@ class GraphPlan:
     launches to the wrappers' counters and returns clones of the outputs.
     """
 
-    def __init__(self, index, rspec, q_shape: tuple, filt: bool) -> None:
-        dev = index.device
-        self.index = index
+    def __init__(self, target: PlanTarget, rspec, q_shape: tuple,
+                 filt: bool) -> None:
+        dev = target.device
+        self.target = target
         self.rspec = rspec
         self.filt = filt
         self._q = torch.zeros(q_shape, dtype=torch.float32, device=dev)
@@ -276,8 +315,8 @@ class GraphPlan:
         self._launched: dict = {}
 
     def _run(self, core: IndexCore) -> tuple:
-        return self.index._plan_search(core, self._q, self.rspec, self.filt,
-                                       self._fb, mirrors=True)
+        return self.target.search(core, self._q, self.rspec, self.filt,
+                                  self._fb, mirrors=True)
 
     def _capture(self, core: IndexCore) -> None:
         self._graph = self._out = self._fingerprint = None
@@ -286,7 +325,7 @@ class GraphPlan:
             f"the {self.rspec.fusion} search plan (q {tuple(self._q.shape)}, "
             f"quantized={self.rspec.quantized})")
         self._fingerprint = fingerprint(core)
-        self.index.plans.count_trace()
+        self.target.on_trace()
 
     def _filter_value(self, filter_bytes) -> torch.Tensor:
         """The device copy of one filter value (made once a value)."""
@@ -299,12 +338,11 @@ class GraphPlan:
         return t
 
     def __call__(self, queries, filter_bytes=None) -> tuple:
-        index = self.index
-        core = index.core
+        core = self.target.core()
         if tuple(queries.shape) != tuple(self._q.shape):
             raise ValueError(f"plan for queries {tuple(self._q.shape)} got "
                              f"{tuple(queries.shape)}")
-        index._sync_mirrors(core)
+        self.target.sync_mirrors(core)
         self._q.copy_(queries)
         if self._fb is not None:
             self._fb.copy_(self._filter_value(filter_bytes))
@@ -321,8 +359,9 @@ class HostRerankPlan:
     """Stage two of a host-tier search, keyed ("rerank_host", resolved
     spec, query shape): the rerank over the gathered frontier rows —
     `storage.build_host_rerank_plan`'s, or the one given as `body`
-    (`storage.build_sharded_host_rerank_plan`'s, which also takes the
-    per-shard hops and merges the shards).
+    (`storage.build_shard_rerank`'s, a sharded index's shards reranked
+    and their ids made global). It uploads through `store` and calls
+    `on_trace` where it traces.
 
     On the card it owns static buffers for its operands (made at the
     first call, from their shapes) and a CUDA graph of the rerank over
@@ -333,12 +372,13 @@ class HostRerankPlan:
     shapes never depend on the core's).
     """
 
-    def __init__(self, index, rspec, body=None) -> None:
-        self.index = index
+    def __init__(self, rspec, body=None, *, store, on_trace) -> None:
         self.rspec = rspec
+        self.store = store
+        self.on_trace = on_trace
         self._body = build_host_rerank_plan(rspec) if body is None else body
         self._traced = False
-        self._bufs = None          # (queries, ids, table, table_sq, *extra)
+        self._bufs = None          # (queries, ids, table, table_sq)
         self._ids_host = None      # pinned copy of the frontier ids
         self._graph = self._out = None
         self._launched: dict = {}
@@ -353,10 +393,10 @@ class HostRerankPlan:
                                          dtype=frontier_ids.dtype,
                                          pin_memory=True)
         self._ids_host.copy_(frontier_ids, non_blocking=True)
-        torch.cuda.current_stream().synchronize()
+        torch.cuda.current_stream(frontier_ids.device).synchronize()
         return self._ids_host
 
-    def upload(self, queries, frontier_ids, rows, sq, *extra) -> None:
+    def upload(self, queries, frontier_ids, rows, sq) -> None:
         """Copy one batch's operands into the static buffers (card)."""
         if self._bufs is None:
             dev = queries.device
@@ -365,14 +405,11 @@ class HostRerankPlan:
                           torch.empty(rows.shape, dtype=torch.float32,
                                       device=dev),
                           torch.empty(sq.shape, dtype=torch.float32,
-                                      device=dev),
-                          *(torch.empty_like(e) for e in extra))
-        q, ids, table, table_sq, *ex = self._bufs
+                                      device=dev))
+        q, ids, table, table_sq = self._bufs
         q.copy_(queries)
         ids.copy_(frontier_ids)
-        for buf, e in zip(ex, extra):
-            buf.copy_(e)
-        self.index.store.upload(rows, sq, table, table_sq)
+        self.store.upload(rows, sq, table, table_sq)
 
     def replay(self) -> tuple:
         """The rerank over the static buffers (captured at first use)."""
@@ -380,58 +417,143 @@ class HostRerankPlan:
             self._graph, self._out, self._launched = capture(
                 lambda: self._body(*self._bufs), self._bufs[0].device,
                 f"the host-tier rerank plan (q {tuple(self._bufs[0].shape)})")
-            self.index.plans.count_trace()
+            self.on_trace()
         return replay(self._graph, self._out, self._launched)
 
-    def __call__(self, queries, frontier_ids, rows, sq, *extra) -> tuple:
+    def finish(self, queries, out: tuple) -> tuple:
+        """A single-device search's end from its traversal's output: the
+        frontier ids to the host, their rows gathered from the store and
+        reranked; the hops and telemetry passed on."""
+        f_ids = out[0]
+        rows, sq = self.store.gather(self.ids_to_host(f_ids))
+        ids, dists = self(queries, f_ids, rows, sq)
+        return (ids, dists, out[2]) + tuple(out[3:])
+
+    def __call__(self, queries, frontier_ids, rows, sq) -> tuple:
         if not queries.is_cuda:
             if not self._traced:
-                self.index.plans.count_trace()
+                self.on_trace()
                 self._traced = True
-            return self._body(queries, frontier_ids, rows, sq, *extra)
-        self.upload(queries, frontier_ids, rows, sq, *extra)
+            return self._body(queries, frontier_ids, rows, sq)
+        self.upload(queries, frontier_ids, rows, sq)
         return self.replay()
 
 
 class HostTierPlan:
     """A host-tier search (rerank_source="host"): the traversal plan
     (keyed as any search; captured on the megakernel lanes) returns the
-    full-width estimator frontier; its ids come to the host, the store
-    gathers their rows, and the rerank plan scores them. Returns what
-    `core_search` returns on the device tier, bit for bit."""
+    full-width estimator frontier — for a sharded index each searching
+    position's, a list — and the rerank plan finishes the search from it
+    (`HostRerankPlan.finish`, `ShardedRerankPlan.finish`). Returns what
+    the device tier returns, bit for bit."""
 
-    def __init__(self, index, traversal, rerank: HostRerankPlan) -> None:
-        self.index = index
+    def __init__(self, traversal, rerank) -> None:
         self.traversal = traversal
         self.rerank = rerank
 
     def __call__(self, queries, filter_bytes=None) -> tuple:
-        out = self.traversal(queries, filter_bytes)
-        f_ids = out[0]
-        rows, sq = self.index.store.gather(self.rerank.ids_to_host(f_ids))
-        ids, dists = self.rerank(queries, f_ids, rows, sq)
-        return (ids, dists, out[2]) + tuple(out[3:])
+        return self.rerank.finish(queries,
+                                  self.traversal(queries, filter_bytes))
 
 
-class ShardedHostTierPlan(HostTierPlan):
-    """A host-tier search of a `ShardedJasperIndex`: the traversal returns
-    each shard's frontier stacked (S, Q, L), the store holds the stacked
-    rows (S*cap, D), so a frontier entry's row is at shard*cap + local;
-    one gather a search, then the sharded rerank plan reranks each shard
-    and merges them. Telemetry, stacked by the traversal, sums over the
-    shards in int32. Returns what the device tier returns, bit for bit."""
+# ---------------------------------------------------------------------------
+# The sharded index's plans: its positions, its host tier
+# ---------------------------------------------------------------------------
+
+class PositionsPlan:
+    """A search of a `ShardedJasperIndex` whose shards lie on several mesh
+    positions: a plan a searching position (`make_plan` on the position's
+    target, `index.position_target`: captured on the card's megakernel
+    lanes, else eager) run with the position's device current over its
+    slice of the queries, then the outputs gathered onto the home device
+    in shard order and merged there (`index._gather`, `index._merge`). A
+    call that (re)captures or traces any position counts one trace."""
+
+    def __init__(self, index, rspec, q_shape: tuple, filt: bool) -> None:
+        self.index = index
+        self.rspec = rspec
+        self.positions = index.searching_positions()
+        self._traced = False
+        self.plans = [make_plan(index.position_target(p, self._note_trace),
+                                rspec, index.slice_shape(p, q_shape), filt)
+                      for p in self.positions]
+
+    def _note_trace(self) -> None:
+        self._traced = True
+
+    def local(self, queries, filter_bytes=None) -> list:
+        """Each searching position's own outputs, on its device."""
+        self._traced = False
+        outs = []
+        for p, plan in zip(self.positions, self.plans):
+            with on_device(p.device):
+                outs.append(plan(self.index.query_slice(p, queries),
+                                 filter_bytes))
+        if self._traced:
+            self.index.plans.count_trace()
+        return outs
 
     def __call__(self, queries, filter_bytes=None) -> tuple:
-        out = self.traversal(queries, filter_bytes)
-        f_ids = out[0]
-        ids_h = self.rerank.ids_to_host(f_ids).to(torch.int64)
-        shard = torch.arange(ids_h.shape[0]).reshape(-1, 1, 1) \
-            * self.index.cap
-        positions = torch.where(ids_h >= 0, ids_h + shard,
-                                torch.full_like(ids_h, -1))
-        rows, sq = self.index.store.gather(positions)
-        merged = tuple(self.rerank(queries, f_ids, rows, sq, out[2]))
-        if len(out) > 3:
-            tel = out[3]
-            merged += (type(tel)(*(t.sum(0, dtype=t.dtype) for t in tel)),)
-        return merged
+        outs = self.local(queries, filter_bytes)
+        return self.index._merge(self.index._gather(self.positions, outs),
+                                 self.rspec)
+
+
+class ShardedRerankPlan:
+    """Stage two of a `ShardedJasperIndex`'s host-tier search, keyed
+    ("rerank_host", cap, resolved spec, query shape), on one position or
+    several: a `HostRerankPlan` a searching position over its shards
+    (`storage.build_shard_rerank`).
+
+    `finish(queries, outs)` takes each position's traversal output — its
+    shards' frontiers stacked (S', Q_m, L), on its device — brings their
+    ids to the host (a synchronisation a position), gathers every frontier
+    row at once (one fetch a search; row shard*cap + local of the stacked
+    host rows), uploads each position's part to its device and reranks it
+    there, then gathers the reranked shards home and merges them
+    (`index._gather`, `index._merge_global`): n_hops the max over shards,
+    telemetry the int32 sum. Returns what the device tier returns, bit for
+    bit. A call that captures or traces any position's rerank counts one
+    trace."""
+
+    def __init__(self, index, rspec) -> None:
+        self.index = index
+        self.rspec = rspec
+        self.positions = index.searching_positions()
+        self._traced = False
+        self.reranks = [HostRerankPlan(
+            rspec, build_shard_rerank(rspec, id_stride=index.id_stride,
+                                      first_shard=p.shards.start),
+            store=index.store, on_trace=self._note_trace)
+            for p in self.positions]
+
+    def _note_trace(self) -> None:
+        self._traced = True
+
+    def finish(self, queries, outs: list) -> tuple:
+        index = self.index
+        self._traced = False
+        rows_at = []
+        for p, rerank, out in zip(self.positions, self.reranks, outs):
+            ids = rerank.ids_to_host(out[0]).to(torch.int64)
+            shard = (p.shards.start
+                     + torch.arange(ids.shape[0])).reshape(-1, 1, 1)
+            rows_at.append(torch.where(ids >= 0, ids + shard * index.cap,
+                                       torch.full_like(ids, -1)))
+        rows, sq = index.store.gather(torch.cat([r.reshape(-1)
+                                                 for r in rows_at]))
+        reranked, at = [], 0
+        for p, rerank, out, r in zip(self.positions, self.reranks, outs,
+                                     rows_at):
+            m = r.numel()
+            with on_device(p.device):
+                gids, dists = rerank(index.query_slice(p, queries), out[0],
+                                     rows[at:at + m], sq[at:at + m])
+            reranked.append((gids, dists) + tuple(out[2:]))
+            at += m
+        if self._traced:
+            index.plans.count_trace()
+        g = index._gather(self.positions, reranked)
+        return index._merge_global(g[0], g[1], g[2],
+                                   g[3] if len(g) > 3 else None,
+                                   self.rspec.k)

@@ -89,7 +89,10 @@ def check_quantized_backend(index, *, need_codes: bool = True) -> None:
         raise ValueError(
             "quantized=True requires an index built with "
             "quantization='rabitq' (this core has no packed codes)")
-    core = getattr(index, "core", None)
+    # a sharded index's shards hold their codes alike (its mesh positions
+    # may have no one stacked core)
+    core = (index.shard_core(0) if hasattr(index, "shard_core")
+            else getattr(index, "core", None))
     if need_codes and core is not None and core.codes is None:
         raise ValueError(
             "quantized=True on a codeless core: this "

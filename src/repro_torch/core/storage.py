@@ -2,7 +2,7 @@
 
 Port of `repro.core.storage`. `VectorStore` manages where one index's
 f32 rows live (for a `ShardedJasperIndex`, the stacked rows of all its
-shards, (S*cap, D)):
+shards, (S*cap, D), once a shard however many positions hold it):
 
   * tier "device" — the rows are core tensors (`core.vectors` /
     `core.vec_sqnorm`) and the exact rerank runs inside the search.
@@ -45,7 +45,7 @@ from repro_torch.core.beam_search import rerank_frontier, sort_frontier
 __all__ = [
     "FetchStats", "VectorStore", "rows_resident", "strip_rows",
     "attach_rows", "rows_staged", "build_host_rerank_plan",
-    "build_sharded_host_rerank_plan", "tier_memory_stats",
+    "build_shard_rerank", "tier_memory_stats",
     "TIER_STAT_KEYS",
 ]
 
@@ -57,20 +57,21 @@ TIER_STAT_KEYS = ("rows_tier", "device_rows_bytes", "device_codes_bytes",
 
 def tier_memory_stats(core, store, *, capacity: int,
                       store_dims: int) -> dict:
-    """Per-tier resident bytes for one core + its VectorStore.
+    """Per-tier resident bytes for one core (or a list of cores: a sharded
+    index's shards, one replica each) + its VectorStore.
 
     device_compression_ratio is the effective device-memory compression:
     what the vector payload (f32 rows + sqnorm + packed codes) would cost
     fully device-resident, over what is device-resident now — 1.0 on the
     device tier, (rows+codes)/codes after eviction.
     """
+    cores = list(core) if isinstance(core, (list, tuple)) else [core]
     rows_full = float(capacity * (store_dims + 1) * 4)  # f32 rows + sqnorm
-    device_rows = rows_full if rows_resident(core) else 0.0
+    device_rows = rows_full if rows_resident(cores[0]) else 0.0
     codes = 0.0
-    if core.codes is not None:
-        c = core.codes
-        codes = float(sum(t.numel() * t.element_size()
-                          for t in (c.packed, c.data_add, c.data_rescale)))
+    for c in (c.codes for c in cores if c.codes is not None):
+        codes += float(sum(t.numel() * t.element_size()
+                           for t in (c.packed, c.data_add, c.data_rescale)))
     stats = {"rows_tier": store.tier,
              "device_rows_bytes": device_rows,
              "device_codes_bytes": codes,
@@ -172,7 +173,7 @@ class VectorStore:
         self._vectors: torch.Tensor | None = None
         self._sqnorm: torch.Tensor | None = None
         # gather's pinned staging buffers by row count: [rows, sqnorm, the
-        # event recorded after the last copy that reads them, or None]
+        # events recorded after the copies that read them]
         self._staging: dict = {}
         self.fetch_stats = FetchStats()
         self.fetch_hist = None          # optional obs Histogram (us/gather)
@@ -181,24 +182,46 @@ class VectorStore:
         return torch.empty(shape, dtype=torch.float32, pin_memory=self.pin)
 
     # ------------------------------------------------------------- residence
-    def sync_from(self, core) -> None:
-        """Write-through: refresh the host rows from a (staged) core.
+    def sync_from(self, *cores) -> None:
+        """Write-through: refresh the host rows from (staged) cores, whose
+        rows laid end to end are the host rows (one core; or a sharded
+        index's shard cores in order, each on its own device).
         Same-shaped rows are written into the existing buffers; new shapes
         (a grow) allocate new ones. Returns once the host copy is whole."""
-        v, s = core.vectors, core.vec_sqnorm
-        if self._vectors is None or self._vectors.shape != v.shape:
-            self._vectors = self._empty(tuple(v.shape))
-            self._sqnorm = self._empty(tuple(s.shape))
-        self._vectors.copy_(v, non_blocking=True)
-        self._sqnorm.copy_(s, non_blocking=True)
-        _sync(v)
+        n = sum(c.vectors.shape[0] for c in cores)
+        d = cores[0].vectors.shape[1]
+        if self._vectors is None or self._vectors.shape != (n, d):
+            self._vectors = self._empty((n, d))
+            self._sqnorm = self._empty((n,))
+        at = 0
+        for c in cores:
+            m = c.vectors.shape[0]
+            self._vectors[at:at + m].copy_(c.vectors, non_blocking=True)
+            self._sqnorm[at:at + m].copy_(c.vec_sqnorm, non_blocking=True)
+            at += m
+        for c in cores:
+            _sync(c.vectors)
+
+    def hold(self, *cores) -> None:
+        """device -> host: copy the cores' rows here (`sync_from`) and
+        take the host tier; the caller strips the rows off the cores."""
+        if not all(rows_resident(c) for c in cores):
+            raise ValueError("core rows are already evicted")
+        self.sync_from(*cores)
+        self.tier = "host"
+
+    def release(self) -> None:
+        """Back to the device tier, once the caller re-attached the rows:
+        the host copy is dropped."""
+        if self.tier != "host":
+            raise ValueError("rows are already device-resident")
+        self.tier = "device"
+        self._vectors = self._sqnorm = None
+        self._staging.clear()
 
     def evict(self, core):
         """device -> host: copy the rows here, return the stripped core."""
-        if not rows_resident(core):
-            raise ValueError("core rows are already evicted")
-        self.sync_from(core)
-        self.tier = "host"
+        self.hold(core)
         return strip_rows(core)
 
     def restore(self, core):
@@ -207,14 +230,15 @@ class VectorStore:
             raise ValueError("rows are already device-resident")
         core = attach_rows(core, self._vectors, self._sqnorm)
         _sync(core.vectors)
-        self.tier = "device"
-        self._vectors = self._sqnorm = None
-        self._staging.clear()
+        self.release()
         return core
 
-    def attach(self, core):
-        """Staging attach (tier stays "host"; detach must follow)."""
-        return attach_rows(core, self._vectors, self._sqnorm)
+    def attach(self, core, at: int = 0):
+        """Staging attach (tier stays "host"; detach must follow): the
+        host rows from row `at` on, as many as the core holds."""
+        n = core.capacity
+        return attach_rows(core, self._vectors[at:at + n],
+                           self._sqnorm[at:at + n])
 
     def detach(self, core):
         """Staging detach: sync the host tier from the mutated core
@@ -228,10 +252,10 @@ class VectorStore:
         buf = self._staging.get(m)
         if buf is None or buf[0].shape[1] != d:
             buf = self._staging[m] = [self._empty((m, d)), self._empty((m,)),
-                                      None]
-        if buf[2] is not None:
-            buf[2].synchronize()
-            buf[2] = None
+                                      []]
+        for ev in buf[2]:
+            ev.synchronize()
+        buf[2] = []
         return buf
 
     def gather(self, positions) -> tuple[torch.Tensor, torch.Tensor]:
@@ -274,15 +298,19 @@ class VectorStore:
 
     def upload(self, rows: torch.Tensor, sq: torch.Tensor,
                table: torch.Tensor, table_sq: torch.Tensor) -> None:
-        """Copy gathered rows into device tensors without blocking; the
-        next gather into the same staging buffer waits for these copies."""
+        """Copy gathered rows (a staging buffer, or a slice of one) into
+        device tensors without blocking; the next gather into the same
+        staging buffer waits for these copies."""
         table.copy_(rows, non_blocking=True)
         table_sq.copy_(sq, non_blocking=True)
-        buf = self._staging.get(rows.shape[0])
-        if (table.is_cuda and buf is not None
-                and buf[0].data_ptr() == rows.data_ptr()):
-            buf[2] = torch.cuda.Event()
-            buf[2].record()
+        if not table.is_cuda:
+            return
+        held = rows.untyped_storage().data_ptr()
+        for buf in self._staging.values():
+            if buf[0].untyped_storage().data_ptr() == held:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(table.device))
+                buf[2].append(ev)
 
     # ------------------------------------------------------------ accounting
     @property
@@ -342,24 +370,20 @@ def build_host_rerank_plan(rspec):
     return rerank
 
 
-def build_sharded_host_rerank_plan(rspec, *, axis_sizes: tuple,
-                                   id_stride: int):
-    """The sharded host-tier rerank + merge: (queries (Q, D), per-shard
-    stacked frontier local ids (S, Q, L), gathered rows (S*Q*L, D),
-    gathered sqnorm (S*Q*L,), per-shard hops (S, Q)) -> (GLOBAL ids (Q,
-    k), dists (Q, k), n_hops (Q,)). S is stacked in row-major shard order
-    over the row axes; `axis_sizes` are the row axes' sizes in order
-    (their product is S).
+def build_shard_rerank(rspec, *, id_stride: int, first_shard: int = 0):
+    """The host-tier rerank of consecutive shards, unmerged: (queries (Q,
+    D), their stacked frontier local ids (S', Q, L), gathered rows
+    (S'*Q*L, D), gathered sqnorm (S'*Q*L,)) -> each shard's (GLOBAL ids,
+    dists), stacked ((S', Q, k), (S', Q, k)); the first is shard
+    `first_shard`.
 
     Each shard's block of the table is reranked by the single-device body
     (`build_host_rerank_plan`), exactly as that shard's device-tier search
-    reranks (one `gather_l2` a shard with use_kernels); the local ids
-    become global and the shards merge through `merge_topk`, as on the
-    device tier — so both tiers agree bit for bit."""
-    from repro_torch.core.distributed import merge_topk
+    reranks (one `gather_l2` a shard with use_kernels), and its local ids
+    become global."""
     single = build_host_rerank_plan(rspec)
 
-    def rerank(queries, frontier_ids, table, table_sqnorm, n_hops):
+    def rerank(queries, frontier_ids, table, table_sqnorm):
         s, q_n, l = frontier_ids.shape
         block = q_n * l
         ids, dists = [], []
@@ -367,11 +391,9 @@ def build_sharded_host_rerank_plan(rspec, *, axis_sizes: tuple,
             a, b = single(queries, frontier_ids[i],
                           table[i * block:(i + 1) * block],
                           table_sqnorm[i * block:(i + 1) * block])
-            ids.append(torch.where(a >= 0, a + i * id_stride,
+            ids.append(torch.where(a >= 0, a + (first_shard + i) * id_stride,
                                    torch.full_like(a, -1)))
             dists.append(b)
-        gids, d = merge_topk(torch.stack(ids), torch.stack(dists),
-                             axis_sizes, rspec.k)
-        return gids, d, n_hops.amax(0)
+        return torch.stack(ids), torch.stack(dists)
 
     return rerank

@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace jasper {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -95,6 +97,32 @@ __device__ __forceinline__ unsigned bf16x2_fma(unsigned x, unsigned y, unsigned 
   unsigned r;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(y), "r"(z));
   return r;
+}
+
+// A kernel's attributes belong to the device that was current when they
+// were set. `once_per_device(state, set)` runs `set` (a cudaFuncSetAttribute
+// call, say) the first time it is reached with each device current and
+// returns that device's result every time after.
+constexpr int kMaxDevices = 64;
+
+struct PerDevice {
+  std::mutex mu;
+  bool done[kMaxDevices] = {};
+  int result[kMaxDevices] = {};
+};
+
+template <typename Set>
+int once_per_device(PerDevice& state, Set set) {
+  int dev = 0;
+  const int e = static_cast<int>(cudaGetDevice(&dev));
+  if (e != 0) return e;
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(state.mu);
+  if (!state.done[dev]) {
+    state.result[dev] = set();
+    state.done[dev] = true;
+  }
+  return state.result[dev];
 }
 
 }  // namespace jasper

@@ -308,7 +308,8 @@ int set_smem() {
 extern "C" int pairwise_l2_launch(const float* q, const float* x, float* out, int nq, int nc,
                                   int d, void* stream) {
   if ((nc + kBN - 1) / kBN > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  static const int attr = set_smem();
+  static jasper::PerDevice smem_set;
+  const int attr = jasper::once_per_device(smem_set, set_smem);
   if (attr != 0) return attr;
   const dim3 grid((nq + kBM - 1) / kBM, (nc + kBN - 1) / kBN);
   const int vec_q = (d & 3) == 0 && aligned16(q);

@@ -360,7 +360,8 @@ template <int BITS>
 int launch_all_pairs(const uint8_t* packed, const float* add, const float* rescale,
                      const float* q, const float* qa, const float* qsum, float* out, int nq,
                      int nc, int p, int d, cudaStream_t s) {
-  static const int attr = set_smem<BITS>();
+  static jasper::PerDevice smem_set;
+  const int attr = jasper::once_per_device(smem_set, set_smem<BITS>);
   if (attr != 0) return attr;
   const dim3 grid((nq + kBM - 1) / kBM, (nc + kBN - 1) / kBN);
   const int vec_q = (d & 3) == 0 && aligned16(q);
@@ -564,14 +565,16 @@ rabitq_gather_kernel(GatherArgs a) {
 
 using GatherKernel = void (*)(GatherArgs);
 
-// An instance, its shared-memory limit raised to kSmemLimit once (err: the
-// result of that call).
+// An instance, its shared-memory limit raised to kSmemLimit once a device
+// (err: the result of that call on the current device).
 template <int BITS, bool WORDS, int UNITS>
 GatherKernel gather_instance(int* err) {
-  static const int attr = static_cast<int>(
-      cudaFuncSetAttribute(rabitq_gather_kernel<BITS, WORDS, UNITS>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit));
-  *err = attr;
+  static jasper::PerDevice smem_set;
+  *err = jasper::once_per_device(smem_set, [] {
+    return static_cast<int>(
+        cudaFuncSetAttribute(rabitq_gather_kernel<BITS, WORDS, UNITS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit));
+  });
   return rabitq_gather_kernel<BITS, WORDS, UNITS>;
 }
 
@@ -591,28 +594,33 @@ GatherKernel gather_kernel_for(int p, int* err) {
 }
 
 // Resident blocks an SM of an instance at its warps and shared bytes a
-// block (the occupancy API), remembered for the next launch of that shape.
+// block on the current device (the occupancy API), remembered for the next
+// launch of that shape on that device.
 int gather_blocks_per_sm(GatherKernel kern, int wpb, int smem, int* blocks) {
   struct Seen {
     GatherKernel kern;
-    int wpb, smem, blocks;
+    int device, wpb, smem, blocks;
   };
   static Seen seen[64];
   static int n_seen = 0;
   static std::mutex mu;
+  int device = 0;
+  int e = static_cast<int>(cudaGetDevice(&device));
+  if (e != 0) return e;
   {
     std::lock_guard<std::mutex> lock(mu);
     for (int i = 0; i < n_seen; ++i)
-      if (seen[i].kern == kern && seen[i].wpb == wpb && seen[i].smem == smem) {
+      if (seen[i].kern == kern && seen[i].device == device && seen[i].wpb == wpb &&
+          seen[i].smem == smem) {
         *blocks = seen[i].blocks;
         return 0;
       }
   }
-  const int e = static_cast<int>(
+  e = static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, 32 * wpb, smem));
   if (e != 0) return e;
   std::lock_guard<std::mutex> lock(mu);
-  if (n_seen < 64) seen[n_seen++] = Seen{kern, wpb, smem, *blocks};
+  if (n_seen < 64) seen[n_seen++] = Seen{kern, device, wpb, smem, *blocks};
   return 0;
 }
 

@@ -7,6 +7,8 @@ fallback: with no GPU and no explicit `device="cpu"` the call raises.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 
@@ -25,3 +27,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def on_device(device):
+    """A context with `device` current when it is a card (the CUDA runtime
+    launches on, and sets kernel attributes for, the current device); a
+    no-op on the CPU."""
+    dev = torch.device(device)
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()

@@ -8,9 +8,13 @@ headers, so a build takes seconds rather than minutes. Libraries go into
 sources and flags, so a changed source is rebuilt and an unchanged one
 is reused. The build runs at the first kernel launch, never at import.
 
-Every C entry point launches on the stream it is given (PyTorch's current
-stream), does not synchronise, and returns `cudaGetLastError()`; the
-wrappers raise when that is not 0 (`check`).
+Every C entry point launches on the stream it is given, does not
+synchronise, and returns `cudaGetLastError()`; the wrappers raise when
+that is not 0 (`check`). A wrapper launches on its operands' device
+(`device_of` raises when they lie on more than one): `call` makes that
+device current for the entry point — the runtime sets a kernel's
+attributes (its shared-memory limit) and launches it on the current
+device — and passes that device's current stream.
 """
 
 from __future__ import annotations
@@ -112,9 +116,27 @@ def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
-def stream_handle() -> int:
-    """PyTorch's current CUDA stream, as the C entry points take it."""
-    return torch.cuda.current_stream().cuda_stream
+def stream_handle(device=None) -> int:
+    """PyTorch's current CUDA stream of `device` (of the current device
+    when None), as the C entry points take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_of(what: str, *tensors) -> torch.device:
+    """The one device of a kernel's tensor operands (None skipped); raises
+    when they lie on more than one."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: the operands lie on "
+                         f"{sorted(map(str, devs))}, one device expected")
+    return devs.pop()
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """C entry point `fn` called with `device` current and that device's
+    current stream after `args`; returns its CUDA error code."""
+    with torch.cuda.device(device):
+        return fn(*args, ctypes.c_void_p(stream_handle(device)))
 
 
 def check(err: int, what: str) -> None:

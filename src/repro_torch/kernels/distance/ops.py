@@ -60,7 +60,7 @@ def _gather_launch(kernel: str, q: torch.Tensor, table: torch.Tensor,
                    sqnorm: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Check the operands of a gather kernel and launch it (`kernel` is
     the library and the prefix of its `<kernel>_launch` entry point)."""
-    dev = ids.device
+    dev = build.device_of(kernel, q, table, sqnorm, ids)
     for t, name, dt, nd in ((q, "q", torch.float32, 2),
                             (table, "table", torch.float32, 2),
                             (sqnorm, "sqnorm", torch.float32, 1),
@@ -80,9 +80,9 @@ def _gather_launch(kernel: str, q: torch.Tensor, table: torch.Tensor,
     fn = build.entry(kernel, f"{kernel}_launch",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p])
-    err = fn(build.ptr(q), build.ptr(ids), build.ptr(table),
-             build.ptr(sqnorm), build.ptr(out), qn, k, d, n,
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(q), build.ptr(ids),
+                     build.ptr(table), build.ptr(sqnorm), build.ptr(out), qn,
+                     k, d, n)
     build.check(err, kernel)
     return out
 
@@ -260,6 +260,7 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if t.dtype not in FLOAT_INPUTS:
             raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
                              f"{FLOAT_INPUTS}")
+    build.device_of("pairwise_l2", q, x)
     q = q.to(torch.float32)
     x = x.to(torch.float32)
     build.require(q, "q", torch.float32, 2, dev)
@@ -276,8 +277,8 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     fn = build.entry("pairwise_l2", "pairwise_l2_launch",
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
-    err = fn(build.ptr(q), build.ptr(x), build.ptr(out), qn, cn, d,
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(q), build.ptr(x), build.ptr(out),
+                     qn, cn, d)
     build.check(err, "pairwise_l2")
     pairwise_l2.launches += 1
     return out

@@ -283,10 +283,10 @@ def _launch(q, k, v, causal, window, q_offset, with_lse):
         + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                            ctypes.c_void_p])
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
-             build.ptr(lse), _DTYPES[q.dtype], dh, b, h, hk, sq, skv,
-             *strides, int(causal), int(window), int(q_offset), dh ** -0.5,
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(q), build.ptr(k), build.ptr(v),
+                     build.ptr(o), build.ptr(lse), _DTYPES[q.dtype], dh, b, h,
+                     hk, sq, skv, *strides, int(causal), int(window),
+                     int(q_offset), dh ** -0.5)
     build.check(err, "flash_attention")
     return o, lse
 
@@ -421,11 +421,11 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset):
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
-    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do),
-             build.ptr(lse), build.ptr(delta), build.ptr(dq), build.ptr(dk),
-             build.ptr(dv), _DTYPES[q.dtype], dh, b, h, hk, sq, skv, *strides,
-             int(causal), int(window), int(q_offset), dh ** -0.5,
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(q), build.ptr(k), build.ptr(v),
+                     build.ptr(do), build.ptr(lse), build.ptr(delta),
+                     build.ptr(dq), build.ptr(dk), build.ptr(dv),
+                     _DTYPES[q.dtype], dh, b, h, hk, sq, skv, *strides,
+                     int(causal), int(window), int(q_offset), dh ** -0.5)
     build.check(err, "flash_attention_bwd")
     return dq, dk, dv
 

@@ -229,6 +229,8 @@ def rabitq_distance(packed: torch.Tensor, data_add: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(
             f"rabitq_distance runs on cuda or cpu tensors, got {dev}")
+    build.device_of("rabitq_distance", packed, data_add, data_rescale, q_rot,
+                    query_add, query_sumq)
     _check_bits(bits)
     build.require(packed, "packed", torch.uint8, 2, dev)
     cn, p = packed.shape
@@ -248,10 +250,10 @@ def rabitq_distance(packed: torch.Tensor, data_add: torch.Tensor,
     fn = build.entry("rabitq_distance", "rabitq_distance_launch",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
-    err = fn(build.ptr(packed), build.ptr(data_add), build.ptr(data_rescale),
-             build.ptr(q), build.ptr(query_add), build.ptr(query_sumq),
-             build.ptr(out), qn, cn, p, d, bits,
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(packed), build.ptr(data_add),
+                     build.ptr(data_rescale), build.ptr(q),
+                     build.ptr(query_add), build.ptr(query_sumq),
+                     build.ptr(out), qn, cn, p, d, bits)
     build.check(err, "rabitq_distance")
     rabitq_distance.launches += 1
     return out
@@ -309,6 +311,8 @@ def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(
             f"rabitq_gather_distance runs on cuda or cpu tensors, got {dev}")
+    build.device_of("rabitq_gather_distance", cand_packed, cand_add,
+                    cand_rescale, q_rot, query_add, query_sumq)
     _check_bits(bits)
     build.require(cand_packed, "cand_packed", torch.uint8, 3, dev)
     qn, k, p = cand_packed.shape
@@ -329,10 +333,10 @@ def rabitq_gather_distance(cand_packed: torch.Tensor, cand_add: torch.Tensor,
                      [ctypes.c_void_p] * 4 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p])
-    err = fn(build.ptr(cand_packed), build.ptr(cand_add),
-             build.ptr(cand_rescale), build.ptr(q), q.shape[1],
-             build.ptr(query_add), build.ptr(query_sumq), build.ptr(out),
-             qn, k, p, bits, ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(cand_packed), build.ptr(cand_add),
+                     build.ptr(cand_rescale), build.ptr(q), q.shape[1],
+                     build.ptr(query_add), build.ptr(query_sumq),
+                     build.ptr(out), qn, k, p, bits)
     build.check(err, "rabitq_gather_distance")
     rabitq_gather_distance.launches += 1
     return out
@@ -408,6 +412,9 @@ def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(
             f"rabitq_search_step runs on cuda or cpu tensors, got {dev}")
+    build.device_of("rabitq_search_step", ids, packed, data_add,
+                    data_rescale, q_rot, query_add, query_sumq,
+                    tombstone_bits, labels)
     _check_bits(bits)
     qn, k = ids.shape
     n, p = packed.shape
@@ -446,12 +453,12 @@ def rabitq_search_step(ids: torch.Tensor, packed: torch.Tensor,
                      + [ctypes.c_void_p] * 2 + [ctypes.c_uint32]
                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                      + [ctypes.c_void_p] * 2)
-    err = fn(build.ptr(ids), build.ptr(packed), build.ptr(data_add),
-             build.ptr(data_rescale), qn, k, p, n,
-             build.ptr(tombstone_bits), build.ptr(labels), fb,
-             build.ptr(q), build.ptr(query_add), build.ptr(query_sumq),
-             int(n_valid), bits, build.ptr(out),
-             ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(ids), build.ptr(packed),
+                     build.ptr(data_add), build.ptr(data_rescale), qn, k, p,
+                     n, build.ptr(tombstone_bits), build.ptr(labels), fb,
+                     build.ptr(q), build.ptr(query_add),
+                     build.ptr(query_sumq), int(n_valid), bits,
+                     build.ptr(out))
     build.check(err, "rabitq_search_step")
     rabitq_search_step.launches += 1
     return out

@@ -145,7 +145,8 @@ def _check_operands(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency, data,
     """The argument checks `fused_search` and `fused_hop` share: device,
     dtype, rank, contiguity, agreeing shapes and `check_fused_shape`.
     Returns (Q, L, R, cap, Dq, row width, filter word)."""
-    dev = f_ids.device
+    dev = build.device_of(what, f_ids, f_dists, f_vis, q, qa, qb, adjacency,
+                          data, meta0, meta1, tomb, labels)
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {dev}")
     qn, l_width = f_ids.shape
@@ -362,17 +363,17 @@ def fused_search(f_ids, f_dists, f_vis, schedule, q, qa, qb, adjacency,
     if qn > 0:
         fn = build.entry("search_step", "fused_search_launch",
                          _SEARCH_ARGTYPES)
-        err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
-                 qn, l_width, build.ptr(schedule), max_iters,
-                 build.ptr(q), dq, build.ptr(qa), build.ptr(qb),
-                 build.ptr(adjacency), r, cap, nv,
-                 build.ptr(data), row_width, build.ptr(meta0),
-                 build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
-                 build.ptr(nv_dev), build.ptr(fb_dev),
-                 int(quantized), int(bits), int(telemetry),
-                 build.ptr(out_ids), build.ptr(out_dists),
-                 build.ptr(out_hops), build.ptr(counters), build.ptr(occ),
-                 ctypes.c_void_p(build.stream_handle()))
+        err = build.call(fn, dev, build.ptr(f_ids), build.ptr(f_dists),
+                         build.ptr(f_vis), qn, l_width, build.ptr(schedule),
+                         max_iters, build.ptr(q), dq, build.ptr(qa),
+                         build.ptr(qb), build.ptr(adjacency), r, cap, nv,
+                         build.ptr(data), row_width, build.ptr(meta0),
+                         build.ptr(meta1), build.ptr(tomb),
+                         build.ptr(labels), fbw, build.ptr(nv_dev),
+                         build.ptr(fb_dev), int(quantized), int(bits),
+                         int(telemetry), build.ptr(out_ids),
+                         build.ptr(out_dists), build.ptr(out_hops),
+                         build.ptr(counters), build.ptr(occ))
         build.check(err, "fused_search")
         fused_search.launches += 1
     if telemetry:
@@ -441,16 +442,17 @@ def fused_hop(f_ids, f_dists, f_vis, width: int, q, qa, qb, adjacency, data,
                 if telemetry else None)
     if qn > 0:
         fn = build.entry("search_step", "fused_hop_launch", _HOP_ARGTYPES)
-        err = fn(build.ptr(f_ids), build.ptr(f_dists), build.ptr(f_vis),
-                 qn, l_width, int(width), build.ptr(q), dq, build.ptr(qa),
-                 build.ptr(qb), build.ptr(adjacency), r, cap, nv,
-                 build.ptr(data), row_width, build.ptr(meta0),
-                 build.ptr(meta1), build.ptr(tomb), build.ptr(labels), fbw,
-                 build.ptr(nv_dev), build.ptr(fb_dev),
-                 int(quantized), int(bits), int(telemetry),
-                 build.ptr(out_ids), build.ptr(out_dists), build.ptr(out_vis),
-                 build.ptr(out_inc), build.ptr(counters),
-                 ctypes.c_void_p(build.stream_handle()))
+        err = build.call(fn, dev, build.ptr(f_ids), build.ptr(f_dists),
+                         build.ptr(f_vis), qn, l_width, int(width),
+                         build.ptr(q), dq, build.ptr(qa), build.ptr(qb),
+                         build.ptr(adjacency), r, cap, nv, build.ptr(data),
+                         row_width, build.ptr(meta0), build.ptr(meta1),
+                         build.ptr(tomb), build.ptr(labels), fbw,
+                         build.ptr(nv_dev), build.ptr(fb_dev),
+                         int(quantized), int(bits), int(telemetry),
+                         build.ptr(out_ids), build.ptr(out_dists),
+                         build.ptr(out_vis), build.ptr(out_inc),
+                         build.ptr(counters))
         build.check(err, "fused_hop")
         fused_hop.launches += 1
     if telemetry:

@@ -63,6 +63,7 @@ def topk(dists: torch.Tensor, ids: torch.Tensor, k: int
         return topk_plain(dists, ids, k)
     if dev.type != "cuda":
         raise ValueError(f"topk runs on cuda or cpu tensors, got {dev}")
+    build.device_of("topk", dists, ids)
     build.require(dists, "dists", torch.float32, 2, dev)
     build.require(ids, "ids", torch.int32, 2, dev)
     qn, c = dists.shape
@@ -80,8 +81,8 @@ def topk(dists: torch.Tensor, ids: torch.Tensor, k: int
     fn = build.entry("topk", "topk_launch",
                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p] * 3)
-    err = fn(build.ptr(dists), build.ptr(ids), qn, c, k, build.ptr(out_d),
-             build.ptr(out_i), ctypes.c_void_p(build.stream_handle()))
+    err = build.call(fn, dev, build.ptr(dists), build.ptr(ids), qn, c, k,
+                     build.ptr(out_d), build.ptr(out_i))
     build.check(err, "topk")
     topk.launches += 1
     return out_d, out_i

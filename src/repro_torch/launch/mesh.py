@@ -2,10 +2,16 @@
 
 Two kinds, as the JAX package uses them:
   * the row-sharded index's `Mesh` (`make_mesh`): axis names and sizes,
-    as a JAX mesh has, on ONE device: every shard of a
-    `ShardedJasperIndex` lives on it, and the shard merge runs there.
-    Shards on more than one card (with the merge as a collective) are not
-    supported yet: a mesh over more than one CUDA device raises;
+    as a JAX mesh has, and its positions' devices. Given one device the
+    mesh has ONE position, which holds every shard of a
+    `ShardedJasperIndex` stacked; given a list of `prod(shape)` devices
+    it has a position an entry, row-major over the axes as
+    `jax.make_mesh` lays devices out, each holding its own shard (and
+    searching its own slice of the queries). One process drives every
+    position, as JAX's single controller does; entries may repeat a
+    device (`["cpu"] * 4`, `["cuda:0"] * 4`: a layout for tests, as JAX's
+    fake host devices are). The first position's device is the mesh's
+    home, where queries arrive and the shards' results are merged;
   * the training meshes (`make_debug_mesh`, `make_production_mesh`): a
     `torch.distributed` `DeviceMesh` over ("data", "model") or ("pod",
     "data", "model"), one process a device, on the process group that is
@@ -30,22 +36,55 @@ _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 @dataclass(frozen=True)
 class Mesh:
     """Axis names, their sizes (`shape`, a dict as `jax.sharding.Mesh`'s)
-    and the one device the mesh's shards live on."""
+    and the devices of its positions: one entry (one position holding
+    every shard), or one a position, row-major over the axes."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
-    device: torch.device
+    devices: tuple[torch.device, ...]
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.axis_sizes))
 
+    @property
+    def device(self) -> torch.device:
+        """The home device (position 0's): queries arrive and the shards'
+        results are merged there."""
+        return self.devices[0]
+
+    def coords(self, position: int) -> dict:
+        """{axis: index} of a position, row-major over the axes."""
+        out, rest = {}, position
+        for ax, size in zip(reversed(self.axis_names),
+                            reversed(self.axis_sizes)):
+            out[ax] = rest % size
+            rest //= size
+        return {ax: out[ax] for ax in self.axis_names}
+
+
+def _position_device(device) -> torch.device:
+    """One entry of a device list: a CUDA device gets its index (the
+    current card's where none is given), and must exist."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    count = torch.cuda.device_count()
+    if dev.index >= count:
+        raise ValueError(f"mesh device {dev} is past the {count} CUDA "
+                         f"device(s) of this machine")
+    return dev
+
 
 def make_mesh(shape, axes, device=None) -> Mesh:
-    """A mesh of `shape` over `axes` on one device: `device=None` means the
-    card (raises without one, as `resolve_device` does), "cpu" the CPU. A
-    sequence of devices must name one device; more than one CUDA device
-    raises NotImplementedError."""
+    """A mesh of `shape` over `axes`. `device` is one device — `None`
+    means the card (raises without one, as `resolve_device` does), "cpu"
+    the CPU — and the mesh then has one position; or a list of exactly
+    `prod(shape)` devices, one a position (row-major over `axes`; entries
+    may repeat). A list of another length, a CUDA device past the
+    machine's count, or a list mixing the CPU and CUDA raises."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
@@ -54,17 +93,22 @@ def make_mesh(shape, axes, device=None) -> Mesh:
         raise ValueError(f"mesh axes must be distinct, got {axes}")
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
-    if isinstance(device, (list, tuple)):
-        devs = {resolve_device(d) for d in device}
-        if len(devs) > 1:
-            raise NotImplementedError(
-                f"a mesh over {len(devs)} devices: every shard lives on one "
-                "card in this port (ROADMAP A9, shards on more than one "
-                "card); the training meshes over several devices are "
-                "make_debug_mesh and make_production_mesh")
-        device = next(iter(devs)) if devs else None
+    if not isinstance(device, (list, tuple)):
+        return Mesh(axis_names=axes, axis_sizes=shape,
+                    devices=(resolve_device(device),))
+    size = 1
+    for s in shape:
+        size *= s
+    if len(device) != size:
+        raise ValueError(f"a {' x '.join(map(str, shape))} mesh takes one "
+                         f"device a position, {size} in all; got "
+                         f"{len(device)}")
+    kinds = {torch.device(d).type for d in device}
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh's positions lie on one kind of device, "
+                         f"got {sorted(kinds)}")
     return Mesh(axis_names=axes, axis_sizes=shape,
-                device=resolve_device(device))
+                devices=tuple(_position_device(d) for d in device))
 
 
 def init_distributed(device=None) -> bool:

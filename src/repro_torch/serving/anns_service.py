@@ -436,15 +436,17 @@ class AnnsService:
         idx = self.index
         if hasattr(idx, "id_stride"):       # sharded: stacked row position
             pos = (ids // idx.id_stride) * idx.cap + ids % idx.id_stride
+            n_rows = idx.capacity
+            row = idx.label_rows(ids)
         else:
             pos = ids
-        labs = idx.core.mut.labels
-        rows = torch.as_tensor(np.clip(pos, 0, labs.shape[0] - 1),
-                               device=labs.device)
-        row = labs[rows].cpu().numpy()
+            labs = idx.core.mut.labels
+            n_rows = labs.shape[0]
+            row = labs[torch.as_tensor(np.clip(pos, 0, n_rows - 1),
+                                       device=labs.device)].cpu().numpy()
         bit = np.uint8(1 << (ts.label & 7))
         ok = (row[:, ts.label >> 3] & bit) != 0
-        return ok & (pos >= 0) & (pos < labs.shape[0])
+        return ok & (pos >= 0) & (pos < n_rows)
 
     def tenant_insert(self, name: str, vectors) -> np.ndarray:
         """Insert rows into a tenant's namespace: stamps the tenant's

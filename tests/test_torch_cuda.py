@@ -1860,3 +1860,205 @@ def test_sharded_host_tier_equals_device_tier(cuda_device):
             d = device[n]
             _assert_same(res, (d.ids, d.dists, d.n_hops)
                          + ((d.telemetry,) if d.telemetry is not None else ()))
+
+
+# ------------------------------------------ the sharded index on positions
+def _positions_pair(rng, devices, per=1536, d=32, cap=2048,
+                    shape=(4,), axes=("data",)):
+    """The same 4-shard index on one device and on a mesh of positions on
+    `devices`, built from the same rows — a tensor on cuda:0, so both
+    train the quantizer there (a mesh of several positions trains it
+    where the rows lie)."""
+    from repro_torch.core.construction import ConstructionParams
+    from repro_torch.core.distributed import ShardedJasperIndex
+    from repro_torch.launch.mesh import make_mesh
+    data = torch.as_tensor(rng.normal(size=(4 * per, d)).astype(np.float32),
+                           device="cuda:0")
+    labels = rng.integers(0, 4, 4 * per)
+    return [ShardedJasperIndex(make_mesh(shape, axes, device=dev), d,
+                               cap, quantization="rabitq",
+                               construction=ConstructionParams(**PLAN_PARAMS))
+            .build(data, labels=labels)
+            for dev in ("cuda:0", devices)]
+
+
+def _same_results(a, b) -> bool:
+    pa = [a.ids, a.dists, a.n_hops] + list(a.telemetry or ())
+    pb = [b.ids, b.dists, b.n_hops] + list(b.telemetry or ())
+    return len(pa) == len(pb) and all(torch.equal(x, y)
+                                      for x, y in zip(pa, pb))
+
+
+def _positions_lanes_equal(one, many, q):
+    """Every SHARDED_LANES lane and the hop lane: the positions' plan (one
+    captured graph a position, #1 and #2 once each a position a search)
+    and eager search equal the one-device layout's bit for bit."""
+    from repro_torch.core.plans import GraphPlan, PositionsPlan, \
+        launch_counters
+    from repro_torch.core.search_spec import SearchSpec
+    for lane, kw in list(SHARDED_LANES.items()) + [
+            ("hop", dict(quantized=True, use_kernels=True, fusion="hop"))]:
+        spec = SearchSpec(k=10, beam_width=48,
+                          **({"fusion": "megakernel"} | kw))
+        want = one.searcher(spec).search(q)
+        ses = many.searcher(spec)
+        for _ in range(2):
+            for w in launch_counters().values():
+                w.launches = 0
+            res = ses.search(q)
+            assert _same_results(res, want), lane
+            if spec.fusion == "megakernel":
+                got = {n: w.launches for n, w in launch_counters().items()
+                       if w.launches}
+                assert got == ({"fused_search": 4, "gather_l2": 4}
+                               if spec.quantized else {"fused_search": 4})
+        plan = many._search_plan(ses.resolved, tuple(q.shape),
+                                 many._filter_tombstones)
+        assert isinstance(plan, PositionsPlan)
+        if spec.fusion == "megakernel":
+            assert all(isinstance(g, GraphPlan) and g._graph is not None
+                       for g in plan.plans)
+        eager = many._eager_search(many._prep_query(q), ses.resolved,
+                                   many._filter_tombstones,
+                                   spec.filter_bytes())
+        _assert_same(want, eager)
+
+
+@pytest.mark.cuda
+def test_sharded_positions_on_one_card(cuda_device):
+    """Four positions repeating cuda:0 — each shard in its own buffers,
+    one graph a position, the merge gathered home — search, mutate
+    (delete / insert / consolidate recapture nothing, a grow once a spec)
+    and evict exactly as the stacked layout does."""
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(34)
+    one, many = _positions_pair(rng, ["cuda:0"] * 4)
+    assert many.n_positions == 4
+    for ix in (one, many):
+        ix.delete(np.arange(5))       # the liveness mode the steps keep
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    _positions_lanes_equal(one, many, q)
+    specs = [SearchSpec(k=10, beam_width=48, fusion="megakernel", **kw)
+             for kw in (SHARDED_LANES["quant"], SHARDED_LANES["exact"])]
+    base = many.plans.stats.snapshot()
+
+    def check(step, traces):
+        for spec in specs:
+            a = one.searcher(spec).search(q)
+            b = many.searcher(spec).search(q)
+            assert _same_results(a, b), step
+            ids = b.ids.cpu().numpy()
+            assert not many.tombstoned(ids[ids >= 0]).any(), step
+        assert many.plans.stats.traces == base.traces + traces, step
+
+    check("fresh", 0)
+    for ix in (one, many):
+        ix.delete(np.arange(100, 600))            # all on shard 0
+    check("delete", 0)
+    new = rng.normal(size=(4 * 50, 32)).astype(np.float32)
+    for ix in (one, many):
+        ix.insert(new)
+    check("insert", 0)
+    for ix in (one, many):
+        ix.consolidate()
+    check("consolidate", 0)
+    new = rng.normal(size=(4 * 600, 32)).astype(np.float32)
+    for ix in (one, many):
+        ix.insert(new)                            # grows
+    assert many.cap == one.cap == 4096
+    check("grow", len(specs))
+    host = SearchSpec(k=10, beam_width=48, quantized=True, use_kernels=True,
+                      fusion="megakernel", rerank_source="host")
+    want = one.searcher(host.with_(rerank_source="device")).search(q)
+    for ix in (one, many):
+        ix.evict_rows_to_host()
+    for _ in range(2):
+        assert _same_results(many.searcher(host).search(q), want)
+
+
+@pytest.mark.cuda
+def test_sharded_replicas_on_one_card(cuda_device):
+    """A (4, 2) ("data", "model") mesh on eight positions of cuda:0: two
+    replicas a shard, each searching half of the queries. Every mutation
+    runs on each replica, which then equals the one-device layout's shard
+    tensor for tensor, and the searches stay bit-equal."""
+    from repro_torch.core.distributed import _row_tensors
+    from repro_torch.core.search_spec import SearchSpec
+    rng = np.random.default_rng(36)
+    one, many = _positions_pair(rng, ["cuda:0"] * 8, shape=(4, 2),
+                                axes=("data", "model"))
+    assert many.n_positions == 8 and len(many.searching_positions()) == 8
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    specs = [SearchSpec(k=10, beam_width=48, fusion="megakernel", **kw)
+             for kw in (SHARDED_LANES["quant"], SHARDED_LANES["exact"])]
+
+    def check(step):
+        for s in range(4):
+            want = _row_tensors(one.shard_core(s))
+            for rep in many.shard_replicas(s):
+                assert all(a is None and b is None or torch.equal(a, b)
+                           for a, b in zip(_row_tensors(rep), want)), step
+        for spec in specs:
+            a = one.searcher(spec).search(q)
+            b = many.searcher(spec).search(q)
+            assert _same_results(a, b), step
+
+    check("build")
+    new = rng.normal(size=(4 * 64, 32)).astype(np.float32)
+    for ix in (one, many):
+        ix.insert(new)
+    check("insert")
+    for ix in (one, many):
+        ix.delete(np.arange(100, 400))
+    check("delete")
+    for ix in (one, many):
+        ix.consolidate()
+    check("consolidate")
+
+
+@pytest.mark.cuda
+def test_sharded_positions_on_four_cards(cuda_device):
+    """The four shards on cuda:0..3: each position's kernels on its own
+    card, the merge on cuda:0, bit-equal to the stacked layout."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    rng = np.random.default_rng(35)
+    one, many = _positions_pair(rng, [f"cuda:{i}" for i in range(4)])
+    assert [str(d) for d in many.position_devices()] == [
+        f"cuda:{i}" for i in range(4)]
+    assert many.shard_core(3).adjacency.device == torch.device("cuda:3")
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    _positions_lanes_equal(one, many, q)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_operands_on_two_devices(cuda_device):
+    """A kernel wrapper whose operands lie on more than one device raises
+    (here the card and the CPU) and launches nothing."""
+    from repro_torch.kernels.distance.ops import gather_l2, pairwise_l2
+    from repro_torch.kernels.rabitq_dot.ops import rabitq_distance
+    from repro_torch.kernels.topk.ops import topk
+    dev = torch.device("cuda")
+    q = torch.zeros((4, 32), device=dev)
+    table = torch.zeros((16, 32), device=dev)
+    cases = {
+        "gather_l2": lambda: gather_l2(q, table, torch.zeros(16), torch.zeros(
+            (4, 8), dtype=torch.int32, device=dev)),
+        "pairwise_l2": lambda: pairwise_l2(q, table.cpu()),
+        "topk": lambda: topk(torch.zeros((4, 32), device=dev),
+                             torch.zeros((4, 32), dtype=torch.int32), 4),
+        "rabitq_distance": lambda: rabitq_distance(
+            torch.zeros((16, 16), dtype=torch.uint8, device=dev),
+            torch.zeros(16, device=dev), torch.zeros(16), q,
+            torch.zeros(4, device=dev), torch.zeros(4, device=dev), bits=4),
+    }
+    for name, fn in cases.items():
+        before = {n: getattr(w, "launches", 0) for n, w in
+                  (("w", gather_l2), ("p", pairwise_l2), ("t", topk),
+                   ("r", rabitq_distance))}
+        with pytest.raises(ValueError, match="one device expected"):
+            fn()
+        after = {n: getattr(w, "launches", 0) for n, w in
+                 (("w", gather_l2), ("p", pairwise_l2), ("t", topk),
+                  ("r", rabitq_distance))}
+        assert before == after, name

@@ -164,7 +164,7 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 
 def test_sharded_mesh_needs_the_card(monkeypatch):
     """The sharded index's mesh resolves to the card unless "cpu" is
-    given; a mesh over more than one card is refused."""
+    given; a mesh over cards the machine lacks is refused."""
     from repro_torch.core.distributed import ShardedJasperIndex
     from repro_torch.launch.mesh import make_mesh
     _no_cuda(monkeypatch)
@@ -178,7 +178,8 @@ def test_sharded_mesh_needs_the_card(monkeypatch):
     assert idx.n_shards == 4 and idx.core.adjacency.device.type == "cpu"
     assert idx.core.adjacency.shape == (64, 64)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="past the 1 CUDA"):
         make_mesh((2,), ("data",), device=["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="distinct"):
         make_mesh((2, 2), ("data", "data"), device="cpu")
