@@ -308,10 +308,19 @@ Phases:
                 compressed loss within 10 % of the exact one; the bytes of
                 int8 codes against float32 a step. (d) The `--mesh debug`
                 step (`make_sharded_train_step`) on `make_debug_mesh(1, 1)`
-                for stablelm-1.6b at full width: parameters and moments
-                bit-equal to the single-device step's after 2 steps. The
-                group is destroyed after. Prints one
-                `{"training_families": ...}` JSON line.
+                for stablelm-1.6b at full width (each unit's parameters
+                gathered as the step reaches it, the gradients
+                reduce-scattered onto the shards: `models/fsdp.py`):
+                parameters and moments bit-equal to the single-device
+                step's after 2 steps; each step's seconds and
+                `torch.cuda.max_memory_allocated` (above what was allocated
+                when the step began) beside the single-device step's. (e)
+                The same for granite-moe-1b-a400m at full width in both
+                MoE dispatch modes under the mesh (global, and -1: JAX's
+                `_moe_shard_map`, a slab a device), 3 steps each, against
+                one single-device run (-1 without a mesh is the one-chunk
+                dispatch): bit-equal. The group is destroyed after. Prints
+                one `{"training_families": ...}` JSON line.
  16. roofline shares — each run once eagerly under
                 `roofline.op_analyzer.OpAnalyzer` (the ops' products and
                 bytes, each kernel function's `roofline.kernel_costs`
@@ -4704,6 +4713,9 @@ TRAIN_FLASH = (("granite-moe-1b-a400m", 2048, 16, 8, 64, True, 0),
 DP_ARCH, DP_BATCH, DP_SEQ, DP_STEPS, DP_REL_TOL = (
     "granite-moe-1b-a400m", 4, 1024, 12, 0.1)
 MESH_ARCH, MESH_BATCH, MESH_SEQ, MESH_STEPS = "stablelm-1.6b", 2, 2048, 2
+# phase 15 (e): a MoE family's sharded step in both dispatch modes
+MOE_MESH_ARCH, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_STEPS = (
+    "granite-moe-1b-a400m", 2, 2048, 3)
 
 
 def flash_at_family_training_shapes() -> tuple[list, list]:
@@ -4987,39 +4999,27 @@ def dp_at_world_size_one() -> dict:
     return out
 
 
-def mesh_step_at_world_size_one() -> dict:
-    """Phase 15 (d): `--mesh debug`'s sharded step on `make_debug_mesh(1,
-    1)` for MESH_ARCH at full width against the single-device step: the
-    parameters and both moments bit-equal after MESH_STEPS."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.launch import train
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models.model import init_params
-    from repro_torch.training import (OptimizerConfig, init_train_state,
-                                      make_train_step)
-    from repro_torch.training.dp_step import make_sharded_train_step
-    cfg = dataclasses.replace(get_config(MESH_ARCH), use_flash_kernel=True)
-    opt = OptimizerConfig(peak_lr=MEMO_LR, total_steps=10, warmup_steps=0)
-    mesh = make_debug_mesh(1, 1)
-    batches = [make_lm_batch(cfg, MESH_BATCH, MESH_SEQ, SEED, t)
-               for t in range(MESH_STEPS)]
-    ref = init_train_state(cfg, init_params(cfg, SEED,
-                                            param_dtype=torch.float32))
-    step = make_train_step(cfg, opt)
-    ref_losses = []
+def timed_steps(step, state, batches) -> tuple:
+    """(state, losses, seconds a step, peak bytes a step above what was
+    allocated when it began): each step from a reset of the peak
+    statistics, synchronised."""
+    losses, secs, peaks = [], [], []
     for b in batches:
-        ref, m = step(ref, b)
-        ref_losses.append(float(m["loss"]))
-    sharded, _ = train.sharded_state(cfg, SEED, mesh, torch.device(
-        "cuda", torch.cuda.current_device()))
-    sstep = make_sharded_train_step(cfg, opt, mesh)
-    losses, secs = [], []
-    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        sharded, m = sstep(sharded, b)
+        state, m = step(state, b)
         losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    return state, losses, secs, peaks
+
+
+def equal_states(sharded, ref) -> tuple:
+    """(parameters bit-equal, moments bit-equal, max |parameter diff|) of
+    a sharded state on a 1 x 1 mesh against a single-device one."""
     full = dict(sharded.params.named_parameters())
     diff = max(float((full[n].to_local() - p.detach()).abs().max())
                for n, p in ref.params.named_parameters())
@@ -5028,20 +5028,67 @@ def mesh_step_at_world_size_one() -> dict:
     same_m = all(torch.equal(sharded.opt_state[k][n].to_local(),
                              ref.opt_state[k][n])
                  for k in ("m", "v") for n in ref.opt_state[k])
-    log(f"  --mesh debug step on a 1 x 1 mesh (NCCL), {MESH_ARCH} at full "
-        f"width, {MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ}: losses "
-        f"{[round(x, 6) for x in losses]} vs single-device "
-        f"{[round(x, 6) for x in ref_losses]}; parameters bit-equal {same} "
-        f"(max |diff| {diff:.3g}), moments bit-equal {same_m}; seconds a "
-        f"step {[round(x, 3) for x in secs]}")
-    check(same and same_m and losses == ref_losses
-          and sharded.opt_state["step"] == ref.opt_state["step"],
-          f"--mesh debug step at world size 1 differs from the "
-          f"single-device step (max |param diff| {diff:.3g})")
-    del ref, sharded, full
+    return same, same_m, diff
+
+
+def mesh_step_at_world_size_one(arch: str, batch: int, seq: int,
+                                steps: int, modes=(None,)) -> dict:
+    """Phase 15 (d) and (e): `--mesh debug`'s sharded step on
+    `make_debug_mesh(1, 1)` for `arch` at full width against the
+    single-device step: the parameters and both moments bit-equal after
+    `steps`, for each MoE dispatch mode in `modes` (None: the config's),
+    with each step's seconds and peak memory beside the single-device
+    step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (OptimizerConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.dp_step import make_sharded_train_step
+    cfg = dataclasses.replace(get_config(arch), use_flash_kernel=True)
+    opt = OptimizerConfig(peak_lr=MEMO_LR, total_steps=10, warmup_steps=0)
+    mesh = make_debug_mesh(1, 1)
+    batches = [make_lm_batch(cfg, batch, seq, SEED, t) for t in range(steps)]
+    ref = init_train_state(cfg, init_params(cfg, SEED,
+                                            param_dtype=torch.float32))
+    ref, ref_losses, ref_secs, ref_peaks = timed_steps(
+        make_train_step(cfg, opt), ref, batches)
+    out = {"ref": {"losses": ref_losses, "step_s": ref_secs,
+                   "peak_bytes": ref_peaks}}
+    for mode in modes:
+        mcfg = (cfg if mode is None
+                else dataclasses.replace(cfg, moe_dispatch_chunks=mode))
+        sharded, _ = train.sharded_state(mcfg, SEED, mesh, torch.device(
+            "cuda", torch.cuda.current_device()))
+        sharded, losses, secs, peaks = timed_steps(
+            make_sharded_train_step(mcfg, opt, mesh), sharded, batches)
+        same, same_m, diff = equal_states(sharded, ref)
+        tag = "mesh" if mode is None else f"dispatch {mode}"
+        log(f"  --mesh debug step on a 1 x 1 mesh (NCCL), {arch} at full "
+            f"width ({tag}), {steps} steps of {batch} x {seq}: losses "
+            f"{[round(x, 6) for x in losses]} vs single-device "
+            f"{[round(x, 6) for x in ref_losses]}; parameters bit-equal "
+            f"{same} (max |diff| {diff:.3g}), moments bit-equal {same_m}; "
+            f"seconds a step {[round(x, 3) for x in secs]} vs "
+            f"{[round(x, 3) for x in ref_secs]}; max_memory_allocated a step "
+            f"above what was allocated when it began "
+            f"{[round(x / 2**30, 3) for x in peaks]} vs "
+            f"{[round(x / 2**30, 3) for x in ref_peaks]} GiB")
+        check(same and same_m and losses == ref_losses
+              and sharded.opt_state["step"] == ref.opt_state["step"],
+              f"--mesh debug step at world size 1 ({arch}, {tag}) differs "
+              f"from the single-device step (max |param diff| {diff:.3g})")
+        out[tag] = {"losses": losses, "step_s": secs, "peak_bytes": peaks,
+                    "bit_equal": same and same_m}
+        del sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "step_s": secs, "bit_equal": True}
+    return out
 
 
 def training_families() -> dict:
@@ -5055,13 +5102,17 @@ def training_families() -> dict:
     nccl_world_of_one()
     try:
         dp = dp_at_world_size_one()
-        mesh = mesh_step_at_world_size_one()
+        mesh = mesh_step_at_world_size_one(MESH_ARCH, MESH_BATCH, MESH_SEQ,
+                                           MESH_STEPS)
+        moe_mesh = mesh_step_at_world_size_one(
+            MOE_MESH_ARCH, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_STEPS,
+            modes=(0, -1))
     finally:
         dist.destroy_process_group()
     launches = {k: sum(m["launches"][k] for m in models)
                 for k in ("flash_attention_fwd", "flash_attention_bwd")}
     out = {"flash_fwd": fwd, "flash_bwd": bwd, "models": models, "dp": dp,
-           "mesh": mesh, "launches": launches,
+           "mesh": mesh, "moe_mesh": moe_mesh, "launches": launches,
            "seconds": time.perf_counter() - t_phase}
     log(f"  phase 15: {out['seconds']:.1f} s; launches on (b)'s path: #11 "
         f"{launches['flash_attention_fwd']}, #12 "

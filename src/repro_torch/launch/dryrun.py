@@ -14,9 +14,11 @@ For every runnable cell it runs the port's own step at full width:
                shardings (float32 masters), the rank's rows of the global
                batch;
     prefill    the model on the parameter shardings' local shards,
-    decode     gathered into full tensors as the sharded train step does
-               (the port has no sharded serving path: A9), on the rank's
-               rows of the batch, in the serving storage (bf16 matrices);
+    decode     gathered a unit at a time as the sharded train step
+               gathers them (`models/fsdp.py`; the port has no
+               tensor-parallel serving path: A9.4), on the rank's rows of
+               the batch (the whole batch where it does not split over the
+               data axes), in the serving storage (bf16 matrices);
 
 with `use_flash_kernel=True`, as the port's launchers run. Under
 `roofline/op_analyzer.py` the step's ops and each kernel function's
@@ -34,11 +36,13 @@ records alike:
     (gathered parameters, gradients, activations) — not XLA's buffer
     assignment, and not held to it.
 
-Within a step every rank holds full float32 parameters and gradients
-(`dp_step.py`), and the record reports that as it is (ROADMAP A9.1). A
-MoE arch's train cells are refused as `launch/train.py --mesh` refuses
-them (no `_moe_shard_map`, A9.3): recorded "unsupported" with the reason.
-Any other exception is an "error", and the run exits 1.
+Within a step a rank holds its shards, a unit's gathered parameters and
+gradients and its activations (`dp_step.py`, ROADMAP A9.1). MoE cells run
+in both of JAX's modes: global dispatch (the configs' default) and, with
+`--opt moe_local`, a slab a device (`moe_dispatch_chunks = -1`, JAX's
+`_moe_shard_map`; `models/moe.py`). A cell that raises
+NotImplementedError is recorded "unsupported" with the reason; any other
+exception is an "error", and the run exits 1.
 
 Nothing happens at import: the fake group exists only inside `run_cells`.
 
@@ -69,11 +73,14 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import shardings as shd
 from repro_torch.launch.mesh import production_layout
 from repro_torch.models import model as M
+from repro_torch.models.fsdp import ShardedParams
 from repro_torch.models.sharding_ctx import (
     axis_sizes,
+    data_rank,
     distribute,
     local_shard,
     set_parameter,
+    sharding_rules,
 )
 from repro_torch.roofline.analysis import H100, model_flops, roofline_terms
 from repro_torch.roofline.op_analyzer import OpAnalyzer
@@ -142,22 +149,6 @@ def _local_inputs(inputs: dict, mesh, cfg, overrides) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def _gathered(model):
-    """The model's DTensor parameters all-gathered into full tensors for
-    the body, the shards put back after (the sharded train step's
-    gather)."""
-    shards = dict(model.named_parameters())
-    with torch.no_grad():
-        for n, p in shards.items():
-            set_parameter(model, n, p.full_tensor())
-    try:
-        yield model
-    finally:
-        for n, p in shards.items():
-            set_parameter(model, n, p)
-
-
 def _sharded_params(model, mesh, cfg, overrides):
     """`model`'s parameters stored as DTensors at the sanitised parameter
     shardings; returns the bytes of this rank's shards."""
@@ -195,9 +186,6 @@ def _peak_bytes(tracker) -> int:
 
 # The JAX dry-run's switches with no mechanism behind them in the port.
 UNSUPPORTED_OPTS = {
-    "moe_local": "the port has no chunk-local MoE dispatch under a mesh "
-                 "(no _moe_shard_map, ROADMAP A9.3), and its MoE train "
-                 "cells are refused",
     "no_sp": "the port's models thread no activation sharding constraint, "
              "so no residual is sequence-parallel to turn off (ROADMAP A9)",
 }
@@ -208,21 +196,19 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                  opts: tuple = ()) -> dict:
     """Run one cell's step on fake tensors; return the record.
 
-    opts — of the JAX dry-run's switches the port has only "last_logit"
-    (prefill computes logits only for the final position); the others
-    raise (`UNSUPPORTED_OPTS`).
+    opts — of the JAX dry-run's switches the port has "last_logit"
+    (prefill computes logits only for the final position) and "moe_local"
+    (a MoE config's `moe_dispatch_chunks = -1`: a slab a device); the
+    others raise (`UNSUPPORTED_OPTS`).
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     for o in opts:
         if o in UNSUPPORTED_OPTS:
             raise ValueError(f"--opt {o}: {UNSUPPORTED_OPTS[o]}")
-    if shape.kind == "train" and cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name} trains under a mesh only through the sharded MoE "
-            "(_moe_shard_map), which is not ported (ROADMAP A9.3); "
-            "launch/train.py --mesh refuses it the same way")
     cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    if "moe_local" in opts and cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_dispatch_chunks=-1)
     t0 = time.time()
     n_chips = mesh.size()
     b, s = shape.global_batch, shape.seq_len
@@ -276,8 +262,13 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                          inputs["tokens"])
                 mflops = model_flops(_active_params(cfg, n_params), b,
                                      training=False)
+            # the rows are the rank's share where the batch splits over the
+            # data axes, else the whole batch (`_local_inputs`)
+            split = all(t.shape[0] < global_in[k].shape[0]
+                        for k, t in inputs.items()) or data_rank(mesh)[0] == 1
             with torch.no_grad(), tracker, OpAnalyzer() as ana:
-                with _gathered(model):
+                with ShardedParams(model, mesh), sharding_rules(
+                        mesh, split_rows=split):
                     fwd()
         temp = _peak_bytes(tracker)
     result["run_s"] = round(time.time() - t0, 2)
@@ -381,7 +372,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--opt", action="append", default=[],
                     choices=["last_logit", "moe_local", "no_sp"],
                     help="the JAX dry-run's switches (repeatable); the "
-                         "port runs only last_logit")
+                         "port runs last_logit and moe_local")
     ap.add_argument("--tag", default="",
                     help="suffix for result filenames (e.g. _opt1)")
     ap.add_argument("--out", default="results/torch_dryrun")

@@ -32,18 +32,16 @@ size must be 4, 256 or 512. The step is `training/dp_step.py`'s
 AdamW moments are stored at `sanitize_shardings(train_state_shardings(
 mesh, cfg))` (ZeRO-3 over "data" plus the "model" splits), so between
 steps each rank holds what the JAX device at its mesh coordinates holds.
-Within a step a rank all-gathers every parameter into the model as a
-plain tensor and all-reduces full gradients over the data axes, so its
-peak memory is the full float32 parameters plus the full float32
-gradients (plus its shards and activations) whatever the mesh's size: a
-config too big for one device does not train under `--mesh` yet, and the
-all-reduce moves about twice the bytes of a reduce-scatter onto the
-local shards (ROADMAP A9 queues a block-by-block gather and the
-reduce-scatter). No DTensor reaches a hand-written kernel (the flash ops
-have no DTensor sharding rule). Tensor-parallel compute is not
-reproduced: the ranks of a model axis repeat the same compute (ROADMAP
-A9). A MoE architecture under `--mesh` raises (ROADMAP A6:
-`_moe_shard_map`).
+Within a step a rank gathers one unit's parameters at a time (a block,
+the embedding, the head; `models/fsdp.py`) and reduce-scatters each
+gradient onto its shard as the backward leaves the unit, so it holds its
+shards, a unit's float32 parameters and gradients, and its activations.
+No DTensor reaches a hand-written kernel (the flash ops have no DTensor
+sharding rule). Tensor-parallel compute is not reproduced: the ranks of a
+model axis repeat the same compute (ROADMAP A9.4). A MoE architecture
+trains in either dispatch mode (`--moe-dispatch-chunks`; -1 is JAX's
+`_moe_shard_map`, a slab a device), with the single-device result of its
+global dispatch (`models/moe.py`).
 """
 
 from __future__ import annotations
@@ -80,6 +78,10 @@ def build(args):
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    # a Namespace built without the option keeps the config's dispatch
+    chunks = getattr(args, "moe_dispatch_chunks", None)
+    if chunks is not None:
+        cfg = dataclasses.replace(cfg, moe_dispatch_chunks=chunks)
     schedule = "wsd" if args.arch.startswith("minicpm") else "cosine"
     opt = OptimizerConfig(peak_lr=args.lr, schedule=schedule,
                           warmup_steps=min(100, args.steps // 10 + 1),
@@ -112,11 +114,6 @@ def run(args) -> dict:
     dev = resolve_device(args.device)
     s_shd = None
     if args.mesh != "none":
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                f"--mesh {args.mesh} with {cfg.name}: the sharded MoE "
-                "(_moe_shard_map) is not ported (ROADMAP.md A6; queued "
-                "under A9)")
         init_distributed(dev)
         mesh = _mesh(args, dev)
         if dev.type == "cuda":
@@ -192,6 +189,11 @@ def parser() -> argparse.ArgumentParser:
                     default="none")
     ap.add_argument("--multi-pod", action="store_true",
                     help="--mesh production over 2 pods (512 processes)")
+    ap.add_argument("--moe-dispatch-chunks", type=int, default=None,
+                    help="a MoE config's dispatch: 0 global buffers, C > 1 "
+                         "chunk-local ones, -1 a slab a device under --mesh "
+                         "(JAX's _moe_shard_map; the dry-run's --opt "
+                         "moe_local); default: the config's")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")

@@ -18,7 +18,10 @@ The JAX package stacks the layers along leading axes and scans them; here
 they are `nn.ModuleList`s walked by Python loops (`models/convert.py`
 splits JAX's stacked trees). `cfg.remat == "full"` wraps each block, pair
 or group in `torch.utils.checkpoint` under autograd, as `_maybe_remat`
-wraps the scan body.
+wraps the scan body. Each such unit, the embedding and the head run
+inside `models/fsdp.py`'s `gathered`, which in the sharded train step
+swaps in the unit's parameters gathered from their shards (a no-op
+elsewhere).
 
 Decode threads an explicit state dict, the JAX package's: {"k", "v": (L,
 B, S_cache, Hk, Dh) caches in `cfg.dtype`, "pos": int} for the attention
@@ -39,7 +42,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import fsdp
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.fsdp import gathered
 from repro_torch.models.attention import (
     Attention,
     attention,
@@ -240,14 +245,18 @@ def _embed_inputs(params: Model, cfg: ModelConfig, batch: dict
                   ) -> torch.Tensor:
     if cfg.frontend == "frames":
         x = torch.as_tensor(batch["frames"], device=params.device)
-        return dense(x.to(torch_dtype(cfg)), params.frontend.proj)
+        with gathered(params.frontend):
+            return dense(x.to(torch_dtype(cfg)), params.frontend.proj)
     tokens = torch.as_tensor(batch["tokens"], device=params.device)
-    return embed(params.embed, tokens, cfg)
+    with gathered(params.embed):
+        return embed(params.embed, tokens, cfg)
 
 
 def _logits(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return unembed(params.unembed, x, cfg, embed_params=params.embed)
+    tied = params.embed if cfg.tie_embeddings else None
+    with gathered(params.final_norm, params.unembed, tied):
+        x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+        return unembed(params.unembed, x, cfg, embed_params=params.embed)
 
 
 def _positions(s: int, device) -> torch.Tensor:
@@ -297,6 +306,15 @@ def _layers(params: Model) -> list[tuple]:
     return [(_block, (b,)) for b in params.blocks]
 
 
+def _unit(fn, args, x, cfg: ModelConfig, positions, pack: bool,
+          ctx: tuple):
+    """One remat unit with its parameters gathered (`models/fsdp.py`; a
+    no-op outside the sharded train step), under `ctx`, the forward's
+    `fsdp.context()`: a remat recompute may run on another thread."""
+    with fsdp.restored(ctx), fsdp.gathered(*args, pack=pack):
+        return fn(*args, x, cfg, positions)
+
+
 def forward(params: Model, cfg: ModelConfig, batch: dict,
             with_aux: bool = False, return_hidden: bool = False):
     """Full-sequence forward. batch: {"tokens": (B, S)} or {"frames": (B,
@@ -308,14 +326,15 @@ def forward(params: Model, cfg: ModelConfig, batch: dict,
     positions = _positions(x.shape[1], x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = fsdp.context()
     for fn, args in _layers(params):
         if remat:
             # the recompute in the backward re-runs the unit's forward
-            # (and so relaunches the flash forward #11)
-            x, a = checkpoint(fn, *args, x, cfg, positions,
+            # (and so relaunches the flash forward #11, and gathers again)
+            x, a = checkpoint(_unit, fn, args, x, cfg, positions, False, ctx,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = fn(*args, x, cfg, positions)
+            x, a = _unit(fn, args, x, cfg, positions, True, ctx)
         if a is not None:
             aux = aux + a
     out = (rmsnorm(params.final_norm, x, cfg.norm_eps) if return_hidden
@@ -338,17 +357,76 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int) -> torch.Tensor:
     """Mean cross-entropy over the labels >= 0, in float32, the padding
-    columns past `vocab_size` at -1e30."""
-    # in place on the float32 copy, which nothing else holds: one fewer
-    # (B, S, V) float32 tensor at full width
-    logits = logits.float().masked_fill_(
-        torch.arange(logits.shape[-1], device=logits.device) >= vocab_size,
-        -1e30)
-    labels = labels.long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-    valid = (labels >= 0).float()
-    return ((logz - gold) * valid).sum() / valid.sum().clamp(min=1.0)
+    columns past `vocab_size` at -1e30 (`_CrossEntropy`)."""
+    return _CrossEntropy.apply(logits, labels, vocab_size)
+
+
+# rows of float32 logits a chunk of `_CrossEntropy` may hold (1 GiB)
+CE_CHUNK_BYTES = 1 << 30
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The cross-entropy in chunks of rows, so that no float32 copy of the
+    whole (B, S, V) logits is held: the forward keeps the logits as given
+    (bf16 in training) and each row's log-partition, and the backward
+    recomputes each chunk's softmax in float32 and writes its gradient in
+    the logits' dtype. With one chunk it does the ops autograd does on the
+    plain formula (float32 copy, logsumexp, gather; their gradients
+    exp(l - logz)·w and the gold column's -w, summed, then cast), so the
+    values are the same bit for bit."""
+
+    @staticmethod
+    def _chunks(logits: torch.Tensor):
+        rows = logits.reshape(-1, logits.shape[-1])
+        step = max(1, CE_CHUNK_BYTES // (4 * rows.shape[-1]))
+        return rows, [(i, min(i + step, len(rows)))
+                      for i in range(0, len(rows), step)]
+
+    @staticmethod
+    def _float(chunk: torch.Tensor, vocab_size: int) -> torch.Tensor:
+        pad = torch.arange(chunk.shape[-1], device=chunk.device) >= vocab_size
+        return chunk.float().masked_fill(pad, -1e30)
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size):
+        labels = labels.long()
+        rows, spans = _CrossEntropy._chunks(logits)
+        flat = labels.reshape(-1)
+        logz = torch.empty(len(rows), dtype=torch.float32,
+                           device=logits.device)
+        gold = torch.empty_like(logz)
+        for a, b in spans:
+            lf = _CrossEntropy._float(rows[a:b], vocab_size)
+            logz[a:b] = torch.logsumexp(lf, dim=-1)
+            gold[a:b] = torch.gather(lf, -1, flat[a:b].clamp(min=0)[:, None]
+                                     )[:, 0]
+            del lf
+        valid = (labels >= 0).float()
+        count = valid.sum().clamp(min=1.0)
+        loss = ((logz.reshape(labels.shape) - gold.reshape(labels.shape))
+                * valid).sum() / count
+        ctx.save_for_backward(logits, labels, logz, count)
+        ctx.vocab_size = vocab_size
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, logz, count = ctx.saved_tensors
+        rows, spans = _CrossEntropy._chunks(logits)
+        flat = labels.reshape(-1)
+        # d loss / d (logz - gold) a row, as autograd forms it
+        w = (g / count) * (flat >= 0).float()
+        grad = torch.empty_like(rows)
+        for a, b in spans:
+            lf = _CrossEntropy._float(rows[a:b], ctx.vocab_size)
+            d = w[a:b, None] * torch.exp(lf - logz[a:b, None])
+            del lf
+            d = d + torch.zeros_like(d).scatter_add_(
+                -1, flat[a:b].clamp(min=0)[:, None], -w[a:b, None])
+            pad = torch.arange(d.shape[-1], device=d.device) \
+                >= ctx.vocab_size
+            grad[a:b] = d.masked_fill_(pad, 0)
+        return grad.reshape(logits.shape), None, None
 
 
 # ================================================================= decode
@@ -440,28 +518,33 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
     if params.pairs is not None:
         ml, sl = state["mlstm"], state["slstm"]
         for i, pair in enumerate(params.pairs):
-            h, new = ssm_mod.mlstm_step(pair.mlstm, rmsnorm(pair.ln1, x, eps),
-                                        {k: v[i] for k, v in ml.items()}, cfg)
-            _store(ml, (i,), new)
-            x = x + h
-            h, new = ssm_mod.slstm_step(pair.slstm, rmsnorm(pair.ln2, x, eps),
-                                        {k: v[i] for k, v in sl.items()}, cfg)
-            _store(sl, (i,), new)
-            x = x + h
+            with gathered(pair):
+                h, new = ssm_mod.mlstm_step(
+                    pair.mlstm, rmsnorm(pair.ln1, x, eps),
+                    {k: v[i] for k, v in ml.items()}, cfg)
+                _store(ml, (i,), new)
+                x = x + h
+                h, new = ssm_mod.slstm_step(
+                    pair.slstm, rmsnorm(pair.ln2, x, eps),
+                    {k: v[i] for k, v in sl.items()}, cfg)
+                _store(sl, (i,), new)
+                x = x + h
     elif params.mamba_groups is not None:
         mam, shared = state["mamba"], params.shared_attn
         for g, group in enumerate(params.mamba_groups):
-            for j, layer in enumerate(group):
-                h, new = ssm_mod.mamba2_step(
-                    layer.mamba, rmsnorm(layer.ln, x, eps),
-                    {k: v[g, j] for k, v in mam.items()}, cfg)
-                _store(mam, (g, j), new)
-                x = x + h
-            x = attend(shared.attn, shared.ln, x, g)
+            with gathered(group, shared):
+                for j, layer in enumerate(group):
+                    h, new = ssm_mod.mamba2_step(
+                        layer.mamba, rmsnorm(layer.ln, x, eps),
+                        {k: v[g, j] for k, v in mam.items()}, cfg)
+                    _store(mam, (g, j), new)
+                    x = x + h
+                x = attend(shared.attn, shared.ln, x, g)
     else:
         for i, blk in enumerate(params.blocks):
-            x = attend(blk.attn, blk.ln1, x, i)
-            x = x + _ffn(blk, x, cfg)[0]
+            with gathered(blk):
+                x = attend(blk.attn, blk.ln1, x, i)
+                x = x + _ffn(blk, x, cfg)[0]
     return _logits(params, cfg, x), {**state, "pos": pos + 1}
 
 
@@ -498,28 +581,33 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
 
     if params.pairs is not None:
         for i, pair in enumerate(params.pairs):
-            h, new = ssm_mod.mlstm_forward(
-                pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg, return_state=True)
-            _store(state["mlstm"], (i,), new)
-            x = x + h
-            h, new = ssm_mod.slstm_forward(
-                pair.slstm, rmsnorm(pair.ln2, x, eps), cfg, return_state=True)
-            _store(state["slstm"], (i,), new)
-            x = x + h
+            with gathered(pair):
+                h, new = ssm_mod.mlstm_forward(
+                    pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg,
+                    return_state=True)
+                _store(state["mlstm"], (i,), new)
+                x = x + h
+                h, new = ssm_mod.slstm_forward(
+                    pair.slstm, rmsnorm(pair.ln2, x, eps), cfg,
+                    return_state=True)
+                _store(state["slstm"], (i,), new)
+                x = x + h
     elif params.mamba_groups is not None:
         shared = params.shared_attn
         for g, group in enumerate(params.mamba_groups):
-            for j, layer in enumerate(group):
-                h, new = ssm_mod.mamba2_forward(
-                    layer.mamba, rmsnorm(layer.ln, x, eps), cfg,
-                    return_state=True)
-                _store(state["mamba"], (g, j), new)
-                x = x + h
-            x = attend(shared.attn, shared.ln, x, g)
+            with gathered(group, shared):
+                for j, layer in enumerate(group):
+                    h, new = ssm_mod.mamba2_forward(
+                        layer.mamba, rmsnorm(layer.ln, x, eps), cfg,
+                        return_state=True)
+                    _store(state["mamba"], (g, j), new)
+                    x = x + h
+                x = attend(shared.attn, shared.ln, x, g)
     else:
         for i, blk in enumerate(params.blocks):
-            x = attend(blk.attn, blk.ln1, x, i)
-            x = x + _ffn(blk, x, cfg)[0]
+            with gathered(blk):
+                x = attend(blk.attn, blk.ln1, x, i)
+                x = x + _ffn(blk, x, cfg)[0]
     state["pos"] = s
     if last_only:
         x = x[:, -1:]

@@ -7,8 +7,32 @@ expert's routes (no dynamic shapes); routes past the capacity are
 dropped (GShard-style). The
 expert SwiGLU is then batched products over (C, E, cap, D) x (E, D, F).
 `cfg.moe_dispatch_chunks` > 1 keeps chunk-local buffers, capacity
-enforced per chunk, as in the JAX package. Its manual-SPMD mode
-(`_moe_shard_map`, a mesh of devices) is not ported (ROADMAP.md A6).
+enforced per chunk, as in the JAX package.
+
+Under a mesh (`sharding_rules` with a DeviceMesh installed, as the sharded
+train step installs it) each rank runs its own rows (`rows_split()`: its
+share of the batch over the data axes, or the whole batch), with the
+expert weights gathered a block (`models/fsdp.py`), and the two modes of
+the JAX package:
+  * global dispatch (`moe_dispatch_chunks` >= 0; `_moe_global`): the
+    single-device result over the global batch, as GSPMD partitions it.
+    Capacity and keep come from the global chunk's token count; a route's
+    position is its rank's local position plus the routes to the same
+    (chunk, expert) on the earlier data ranks (an all-gather of the (C, E)
+    counts; a rank's tokens are a contiguous run of the global order, so
+    its pieces are whole chunks or a part of one). The rank's buffer holds
+    only its own routes: min(cap, its tokens in the chunk) slots;
+  * manual SPMD (-1; `_moe_slabs`, JAX's `_moe_shard_map`): a slab a
+    device, each with its own capacity from its own token count, by JAX's
+    shape rules (seq over "model" when it divides and S > 1, else batch
+    over data + model when that divides, else no batch split where the
+    batch does not split over data). The ranks of a model axis hold the
+    same rows here, so each rank runs every slab of its rows as a chunk
+    (the model axis repeats the compute, as in the rest of the port's
+    step). Without a mesh -1 is one chunk, as in JAX.
+The aux loss a rank returns under a mesh is its share: the shares of the
+data ranks add up to the global aux (global dispatch: E · Σ_e f_e · Σ_local
+p_e / T, from the global counts; manual SPMD: the mean over the slabs).
 
 Routing (`moe_routing`) is integer work that must equal the JAX
 package's bit for bit:
@@ -33,6 +57,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _frozen, _init_linear, dense_init
+from repro_torch.models.sharding_ctx import (
+    axis_sizes,
+    current_mesh,
+    data_rank,
+    gather_over_data,
+    rows_split,
+)
 
 
 class MoE(nn.Module):
@@ -108,30 +139,56 @@ def moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_with_aux(params: MoE, x: torch.Tensor, cfg: ModelConfig
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), the Switch load-balance loss
-    E * mean over chunks of sum_e f_e * P_e, float32)."""
+    E * mean over chunks of sum_e f_e * P_e, float32; under a mesh this
+    rank's share of it, see the module note)."""
+    mesh = current_mesh()
+    if mesh is not None and hasattr(mesh, "get_group"):
+        if cfg.moe_dispatch_chunks == -1:
+            return _moe_slabs(params, x, cfg, mesh)
+        return _moe_global(params, x, cfg, mesh)
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.num_experts, cfg.experts_per_token
     chunks = cfg.moe_dispatch_chunks
     if chunks <= 1 or t % chunks:
         chunks = 1
-    tc = t // chunks
+    out, aux = _chunked(params, x.reshape(chunks, t // chunks, d), cfg)
+    return out.reshape(b, s, d), aux
+
+
+def _chunked(params: MoE, xt: torch.Tensor, cfg: ModelConfig
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, Tc, D) chunks, each with its own capacity: (out (C, Tc, D),
+    E * mean over chunks of sum_e f_e * P_e)."""
+    c, tc, _ = xt.shape
     cap = capacity(cfg, tc)
-    dt = x.dtype
-
-    xt = x.reshape(chunks, tc, d)
-    r = moe_routing(F.linear(xt.float(), params.router.weight.float()), k,
-                    cap)
+    r = _route(params, xt, cfg, cap)
     f_e = r["counts"].float() / tc                            # (C, E)
-    aux = e * torch.mean(torch.sum(f_e * r["probs"].mean(1), dim=-1))
+    aux = cfg.num_experts * torch.mean(
+        torch.sum(f_e * r["probs"].mean(1), dim=-1))
+    return _experts(params, xt, r, r["pos"], r["keep"], cap), aux.float()
 
-    expert = r["top_e"].reshape(chunks, tc * k)
-    pos, keep = r["pos"].long(), r["keep"]
-    slot = torch.clamp(pos, max=cap - 1)
-    cidx = torch.arange(chunks, device=x.device)[:, None].expand(-1, tc * k)
+
+def _route(params: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int
+           ) -> dict:
+    logits = F.linear(xt.float(), params.router.weight.float())
+    return moe_routing(logits, cfg.experts_per_token, cap)
+
+
+def _experts(params: MoE, xt: torch.Tensor, r: dict, pos: torch.Tensor,
+             keep: torch.Tensor, slots: int) -> torch.Tensor:
+    """The routes of (C, T, D) tokens through (C, E + 1, slots, D)
+    buffers at `pos` (each route's slot; dropped routes go to row E),
+    the batched expert SwiGLU and the weighted combine: (C, T, D)."""
+    chunks, t, d = xt.shape
+    e = params.w_gate.shape[0]
+    k = r["top_e"].shape[-1]
+    dt = xt.dtype
+    expert = r["top_e"].reshape(chunks, t * k)
+    slot = torch.clamp(pos.long(), max=slots - 1)
+    cidx = torch.arange(chunks, device=xt.device)[:, None].expand(-1, t * k)
     row = torch.where(keep, expert, e)                        # drop -> row E
-    src = torch.repeat_interleave(xt, k, dim=1)               # (C, Tc*k, D)
-    buf = torch.zeros((chunks, e + 1, cap, d), dtype=dt, device=x.device
+    src = torch.repeat_interleave(xt, k, dim=1)               # (C, T*k, D)
+    buf = torch.zeros((chunks, e + 1, slots, d), dtype=dt, device=xt.device
                       ).index_put((cidx, row, slot), src)[:, :e]
 
     h = F.silu(torch.einsum("cend,edf->cenf", buf, params.w_gate.to(dt)))
@@ -141,6 +198,83 @@ def moe_with_aux(params: MoE, x: torch.Tensor, cfg: ModelConfig
     # gather back and combine; dropped routes contribute zero
     gathered = out_buf[cidx, expert, slot]
     gathered = torch.where(keep[..., None], gathered, 0)
-    weights = r["top_p"].reshape(chunks, tc * k).to(dt)
-    comb = (gathered * weights[..., None]).reshape(chunks, tc, k, d).sum(2)
-    return comb.reshape(b, s, d), aux.float()
+    weights = r["top_p"].reshape(chunks, t * k).to(dt)
+    return (gathered * weights[..., None]).reshape(chunks, t, k, d).sum(2)
+
+
+def _moe_global(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global dispatch on this rank's rows: the single-device result over
+    the global batch (see the module note); returns (out, aux share)."""
+    b, s, d = x.shape
+    n, rank = data_rank(mesh)
+    split = rows_split()
+    if not split:           # every rank routes the whole batch
+        n_all, n, rank = n, 1, 0
+    t_all = b * s * n
+    chunks = cfg.moe_dispatch_chunks
+    if chunks <= 1 or t_all % chunks:
+        chunks = 1
+    tc = t_all // chunks
+    cap = capacity(cfg, tc)
+    if chunks % n == 0:     # whole chunks a rank
+        pieces, t, per_chunk = chunks // n, tc, 1
+    elif n % chunks == 0:   # a chunk over `per_chunk` ranks
+        pieces, t, per_chunk = 1, b * s, n // chunks
+    else:
+        raise ValueError(f"{chunks} MoE dispatch chunks neither split over "
+                         f"nor gather {n} data shards")
+    xt = x.reshape(pieces, t, d)
+    r = _route(params, xt, cfg, cap)
+    local, counts, keep, slots = r["pos"], r["counts"], r["keep"], cap
+    if per_chunk > 1:
+        peers = gather_over_data(counts, mesh)                # (n, 1, E)
+        first = rank - rank % per_chunk
+        prefix = peers[first:rank].sum(0)                     # (1, E)
+        counts = peers[first:first + per_chunk].sum(0)
+        expert = r["top_e"].reshape(1, -1)
+        r["pos"] = r["pos"] + torch.gather(prefix, 1, expert).to(
+            r["pos"].dtype)
+        keep = r["keep"] = r["pos"] < cap
+        # the buffer holds this rank's routes only, at their local rank
+        slots = min(cap, t)
+    f_e = counts.float() / tc
+    # this rank's share: its tokens' probabilities over the chunk's tokens
+    # (factors of exactly 1 on one rank: the single-device arithmetic)
+    aux = cfg.num_experts * torch.mean(torch.sum(
+        f_e * (r["probs"].mean(1) * (t / tc)), dim=-1)) * (pieces / chunks)
+    if not split:
+        aux = aux / n_all
+    out = _experts(params, xt, r, local, keep, slots)
+    return out.reshape(b, s, d), aux.float()
+
+
+def slab_shape(b: int, s: int, mesh) -> tuple[int, int]:
+    """(rows, positions) of one device's token slab of a global (b, s)
+    batch under JAX's `_moe_shard_map` shape rules
+    (`src/repro/models/moe.py:208-214`)."""
+    sizes = axis_sizes(mesh)
+    n = data_rank(mesh)[0]
+    model_n = sizes.get("model", 1)
+    rows = b // n if b % n == 0 else b      # no batch split otherwise
+    if "model" in sizes and s % model_n == 0 and s > 1:
+        return rows, s // model_n
+    if "model" in sizes and b % (n * model_n) == 0:
+        return b // (n * model_n), s
+    return rows, s
+
+
+def _moe_slabs(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's `_moe_shard_map` on this rank's rows: each slab of them a
+    chunk with its own capacity; returns (out, aux share: the mean over
+    the slabs divided among the data shards)."""
+    b, s, d = x.shape
+    n = data_rank(mesh)[0]
+    bl, sl = slab_shape(b * n if rows_split() else b, s, mesh)
+    nb, ns = b // bl, s // sl
+    slabs = x.reshape(nb, bl, ns, sl, d).transpose(1, 2).reshape(
+        nb * ns, bl * sl, d)
+    out, aux = _chunked(params, slabs, cfg)
+    out = out.reshape(nb, ns, bl, sl, d).transpose(1, 2).reshape(b, s, d)
+    return out, aux / n

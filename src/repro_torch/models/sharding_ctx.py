@@ -17,7 +17,12 @@ sharded step), so no DTensor reaches a hand-written kernel.
 
 `local_shard`, `distribute`, `set_parameter` and `local_batch` put a full
 tensor on a mesh: a rank's slice of it is cut locally, with no
-collective. `data_groups` gives the process groups of the data axes.
+collective. `data_groups` gives the process groups of the data axes,
+`data_rank` a rank's place among the data shards and `gather_over_data`
+an all-gather over them in that order. Within `sharding_rules` the
+activations' rows are this rank's share of the batch, split over the data
+axes as `local_batch` splits it (`split_rows=True`), or the whole batch on
+every rank (`rows_split()` says which; `models/moe.py` reads it).
 
 A mesh is anything with axis names and sizes: a
 `torch.distributed.device_mesh.DeviceMesh` (`mesh_dim_names`) or the
@@ -31,10 +36,17 @@ import threading
 from contextlib import contextmanager
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 _state = threading.local()
+# torch 2.13 renames the tensor collectives; older releases have only the
+# old names (same signatures)
+all_gather_tensor = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+reduce_scatter_tensor = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 # logical axis -> mesh axis (or tuple of mesh axes, or None); the JAX
 # package's table (its comments give each choice's reason). Param axes
@@ -100,19 +112,40 @@ def current_mesh():
     return getattr(_state, "mesh", None)
 
 
+def rows_split() -> bool:
+    """Whether the activations' rows are this rank's share of the batch
+    (split over the data axes) rather than the whole batch."""
+    return getattr(_state, "split_rows", True)
+
+
+def snapshot() -> tuple:
+    """This thread's installed (rules, mesh, split_rows), for `restored`."""
+    return (getattr(_state, "rules", None), getattr(_state, "mesh", None),
+            getattr(_state, "split_rows", True))
+
+
 @contextmanager
-def sharding_rules(mesh, rules: dict | None = None):
-    """Install mesh + logical rules for constrain() within the block."""
-    merged = dict(DEFAULT_RULES)
-    if rules:
-        merged.update(rules)
-    prev_rules = getattr(_state, "rules", None)
-    prev_mesh = getattr(_state, "mesh", None)
-    _state.rules, _state.mesh = filter_rules(merged, mesh), mesh
+def restored(snap: tuple):
+    """Install a `snapshot` on this thread within the block: a remat
+    recompute runs where the autograd engine runs it, on its device thread
+    for CUDA tensors, where the forward's rules are not installed."""
+    prev = snapshot()
+    _state.rules, _state.mesh, _state.split_rows = snap
     try:
         yield
     finally:
-        _state.rules, _state.mesh = prev_rules, prev_mesh
+        _state.rules, _state.mesh, _state.split_rows = prev
+
+
+def sharding_rules(mesh, rules: dict | None = None, *,
+                   split_rows: bool = True):
+    """Install mesh + logical rules for constrain() within the block;
+    `split_rows`: the rows each rank runs are its share of the batch over
+    the data axes (False: the whole batch on every rank)."""
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    return restored((filter_rules(merged, mesh), mesh, split_rows))
 
 
 def logical_to_spec(names: tuple[str | None, ...],
@@ -258,6 +291,32 @@ def local_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
         micro = v.reshape(grad_accum, -1, *v.shape[1:])
         out[k] = local_shard(micro, mesh, placements, coord).reshape(
             -1, *v.shape[1:])
+    return out
+
+
+def data_rank(mesh) -> tuple[int, int]:
+    """(the number of data shards, this rank's index among them) in the
+    "batch" rule's order: major to minor over ("pod", "data"), as
+    `local_batch` deals the rows."""
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    n, r = 1, 0
+    for a in ("pod", "data"):
+        if a in sizes:
+            n, r = n * sizes[a], r * sizes[a] + coord[a]
+    return n, r
+
+
+def gather_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
+    """(data shards, *t.shape): every data shard's `t`, in `data_rank`
+    order (over "data", then over "pod")."""
+    sizes = axis_sizes(mesh)
+    out = t[None].contiguous()
+    for a in ("data", "pod"):
+        if a in sizes and sizes[a] > 1:
+            buf = out.new_empty((sizes[a] * out.shape[0], *t.shape))
+            all_gather_tensor(buf, out, group=mesh.get_group(a))
+            out = buf
     return out
 
 

@@ -14,8 +14,8 @@ replicated. As in JAX, loss and gradients are the mean of the ranks'
 per-slice means. This is the pattern for DCN-limited multi-pod gradient
 sync (the `pod` axis of the production mesh).
 
-`make_sharded_train_step`: see its docstring. Both steps sum over the
-data axes with `sum_over_data`.
+`make_sharded_train_step`: see its docstring; it gathers a unit at a
+time and reduce-scatters the gradients (`models/fsdp.py`).
 
 Correctness: tests/test_torch_dp_step.py holds the exact twin and the
 sharded step to the single-device step and the compressed step's loss to
@@ -26,21 +26,16 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.fsdp import ShardedParams
 from repro_torch.models.sharding_ctx import (
     data_groups,
     local_batch,
-    local_shard,
-    set_parameter,
+    sharding_rules,
 )
 from repro_torch.training.compression import compressed_psum
-from repro_torch.training.optimizer import (
-    OptimizerConfig,
-    adamw_update,
-    global_norm,
-)
+from repro_torch.training.optimizer import OptimizerConfig, adamw_update
 from repro_torch.training.train_loop import TrainState, loss_and_grads
 
 
@@ -90,25 +85,30 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
     .shard_train_state`). Returns fn(state, global batch) -> (state,
     metrics): the single-device step's metrics over the global batch.
 
-    Each step all-gathers every parameter into the model as a plain
-    tensor, runs `loss_and_grads` on the rank's rows of each microbatch
-    (`local_batch`), all-reduces the gradients over the data axes, takes
-    the global norm from the full gradients and updates each local shard.
-    Each rank's loss is weighted by its share of its microbatch's valid
-    labels (the counts all-reduced first), so loss and gradients are one
-    mean over the global microbatch's valid labels, as JAX's jitted step
-    takes it, also when ranks hold unequal numbers of masked labels.
-    (The MoE aux loss has no such split; MoE is refused under a mesh.)
+    The model runs on the rank's rows of each microbatch (`local_batch`)
+    within `models/fsdp.py`'s `ShardedParams` and `sharding_rules(mesh)`:
+    each remat unit, the embedding and the head gather their parameters
+    in float32 as the forward (and a remat recompute) reaches them, and
+    their backward reduce-scatters each gradient over the data axes onto
+    this rank's shard (all-reduces a parameter replicated over them),
+    where the microbatches' gradients accumulate in float32. The global
+    norm comes from the shards (`ShardedParams.global_norm`), and AdamW
+    updates each local shard. Each rank's cross-entropy is weighted by
+    its share of its microbatch's valid labels (the counts all-reduced
+    first), so loss and gradients are one mean over the global
+    microbatch's valid labels, as JAX's jitted step takes it, also when
+    ranks hold unequal numbers of masked labels; a MoE block's aux loss
+    is already the rank's share of the global one (`models/moe.py`, both
+    dispatch modes).
 
-    Cost: between steps a rank holds its shards only, but within a step
-    it holds the full float32 parameters and the full float32 gradients
-    besides, whatever the mesh's size; so a config whose float32
-    parameters and gradients do not fit on one device does not train
-    here. All-reducing full gradients moves about twice the bytes a
-    reduce-scatter onto the local shards would (ROADMAP A9 queues both
-    fixes). The ranks of a model axis repeat the same compute."""
+    Cost: a rank holds its shards, one unit's gathered parameters and
+    gradients at a time (two units' while a backward overlaps the next
+    gather), and its activations; each parameter is gathered once a
+    forward (again in a remat recompute or an unpacked saved weight) and
+    its gradient reduce-scattered once a microbatch. The ranks of a model
+    axis repeat the same compute (ROADMAP A9.4). On a mesh whose every
+    axis has size 1 the step is the single-device step, op for op."""
     groups, _ = data_groups(mesh)
-    coord = mesh.get_coordinate()
 
     def step(state: TrainState, batch: dict):
         model, opt_state = state
@@ -121,30 +121,20 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
         for group in groups:
             dist.all_reduce(total, group=group)
         weights = valid / total.clamp(min=1.0)
-        with torch.no_grad():
-            full = {n: nn.Parameter(p.full_tensor(), requires_grad=True)
-                    for n, p in shards.items()}
-        for n, p in full.items():
-            set_parameter(model, n, p)
-        try:
-            loss, metrics, grads = loss_and_grads(model, cfg, local,
-                                                  grad_accum, weights)
-        finally:
-            for n, p in shards.items():
-                set_parameter(model, n, p)
-        del full
-        grads, scalars = sum_over_data(
-            grads, torch.stack([loss, *metrics.values()]), groups)
-        gnorm = global_norm(grads.values())
-        local_grads = {
-            n: local_shard(g, mesh, shards[n].placements, coord)
-            for n, g in grads.items()}
+        sharded = ShardedParams(model, mesh)
+        with sharded, sharding_rules(mesh):
+            loss, metrics, grads = loss_and_grads(
+                model, cfg, local, grad_accum, weights, sharded.leaves)
+        scalars = torch.stack([loss, *metrics.values()])
+        for group in groups:
+            dist.all_reduce(scalars, group=group)
+        gnorm = sharded.global_norm(grads)
         moments = {k: {n: t.to_local() for n, t in opt_state[k].items()}
                    for k in ("m", "v")}
         _, new, opt_metrics = adamw_update(
-            opt, local_grads, {**moments, "step": opt_state["step"]},
+            opt, grads, {**moments, "step": opt_state["step"]},
             {n: p.to_local() for n, p in shards.items()}, grad_norm=gnorm)
-        del grads, local_grads
+        del grads, sharded
         metrics = (dict(zip(["loss", *metrics], scalars.unbind()))
                    | opt_metrics)
         return (TrainState(model, {"m": opt_state["m"], "v": opt_state["v"],

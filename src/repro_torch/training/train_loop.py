@@ -22,7 +22,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import named_from_jax, params_from_jax
-from repro_torch.models.model import loss_fn
+from repro_torch.models.model import AUX_LOSS_WEIGHT, loss_fn
 from repro_torch.training.optimizer import (
     OptimizerConfig,
     adamw_init,
@@ -67,30 +67,36 @@ def train_state_from_jax(state, cfg: ModelConfig, device=None) -> TrainState:
 
 
 def loss_and_grads(params: nn.Module, cfg: ModelConfig, batch: dict,
-                   grad_accum: int = 1, weights=None) -> tuple:
+                   grad_accum: int = 1, weights=None, leaves=None) -> tuple:
     """(loss, the last microbatch's metrics, {name: gradient}) averaged
     over `grad_accum` microbatches of the batch's leading dimension, in
-    order (it must divide). The gradients are the parameters' `.grad`.
-    `weights` (one scalar a microbatch) scales each microbatch's loss,
-    gradients and metrics before the average: the sharded step's share of
-    the global mean."""
+    order (it must divide). The gradients are the `.grad` of `leaves`
+    ({name: tensor}; None: the parameters). `weights` (one scalar a
+    microbatch) scales each microbatch's cross-entropy, and so its
+    gradients and metric, before the average: the sharded step's share of
+    the global mean. The aux loss is not scaled: under a mesh it already
+    is this rank's share (`models/moe.py`)."""
     n = len(batch["labels"])
     if n % grad_accum:
         raise ValueError(f"batch {n} is not a multiple of grad_accum "
                          f"{grad_accum}")
     mb = n // grad_accum
-    params.zero_grad(set_to_none=True)
+    if leaves is None:
+        leaves = dict(params.named_parameters())
+    for t in leaves.values():
+        t.grad = None
     loss_sum = None
     for i in range(grad_accum):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss, metrics = loss_fn(params, cfg, micro)
         if weights is not None:
-            loss = loss * weights[i]
-            metrics = {k: v * weights[i] for k, v in metrics.items()}
+            ce = metrics["ce"] * weights[i]
+            loss = ce + AUX_LOSS_WEIGHT * metrics["aux"]
+            metrics = {"ce": ce, "aux": metrics["aux"]}
         loss.backward()
         loss = loss.detach()
         loss_sum = loss if loss_sum is None else loss_sum + loss
-    grads = {name: p.grad for name, p in params.named_parameters()}
+    grads = {name: t.grad for name, t in leaves.items()}
     if grad_accum > 1:
         for g in grads.values():
             g.div_(grad_accum)

@@ -25,8 +25,9 @@ the module):
     restored onto 2 x 2, exact, and read by the JAX package;
   * the launcher under `torchrun --nproc-per-node 4 --device cpu --mesh
     debug`, with a checkpoint and a resume;
-  * `--mesh` refusals: a MoE architecture, and a mesh without a process
-    group of its size (in this process).
+  * the `--mesh` refusal of a mesh without a process group of its size
+    (in this process); MoE architectures train under `--mesh`
+    (`tests/test_torch_moe_mesh.py`).
 Each multi-process run has a timeout and a 90 s collective timeout.
 """
 
@@ -548,13 +549,6 @@ def _args(**kw):
                 device="cpu")
     base.update(kw)
     return argparse.Namespace(**base)
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m"])
-def test_mesh_refuses_moe(arch):
-    from repro_torch.launch import train as ltrain
-    with pytest.raises(NotImplementedError, match="A6.*|_moe_shard_map"):
-        ltrain.run(_args(arch=arch))
 
 
 @pytest.mark.parametrize("mesh, multi_pod, size", [

@@ -8,8 +8,9 @@
   `NamedSharding.shard_shape` bytes over JAX's sanitised train-state and
   batch shardings at the same `AbstractMesh`, for stablelm-1.6b,
   zamba2-2.7b and xlstm-125m.
-* One full-width cell runs to "ok" (stablelm-1.6b train_4k, single-pod),
-  and a MoE train cell is recorded "unsupported".
+* Full-width cells run to "ok": stablelm-1.6b and olmoe-1b-7b train_4k
+  (single-pod), the MoE cell also with `--opt moe_local` (a slab a
+  device, JAX's `_moe_shard_map`).
 * `abstract_core`: JAX's field for field, shape and dtype, for every
   variant, dataset and mesh, with the shard count and per-shard capacity.
   JAX's `abstract_core` builds its `MutationState` without the `labels`
@@ -23,6 +24,7 @@ are imported only after `jax.devices()` has started the backend, where the
 flag has no effect.
 """
 
+import json
 import math
 import os
 
@@ -142,15 +144,17 @@ def test_train_argument_bytes_equal_jax_shard_shapes(name, production_mesh):
 
 
 def test_a_full_width_cell_runs_and_moe_training_is_unsupported(tmp_path):
-    """stablelm-1.6b train_4k at the single-pod mesh runs to "ok" with
-    the record's keys and JAX's argument bytes; olmoe's train cell is
-    refused as `launch/train.py --mesh` refuses it."""
+    """stablelm-1.6b and olmoe-1b-7b train_4k at the single-pod mesh run
+    to "ok" with the record's keys and JAX's argument bytes for stablelm:
+    the parameters gathered a unit at a time and the gradients
+    reduce-scattered (`models/fsdp.py`). (MoE training was refused under a
+    mesh before `_moe_shard_map` and the global dispatch were ported; the
+    test keeps its name.)"""
     recs = dryrun.run_cells(["stablelm-1.6b", "olmoe-1b-7b"], ["train_4k"],
                             multi_pod=False, out_dir=str(tmp_path))
     ok, moe = recs
     assert ok["status"] == "ok", ok.get("traceback")
-    assert moe["status"] == "unsupported" and "_moe_shard_map" in moe[
-        "reason"]
+    assert moe["status"] == "ok", moe.get("traceback")
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "olmoe-1b-7b__train_4k__singlepod.json",
         "stablelm-1.6b__train_4k__singlepod.json"]
@@ -160,29 +164,55 @@ def test_a_full_width_cell_runs_and_moe_training_is_unsupported(tmp_path):
         "stablelm-1.6b")
     assert mem["temp_bytes"] > 0
     assert ok["cost_per_device"]["flops"] > 0
-    coll = ok["collectives_per_device"]
-    # every parameter all-gathered, every gradient all-reduced
-    assert coll["all-gather"]["bytes"] > 0 and coll["all-reduce"]["bytes"] > 0
+    for rec in recs:
+        coll = rec["collectives_per_device"]
+        # every unit's parameters all-gathered (again in the recompute),
+        # every gradient reduce-scattered; only scalars all-reduced
+        assert coll["all-gather"]["bytes"] > 0
+        assert coll["reduce-scatter"]["bytes"] > 0
+        assert coll["all-reduce"]["bytes"] < 1e6
+    # float32 gathers: the blocks' parameters twice (the forward and the
+    # remat recompute), the embedding and the head once; a parameter split
+    # over both axes is gathered over "model" first (a sixteenth more)
+    n = ok["n_params"]
+    assert 6 * n <= ok["collectives_per_device"]["all-gather"]["bytes"] \
+        <= 9 * n
     kernels = ok["kernels_per_device"]
     layers = get_config("stablelm-1.6b").num_layers
     assert kernels["flash_attention_bwd"]["calls"] == layers
+    assert moe["kernels_per_device"]["flash_attention_bwd"]["calls"] == \
+        get_config("olmoe-1b-7b").num_layers
     assert ok["roofline"]["dominant"] in ("compute_s", "memory_s",
                                           "collective_s")
     assert 0 < ok["model_vs_hlo_flops"] < 1
     # the report reads the port's records: its wall time in the compile
-    # column, the refusal as UNSUPPORTED
+    # column
     table = report.dryrun_table(
         report._load(os.path.join(tmp_path, "*.json")), "singlepod")
     assert "| stablelm-1.6b | train_4k | ok | " in table
     assert f"| {ok['run_s']}s | ag:" in table
-    assert "| olmoe-1b-7b | train_4k | UNSUPPORTED (" in table
+    assert "| olmoe-1b-7b | train_4k | ok | " in table
+
+
+def test_moe_local_runs(tmp_path, capsys):
+    """JAX's --opt moe_local (a MoE config's `moe_dispatch_chunks = -1`: a
+    slab a device) runs through the CLI: olmoe's train_4k cell at the
+    single-pod mesh, recorded with the switch; a dense config is
+    unchanged by it."""
+    dryrun.main(["--opt", "moe_local", "--arch", "olmoe-1b-7b", "--shape",
+                 "train_4k", "--out", str(tmp_path)])
+    assert "1 ok, 0 skipped, 0 unsupported, 0 errors" in \
+        capsys.readouterr().out
+    with open(tmp_path / "olmoe-1b-7b__train_4k__singlepod.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["opts"] == ["moe_local"]
+    assert rec["collectives_per_device"]["reduce-scatter"]["bytes"] > 0
 
 
 @pytest.mark.parametrize("opt", sorted(dryrun.UNSUPPORTED_OPTS))
 def test_switches_the_port_lacks_are_refused(opt, capsys):
-    """JAX's --opt moe_local and no_sp have no mechanism in the port: the
-    CLI refuses them with the reason before any cell runs, and so does
-    `dry_run_cell`."""
+    """JAX's --opt no_sp has no mechanism in the port: the CLI refuses it
+    with the reason before any cell runs, and so does `dry_run_cell`."""
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--opt", opt, "--arch", "stablelm-1.6b"])
     assert e.value.code == 2
