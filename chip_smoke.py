@@ -319,8 +319,22 @@ Phases:
                 MoE dispatch modes under the mesh (global, and -1: JAX's
                 `_moe_shard_map`, a slab a device), 3 steps each, against
                 one single-device run (-1 without a mesh is the one-chunk
-                dispatch): bit-equal. The group is destroyed after. Prints
-                one `{"training_families": ...}` JSON line.
+                dispatch): bit-equal. The group is destroyed after. (d)
+                and (e) run no tensor-parallel split: at a model axis of
+                size 1 there is none. (f) #11 and #12 at the shapes a rank
+                of the 16 x 16 train_4k step gives them under the model
+                axis' split (`models/tensor_parallel.py`; TP_FLASH): the
+                heads path's stablelm-1.6b (16, 4,096, 2/2, 64) causal and
+                hubert-xlarge (16, 4,096, 1/1, 80) bidirectional, and
+                chameleon-34b's context-parallel fallback, 256 queries of
+                64/8 heads at Dh 128 against 4,096 gathered keys at
+                q_offset 3,840 and 0: each against its plain version at
+                B=1 in float32 and bf16, then timed at B=16 beside the
+                plain versions, SDPA (the same mask) and the bound. The
+                ranks such a split needs cannot share the one card (NCCL
+                puts no two ranks on a device), so the cross-rank step is
+                held on the CPU (`tests/test_torch_tensor_parallel.py`).
+                Prints one `{"training_families": ...}` JSON line.
  16. roofline shares — each run once eagerly under
                 `roofline.op_analyzer.OpAnalyzer` (the ops' products and
                 bytes, each kernel function's `roofline.kernel_costs`
@@ -343,8 +357,9 @@ of its lane as `launches_host_tier` and a sharded search as
 `launches_sharded`; #10's launches a forward of each family as
 `launches_families` and its times at phase 14's shapes as
 `at_family_shapes`; #11's and #12's launches in phase 15 (b) by family as
-`launches_families`, added to `launches`, and their times at phase 15's
-shapes as `at_family_shapes`), the card's name and
+`launches_families`, added to `launches`, their times at phase 15's
+shapes as `at_family_shapes` and at (f)'s as `at_tp_local_shapes`), the
+card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
@@ -4716,6 +4731,19 @@ MESH_ARCH, MESH_BATCH, MESH_SEQ, MESH_STEPS = "stablelm-1.6b", 2, 2048, 2
 # phase 15 (e): a MoE family's sharded step in both dispatch modes
 MOE_MESH_ARCH, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_STEPS = (
     "granite-moe-1b-a400m", 2, 2048, 3)
+# phase 15 (f): #11 and #12 at the shapes a rank of the 16 x 16 train_4k
+# step gives them (`models/tensor_parallel.py`; 16 rows a rank): name, B,
+# Sq, Skv, H, Hk, Dh, causal, q_offset. On the heads path a rank runs h/16
+# q and hk/16 kv heads over the whole sequence; on chameleon-34b's
+# context-parallel fallback its 4,096/16 queries against the gathered K/V
+# from its slice's start (the last rank's, 3,840, sees the most keys; the
+# first's, 0, the fewest)
+TP_FLASH = (("stablelm-1.6b, heads", 16, 4096, 4096, 2, 2, 64, True, 0),
+            ("hubert-xlarge, heads", 16, 4096, 4096, 1, 1, 80, False, 0),
+            ("chameleon-34b, fallback, last rank", 16, 256, 4096, 64, 8, 128,
+             True, 3840),
+            ("chameleon-34b, fallback, first rank", 16, 256, 4096, 64, 8,
+             128, True, 0))
 
 
 def flash_at_family_training_shapes() -> tuple[list, list]:
@@ -4786,6 +4814,100 @@ def flash_at_family_training_shapes() -> tuple[list, list]:
                         bound_ms=b11, bound_by=by11, max_abs_err=err_f))
         bwd.append(dict(common, ms=ms12, plain_ms=plain12, library_ms=lib12,
                         bound_ms=b12, bound_by=by12, max_abs_err=err_b))
+        del q, k, v, do, o, lse, qh, kh, vh, oh, doh
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def _sdpa_mask(sq: int, skv: int, causal: bool, q_offset: int) -> dict:
+    """SDPA's arguments for the kernels' mask at `q_offset`: top-left
+    causal at 0, bottom-right (`causal_lower_right`) at Skv - Sq, else an
+    explicit boolean mask."""
+    if not causal:
+        return dict(is_causal=False)
+    if q_offset == 0:
+        return dict(is_causal=True)
+    if q_offset == skv - sq:
+        from torch.nn.attention.bias import causal_lower_right
+        return dict(attn_mask=causal_lower_right(sq, skv))
+    rows = torch.arange(sq, device="cuda")[:, None] + q_offset
+    return dict(attn_mask=torch.arange(skv, device="cuda")[None, :] <= rows)
+
+
+def flash_at_tp_local_shapes() -> tuple[list, list]:
+    """Phase 15 (f): #11 and #12 at TP_FLASH's shapes, held against their
+    plain versions at B=1 in float32 (FLASH_TOL / BWD_TOL)
+    and bf16 (phase 15's tolerances), then timed in bf16 at the rank's
+    B beside the plain versions, SDPA's forward and backward (`enable_gqa`,
+    the same mask) and the `kernel_costs` bounds. Returns (#11's records,
+    #12's records), one a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    from repro_torch.roofline import kernel_costs as kc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    fwd, bwd = [], []
+    for name, b, sq, skv, h, hk, dh, causal, off in TP_FLASH:
+        kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
+                  block_kv=1024)
+
+        def qkv(batch, dtype):
+            return [torch.randn((batch, n_s, n, dh), generator=gen,
+                                device="cuda").to(dtype)
+                    for n_s, n in ((sq, h), (skv, hk), (skv, hk))]
+        shape = (f"{name} (B, Sq, Skv, H/Hk, Dh) = (1, {sq}, {skv}, "
+                 f"{h}/{hk}, {dh}), q_offset {off}")
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(1, dt)
+            tag = str(dt).replace("torch.", "")
+            errs[f"o_{tag}"] = compare_flash(q, k, v, kw,
+                                             f"flash at {shape} {tag}")
+            errs[f"grad_{tag}"] = compare_flash_bwd(
+                q, k, v, kw, f"flash bwd at {shape} {tag}", gen)
+        q, k, v = qkv(b, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        ms11 = cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5)
+        plain11 = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, **kw),
+                          2)
+        ms12 = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   **kw), 5)
+        plain12 = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), 2)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = dict(_sdpa_mask(sq, skv, causal, off), enable_gqa=h != hk)
+        lib11 = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, **sdpa), 5)
+        oh = F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
+        doh = do.transpose(1, 2).contiguous()
+        lib12 = cuda_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), 5)
+        costs = dict(causal=causal, q_offset=off)
+        b11, by11 = kc.flash_attention_fwd(b, sq, skv, h, hk, dh,
+                                           **costs).bound()
+        b12, by12 = kc.flash_attention_bwd(b, sq, skv, h, hk, dh,
+                                           **costs).bound()
+        log(f"  (f) flash at the TP-local shape of {name} (B={b}, "
+            f"Sq={sq}, Skv={skv}, H={h}, Hk={hk}, Dh={dh}, "
+            f"{'causal' if causal else 'bidirectional'}, q_offset {off}) "
+            f"bf16: #11 {ms11:.4f} ms, plain {plain11:.3f} ms, SDPA "
+            f"{lib11:.4f} ms, bound {b11:.4f} ms ({by11}); #12 {ms12:.4f} "
+            f"ms, plain {plain12:.3f} ms, SDPA backward {lib12:.4f} ms, "
+            f"bound {b12:.4f} ms ({by12}); max |err| vs plain (B=1) "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        common = dict(arch=name, shape=[b, sq, skv, h, hk, dh],
+                      causal=causal, q_offset=off)
+        fwd.append(dict(common, ms=ms11, plain_ms=plain11, library_ms=lib11,
+                        bound_ms=b11, bound_by=by11,
+                        max_abs_err=errs["o_bfloat16"],
+                        max_abs_err_f32=errs["o_float32"]))
+        bwd.append(dict(common, ms=ms12, plain_ms=plain12, library_ms=lib12,
+                        bound_ms=b12, bound_by=by12,
+                        max_abs_err=errs["grad_bfloat16"],
+                        max_abs_err_f32=errs["grad_float32"]))
         del q, k, v, do, o, lse, qh, kh, vh, oh, doh
     torch.cuda.empty_cache()
     return fwd, bwd
@@ -5109,10 +5231,12 @@ def training_families() -> dict:
             modes=(0, -1))
     finally:
         dist.destroy_process_group()
+    tp_fwd, tp_bwd = flash_at_tp_local_shapes()
     launches = {k: sum(m["launches"][k] for m in models)
                 for k in ("flash_attention_fwd", "flash_attention_bwd")}
     out = {"flash_fwd": fwd, "flash_bwd": bwd, "models": models, "dp": dp,
            "mesh": mesh, "moe_mesh": moe_mesh, "launches": launches,
+           "tp_local": {"flash_fwd": tp_fwd, "flash_bwd": tp_bwd},
            "seconds": time.perf_counter() - t_phase}
     log(f"  phase 15: {out['seconds']:.1f} s; launches on (b)'s path: #11 "
         f"{launches['flash_attention_fwd']}, #12 "
@@ -5283,13 +5407,14 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
     tf = training_families()
     print(json.dumps({"training_families": tf}))
-    for name, shapes in (("flash_attention_fwd", tf["flash_fwd"]),
-                         ("flash_attention_bwd", tf["flash_bwd"])):
+    for name, key in (("flash_attention_fwd", "flash_fwd"),
+                      ("flash_attention_bwd", "flash_bwd")):
         rec = next(r for r in records if r["name"] == name)
         rec.update(launches=rec["launches"] + tf["launches"][name],
                    launches_families={m["arch"]: m["launches"][name]
                                       for m in tf["models"]},
-                   at_family_shapes=shapes)
+                   at_family_shapes=tf[key],
+                   at_tp_local_shapes=tf["tp_local"][key])
 
     check(set(ROOFLINE) == {"search", "train_step", "decode_step"},
           f"phase 16 measured {sorted(ROOFLINE)}")

@@ -12,13 +12,18 @@ For every runnable cell it runs the port's own step at full width:
     train      `training.dp_step.make_sharded_train_step` on the DTensor
                state at `launch/shardings.py`'s sanitised train-state
                shardings (float32 masters), the rank's rows of the global
-               batch;
+               batch; the attention-and-MLP families split their compute
+               over the model axis (`models/tensor_parallel.py`: heads or
+               the context-parallel fallback, ff and vocabulary columns, a
+               sequence-parallel residual unless `--opt no_sp`);
     prefill    the model on the parameter shardings' local shards,
     decode     gathered a unit at a time as the sharded train step
-               gathers them (`models/fsdp.py`; the port has no
-               tensor-parallel serving path: A9.4), on the rank's rows of
-               the batch (the whole batch where it does not split over the
-               data axes), in the serving storage (bf16 matrices);
+               gathers them (`models/fsdp.py`), on the rank's rows of the
+               batch (the whole batch where it does not split over the
+               data axes), in the serving storage (bf16 matrices): the
+               ranks of the model axis repeat the same compute (the port
+               has no tensor-parallel serving path yet: kv-head-sharded
+               prefill and JAX's split-KV decode are ROADMAP A9.4b);
 
 with `use_flash_kernel=True`, as the port's launchers run. Under
 `roofline/op_analyzer.py` the step's ops and each kernel function's
@@ -37,7 +42,10 @@ records alike:
     assignment, and not held to it.
 
 Within a step a rank holds its shards, a unit's gathered parameters and
-gradients and its activations (`dp_step.py`, ROADMAP A9.1). MoE cells run
+gradients and its activations (`dp_step.py`, ROADMAP A9.1, A9.4). The
+collectives are also split by dtype (`collectives_by_dtype_per_device`:
+float32 the parameters' gathers and gradients, bf16 the activations' over
+the model axis). MoE cells run
 in both of JAX's modes: global dispatch (the configs' default) and, with
 `--opt moe_local`, a slab a device (`moe_dispatch_chunks = -1`, JAX's
 `_moe_shard_map`; `models/moe.py`). A cell that raises
@@ -184,28 +192,22 @@ def _peak_bytes(tracker) -> int:
     return int(max((v.get("Total", 0) for v in snap.values()), default=0))
 
 
-# The JAX dry-run's switches with no mechanism behind them in the port.
-UNSUPPORTED_OPTS = {
-    "no_sp": "the port's models thread no activation sharding constraint, "
-             "so no residual is sequence-parallel to turn off (ROADMAP A9)",
-}
-
-
 def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                  grad_accum: int = 1, overrides: dict | None = None,
                  opts: tuple = ()) -> dict:
     """Run one cell's step on fake tensors; return the record.
 
-    opts — of the JAX dry-run's switches the port has "last_logit"
-    (prefill computes logits only for the final position) and "moe_local"
-    (a MoE config's `moe_dispatch_chunks = -1`: a slab a device); the
-    others raise (`UNSUPPORTED_OPTS`).
+    opts — the JAX dry-run's switches: "last_logit" (prefill computes
+    logits only for the final position), "moe_local" (a MoE config's
+    `moe_dispatch_chunks = -1`: a slab a device) and "no_sp" (the
+    residual stream whole on every rank of the model axis: "res_seq"
+    None, as `src/repro/launch/dryrun.py:85` sets it; the tensor-parallel
+    train step then opens and closes its regions with all-reduces).
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
-    for o in opts:
-        if o in UNSUPPORTED_OPTS:
-            raise ValueError(f"--opt {o}: {UNSUPPORTED_OPTS[o]}")
+    if "no_sp" in opts:
+        overrides = {**(overrides or {}), "res_seq": None}
     cfg = dataclasses.replace(cfg, use_flash_kernel=True)
     if "moe_local" in opts and cfg.family == "moe":
         cfg = dataclasses.replace(cfg, moe_dispatch_chunks=-1)
@@ -234,7 +236,8 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                                      overrides)
             arg_bytes += state_bytes
             # the step takes the global batch and keeps the rank's rows
-            step = make_sharded_train_step(cfg, opt, mesh, grad_accum)
+            step = make_sharded_train_step(cfg, opt, mesh, grad_accum,
+                                           overrides)
             with tracker, OpAnalyzer() as ana:
                 step(state, global_in)
             mflops = model_flops(_active_params(cfg, n_params), b * s,
@@ -281,6 +284,7 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     result["cost_per_device"] = {"flops": flops, "bytes_accessed": byts,
                                  "flops_f32": counts["flops_f32"]}
     result["collectives_per_device"] = counts["collectives"]
+    result["collectives_by_dtype_per_device"] = counts["collectives_by_dtype"]
     result["kernels_per_device"] = counts["kernels"]
     result["top_ops_by_bytes"] = dict(ana.top_ops(5))
     result["roofline"] = roofline_terms(
@@ -294,8 +298,8 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
 
 @contextlib.contextmanager
-def fake_world(shape: tuple, axes: tuple):
-    """This process as rank 0 of a `fake` process group of one rank a
+def fake_world(shape: tuple, axes: tuple, rank: int = 0):
+    """This process as rank `rank` of a `fake` process group of one rank a
     mesh position, and the `DeviceMesh` of `shape` over `axes` on it;
     the group is destroyed on leaving. The launchers' meshes
     (`launch/mesh.py`) refuse this backend: only the dry-run builds a
@@ -305,7 +309,7 @@ def fake_world(shape: tuple, axes: tuple):
     if dist.is_initialized():
         raise RuntimeError("the dry-run needs its own process group; one is "
                            "already initialised")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=math.prod(shape))
     try:
         yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
@@ -371,15 +375,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--opt", action="append", default=[],
                     choices=["last_logit", "moe_local", "no_sp"],
-                    help="the JAX dry-run's switches (repeatable); the "
-                         "port runs last_logit and moe_local")
+                    help="the JAX dry-run's switches (repeatable)")
     ap.add_argument("--tag", default="",
                     help="suffix for result filenames (e.g. _opt1)")
     ap.add_argument("--out", default="results/torch_dryrun")
     args = ap.parse_args(argv)
-    for o in args.opt:
-        if o in UNSUPPORTED_OPTS:
-            ap.error(f"--opt {o}: {UNSUPPORTED_OPTS[o]}")
 
     archs = args.arch or sorted(ARCHS)
     shapes = args.shape or list(SHAPES)

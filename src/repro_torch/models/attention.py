@@ -9,8 +9,12 @@ autograd its `torch.autograd.Function`, forward #11 and backward #12), or
 alternative and the numerical reference (differentiable by autograd).
 The JAX package's sharding constraints (`constrain`, ported in
 `models/sharding_ctx.py`) are not threaded here: the sharded train step
-all-gathers the parameters and runs this code on plain local tensors, so
-no DTensor reaches the kernels.
+gathers the parameters and runs this code on plain local tensors, so no
+DTensor reaches the kernels. Under its tensor-parallel plan
+(`models/tensor_parallel.py`) `attention` takes JAX's two branches
+(`src/repro/models/attention.py:55-65`) by hand: this rank's heads, or,
+where the kv heads do not tile the model axis, its slice of the queries
+against the all-gathered K/V.
 
 GQA: q heads H = G * Hk grouped as (B, S, Hk, G, Dh), so query head `hi`
 reads KV head `hi // G`.
@@ -23,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import tensor_parallel as tpm
 from repro_torch.models.layers import _init_linear, apply_rope, dense
 
 _NEG = -1e30
@@ -50,9 +55,14 @@ def attention_spec(cfg: ModelConfig) -> dict:
 
 
 def _project_qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, heads: int = 0):
+    """q, k, v of x at `positions`; `heads` (0: all): the number of local q
+    heads when the weights are this rank's rows (the kv heads in
+    proportion)."""
     b, s, _ = x.shape
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if heads:
+        h, hk = heads, hk * heads // h
     q = dense(x, params.wq).reshape(b, s, h, dh)
     k = dense(x, params.wk).reshape(b, s, hk, dh)
     v = dense(x, params.wv).reshape(b, s, hk, dh)
@@ -120,24 +130,75 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor, return_kv: bool = False):
-    """Full-sequence attention sublayer (prefill / forward)."""
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
+def _attend(q, k, v, cfg: ModelConfig, q_offset: int = 0) -> torch.Tensor:
+    """The flash kernels (#11/#12 under autograd, #10 otherwise) or the
+    blockwise loop, as `cfg.use_flash_kernel` says."""
     causal = cfg.causal and not cfg.is_encoder
     if cfg.use_flash_kernel:
-        out = flash_attention(
+        return flash_attention(
             q, k, v, causal=causal, window=cfg.sliding_window,
-            block_q=min(cfg.attn_chunk_q, 256), block_kv=cfg.attn_chunk_kv)
-    else:
-        out = blockwise_attention(
-            q, k, v, causal=causal, window=cfg.sliding_window,
-            q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+            q_offset=q_offset, block_q=min(cfg.attn_chunk_q, 256),
+            block_kv=cfg.attn_chunk_kv)
+    return blockwise_attention(
+        q, k, v, causal=causal, window=cfg.sliding_window, q_offset=q_offset,
+        q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+
+
+def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, return_kv: bool = False,
+              tp: "tpm.Plan | None" = None):
+    """Full-sequence attention sublayer (prefill / forward). Under a
+    tensor-parallel plan x is the residual as the plan carries it and so
+    is the result (`_tp_attention`)."""
+    if tp is not None:
+        return _tp_attention(params, x, cfg, tp)
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    out = _attend(q, k, v, cfg)
     out = dense(out.reshape(b, s, cfg.num_heads * cfg.head_dim), params.wo)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _tp_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  tp: "tpm.Plan") -> torch.Tensor:
+    """Attention split over the model axis, JAX's two branches
+    (`src/repro/models/attention.py:55-65`):
+
+      * heads ("act_heads"/"act_kv" on "model", where the kv heads tile
+        it): the whole sequence (all-gathered under SP) projected onto
+        this rank's h/tp q and hk/tp kv heads, the kernels at the local
+        head count, the row-parallel `wo`, and its partial sums
+        reduce-scattered back onto the residual (`:153`, "res_seq");
+      * context parallel ("attn_seq" on "model"): q, k, v from this rank's
+        slice of the sequence (split off the whole residual under no_sp)
+        at their global positions, K/V all-gathered (their gradients
+        reduce-scattered), the kernels with `q_offset` at the slice's
+        start, and `wo` on the local rows, whole."""
+    if tp.heads:
+        x = tpm.enter_columns(x, tp)
+        b, s, _ = x.shape
+        heads = cfg.num_heads // tp.size
+        q, k, v = _project_qkv(params, x, cfg, _positions(0, s, x.device),
+                               heads)
+        out = _attend(q, k, v, cfg)
+        out = dense(out.reshape(b, s, heads * cfg.head_dim), params.wo)
+        return tpm.leave_rows(out, tp)
+    if not tp.sp:
+        x = tpm.split_seq(x, tp)
+    b, n, _ = x.shape
+    start = tp.rank * n
+    q, k, v = _project_qkv(params, x, cfg, _positions(start, n, x.device))
+    k, v = tpm.gather_seq(k, tp), tpm.gather_seq(v, tp)
+    out = _attend(q, k, v, cfg, q_offset=start)
+    out = dense(out.reshape(b, n, cfg.num_heads * cfg.head_dim), params.wo)
+    return out if tp.sp else tpm.gather_seq(out, tp, split_grad=True)
+
+
+def _positions(start: int, n: int, device) -> torch.Tensor:
+    return torch.arange(start, start + n, dtype=torch.int32,
+                        device=device)[None, :]
 
 
 def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -14,10 +14,27 @@ of the modules' parameters for a full tensor for the block:
   * backward, one mesh axis at a time, in mesh order: on a data axis
     ("pod", "data") the full gradient is reduce-scattered onto the
     shard's slice where the parameter is `Shard`ed and all-reduced where
-    it is `Replicate`d; on any other axis ("model", whose ranks repeat
-    the same compute) this rank's slice is taken with no collective. So
-    the leaf's gradient is today's `sum_over_data` + `local_shard`, done
-    as the backward reaches the unit, and no full gradient outlives it.
+    it is `Replicate`d. So the leaf's gradient is `sum_over_data` +
+    `local_shard`, done as the backward reaches the unit, and no full
+    gradient outlives it.
+
+The gather follows the compute on the "model" axis: with a tensor-parallel
+plan (`models/tensor_parallel.py`, the attention-and-MLP families) each
+parameter has a mode (`Plan.mode`):
+
+  * "local": the unit computes on the parameter's "model" shard (q/k/v
+    and `wo` on this rank's heads, the MLP on its ff columns, the table
+    and the head on its vocabulary rows), so only the data axes are
+    gathered, and the gradient needs no "model" collective;
+  * "partial": the unit needs it whole, and each model rank's gradient is
+    a partial sum over its slice of the sequence (the norm scales and
+    the frames projection under sequence parallelism, the attention
+    weights of the context-parallel fallback): it is gathered over
+    "model" too, and its gradient summed over "model" like a data axis'
+    (reduce-scattered where `Shard`ed, all-reduced where `Replicate`d);
+  * "replica": every model rank repeats the same compute (no plan: the
+    MoE, Mamba2 and xLSTM units, and the serving paths), so this rank's
+    slice is taken with no collective.
 
 The units are the model's remat units (`models/model.py` `_layers`: a
 block, an xLSTM pair, a Mamba2 group with the shared attention block),
@@ -73,29 +90,36 @@ def _storage_key(t: torch.Tensor) -> int:
 
 class _Layout:
     """One parameter's placements on a mesh: per mesh axis (name, size,
-    process group, the tensor dimension it splits or None)."""
+    process group, the tensor dimension it splits or None, its role). A
+    data axis' role is "sum"; the other axes' follow `mode` (see the
+    module note): "keep" for "local", "sum" for "partial", "slice" for
+    "replica"."""
 
-    def __init__(self, placements, axes: list[tuple]):
+    def __init__(self, placements, axes: list[tuple], mode: str = "replica"):
+        role = {"local": "keep", "partial": "sum", "replica": "slice"}[mode]
         self.axes = [(name, size, group,
-                      p.dim if isinstance(p, Shard) else None)
+                      p.dim if isinstance(p, Shard) else None,
+                      "sum" if name in DATA_AXES else role)
                      for (name, size, group), p in zip(axes, placements)]
-        # gathered: some axis of size > 1 splits it (else the gather is a
-        # copy); trivial: every axis has size 1 (no collective at all)
-        self.gathered = any(s > 1 and d is not None
-                            for _, s, _, d in self.axes)
-        self.trivial = all(s == 1 for _, s, _, _ in self.axes)
+        # gathered: some gathered axis of size > 1 splits it (else the
+        # gather is a copy); trivial: every axis has size 1 (no collective
+        # at all)
+        self.gathered = any(s > 1 and d is not None and r != "keep"
+                            for _, s, _, d, r in self.axes)
+        self.trivial = all(s == 1 for _, s, _, _, _ in self.axes)
         # ranks holding the same shard: the replicated axes' sizes
         self.replicas = 1
-        for _, s, _, d in self.axes:
+        for _, s, _, d, _ in self.axes:
             if d is None:
                 self.replicas *= s
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The full tensor from this rank's shard: the Shard axes gathered
-        minor first (`local_shard` splits major first)."""
+        """The parameter as the unit uses it from this rank's shard: the
+        Shard axes gathered minor first (`local_shard` splits major
+        first), a kept axis left split."""
         t = local
-        for name, size, group, d in reversed(self.axes):
-            if d is None or size == 1:
+        for name, size, group, d, role in reversed(self.axes):
+            if d is None or size == 1 or role == "keep":
                 continue
             moved = t.movedim(d, 0).contiguous()
             out = moved.new_empty((size * moved.shape[0], *moved.shape[1:]))
@@ -104,22 +128,21 @@ class _Layout:
         return t.contiguous() if self.gathered else t.clone()
 
     def scatter(self, grad: torch.Tensor, coord: dict) -> torch.Tensor:
-        """This rank's shard of the gradient summed over the data axes
-        (see the module note). The splits come in mesh order (as
-        `local_shard` makes them), but a non-data slice whose dimension no
+        """This rank's shard of the gradient summed over the axes whose
+        role is "sum" (see the module note). The splits come in mesh order
+        (as `local_shard` makes them), but a slice whose dimension no
         other axis splits comes first and the all-reduces over replicated
-        data axes last, so each sum moves the fewest bytes; sums commute,
-        so the result is the same."""
-        dims = [d for _, s, _, d in self.axes if d is not None and s > 1]
-        live = [(name, size, group, d) for name, size, group, d in self.axes
-                if size > 1]
-        first = [a for a in live if a[0] not in DATA_AXES
+        summed axes last, so each sum moves the fewest bytes; sums
+        commute, so the result is the same."""
+        live = [a for a in self.axes if a[1] > 1 and a[4] != "keep"]
+        dims = [a[3] for a in live if a[3] is not None]
+        first = [a for a in live if a[4] == "slice"
                  and a[3] is not None and dims.count(a[3]) == 1]
-        last = [a for a in live if a[0] in DATA_AXES and a[3] is None]
+        last = [a for a in live if a[4] == "sum" and a[3] is None]
         middle = [a for a in live if a not in first and a not in last]
         g = grad
-        for name, size, group, d in first + middle:
-            if name not in DATA_AXES:
+        for name, size, group, d, role in first + middle:
+            if role == "slice":
                 if d is not None:
                     g = g.chunk(size, d)[coord[name]]
                 continue
@@ -130,9 +153,21 @@ class _Layout:
         if last:
             # a copy: autograd's gradient is not this function's
             g = g.clone(memory_format=torch.contiguous_format)
-            for _, _, group, _ in last:
+            for _, _, group, _, _ in last:
                 dist.all_reduce(g, group=group)
         return g.contiguous()
+
+
+def _check_local(name: str, placements, axes: list[str]) -> None:
+    """A "local" parameter's "model" shard must be a block of the full
+    tensor: split over "model" along a dimension no other axis splits."""
+    dims = {a: p.dim for a, p in zip(axes, placements)
+            if isinstance(p, Shard)}
+    d = dims.pop("model", None)
+    if d is None or d in dims.values():
+        raise ValueError(f"{name} computes on its model shard, but its "
+                         f"placements {tuple(placements)} do not split it "
+                         "over 'model' alone along one dimension")
 
 
 class _Gather(torch.autograd.Function):
@@ -189,12 +224,15 @@ class ShardedParams:
     """`model`'s DTensor parameters as float32 leaves (its local shards,
     sharing their storage) on `mesh` (a DeviceMesh). `leaves` maps each
     parameter name to its leaf; a leaf's `.grad` is its gradient shard.
-    Enter it to make `gathered` gather from it."""
+    `plan`: the tensor-parallel plan (`models/tensor_parallel.py`) whose
+    `mode` sets each parameter's use of "model"; None: every parameter
+    "replica". Enter it to make `gathered` gather from it."""
 
-    def __init__(self, model: torch.nn.Module, mesh):
+    def __init__(self, model: torch.nn.Module, mesh, plan=None):
         sizes = axis_sizes(mesh)
         self.axes = [(a, s, mesh.get_group(a)) for a, s in sizes.items()]
         self.coord = dict(zip(sizes, mesh.get_coordinate()))
+        self.plan = plan
         self.leaves: dict[str, torch.Tensor] = {}
         self.layouts: dict[str, _Layout] = {}
         self._names: dict[int, str] = {}
@@ -202,8 +240,11 @@ class ShardedParams:
             if not isinstance(p, DTensor):
                 raise TypeError(f"{name} is not a DTensor: ShardedParams "
                                 "takes a model stored at its shardings")
+            mode = "replica" if plan is None else plan.mode(name)
+            if mode == "local":
+                _check_local(name, p.placements, list(sizes))
             self.leaves[name] = p.to_local().detach().requires_grad_()
-            self.layouts[name] = _Layout(p.placements, self.axes)
+            self.layouts[name] = _Layout(p.placements, self.axes, mode)
             self._names[id(p)] = name
 
     def __enter__(self):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tensor_parallel as tpm
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -177,9 +178,17 @@ def mlp_spec(cfg: ModelConfig) -> dict:
             "w_down": ("ff", "embed")}
 
 
-def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig,
+        tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """SwiGLU. Under a tensor-parallel plan, column-parallel gate and up on
+    this rank's ff columns over the whole sequence and a row-parallel down
+    whose partial sums go back onto the residual
+    (`src/repro/models/layers.py:88-90`: "act_ff", "res_seq")."""
+    if tp is not None:
+        x = tpm.enter_columns(x, tp)
     h = F.silu(dense(x, params.w_gate)) * dense(x, params.w_up)
-    return dense(h, params.w_down)
+    out = dense(h, params.w_down)
+    return tpm.leave_rows(out, tp) if tp is not None else out
 
 
 # -------------------------------------------------------------- Embedding
@@ -199,9 +208,17 @@ def embedding_spec(cfg: ModelConfig) -> dict:
     return {"table": ("vocab", "embed")}
 
 
-def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig
-          ) -> torch.Tensor:
-    return params.table.to(torch_dtype(cfg))[tokens.long()]
+def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig,
+          tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """The rows of `tokens`. Under a tensor-parallel plan the residual it
+    starts (`src/repro/models/layers.py:101-105`: "res_seq") is this
+    rank's slice of the sequence (whole under no_sp), from this rank's
+    vocabulary rows where the padded vocab tiles the model axis."""
+    dt = torch_dtype(cfg)
+    if tp is not None and tp.vocab:
+        return tpm.vocab_parallel_embed(params.table, tokens, dt, tp)
+    out = params.table.to(dt)[tokens.long()]
+    return tpm.split_seq(out, tp) if tp is not None and tp.sp else out
 
 
 class Unembed(nn.Module):
@@ -221,8 +238,18 @@ def unembed_spec(cfg: ModelConfig) -> dict:
 
 
 def unembed(params: Unembed | None, x: torch.Tensor, cfg: ModelConfig,
-            embed_params: Embedding | None = None) -> torch.Tensor:
-    """Logits over the padded vocab. Tied: x @ table.T."""
+            embed_params: Embedding | None = None,
+            tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """Logits over the padded vocab. Tied: x @ table.T. Under a
+    tensor-parallel plan the whole sequence's logits on this rank's
+    vocabulary columns where the padded vocab tiles the model axis
+    (`src/repro/models/layers.py:118-122`: "act_vocab"), else all of them
+    on every rank; x is the residual as the plan carries it."""
+    if tp is not None:
+        if tp.sp:
+            x = tpm.gather_seq(x, tp, split_grad=not tp.vocab)
+        elif tp.vocab:
+            x = tpm.copy_to_region(x, tp)
     if cfg.tie_embeddings and embed_params is not None:
         return F.linear(x, embed_params.table.to(torch_dtype(cfg)))
     return dense(x, params.w_out)

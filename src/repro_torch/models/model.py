@@ -21,7 +21,11 @@ or group in `torch.utils.checkpoint` under autograd, as `_maybe_remat`
 wraps the scan body. Each such unit, the embedding and the head run
 inside `models/fsdp.py`'s `gathered`, which in the sharded train step
 swaps in the unit's parameters gathered from their shards (a no-op
-elsewhere).
+elsewhere). There the attention-and-MLP families also split their compute
+over the model axis (`models/tensor_parallel.py`'s plan, JAX's
+`constrain` sites): the residual between units is this rank's slice of
+the sequence, and the logits are this rank's vocabulary columns, which
+`loss_fn` reduces with the vocab-parallel cross-entropy.
 
 Decode threads an explicit state dict, the JAX package's: {"k", "v": (L,
 B, S_cache, Hk, Dh) caches in `cfg.dtype`, "pos": int} for the attention
@@ -44,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import fsdp
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tensor_parallel as tpm
 from repro_torch.models.fsdp import gathered
 from repro_torch.models.attention import (
     Attention,
@@ -241,45 +246,58 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 # ================================================================ forward
-def _embed_inputs(params: Model, cfg: ModelConfig, batch: dict
-                  ) -> torch.Tensor:
+def _embed_inputs(params: Model, cfg: ModelConfig, batch: dict,
+                  tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """The residual stream's start; under a sequence-parallel plan this
+    rank's slice of it."""
     if cfg.frontend == "frames":
         x = torch.as_tensor(batch["frames"], device=params.device)
+        if tp is not None and tp.sp:
+            # src/repro/models/model.py:164: the projection's output on
+            # "res_seq", so this rank projects its own frames
+            x = x.narrow(1, *tp.seq_slice(x.shape[1]))
         with gathered(params.frontend):
             return dense(x.to(torch_dtype(cfg)), params.frontend.proj)
     tokens = torch.as_tensor(batch["tokens"], device=params.device)
     with gathered(params.embed):
-        return embed(params.embed, tokens, cfg)
+        return embed(params.embed, tokens, cfg, tp)
 
 
-def _logits(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: Model, cfg: ModelConfig, x: torch.Tensor,
+            tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """The final norm (on this rank's slice under SP) and the head: under
+    a plan, this rank's vocabulary columns over the whole sequence."""
     tied = params.embed if cfg.tie_embeddings else None
     with gathered(params.final_norm, params.unembed, tied):
         x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-        return unembed(params.unembed, x, cfg, embed_params=params.embed)
+        return unembed(params.unembed, x, cfg, embed_params=params.embed,
+                       tp=tp)
 
 
 def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :]
 
 
-def _ffn(blk: Block, x: torch.Tensor, cfg: ModelConfig):
+def _ffn(blk: Block, x: torch.Tensor, cfg: ModelConfig,
+         tp: "tpm.Plan | None" = None):
     """The block's second half on its normed input: (out, aux loss or
     None)."""
     h = rmsnorm(blk.ln2, x, cfg.norm_eps)
     if blk.moe is not None:
         return moe_with_aux(blk.moe, h, cfg)
-    return mlp(blk.mlp, h, cfg), None
+    return mlp(blk.mlp, h, cfg, tp), None
 
 
-def _block(blk: Block, x, cfg: ModelConfig, positions):
+def _block(blk: Block, x, cfg: ModelConfig, positions, tp=None):
+    """Under a tensor-parallel plan x is the residual as the plan carries
+    it (this rank's slice under SP); the norms run on it as it is."""
     x = x + attention(blk.attn, rmsnorm(blk.ln1, x, cfg.norm_eps), cfg,
-                      positions)
-    h, aux = _ffn(blk, x, cfg)
+                      positions, tp=tp)
+    h, aux = _ffn(blk, x, cfg, tp)
     return x + h, aux
 
 
-def _pair(pair: Pair, x, cfg: ModelConfig, positions):
+def _pair(pair: Pair, x, cfg: ModelConfig, positions, tp=None):
     eps = cfg.norm_eps
     x = x + ssm_mod.mlstm_forward(pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg)
     x = x + ssm_mod.slstm_forward(pair.slstm, rmsnorm(pair.ln2, x, eps), cfg)
@@ -287,7 +305,7 @@ def _pair(pair: Pair, x, cfg: ModelConfig, positions):
 
 
 def _group(group: nn.ModuleList, shared: SharedAttention, x,
-           cfg: ModelConfig, positions):
+           cfg: ModelConfig, positions, tp=None):
     eps = cfg.norm_eps
     for layer in group:
         x = x + ssm_mod.mamba2_forward(layer.mamba, rmsnorm(layer.ln, x, eps),
@@ -310,9 +328,10 @@ def _unit(fn, args, x, cfg: ModelConfig, positions, pack: bool,
           ctx: tuple):
     """One remat unit with its parameters gathered (`models/fsdp.py`; a
     no-op outside the sharded train step), under `ctx`, the forward's
-    `fsdp.context()`: a remat recompute may run on another thread."""
+    `fsdp.context()`: a remat recompute may run on another thread, and
+    replays the forward's collectives under it."""
     with fsdp.restored(ctx), fsdp.gathered(*args, pack=pack):
-        return fn(*args, x, cfg, positions)
+        return fn(*args, x, cfg, positions, tpm.current())
 
 
 def forward(params: Model, cfg: ModelConfig, batch: dict,
@@ -321,8 +340,11 @@ def forward(params: Model, cfg: ModelConfig, batch: dict,
     S, D)}. Returns logits (B, S, padded V) [, the summed MoE aux loss,
     float32, 0 for the other families]; return_hidden=True returns the
     final-norm hidden states instead (retrieval embeddings for
-    serving/rag.py)."""
-    x = _embed_inputs(params, cfg, batch)
+    serving/rag.py). Under a tensor-parallel plan (the sharded train
+    step) the logits are this rank's vocabulary columns."""
+    tp = tpm.current()
+    x = _embed_inputs(params, cfg, batch, tp)
+    # the units under a plan place their own positions
     positions = _positions(x.shape[1], x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -337,8 +359,12 @@ def forward(params: Model, cfg: ModelConfig, batch: dict,
             x, a = _unit(fn, args, x, cfg, positions, True, ctx)
         if a is not None:
             aux = aux + a
-    out = (rmsnorm(params.final_norm, x, cfg.norm_eps) if return_hidden
-           else _logits(params, cfg, x))
+    if return_hidden:
+        out = rmsnorm(params.final_norm, x, cfg.norm_eps)
+        if tp is not None and tp.sp:
+            out = tpm.gather_seq(out, tp, split_grad=True)
+    else:
+        out = _logits(params, cfg, x, tp)
     return (out, aux) if with_aux else out
 
 
@@ -350,14 +376,20 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict
     vocab padding columns at -1e30. Returns (total, {"ce", "aux"})."""
     logits, aux = forward(params, cfg, batch, with_aux=True)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    loss = cross_entropy(logits, labels, cfg.vocab_size)
+    loss = cross_entropy(logits, labels, cfg.vocab_size, tpm.current())
     return loss + AUX_LOSS_WEIGHT * aux, {"ce": loss, "aux": aux}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_size: int) -> torch.Tensor:
+                  vocab_size: int, tp: "tpm.Plan | None" = None
+                  ) -> torch.Tensor:
     """Mean cross-entropy over the labels >= 0, in float32, the padding
-    columns past `vocab_size` at -1e30 (`_CrossEntropy`)."""
+    columns past `vocab_size` at -1e30 (`_CrossEntropy`); under a plan
+    whose padded vocab tiles the model axis, from this rank's columns
+    (`tensor_parallel.vocab_parallel_cross_entropy`)."""
+    if tp is not None and tp.vocab:
+        return tpm.vocab_parallel_cross_entropy(logits, labels, vocab_size,
+                                                tp, CE_CHUNK_BYTES)
     return _CrossEntropy.apply(logits, labels, vocab_size)
 
 

@@ -13,13 +13,19 @@ axis name, or a tuple of mesh axis names (a `PartitionSpec`'s entries).
 block; on a `DTensor` it redistributes to the placements of
 `resolve_spec`, JAX's resolution. The port's models do not call it: their
 activations are plain local tensors (see `training/dp_step.py`'s
-sharded step), so no DTensor reaches a hand-written kernel.
+sharded step), so no DTensor reaches a hand-written kernel; the
+collectives XLA derives from JAX's `constrain` calls are written by hand
+in `models/tensor_parallel.py`.
 
 `local_shard`, `distribute`, `set_parameter` and `local_batch` put a full
 tensor on a mesh: a rank's slice of it is cut locally, with no
 collective. `data_groups` gives the process groups of the data axes,
 `data_rank` a rank's place among the data shards and `gather_over_data`
-an all-gather over them in that order. Within `sharding_rules` the
+an all-gather over them in that order; `model_group` and `model_rank`
+give the "model" axis' group and its size with a rank's place on it, and
+`seq_parallel` whether the installed rules put the residual sequence
+("res_seq") on it, as the tensor-parallel step reads them
+(`models/tensor_parallel.py`). Within `sharding_rules` the
 activations' rows are this rank's share of the batch, split over the data
 axes as `local_batch` splits it (`split_rows=True`), or the whole batch on
 every rank (`rows_split()` says which; `models/moe.py` reads it).
@@ -331,3 +337,29 @@ def data_groups(mesh) -> tuple[list, int]:
     for a in axes:
         n *= sizes[a]
     return [mesh.get_group(a) for a in axes], n
+
+
+def model_group(mesh):
+    """The process group of the mesh's "model" axis; ValueError if it has
+    none."""
+    if "model" not in axis_sizes(mesh):
+        raise ValueError("mesh has no model axis")
+    return mesh.get_group("model")
+
+
+def model_rank(mesh) -> tuple[int, int]:
+    """(the "model" axis' size, this rank's coordinate on it); (1, 0) on a
+    mesh without one."""
+    sizes = axis_sizes(mesh)
+    if "model" not in sizes:
+        return 1, 0
+    return sizes["model"], dict(zip(sizes, mesh.get_coordinate()))["model"]
+
+
+def seq_parallel() -> bool:
+    """Whether the installed rules put the residual stream's sequence
+    ("res_seq") on the "model" axis (Megatron sequence parallelism); the
+    dry-run's `no_sp` maps it to None, as JAX's does
+    (`src/repro/launch/dryrun.py:85`)."""
+    rules = current_rules()
+    return rules is not None and rules.get("res_seq") == "model"

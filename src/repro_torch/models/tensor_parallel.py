@@ -1,0 +1,360 @@
+"""Tensor-parallel compute on the "model" mesh axis for the attention-and-
+MLP families (dense, vlm, audio) in the sharded train step.
+
+JAX has no module of this name. There the models call `constrain` with
+logical axis names (`src/repro/models/attention.py:55-65,153`,
+`layers.py:88-90,105,122`, `model.py:164`), the rules table
+(`src/repro/models/sharding_ctx.py:27-66`) maps "act_heads", "act_kv",
+"act_ff", "act_vocab", "res_seq" and the fallback "attn_seq" to "model",
+and XLA's partitioner inserts the collectives that split each block's
+compute. The port's activations are plain local tensors (no DTensor
+reaches a hand-written kernel), so this module is the counterpart of what
+the partitioner inserts: the boundary operations, written by hand as
+`torch.autograd.Function`s, each called at the port's counterpart of a
+JAX `constrain` site (the call's comment cites it).
+
+With the residual sequence-parallel ("res_seq" on "model", Megatron SP) a
+rank carries (B, S/tp, D) between blocks:
+
+  * `gather_seq`: all-gather of the sequence before a column-parallel
+    projection (q/k/v on this rank's heads, the MLP's gate and up on its ff
+    columns, the head on its vocabulary columns); the backward
+    reduce-scatters the partial gradients. With `split_grad` the backward
+    takes this rank's slice instead, for a gradient every rank holds whole;
+  * `scatter_seq`: reduce-scatter of the sequence after a row-parallel
+    projection (`wo`, `w_down`): the partial sums onto this rank's slice;
+    the backward all-gathers;
+  * where the kv heads do not tile the axis, attention is context parallel:
+    q, k and v come from the rank's own slice and K/V are all-gathered
+    (`gather_seq`), the queries at their global positions.
+
+Under `no_sp` ("res_seq" None) the residual is whole on every rank:
+`copy_to_region` (identity; the backward all-reduces) opens a
+column-parallel region, `reduce_from_region` (all-reduce; identity
+backward) closes a row-parallel one, and `split_seq` (this rank's slice;
+the backward all-gathers) feeds the context-parallel attention.
+
+The vocabulary is split too: `vocab_parallel_embed` looks up only this
+rank's rows of the table (zeros elsewhere, then summed over the ranks), and
+`vocab_parallel_cross_entropy` takes each row's max, sum of exponentials
+and gold logit over the ranks' columns.
+
+`Plan` says what a unit splits and how each parameter's gradient sums over
+"model" (`Plan.mode`, read by `models/fsdp.py`). At a "model" axis of size
+1 there is no plan, and the step is the single-device step op for op.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import fsdp
+from repro_torch.models.sharding_ctx import (
+    all_gather_tensor,
+    model_group,
+    model_rank,
+    reduce_scatter_tensor,
+    seq_parallel,
+)
+
+# the families whose blocks are attention plus an MLP; the MoE, Mamba2 and
+# xLSTM units keep a replicated compute on a model axis
+TP_FAMILIES = ("dense", "vlm", "audio")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The split of one sharded step over the "model" axis: its process
+    group, size and this rank's coordinate; `sp`: the residual is
+    sequence-parallel; `heads`: the kv heads tile the axis (else attention
+    is context parallel); `vocab`: the padded vocab tiles it (d_ff always
+    does: `make_plan` refuses a config whose d_ff does not)."""
+
+    group: object
+    size: int
+    rank: int
+    sp: bool
+    heads: bool
+    vocab: bool
+
+    def mode(self, name: str) -> str:
+        """How parameter `name` is used over "model": "local" (the unit
+        computes on its "model" shard, which is not gathered), "partial"
+        (gathered whole; each rank's gradient is a partial sum over its
+        part of the sequence, summed over "model") or "replica" (every
+        rank computes the same, as without a plan)."""
+        parts = name.split(".")
+        if "attn" in parts:
+            return "local" if self.heads else "partial"
+        if "mlp" in parts:
+            return "local"
+        if parts[0] in ("embed", "unembed"):
+            return "local" if self.vocab else "replica"
+        # the norm scales and the frames projection
+        return self._by_seq()
+
+    def _by_seq(self) -> str:
+        return "partial" if self.sp else "replica"
+
+    def seq_slice(self, s: int) -> tuple[int, int]:
+        """(start, length) of this rank's slice of a sequence of s."""
+        if s % self.size:
+            raise ValueError(f"sequence {s} does not split over a model axis "
+                             f"of {self.size}")
+        n = s // self.size
+        return self.rank * n, n
+
+
+def make_plan(cfg: ModelConfig, mesh) -> Plan | None:
+    """The plan of `cfg` on `mesh` under the installed sharding rules (call
+    within `sharding_rules`); None where the "model" axis has size 1 or
+    the family keeps a replicated compute. A d_ff that does not tile the
+    axis is refused, as a sequence that does not split is (`seq_slice`):
+    every configuration's d_ff tiles 16."""
+    size, rank = model_rank(mesh)
+    if size == 1 or cfg.family not in TP_FAMILIES:
+        return None
+    if cfg.d_ff % size:
+        raise ValueError(f"d_ff {cfg.d_ff} does not split over a model axis "
+                         f"of {size}")
+    return Plan(group=model_group(mesh), size=size, rank=rank,
+                sp=seq_parallel(), heads=cfg.num_kv_heads % size == 0,
+                vocab=cfg.padded_vocab % size == 0)
+
+
+def current() -> Plan | None:
+    """The active `ShardedParams`' plan (`models/fsdp.py`); None outside
+    the sharded step or without one."""
+    sp = fsdp.active()
+    return None if sp is None else sp.plan
+
+
+# ------------------------------------------------------------ collectives
+def _all_gather(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((plan.size * moved.shape[0], *moved.shape[1:]))
+    all_gather_tensor(out, moved, group=plan.group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    if x.shape[dim] % plan.size:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over a model axis of {plan.size}")
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // plan.size, *moved.shape[1:]))
+    reduce_scatter_tensor(out, moved, group=plan.group)
+    return out.movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    start, n = plan.seq_slice(x.shape[dim])
+    return x.narrow(dim, start, n).contiguous()
+
+
+def _all_reduce(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=plan.group)
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan, split_grad):
+        ctx.plan, ctx.split_grad = plan, split_grad
+        return _all_gather(x, plan, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = _slice if ctx.split_grad else _reduce_scatter
+        return op(g, ctx.plan, 1), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _reduce_scatter(x, plan, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.plan, 1), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _slice(x, plan, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.plan, 1), None
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.plan), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        return _all_reduce(x, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_seq(x: torch.Tensor, plan: Plan, split_grad: bool = False
+               ) -> torch.Tensor:
+    """(B, S/tp, ...) -> (B, S, ...): the sequence all-gathered over
+    "model"; the backward reduce-scatters the gradient (`split_grad`:
+    takes this rank's slice of it, where every rank holds it whole)."""
+    return _GatherSeq.apply(x, plan, split_grad)
+
+
+def scatter_seq(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """(B, S, ...) partial sums -> (B, S/tp, ...): reduce-scattered over
+    "model"; the backward all-gathers."""
+    return _ScatterSeq.apply(x, plan)
+
+
+def split_seq(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """(B, S, ...) whole on every rank -> this rank's (B, S/tp, ...) slice;
+    the backward all-gathers."""
+    return _SplitSeq.apply(x, plan)
+
+
+def copy_to_region(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The identity; the backward all-reduces over "model" (no_sp)."""
+    return _CopyToRegion.apply(x, plan)
+
+
+def reduce_from_region(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The sum over "model"; the backward is the identity (no_sp)."""
+    return _ReduceFromRegion.apply(x, plan)
+
+
+def enter_columns(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """The residual stream (this rank's slice under SP, else whole) as the
+    whole-sequence input of a column-parallel projection."""
+    return gather_seq(x, plan) if plan.sp else copy_to_region(x, plan)
+
+
+def leave_rows(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """A row-parallel projection's partial sums as the residual stream."""
+    return scatter_seq(x, plan) if plan.sp else reduce_from_region(x, plan)
+
+
+# ------------------------------------------------------------- vocabulary
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor,
+                         dtype: torch.dtype, plan: Plan) -> torch.Tensor:
+    """The embedding of `tokens` (B, S) from this rank's rows of the table
+    ((padded V / tp, D)): its own tokens looked up, the others zeros,
+    summed over "model" onto the rank's slice of the sequence (whole under
+    no_sp). A negative id counts from the end, as the whole table's
+    lookup takes it."""
+    n = table.shape[0]
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + n * plan.size, ids) - plan.rank * n
+    own = (ids >= 0) & (ids < n)
+    out = table.to(dtype)[ids.clamp(0, n - 1)].masked_fill(~own[..., None],
+                                                           0)
+    return leave_rows(out, plan)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 vocab_size: int, plan: Plan,
+                                 chunk_bytes: int) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0 from this rank's columns of
+    the logits ((B, S, padded V / tp), the whole sequence), in float32,
+    the padding columns past `vocab_size` (global indices) at -1e30, in
+    row chunks of at most `chunk_bytes` of float32 logits. The same loss on
+    every rank of "model"."""
+    return _VocabParallelCE.apply(logits, labels, vocab_size, plan,
+                                  chunk_bytes)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Each chunk's row max and sum of exponentials are all-reduced over
+    "model" (max, then sum), the gold logit comes from the rank that owns
+    its column; the backward needs no collective: a rank's gradient is
+    its own columns'."""
+
+    @staticmethod
+    def _spans(rows: torch.Tensor, chunk_bytes: int):
+        step = max(1, chunk_bytes // (4 * rows.shape[-1]))
+        return [(i, min(i + step, len(rows)))
+                for i in range(0, len(rows), step)]
+
+    @staticmethod
+    def _float(chunk, lo, vocab_size):
+        cols = torch.arange(chunk.shape[-1], device=chunk.device) + lo
+        return chunk.float().masked_fill(cols >= vocab_size, -1e30)
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size, plan, chunk_bytes):
+        labels = labels.long()
+        rows = logits.reshape(-1, logits.shape[-1])
+        n = rows.shape[-1]
+        lo = plan.rank * n
+        flat = labels.reshape(-1)
+        local = flat.clamp(min=0) - lo
+        own = (local >= 0) & (local < n)
+        logz = torch.empty(len(rows), dtype=torch.float32,
+                           device=logits.device)
+        gold = torch.empty_like(logz)
+        for a, b in _VocabParallelCE._spans(rows, chunk_bytes):
+            lf = _VocabParallelCE._float(rows[a:b], lo, vocab_size)
+            m = lf.amax(-1)
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=plan.group)
+            sums = torch.stack([
+                torch.exp(lf - m[:, None]).sum(-1),
+                torch.gather(lf, -1, local[a:b].clamp(0, n - 1)[:, None]
+                             )[:, 0].masked_fill(~own[a:b], 0)])
+            dist.all_reduce(sums, group=plan.group)
+            logz[a:b] = m + torch.log(sums[0])
+            gold[a:b] = sums[1]
+            del lf
+        valid = (labels >= 0).float()
+        count = valid.sum().clamp(min=1.0)
+        loss = ((logz.reshape(labels.shape) - gold.reshape(labels.shape))
+                * valid).sum() / count
+        ctx.save_for_backward(logits, labels, logz, count)
+        ctx.vocab_size, ctx.plan, ctx.chunk_bytes = (vocab_size, plan,
+                                                     chunk_bytes)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, logz, count = ctx.saved_tensors
+        rows = logits.reshape(-1, logits.shape[-1])
+        n = rows.shape[-1]
+        lo = ctx.plan.rank * n
+        flat = labels.reshape(-1)
+        local = flat.clamp(min=0) - lo
+        own = (local >= 0) & (local < n)
+        w = (g / count) * (flat >= 0).float()
+        grad = torch.empty_like(rows)
+        for a, b in _VocabParallelCE._spans(rows, ctx.chunk_bytes):
+            lf = _VocabParallelCE._float(rows[a:b], lo, ctx.vocab_size)
+            d = w[a:b, None] * torch.exp(lf - logz[a:b, None])
+            del lf
+            d = d + torch.zeros_like(d).scatter_add_(
+                -1, local[a:b].clamp(0, n - 1)[:, None],
+                (-w[a:b] * own[a:b].float())[:, None])
+            cols = torch.arange(n, device=d.device) + lo
+            grad[a:b] = d.masked_fill_(cols >= ctx.vocab_size, 0)
+        return grad.reshape(logits.shape), None, None, None, None

@@ -141,13 +141,28 @@ def visible_pairs(sq: int, skv: int, causal: bool, window: int = 0,
     return float(min(pairs, sq * skv))
 
 
+def visible_keys(sq: int, skv: int, causal: bool, window: int = 0,
+                 q_offset: int = 0) -> int:
+    """Keys that at least one query attends, the only K/V rows the function
+    must read: up to the last query's position `q_offset + sq - 1` when
+    causal, from the first query's window start `q_offset - window + 1`
+    when a window applies (a query at `q_offset` sees no key past
+    itself, so the first rank of a context-parallel split reads only its
+    own slice's keys)."""
+    hi = min(skv, q_offset + sq) if causal else skv
+    lo = max(0, q_offset - window + 1) if window else 0
+    return max(0, hi - lo)
+
+
 def flash_attention(b: int, sq: int, skv: int, h: int, hk: int, dh: int, *,
                     causal: bool, window: int = 0, q_offset: int = 0,
                     itemsize: int = 2, lse: bool = False) -> Cost:
     """#10 (and #11 with `lse`): two products of B·H·Dh a visible pair; q
-    and o (H heads), k and v (Hk) once; #11 also writes the float32 lse."""
+    and o (H heads) once, k and v (Hk) at the visible keys once; #11 also
+    writes the float32 lse."""
     pairs = visible_pairs(sq, skv, causal, window, q_offset)
-    byts = (2 * b * sq * h + 2 * b * skv * hk) * dh * itemsize
+    keys = visible_keys(sq, skv, causal, window, q_offset)
+    byts = (2 * b * sq * h + 2 * b * keys * hk) * dh * itemsize
     if lse:
         byts += b * h * sq * 4
     return Cost(bytes=byts, flops=4.0 * b * h * dh * pairs,
@@ -167,10 +182,11 @@ def flash_attention_bwd(b: int, sq: int, skv: int, h: int, hk: int, dh: int,
                         *, causal: bool, window: int = 0, q_offset: int = 0,
                         itemsize: int = 2) -> Cost:
     """#12: five products of B·H·Dh a visible pair (S recomputed, dP, dV,
-    dQ, dK); q, o, dO in and dq out (H heads), k, v in and dk, dv out
-    (Hk), the lse."""
+    dQ, dK); q, o, dO in and dq out (H heads), k, v in at the visible keys
+    and dk, dv out whole (Hk), the lse."""
     pairs = visible_pairs(sq, skv, causal, window, q_offset)
-    return Cost(bytes=((4 * b * sq * h + 4 * b * skv * hk) * dh * itemsize
-                       + b * h * sq * 4),
+    keys = visible_keys(sq, skv, causal, window, q_offset)
+    return Cost(bytes=((4 * b * sq * h + 2 * b * (keys + skv) * hk) * dh
+                       * itemsize + b * h * sq * 4),
                 flops=10.0 * b * h * dh * pairs,
                 rate="bf16" if itemsize == 2 else "f32")

@@ -15,7 +15,10 @@ once. Eager PyTorch dispatches every iteration of a Python loop, so a
     metadata and factory ops count nothing (`hlo_analyzer._FREE_OPS`),
     nor do collectives, whose payload is the collective term;
   * collectives: the c10d and `_c10d_functional` ops by result bytes,
-    under JAX's five kinds, plus "total".
+    under JAX's five kinds, plus "total"; "collectives_by_dtype" splits
+    each kind's bytes by the result's dtype (in the sharded train step,
+    float32 is the parameters and their gradients, bf16 the
+    activations).
 
 Hand-written kernels launch through `ctypes`, where the dispatcher never
 sees them. Each kernel function in `kernels/*/ops.py` checks the module
@@ -140,6 +143,8 @@ class OpAnalyzer(TorchDispatchMode):
         self.bytes_accessed = 0.0
         self.collectives = {k: {"bytes": 0.0, "count": 0.0}
                             for k in COLLECTIVE_KINDS}
+        self.collectives_by_dtype: dict[str, dict[str, float]] = {
+            k: {} for k in COLLECTIVE_KINDS}
         self.kernels: dict[str, dict] = {}
         self.by_op: dict[str, dict] = {}
         self.host_reads_answered = 0
@@ -190,6 +195,10 @@ class OpAnalyzer(TorchDispatchMode):
             received = (_tensors(out) or _tensors(args[:1]))
             c["bytes"] += sum(_nbytes(t) for t in received)
             c["count"] += 1
+            by = self.collectives_by_dtype[kind]
+            for t in received:
+                key = str(t.dtype).replace("torch.", "")
+                by[key] = by.get(key, 0.0) + _nbytes(t)
             return out
         f = 0.0
         if packet in flop_registry:
@@ -250,6 +259,8 @@ class OpAnalyzer(TorchDispatchMode):
                          "count": sum(v["count"] for v in coll.values())}
         return {"flops": self.flops, "flops_f32": self.flops_f32,
                 "bytes_accessed": self.bytes_accessed, "collectives": coll,
+                "collectives_by_dtype": {
+                    k: dict(v) for k, v in self.collectives_by_dtype.items()},
                 "kernels": {k: dict(v) for k, v in self.kernels.items()}}
 
     def top_ops(self, n: int = 10) -> list[tuple[str, dict]]:

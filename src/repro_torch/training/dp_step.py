@@ -29,6 +29,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.fsdp import ShardedParams
+from repro_torch.models.tensor_parallel import make_plan
 from repro_torch.models.sharding_ctx import (
     data_groups,
     local_batch,
@@ -79,35 +80,55 @@ def make_dp_train_step_compressed(cfg: ModelConfig, opt: OptimizerConfig,
 
 
 def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
-                            grad_accum: int = 1):
+                            grad_accum: int = 1,
+                            overrides: dict | None = None):
     """The sharded step over `mesh` (a DeviceMesh) on a state whose
     parameters and moments are DTensors (`launch.shardings
     .shard_train_state`). Returns fn(state, global batch) -> (state,
     metrics): the single-device step's metrics over the global batch.
+    `overrides`: rules over `DEFAULT_RULES` (the dry-run's `no_sp` is
+    {"res_seq": None}).
 
-    The model runs on the rank's rows of each microbatch (`local_batch`)
-    within `models/fsdp.py`'s `ShardedParams` and `sharding_rules(mesh)`:
-    each remat unit, the embedding and the head gather their parameters
-    in float32 as the forward (and a remat recompute) reaches them, and
-    their backward reduce-scatters each gradient over the data axes onto
-    this rank's shard (all-reduces a parameter replicated over them),
-    where the microbatches' gradients accumulate in float32. The global
-    norm comes from the shards (`ShardedParams.global_norm`), and AdamW
-    updates each local shard. Each rank's cross-entropy is weighted by
-    its share of its microbatch's valid labels (the counts all-reduced
+    The model runs on the rank's rows of each microbatch (`local_batch`:
+    split over the data axes, the whole sequence on every rank of the
+    model axis) within `models/fsdp.py`'s `ShardedParams` and
+    `sharding_rules(mesh, overrides)`: each remat unit, the embedding and
+    the head gather their parameters in float32 as the forward (and a
+    remat recompute) reaches them, and their backward reduce-scatters
+    each gradient over the data axes onto this rank's shard (all-reduces
+    a parameter replicated over them), where the microbatches' gradients
+    accumulate in float32. The global norm comes from the shards
+    (`ShardedParams.global_norm`), and AdamW updates each local shard.
+    Each rank's cross-entropy is weighted by its share of its
+    microbatch's valid labels (the counts all-reduced over the data axes
     first), so loss and gradients are one mean over the global
     microbatch's valid labels, as JAX's jitted step takes it, also when
     ranks hold unequal numbers of masked labels; a MoE block's aux loss
     is already the rank's share of the global one (`models/moe.py`, both
-    dispatch modes).
+    dispatch modes). The labels are not split over the model axis (the
+    logits are gathered over the sequence), and the scalars are summed
+    over the data axes only: every model rank holds the same loss.
+
+    The attention-and-MLP families split their compute over the model
+    axis (`models/tensor_parallel.py`): a rank computes its h/tp heads (or,
+    where the kv heads do not tile the axis, its s/tp queries against the
+    gathered K/V), its d_ff/tp MLP columns and its padded-vocab/tp logits,
+    and carries its s/tp slice of the residual between units (whole under
+    `no_sp`). The MoE, Mamba2 and xLSTM units repeat the same compute on
+    the ranks of a model axis.
 
     Cost: a rank holds its shards, one unit's gathered parameters and
     gradients at a time (two units' while a backward overlaps the next
-    gather), and its activations; each parameter is gathered once a
-    forward (again in a remat recompute or an unpacked saved weight) and
-    its gradient reduce-scattered once a microbatch. The ranks of a model
-    axis repeat the same compute (ROADMAP A9.4). On a mesh whose every
-    axis has size 1 the step is the single-device step, op for op."""
+    gather), and its activations: the residuals a tp-th of the sequence
+    and the logits a tp-th of the vocabulary in the split families. Each
+    parameter is gathered once a forward (again in a remat recompute or
+    an unpacked saved weight) and its gradient reduce-scattered once a
+    microbatch, over the data axes alone where the unit computes on its
+    model shard; the split adds an all-gather and a reduce-scatter of a
+    (rows, s, d) activation around each attention and MLP (K/V gathers on
+    the context-parallel path), again in a recompute and in the backward.
+    On a mesh whose every axis has size 1 the step is the single-device
+    step, op for op."""
     groups, _ = data_groups(mesh)
 
     def step(state: TrainState, batch: dict):
@@ -121,8 +142,10 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
         for group in groups:
             dist.all_reduce(total, group=group)
         weights = valid / total.clamp(min=1.0)
-        sharded = ShardedParams(model, mesh)
-        with sharded, sharding_rules(mesh):
+        with sharding_rules(mesh, overrides):
+            plan = make_plan(cfg, mesh)
+        sharded = ShardedParams(model, mesh, plan=plan)
+        with sharded, sharding_rules(mesh, overrides):
             loss, metrics, grads = loss_and_grads(
                 model, cfg, local, grad_accum, weights, sharded.leaves)
         scalars = torch.stack([loss, *metrics.values()])

@@ -167,16 +167,24 @@ def test_a_full_width_cell_runs_and_moe_training_is_unsupported(tmp_path):
     for rec in recs:
         coll = rec["collectives_per_device"]
         # every unit's parameters all-gathered (again in the recompute),
-        # every gradient reduce-scattered; only scalars all-reduced
+        # every gradient reduce-scattered; only scalars (and the
+        # vocab-parallel loss' row statistics) all-reduced
         assert coll["all-gather"]["bytes"] > 0
         assert coll["reduce-scatter"]["bytes"] > 0
         assert coll["all-reduce"]["bytes"] < 1e6
     # float32 gathers: the blocks' parameters twice (the forward and the
-    # remat recompute), the embedding and the head once; a parameter split
-    # over both axes is gathered over "model" first (a sixteenth more)
+    # remat recompute), the embedding and the head once, each over "data"
+    # alone (a rank computes on its sixteenth over "model": heads, ff and
+    # vocabulary columns); bf16 gathers: the sequence-parallel residual,
+    # (16, 4,096, 2,048), before each attention and MLP, again in the
+    # recompute and in the backward of their reduce-scatters, and before
+    # the head and in the embedding's backward
     n = ok["n_params"]
-    assert 6 * n <= ok["collectives_per_device"]["all-gather"]["bytes"] \
-        <= 9 * n
+    by_dtype = ok["collectives_by_dtype_per_device"]["all-gather"]
+    assert 6 * n / 16 <= by_dtype["float32"] <= 9 * n / 16
+    cfg = get_config("stablelm-1.6b")
+    residual = 16 * 4096 * cfg.d_model * 2
+    assert by_dtype["bfloat16"] == (6 * cfg.num_layers + 2) * residual
     kernels = ok["kernels_per_device"]
     layers = get_config("stablelm-1.6b").num_layers
     assert kernels["flash_attention_bwd"]["calls"] == layers
@@ -209,17 +217,35 @@ def test_moe_local_runs(tmp_path, capsys):
     assert rec["collectives_per_device"]["reduce-scatter"]["bytes"] > 0
 
 
-@pytest.mark.parametrize("opt", sorted(dryrun.UNSUPPORTED_OPTS))
-def test_switches_the_port_lacks_are_refused(opt, capsys):
-    """JAX's --opt no_sp has no mechanism in the port: the CLI refuses it
-    with the reason before any cell runs, and so does `dry_run_cell`."""
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--opt", opt, "--arch", "stablelm-1.6b"])
-    assert e.value.code == 2
-    assert dryrun.UNSUPPORTED_OPTS[opt] in capsys.readouterr().err
-    with pytest.raises(ValueError, match=f"--opt {opt}"):
-        dryrun.dry_run_cell(get_config("stablelm-1.6b"), SHAPES["train_4k"],
-                            None, opts=("last_logit", opt))
+@pytest.mark.parametrize("opt", ["no_sp"])
+def test_switches_the_port_lacks_are_refused(opt, tmp_path, capsys):
+    """JAX's --opt no_sp (refused while the port had no tensor-parallel
+    step; the test keeps its name) now runs: stablelm-1.6b's train_4k cell
+    through the CLI, recorded with the switch, its residual whole on every
+    rank of the model axis: the activations' sums over "model" are
+    all-reduces of a (16, 4,096, 2,048) bf16 residual, no bf16 gather or
+    reduce-scatter remains, and the parameters' gathers are the
+    sequence-parallel cell's."""
+    dryrun.main(["--opt", opt, "--arch", "stablelm-1.6b", "--shape",
+                 "train_4k", "--out", str(tmp_path)])
+    assert "1 ok, 0 skipped, 0 unsupported, 0 errors" in \
+        capsys.readouterr().out
+    with open(tmp_path / "stablelm-1.6b__train_4k__singlepod.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["opts"] == [opt]
+    by_dtype = rec["collectives_by_dtype_per_device"]
+    cfg = get_config("stablelm-1.6b")
+    residual = 16 * 4096 * cfg.d_model * 2
+    # a block: the attention's and the MLP's sums in the forward and the
+    # backward, the attention's again in the recompute (which stops at the
+    # last tensor the backward needs, before the MLP's sum); the
+    # embedding's sum and the head's gradient
+    assert by_dtype["all-reduce"]["bfloat16"] == \
+        (5 * cfg.num_layers + 2) * residual
+    assert "bfloat16" not in by_dtype["all-gather"]
+    assert "bfloat16" not in by_dtype["reduce-scatter"]
+    n = rec["n_params"]
+    assert 6 * n / 16 <= by_dtype["all-gather"]["float32"] <= 9 * n / 16
 
 
 # ------------------------------------------------------------ ANNS cores

@@ -8,7 +8,11 @@ CPU, against the single-device step:
     unevenly over the data ranks, remat "none" (gathered weights packed for
     the backward) and "full" (gathered again in the recompute): parameters
     and both moments within 2e-4 after two steps, losses within 1e-5, the
-    grad norm within 1e-5 relative;
+    grad norm within 1e-5 relative, and each rank's first-step gradient
+    shards within 1e-5 of the single-device gradients, relative to each
+    parameter's largest (AdamW's eps can move an element whose gradient is
+    rounding noise by a fifth of the learning rate, so the parameters
+    alone tell a right split from a slightly wrong one poorly);
   * eight ranks on 2 x 2 x 2 ("pod", "data", "model"), where the gather
     order over two data axes shows;
   * the backward on another thread than the forward, as CUDA runs it;
@@ -36,44 +40,67 @@ STEP = """
 from repro_torch.configs import get_config
 from repro_torch.launch import train as ltrain
 from repro_torch.models.model import init_params
+from repro_torch.models.sharding_ctx import local_shard
+from repro_torch.training import dp_step
 from repro_torch.training.dp_step import make_sharded_train_step
-from repro_torch.training.train_loop import init_train_state, make_train_step
+from repro_torch.training.train_loop import (init_train_state,
+                                             loss_and_grads, make_train_step)
 
 
-def compare(mesh, arch, accum, remat, n_data, **extra):
+def compare(mesh, arch, accum, remat, n_data, overrides=None, **extra):
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
                               remat=remat, **extra)
     opt = OptimizerConfig(peak_lr=1e-3, total_steps=10, warmup_steps=0)
     state, _ = ltrain.sharded_state(cfg, 0, mesh, torch.device("cpu"))
-    step = make_sharded_train_step(cfg, opt, mesh, accum)
+    step = make_sharded_train_step(cfg, opt, mesh, accum, overrides)
     ref = init_train_state(cfg, init_params(cfg, 0, device="cpu",
                                             param_dtype=torch.float32))
     ref_step = make_train_step(cfg, opt, accum)
     rows = 2 * n_data
     out = []
-    for t in range(2):
-        batch = make_lm_batch(cfg, rows * accum, 16, 0, t)
-        # data rank 0's rows of microbatch 0 half masked, one row of the
-        # last microbatch masked whole
-        batch["labels"][0:rows // n_data, :12] = -1
-        batch["labels"][rows * accum - 2, :] = -1
-        state, m = step(state, batch)
-        ref, mr = ref_step(ref, batch)
-        out.append([float(m[k]) for k in ("loss", "ce", "grad_norm")]
-                   + [float(mr[k]) for k in ("loss", "ce", "grad_norm")])
+    # the step's first gradient shards, as its loss_and_grads returns them
+    real, first = dp_step.loss_and_grads, []
+
+    def captured(*args, **kwargs):
+        got = real(*args, **kwargs)
+        if not first:
+            first.append({n: g.clone() for n, g in got[2].items()})
+        return got
+    dp_step.loss_and_grads = captured
+    try:
+        for t in range(2):
+            batch = make_lm_batch(cfg, rows * accum, 16, 0, t)
+            # data rank 0's rows of microbatch 0 half masked, one row of
+            # the last microbatch masked whole
+            batch["labels"][0:rows // n_data, :12] = -1
+            batch["labels"][rows * accum - 2, :] = -1
+            if t == 0:
+                rg = {n: g.clone() for n, g in loss_and_grads(
+                    ref.params, cfg, batch, accum)[2].items()}
+            state, m = step(state, batch)
+            ref, mr = ref_step(ref, batch)
+            out.append([float(m[k]) for k in ("loss", "ce", "grad_norm")]
+                       + [float(mr[k]) for k in ("loss", "ce", "grad_norm")])
+    finally:
+        dp_step.loss_and_grads = real
+    gerr = max(float((first[0][n] - local_shard(
+        rg[n], mesh, state.params.get_parameter(n).placements,
+        mesh.get_coordinate())).abs().max())
+        / max(float(rg[n].abs().max()), 1e-30) for n in rg)
     full = dict(state.params.named_parameters())
     err = max(float((full[n].full_tensor() - p).abs().max())
               for n, p in ref.params.named_parameters())
     merr = max(float((state.opt_state[k][n].full_tensor()
                       - ref.opt_state[k][n]).abs().max())
                for k in ("m", "v") for n in ref.opt_state[k])
-    return dict(err=err, merr=merr, metrics=out,
+    return dict(err=err, merr=merr, gerr=gerr, metrics=out,
                 step=state.opt_state["step"])
 """
 
 
 def _check(got):
     assert got["err"] < 2e-4 and got["merr"] < 2e-4, got
+    assert got["gerr"] < 1e-5, got
     assert got["step"] == 2
     for loss, ce, gn, rloss, rce, rgn in got["metrics"]:
         assert abs(loss - rloss) < 1e-5 and abs(ce - rce) < 1e-5, got

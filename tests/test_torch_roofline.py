@@ -17,6 +17,8 @@
 * The bounds `chip_smoke.py` prints come from `kernel_costs`: each formula
   equals the inline formula the script computed before, and gives the
   bound `PERF.md`'s kernel table holds at its shapes (to its 4 digits).
+  The flash formulas read K/V only at the keys some query attends
+  (`visible_keys`, held against the plain versions' mask).
 """
 
 import jax
@@ -479,6 +481,27 @@ TABLE = [
      "operations"),
     ("#12 at hubert's", kc.flash_attention_bwd(
         4, 1024, 1024, 16, 16, 80, causal=False), 0.0543, "operations"),
+    # the tensor-parallel split's local shapes (chip_smoke.py's TP_FLASH)
+    ("#11 at stablelm's heads", kc.flash_attention_fwd(
+        16, 4096, 4096, 2, 2, 64, causal=True), 0.0695, "operations"),
+    ("#12 at stablelm's heads", kc.flash_attention_bwd(
+        16, 4096, 4096, 2, 2, 64, causal=True), 0.1737, "operations"),
+    ("#11 at hubert's heads", kc.flash_attention_fwd(
+        16, 4096, 4096, 1, 1, 80, causal=False), 0.0869, "operations"),
+    ("#12 at hubert's heads", kc.flash_attention_bwd(
+        16, 4096, 4096, 1, 1, 80, causal=False), 0.2171, "operations"),
+    ("#11 at chameleon's last rank", kc.flash_attention_fwd(
+        16, 256, 4096, 64, 8, 128, causal=True, q_offset=3840), 0.5385,
+     "operations"),
+    ("#12 at chameleon's last rank", kc.flash_attention_bwd(
+        16, 256, 4096, 64, 8, 128, causal=True, q_offset=3840), 1.3462,
+     "operations"),
+    ("#11 at chameleon's first rank", kc.flash_attention_fwd(
+        16, 256, 4096, 64, 8, 128, causal=True, q_offset=0), 0.0454,
+     "bytes"),
+    ("#12 at chameleon's first rank", kc.flash_attention_bwd(
+        16, 256, 4096, 64, 8, 128, causal=True, q_offset=0), 0.1656,
+     "bytes"),
 ]
 
 
@@ -500,3 +523,29 @@ def test_six_and_seven_float32_bounds_equal_perf_md():
     c7 = kc.pairwise_l2(Q, C, D, tensor_flops=0)
     assert kc.bound(c7.bytes, 2.0 * Q * C * D) == (
         pytest.approx(5.008, abs=5e-4), "operations")
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,q_offset", [
+    (64, 64, True, 0, 0), (64, 64, False, 0, 0), (16, 64, True, 0, 0),
+    (16, 64, True, 0, 48), (16, 64, True, 0, 20), (16, 64, True, 24, 40),
+    (64, 64, True, 16, 0), (16, 64, False, 8, 30), (16, 64, True, 4, 100)])
+def test_flash_bytes_read_only_the_visible_keys(sq, skv, causal, window,
+                                                q_offset):
+    """The flash formulas read a K/V row only where some query attends
+    it: `visible_keys` equals the keys the plain versions' mask
+    (`_visible`) keeps for at least one query; #10/#11 read them once,
+    #12 reads them once and writes dk and dv whole."""
+    from repro_torch.kernels.flash_attention.ops import _visible
+    mask = _visible(torch.arange(sq) + q_offset, torch.arange(skv), causal,
+                    window)
+    keys = int(mask.any(0).sum())
+    assert kc.visible_keys(sq, skv, causal, window, q_offset) == keys
+    b, h, hk, dh, item = 2, 4, 2, 32, 2
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert kc.flash_attention(b, sq, skv, h, hk, dh, **kw).bytes == (
+        (2 * b * sq * h + 2 * b * keys * hk) * dh * item)
+    assert kc.flash_attention_fwd(b, sq, skv, h, hk, dh, **kw).bytes == (
+        (2 * b * sq * h + 2 * b * keys * hk) * dh * item + b * h * sq * 4)
+    assert kc.flash_attention_bwd(b, sq, skv, h, hk, dh, **kw).bytes == (
+        (4 * b * sq * h + 2 * b * (keys + skv) * hk) * dh * item
+        + b * h * sq * 4)
