@@ -280,8 +280,33 @@ Phases:
                 (the same draws: cosine >= 0.999). (c) hubert-xlarge: the
                 kernel path against blockwise, a forward of 4 x 1,024
                 frames (48 launches of #10), bidirectional (the last frame
-                moves position 0's hidden state), profiled. Prints one
-                `{"families": ...}` JSON line.
+                moves position 0's hidden state), profiled. (d) #10 at the
+                shapes a rank of the 16 x 16 prefill_32k cells gives it
+                under the serving plan (`models/tensor_parallel.py`;
+                TP_PREFILL_FLASH): the heads path's stablelm-1.6b (2,
+                32,768, 2/2, 64) causal and hubert-xlarge (2, 32,768, 1/1,
+                80) bidirectional, and the context-parallel fallback's
+                2,048 queries against 32,768 gathered keys at q_offset
+                30,720 and 0, minicpm-2b's 36/36 heads at Dh 64 and
+                chameleon-34b's 64/8 at Dh 128: each against its plain
+                version at B=1 in float32 and bf16, then timed at B=2
+                beside the plain version, SDPA (the same mask) and the
+                bound. (e) Split-KV decode at full width on the one card
+                (NCCL puts no two ranks on a device, so the 16 model ranks
+                are simulated): starcoder2-7b, 8 rows, a 32,768-slot cache
+                filled from the seed up to pos 20,000 (the slices past it
+                empty); one decode step whose attention is computed as 16
+                slices' `decode_partials` in turn and merged by
+                `tensor_parallel.combine_partials` (the functions the
+                sharded path calls) against the unsplit `decode_step`:
+                bf16 at full depth (max |err| printed), float32 at 8
+                layers (max |err| <= 1e-4 of the largest |logit|, the
+                cosine of each row's logits >= 0.99999); layer 0's 16
+                combined slices against its unsplit softmax in float32
+                (max |err| <= 1e-5 of its largest |value|); then the ms
+                of one layer's unsplit decode attention, of a rank's
+                partials over its 2,048 slots and of the combine.
+                Prints one `{"families": ...}` JSON line.
  15. training the families — last, after 14: float32 masters, bf16
                 compute, remat "full", the flash kernels. (a) #11 and #12
                 against their plain versions (B=1, bf16) at the attention
@@ -356,7 +381,7 @@ the kernel JSON line (with each search kernel's launches a host-tier search
 of its lane as `launches_host_tier` and a sharded search as
 `launches_sharded`; #10's launches a forward of each family as
 `launches_families` and its times at phase 14's shapes as
-`at_family_shapes`; #11's and #12's launches in phase 15 (b) by family as
+`at_family_shapes` and at (d)'s as `at_tp_prefill_shapes`; #11's and #12's launches in phase 15 (b) by family as
 `launches_families`, added to `launches`, their times at phase 15's
 shapes as `at_family_shapes` and at (f)'s as `at_tp_local_shapes`), the
 card's name and
@@ -4689,15 +4714,254 @@ def family_model(arch: str, prompt: int, n_flash: int, profiled: int
     return rec
 
 
+# #10 at the shapes a rank of the 16 x 16 prefill_32k cells gives it under
+# the serving plan (`models/tensor_parallel.py`): name, B (32 rows over 16
+# data ranks), Sq, Skv, H, Hk, Dh, causal, q_offset. On the heads path a
+# rank's h/16 q and hk/16 kv heads over the whole prompt; on the
+# context-parallel fallback its 32,768/16 queries against the gathered K/V
+# from its slice's start (the last rank's, 30,720, and the first's, 0)
+TP_PREFILL_FLASH = (
+    ("stablelm-1.6b, heads", 2, 32768, 32768, 2, 2, 64, True, 0),
+    ("hubert-xlarge, heads", 2, 32768, 32768, 1, 1, 80, False, 0),
+    ("minicpm-2b, fallback, last rank", 2, 2048, 32768, 36, 36, 64, True,
+     30720),
+    ("minicpm-2b, fallback, first rank", 2, 2048, 32768, 36, 36, 64, True,
+     0),
+    ("chameleon-34b, fallback, last rank", 2, 2048, 32768, 64, 8, 128, True,
+     30720),
+    ("chameleon-34b, fallback, first rank", 2, 2048, 32768, 64, 8, 128,
+     True, 0))
+
+
+def flash_at_tp_prefill_shapes() -> list:
+    """Phase 14 (d): #10 at TP_PREFILL_FLASH's shapes, held against its
+    plain version at B=1 in float32 and bf16 (`compare_flash`, FLASH_TOL),
+    then timed in bf16 at the rank's B beside the plain version, SDPA
+    (`enable_gqa`, the same mask) and the `kernel_costs` bound. Returns one
+    record a shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.roofline import kernel_costs as kc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    out = []
+    for name, b, sq, skv, h, hk, dh, causal, off in TP_PREFILL_FLASH:
+        kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
+                  block_kv=1024)
+
+        def qkv(batch, dtype):
+            return [torch.randn((batch, n_s, n, dh), generator=gen,
+                                device="cuda").to(dtype)
+                    for n_s, n in ((sq, h), (skv, hk), (skv, hk))]
+        shape = (f"{name} (B, Sq, Skv, H/Hk, Dh) = (1, {sq}, {skv}, "
+                 f"{h}/{hk}, {dh}), q_offset {off}")
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(1, dt)
+            tag = str(dt).replace("torch.", "")
+            errs[tag] = compare_flash(q, k, v, kw, f"flash at {shape} {tag}")
+            del q, k, v
+        q, k, v = qkv(b, torch.bfloat16)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = dict(_sdpa_mask(sq, skv, causal, off), enable_gqa=h != hk)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, **sdpa), 5)
+        b_ms, b_by = kc.flash_attention(b, sq, skv, h, hk, dh, causal=causal,
+                                        q_offset=off).bound()
+        log(f"  (d) #10 at the TP-local prefill_32k shape of {name} (B={b}, "
+            f"Sq={sq}, Skv={skv}, H={h}, Hk={hk}, Dh={dh}, "
+            f"{'causal' if causal else 'bidirectional'}, q_offset {off}) "
+            f"bf16: {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); max |err| vs "
+            f"plain (B=1) float32 {errs['float32']:.3g}, bf16 "
+            f"{errs['bfloat16']:.3g}")
+        out.append(dict(arch=name, shape=[b, sq, skv, h, hk, dh],
+                        causal=causal, q_offset=off, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=errs["bfloat16"],
+                        max_abs_err_f32=errs["float32"]))
+        del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 14 (e): split-KV decode of starcoder2-7b (4 kv heads: they do not
+# tile a model axis of 16) at a 16 x 16 rank's rows of decode_32k, its 16
+# model ranks simulated on the one card; the float32 run cut to
+# SPLIT_KV_F32_LAYERS layers (the whole model and cache in float32 would
+# take ~75 GB)
+SPLIT_KV_ARCH, SPLIT_KV_RANKS = "starcoder2-7b", 16
+SPLIT_KV_BATCH, SPLIT_KV_SLOTS, SPLIT_KV_POS = 8, 32768, 20000
+SPLIT_KV_F32_LAYERS = 8
+# the float32 logits against the unsplit decode step: max |err| over the
+# largest |logit| and each row's cosine; one layer's combined softmax
+# against the unsplit one (float32 from bf16 caches): max |err| over its
+# largest |value|. A combine that drops a slice's exp(m_r - max m) weight
+# or mis-masks a slice misses these by orders of magnitude.
+SPLIT_KV_F32_REL, SPLIT_KV_F32_COSINE = 1e-4, 0.99999
+SPLIT_KV_COMBINE_REL = 1e-5
+
+
+class SimulatedSplitKV:
+    """While the block runs, `decode_attention`'s softmax over the cache
+    (`models/attention.py` `_decode_core`) is computed as `ranks` slices,
+    each slice's partials by `decode_partials` in turn, merged by
+    `tensor_parallel.combine_partials`: the functions each rank of the
+    sharded path and its combine call."""
+
+    def __init__(self, ranks: int):
+        self.ranks = ranks
+
+    def __enter__(self):
+        import repro_torch.models.attention as attention_mod
+        from repro_torch.models import tensor_parallel as tpm
+        self.module, self.orig = attention_mod, attention_mod._decode_core
+
+        def split(qg, k_cache, v_cache, pos, window):
+            n = k_cache.shape[1] // self.ranks
+            valid = torch.arange(k_cache.shape[1], device=qg.device) <= pos
+            parts = [attention_mod.decode_partials(
+                qg, k_cache[:, r * n:(r + 1) * n],
+                v_cache[:, r * n:(r + 1) * n], valid[r * n:(r + 1) * n])
+                for r in range(self.ranks)]
+            m, l, o = (torch.stack(t) for t in zip(*parts))
+            return tpm.combine_partials(m, l, o).permute(0, 3, 1, 2, 4)
+        attention_mod._decode_core = split
+        return self
+
+    def __exit__(self, *exc):
+        self.module._decode_core = self.orig
+
+
+def split_kv_decode() -> dict:
+    """Phase 14 (e): starcoder2-7b at full width (random weights from seed
+    0), SPLIT_KV_BATCH rows, a SPLIT_KV_SLOTS-slot cache whose first
+    SPLIT_KV_POS slots are filled from the seed (the slices past `pos` are
+    empty): one decode step with its attention split over SPLIT_KV_RANKS
+    simulated ranks (`SimulatedSplitKV`) against the unsplit `decode_step`
+    — bf16 at full depth (max |err| and cosine printed) and float32 at
+    SPLIT_KV_F32_LAYERS layers (max |err| <= SPLIT_KV_F32_REL of the
+    largest |logit|, the cosine of each row's logits >=
+    SPLIT_KV_F32_COSINE) — then, on the bf16 caches of layer 0, the 16
+    slices' combined softmax against the unsplit one in float32 (max |err|
+    <= SPLIT_KV_COMBINE_REL of its largest |value|), and the ms of one
+    layer's unsplit decode attention and of its softmax over the whole
+    cache, of a rank's `decode_partials` over its slice and of the
+    combine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import tensor_parallel as tpm
+    from repro_torch.models.attention import (_decode_core,
+                                              decode_attention,
+                                              decode_partials)
+    from repro_torch.models.model import (decode_step, init_decode_state,
+                                          init_params)
+    t0 = time.perf_counter()
+    base = dataclasses.replace(get_config(SPLIT_KV_ARCH),
+                               use_flash_kernel=True)
+    b, pos, r = SPLIT_KV_BATCH, SPLIT_KV_POS, SPLIT_KV_RANKS
+    rec = {"arch": SPLIT_KV_ARCH, "batch": b, "slots": SPLIT_KV_SLOTS,
+           "pos": pos, "ranks": r}
+    for dtype, layers in (("bfloat16", base.num_layers),
+                          ("float32", SPLIT_KV_F32_LAYERS)):
+        cfg = dataclasses.replace(base, dtype=dtype, num_layers=layers)
+        params = init_params(cfg, SEED)
+        state = init_decode_state(cfg, b, SPLIT_KV_SLOTS)
+        for i in range(layers):
+            for key in ("k", "v"):
+                g = torch.Generator(device="cuda").manual_seed(
+                    SEED + 100 + 2 * i + (key == "v"))
+                state[key][i, :, :pos] = torch.randn(
+                    (b, pos, cfg.num_kv_heads, cfg.head_dim), generator=g,
+                    device="cuda").to(state[key].dtype)
+        state["pos"] = pos
+        tokens = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                               generator=torch.Generator(device="cuda"
+                                                         ).manual_seed(SEED))
+        with torch.inference_mode():
+            want, _ = decode_step(params, cfg, state, tokens)
+            with SimulatedSplitKV(r):
+                got, _ = decode_step(params, cfg, state, tokens)
+        torch.cuda.synchronize()
+        cos = float(_cosines(got[:, 0], want[:, 0]).min())
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()),
+              f"split-KV decode ({dtype}): NaN in logits")
+        log(f"  (e) split-KV decode of {SPLIT_KV_ARCH} over {r} simulated "
+            f"ranks, {layers} layers in {dtype}, B={b}, {SPLIT_KV_SLOTS} "
+            f"slots, pos {pos}: logits against the unsplit decode step, "
+            f"cosine min {cos:.7f}, max |err| {err:.4g} (largest |logit| "
+            f"{float(want.float().abs().max()):.4g})")
+        rec[dtype] = {"layers": layers, "cosine_min": cos, "max_abs_err": err}
+        if dtype == "float32":
+            rel = err / float(want.float().abs().max())
+            check(rel <= SPLIT_KV_F32_REL and cos >= SPLIT_KV_F32_COSINE,
+                  f"split-KV decode: max |err| {rel:.3g} of the largest "
+                  f"|logit| (limit {SPLIT_KV_F32_REL}), cosine {cos} (floor "
+                  f"{SPLIT_KV_F32_COSINE}) against the unsplit decode step "
+                  "(float32)")
+        else:
+            with torch.inference_mode():
+                attn = params.blocks[0].attn
+                x = torch.randn((b, 1, cfg.d_model), device="cuda").to(
+                    torch.bfloat16)
+                kc_, vc_ = state["k"][0], state["v"][0]
+                qg = torch.randn((b, 1, cfg.num_kv_heads, cfg.num_heads
+                                  // cfg.num_kv_heads, cfg.head_dim),
+                                 device="cuda")
+                valid = torch.arange(SPLIT_KV_SLOTS, device="cuda") <= pos
+                n = SPLIT_KV_SLOTS // r
+                rec["unsplit_layer_ms"] = cuda_ms(lambda: decode_attention(
+                    attn, x, cfg, kc_, vc_, pos), 5)
+                rec["unsplit_softmax_ms"] = cuda_ms(
+                    lambda: _decode_core(qg, kc_, vc_, pos, 0), 5)
+                rec["rank_partials_ms"] = cuda_ms(lambda: decode_partials(
+                    qg, kc_[:, :n], vc_[:, :n], valid[:n]), 5)
+                parts = [decode_partials(qg, kc_[:, i * n:(i + 1) * n],
+                                         vc_[:, i * n:(i + 1) * n],
+                                         valid[i * n:(i + 1) * n])
+                         for i in range(r)]
+                m, l, o = (torch.stack(t) for t in zip(*parts))
+                whole = _decode_core(qg, kc_, vc_, pos, 0)
+                split = tpm.combine_partials(m, l, o).permute(0, 3, 1, 2, 4)
+                rel = float((split - whole).abs().max()) / float(
+                    whole.abs().max())
+                rec["combine_rel_err"] = rel
+                log(f"  (e) layer 0's softmax over the {SPLIT_KV_SLOTS} "
+                    f"slots as {r} slices' partials and their combine, "
+                    f"float32: max |err| {rel:.3g} of its largest |value|")
+                check(rel <= SPLIT_KV_COMBINE_REL, f"split-KV combine: max "
+                      f"|err| {rel:.3g} of the largest |value| against the "
+                      f"unsplit softmax (limit {SPLIT_KV_COMBINE_REL})")
+                rec["combine_ms"] = cuda_ms(
+                    lambda: tpm.combine_partials(m, l, o), 5)
+            log(f"  (e) bf16 ms, one layer: unsplit decode attention "
+                f"{rec['unsplit_layer_ms']:.4f} (its softmax over the "
+                f"{SPLIT_KV_SLOTS} slots {rec['unsplit_softmax_ms']:.4f}); "
+                f"a rank's partials over its {n} slots "
+                f"{rec['rank_partials_ms']:.4f}; the combine of {r} "
+                f"{rec['combine_ms']:.4f}")
+            del x, qg, parts, m, l, o, whole, split
+        del params, state, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def families() -> dict:
     """Phase 14; returns {"flash": #10 at the new shapes, "models": one
-    record a model, "launches": #10 on the phase's path}."""
+    record a model, "launches": #10 on the phase's path, "tp_prefill": (d),
+    "split_kv": (e)}."""
     t_phase = time.perf_counter()
     flash = flash_at_family_shapes()
     models = [family_model(*run) for run in FAMILY_RUNS]
     launches = sum(m["flash_launches_a_forward"]
                    + m.get("flash_launches_generate", 0) for m in models)
     out = {"flash": flash, "models": models, "launches": launches,
+           "tp_prefill": flash_at_tp_prefill_shapes(),
+           "split_kv": split_kv_decode(),
            "seconds": time.perf_counter() - t_phase}
     log(f"  phase 14: {out['seconds']:.1f} s; flash launches on the "
         f"phase's path (a forward and a generate a model) {launches}")
@@ -5397,7 +5661,8 @@ def main() -> int:
     flash.update(launches=flash["launches"] + fam["launches"],
                  launches_families={m["arch"]: m["flash_launches_a_forward"]
                                     for m in fam["models"]},
-                 at_family_shapes=fam["flash"])
+                 at_family_shapes=fam["flash"],
+                 at_tp_prefill_shapes=fam["tp_prefill"])
 
     gc.collect()
     torch.cuda.empty_cache()

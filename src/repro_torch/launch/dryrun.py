@@ -20,10 +20,17 @@ For every runnable cell it runs the port's own step at full width:
     decode     gathered a unit at a time as the sharded train step
                gathers them (`models/fsdp.py`), on the rank's rows of the
                batch (the whole batch where it does not split over the
-               data axes), in the serving storage (bf16 matrices): the
-               ranks of the model axis repeat the same compute (the port
-               has no tensor-parallel serving path yet: kv-head-sharded
-               prefill and JAX's split-KV decode are ROADMAP A9.4b);
+               data axes), in the serving storage (bf16 matrices). The
+               attention-and-MLP families run under a serving plan
+               (`models/tensor_parallel.py`, ROADMAP A9.4b): prefill (the
+               encoder's forward too) split as the train step's forward,
+               decode on the rank's shard of the decode state, its kv
+               heads or, where they do not tile the model axis, its slice
+               of the cache's sequence (JAX's split-KV decode): the
+               shapes of `launch/shardings.py`'s
+               `local_decode_state_shapes`. The MoE, Mamba2 and xLSTM
+               families (A9.4c, A9.4d) gather and repeat the same compute
+               on the ranks of the model axis, with the whole state;
 
 with `use_flash_kernel=True`, as the port's launchers run. Under
 `roofline/op_analyzer.py` the step's ops and each kernel function's
@@ -82,6 +89,7 @@ from repro_torch.launch import shardings as shd
 from repro_torch.launch.mesh import production_layout
 from repro_torch.models import model as M
 from repro_torch.models.fsdp import ShardedParams
+from repro_torch.models.tensor_parallel import make_plan
 from repro_torch.models.sharding_ctx import (
     axis_sizes,
     data_rank,
@@ -146,14 +154,17 @@ def _nbytes(t: torch.Tensor) -> int:
 def _local_inputs(inputs: dict, mesh, cfg, overrides) -> dict:
     """This rank's part of each (global) input at the sanitised batch
     shardings (an input whose batch does not split over the data axes is
-    replicated)."""
+    replicated), a copy: a view of the global input would make the memory
+    tracker count the whole global storage where a step views the rows
+    (the frames' sequence slice under sequence parallelism)."""
     b_all = shd.batch_shardings(mesh, cfg, overrides)
     out = {}
     for k, full in inputs.items():
         sh = shd.sanitize_shardings(b_all.get(k, shd.replicated(mesh)),
                                     tuple(full.shape), mesh)
         out[k] = local_shard(full, mesh, sh.placements,
-                             mesh.get_coordinate()).contiguous()
+                             mesh.get_coordinate()).clone(
+                                 memory_format=torch.contiguous_format)
     return out
 
 
@@ -244,6 +255,12 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                  training=True)
         else:
             arg_bytes += _sharded_params(model, mesh, cfg, overrides)
+            # the rows are the rank's share where the batch splits over the
+            # data axes, else the whole batch (`_local_inputs`)
+            split = all(t.shape[0] < global_in[k].shape[0]
+                        for k, t in inputs.items()) or data_rank(mesh)[0] == 1
+            with sharding_rules(mesh, overrides, split_rows=split):
+                plan = make_plan(cfg, mesh, serving=True)
             if shape.kind == "prefill":
                 if cfg.is_encoder:
                     def fwd():
@@ -256,7 +273,8 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                      training=False)
             else:
                 local_b = inputs["tokens"].shape[0]
-                dstate = M.init_decode_state(cfg, local_b, s, device="cpu")
+                dstate = M.init_decode_state(cfg, local_b, s, device="cpu",
+                                             tp=plan)
                 arg_bytes += sum(_nbytes(t) for t in tree_flatten(dstate)[0]
                                  if isinstance(t, torch.Tensor))
 
@@ -265,13 +283,9 @@ def dry_run_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                          inputs["tokens"])
                 mflops = model_flops(_active_params(cfg, n_params), b,
                                      training=False)
-            # the rows are the rank's share where the batch splits over the
-            # data axes, else the whole batch (`_local_inputs`)
-            split = all(t.shape[0] < global_in[k].shape[0]
-                        for k, t in inputs.items()) or data_rank(mesh)[0] == 1
             with torch.no_grad(), tracker, OpAnalyzer() as ana:
-                with ShardedParams(model, mesh), sharding_rules(
-                        mesh, split_rows=split):
+                with ShardedParams(model, mesh, plan), sharding_rules(
+                        mesh, overrides, split_rows=split):
                     fwd()
         temp = _peak_bytes(tracker)
     result["run_s"] = round(time.time() - t0, 2)

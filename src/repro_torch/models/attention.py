@@ -28,7 +28,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import tensor_parallel as tpm
-from repro_torch.models.layers import _init_linear, apply_rope, dense
+from repro_torch.models.layers import (
+    _init_linear,
+    apply_rope,
+    dense,
+    linear,
+)
 
 _NEG = -1e30
 
@@ -146,12 +151,14 @@ def _attend(q, k, v, cfg: ModelConfig, q_offset: int = 0) -> torch.Tensor:
 
 def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, return_kv: bool = False,
-              tp: "tpm.Plan | None" = None):
+              tp: "tpm.Plan | None" = None, cache_slots: int = 0):
     """Full-sequence attention sublayer (prefill / forward). Under a
     tensor-parallel plan x is the residual as the plan carries it and so
-    is the result (`_tp_attention`)."""
+    is the result (`_tp_attention`); there `return_kv` returns the K/V of
+    this rank's shard of a cache of `cache_slots` slots a rank."""
     if tp is not None:
-        return _tp_attention(params, x, cfg, tp)
+        return _tp_attention(params, x, cfg, tp,
+                             cache_slots if return_kv else 0)
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = _attend(q, k, v, cfg)
@@ -162,7 +169,7 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _tp_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                  tp: "tpm.Plan") -> torch.Tensor:
+                  tp: "tpm.Plan", cache_slots: int = 0):
     """Attention split over the model axis, JAX's two branches
     (`src/repro/models/attention.py:55-65`):
 
@@ -175,7 +182,13 @@ def _tp_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         slice of the sequence (split off the whole residual under no_sp)
         at their global positions, K/V all-gathered (their gradients
         reduce-scattered), the kernels with `q_offset` at the slice's
-        start, and `wo` on the local rows, whole."""
+        start, and `wo` on the local rows, whole (a serving plan keeps
+        the weights' shards: they are gathered here).
+
+    With `cache_slots` (prefill) it returns (out, (k, v)) for this rank's
+    shard of the cache: its kv heads over the prompt, or the rows of the
+    gathered K/V in its slice [rank·cache_slots, (rank+1)·cache_slots) of
+    the cache's positions (none where the prompt ends before it)."""
     if tp.heads:
         x = tpm.enter_columns(x, tp)
         b, s, _ = x.shape
@@ -184,16 +197,25 @@ def _tp_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                                heads)
         out = _attend(q, k, v, cfg)
         out = dense(out.reshape(b, s, heads * cfg.head_dim), params.wo)
-        return tpm.leave_rows(out, tp)
+        out = tpm.leave_rows(out, tp)
+        return (out, (k, v)) if cache_slots else out
     if not tp.sp:
         x = tpm.split_seq(x, tp)
+    if tp.serving:
+        params = Attention(*(linear(tpm.all_gather(w.weight, tp, d))
+                             for w, d in ((params.wq, 0), (params.wk, 0),
+                                          (params.wv, 0), (params.wo, 1))))
     b, n, _ = x.shape
     start = tp.rank * n
     q, k, v = _project_qkv(params, x, cfg, _positions(start, n, x.device))
     k, v = tpm.gather_seq(k, tp), tpm.gather_seq(v, tp)
     out = _attend(q, k, v, cfg, q_offset=start)
     out = dense(out.reshape(b, n, cfg.num_heads * cfg.head_dim), params.wo)
-    return out if tp.sp else tpm.gather_seq(out, tp, split_grad=True)
+    out = out if tp.sp else tpm.gather_seq(out, tp, split_grad=True)
+    if not cache_slots:
+        return out
+    lo = tp.rank * cache_slots
+    return out, (k[:, lo:lo + cache_slots], v[:, lo:lo + cache_slots])
 
 
 def _positions(start: int, n: int, device) -> torch.Tensor:
@@ -203,7 +225,7 @@ def _positions(start: int, n: int, device) -> torch.Tensor:
 
 def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
-                     *, window: int = 0
+                     *, window: int = 0, tp: "tpm.Plan | None" = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode with a KV cache.
 
@@ -212,26 +234,54 @@ def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     caches, S_max == window and writes wrap (ring buffer). The new K/V row
     is written into the caches IN PLACE (the JAX package returns updated
     copies; a copy of a full-width cache per token would cost its size).
-    Returns (out (B, 1, D), k_cache, v_cache).
+    Returns (out (B, 1, D), k_cache, v_cache). Under a serving plan x is
+    whole on every rank and the caches are this rank's shard, as JAX's
+    `decode_state_shardings` lays them out
+    (`src/repro/launch/shardings.py:63-73`): where the kv heads tile the
+    model axis, its h/tp q and hk/tp kv heads (column-parallel projections
+    on its weight shards) against its (B, S_max, hk/tp, Dh) cache and the
+    row-parallel `wo`, its partial sums all-reduced; else its slice of
+    the cache's sequence (`_split_kv_decode`).
     """
+    if tp is not None and not tp.heads:
+        return _split_kv_decode(params, x, cfg, k_cache, v_cache, pos,
+                                window, tp)
     b = x.shape[0]
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hk
+    heads = h if tp is None else h // tp.size
     s_max = k_cache.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, heads)
 
     slot = pos % s_max if window > 0 else pos
-    if not 0 <= slot < s_max:
-        raise IndexError(f"decode position {pos} past the cache's {s_max} "
-                         "slots")
+    _write_slot(k_cache, v_cache, k, v, slot)
+    out = _decode_core(q.reshape(b, 1, heads // g, g, dh).float(), k_cache,
+                       v_cache, pos, window)
+    out = dense(out.reshape(b, 1, heads * dh).to(x.dtype), params.wo)
+    if tp is not None:
+        out = tpm.reduce_from_region(out, tp)
+    return out, k_cache, v_cache
+
+
+def _write_slot(k_cache, v_cache, k, v, slot: int) -> None:
+    if not 0 <= slot < k_cache.shape[1]:
+        raise IndexError(f"decode position {slot} past the cache's "
+                         f"{k_cache.shape[1]} slots")
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
 
-    qg = q.reshape(b, 1, hk, g, dh).float()
+
+def _decode_core(qg: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: int, window: int
+                 ) -> torch.Tensor:
+    """The query (B, 1, Hk, G, Dh) float32 against the whole cache at
+    `pos`: (B, 1, Hk, G, Dh) float32 (JAX's einsum, masked softmax,
+    einsum)."""
+    s_max = k_cache.shape[1]
     scores = torch.einsum("bqhgd,bshd->bhgqs", qg,
-                          k_cache.float()) * (dh ** -0.5)
-    s_idx = torch.arange(s_max, device=x.device)
+                          k_cache.float()) * (qg.shape[-1] ** -0.5)
+    s_idx = torch.arange(s_max, device=qg.device)
     if window > 0:
         # ring buffer: slots hold the last min(pos+1, window) positions, so
         # every slot written so far is within the window by construction
@@ -241,6 +291,57 @@ def decode_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         valid = s_idx <= pos
     scores = torch.where(valid[None, None, None, None, :], scores, _NEG)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
-    out = out.reshape(b, 1, h * dh).to(x.dtype)
-    return dense(out, params.wo), k_cache, v_cache
+    return torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
+
+
+def decode_partials(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor) -> tuple:
+    """One slice's partial softmax terms for split-KV decode: the query
+    (B, 1, Hk, G, Dh) float32 against k/v (B, n, Hk, Dh), `valid` (n,) the
+    slots it reads. Returns (m, l, o) float32 as
+    `tensor_parallel.combine_partials` takes them: m (B, Hk, G, 1) the row
+    max (-1e30 where no slot is valid), l the sum of exp(s - m) over the
+    valid slots only (0 for an empty slice, not a softmax over unwritten
+    slots), o (B, Hk, G, 1, Dh) the sum of exp(s - m)·v."""
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg,
+                     k.float()) * (qg.shape[-1] ** -0.5)
+    s = torch.where(valid, s, _NEG)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum("bhgqs,bshd->bhgqd", p, v.float())
+
+
+def _split_kv_decode(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                     window: int, tp: "tpm.Plan"):
+    """Split-KV decode: q, k and v projected column-parallel on the rank's
+    weight shards and all-gathered (every rank holds the token's whole q);
+    only the rank whose slice [rank·n, (rank+1)·n) holds slot `pos` writes
+    the new row; every rank scores its slice (`decode_partials`), the
+    partials are combined over "model" (`tensor_parallel.
+    combine_over_model`), and `wo` runs row-parallel on the rank's block of
+    the heads' columns, all-reduced."""
+    b = x.shape[0]
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hk
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    if window:
+        raise ValueError("split-KV decode has no ring buffer: a windowed "
+                         "cache must tile the model axis by its kv heads")
+    q, k, v = (tpm.all_gather(dense(x, w), tp, 2)
+               for w in (params.wq, params.wk, params.wv))
+    q = apply_rope(q.reshape(b, 1, h, dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, 1, hk, dh), positions, cfg.rope_theta)
+    v = v.reshape(b, 1, hk, dh)
+    n = k_cache.shape[1]
+    start = tp.rank * n
+    if start <= pos < start + n:
+        _write_slot(k_cache, v_cache, k, v, pos - start)
+    valid = torch.arange(start, start + n, device=x.device) <= pos
+    m, l, o = decode_partials(q.reshape(b, 1, hk, g, dh).float(), k_cache,
+                              v_cache, valid)
+    out = tpm.combine_over_model(m, l, o, tp)          # (B, Hk, G, 1, Dh)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * dh).to(x.dtype)
+    cols = h * dh // tp.size
+    out = dense(out[..., tp.rank * cols:(tp.rank + 1) * cols], params.wo)
+    return tpm.reduce_from_region(out, tp), k_cache, v_cache

@@ -33,8 +33,14 @@ parameter has a mode (`Plan.mode`):
     "model" too, and its gradient summed over "model" like a data axis'
     (reduce-scattered where `Shard`ed, all-reduced where `Replicate`d);
   * "replica": every model rank repeats the same compute (no plan: the
-    MoE, Mamba2 and xLSTM units, and the serving paths), so this rank's
-    slice is taken with no collective.
+    MoE, Mamba2 and xLSTM units), so this rank's slice is taken with no
+    collective.
+
+Serving runs under a serving plan (`make_plan(..., serving=True)`): the
+same modes without a gradient, the fallback's attention weights "local"
+too. A dense, vlm or audio model on a model axis larger than 1 is refused
+without a plan (`tensor_parallel.current`): it never repeats the compute
+on the model ranks.
 
 The units are the model's remat units (`models/model.py` `_layers`: a
 block, an xLSTM pair, a Mamba2 group with the shared attention block),

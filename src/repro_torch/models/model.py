@@ -331,7 +331,7 @@ def _unit(fn, args, x, cfg: ModelConfig, positions, pack: bool,
     `fsdp.context()`: a remat recompute may run on another thread, and
     replays the forward's collectives under it."""
     with fsdp.restored(ctx), fsdp.gathered(*args, pack=pack):
-        return fn(*args, x, cfg, positions, tpm.current())
+        return fn(*args, x, cfg, positions, tpm.current(cfg))
 
 
 def forward(params: Model, cfg: ModelConfig, batch: dict,
@@ -342,7 +342,7 @@ def forward(params: Model, cfg: ModelConfig, batch: dict,
     final-norm hidden states instead (retrieval embeddings for
     serving/rag.py). Under a tensor-parallel plan (the sharded train
     step) the logits are this rank's vocabulary columns."""
-    tp = tpm.current()
+    tp = tpm.current(cfg)
     x = _embed_inputs(params, cfg, batch, tp)
     # the units under a plan place their own positions
     positions = _positions(x.shape[1], x.device)
@@ -376,7 +376,7 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict
     vocab padding columns at -1e30. Returns (total, {"ce", "aux"})."""
     logits, aux = forward(params, cfg, batch, with_aux=True)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    loss = cross_entropy(logits, labels, cfg.vocab_size, tpm.current())
+    loss = cross_entropy(logits, labels, cfg.vocab_size, tpm.current(cfg))
     return loss + AUX_LOSS_WEIGHT * aux, {"ce": loss, "aux": aux}
 
 
@@ -474,17 +474,26 @@ def _stacked(one: dict, *lead: int) -> dict:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device=None) -> dict:
+                      device=None, tp: "tpm.Plan | None" = None) -> dict:
     """The family's zero decode state at pos 0: KV caches (n, B, S_cache,
-    Hk, Dh) in cfg.dtype, recurrent states float32."""
+    Hk, Dh) in cfg.dtype, recurrent states float32. Under a serving plan
+    (`tp`; None: the active one, `tensor_parallel.current`) only this
+    rank's shard of the caches: Hk/tp heads or S_cache/tp slots
+    (`Plan.cache_shape`); `batch` is the rows the rank runs."""
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    dev = resolve_device(device)
+    return _decode_state(cfg, batch, max_len, resolve_device(device),
+                         tp if tp is not None else tpm.current(cfg))
 
+
+def _decode_state(cfg: ModelConfig, batch: int, max_len: int, dev,
+                  tp: "tpm.Plan | None") -> dict:
     def kv(n_stack):
         shape = _kv_shape(cfg, batch, max_len, n_stack)
+        if tp is not None:
+            shape = tp.cache_shape(shape)
         dt = torch_dtype(cfg)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
@@ -502,6 +511,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                                   groups, cfg.attn_every),
                 **kv(groups), "pos": 0}
     return {**kv(cfg.num_layers), "pos": 0}
+
+
+def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The shapes of `init_decode_state`'s whole (unsplit) tree, allocating
+    nothing: a tuple a tensor, () for "pos"."""
+    state = _decode_state(cfg, batch, max_len, torch.device("meta"), None)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(tree.shape) if isinstance(tree, torch.Tensor) else ()
+    return shapes(state)
 
 
 def state_specs(cfg: ModelConfig) -> dict:
@@ -536,15 +557,23 @@ def _store(states: dict, index: tuple, new: dict) -> None:
 def decode_step(params: Model, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One token for the whole batch. tokens: (B, 1) int. Returns (logits
-    (B, 1, V), new state); the caches and states are updated in place."""
-    x = _embed_inputs(params, cfg, {"tokens": tokens})
+    (B, 1, V), new state); the caches and states are updated in place.
+    Under a serving plan (`tensor_parallel.current`) the state is this
+    rank's shard (`init_decode_state`), the residual is whole on every rank
+    (one position: JAX's `("batch", None, "act_embed")`,
+    `src/repro/models/attention.py:198`), the MLP and the head split their
+    ff and vocabulary columns (the `no_sp` regions), and the logits are the
+    rank's vocabulary columns, as in `prefill`."""
+    tp = tpm.current(cfg)
+    tp = None if tp is None else tp.whole()
+    x = _embed_inputs(params, cfg, {"tokens": tokens}, tp)
     pos = int(state["pos"])
     eps = cfg.norm_eps
 
     def attend(attn, ln, x, i):
         h, _, _ = decode_attention(attn, rmsnorm(ln, x, eps), cfg,
                                    state["k"][i], state["v"][i], pos,
-                                   window=cfg.sliding_window)
+                                   window=cfg.sliding_window, tp=tp)
         return x + h
 
     if params.pairs is not None:
@@ -576,8 +605,8 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
         for i, blk in enumerate(params.blocks):
             with gathered(blk):
                 x = attend(blk.attn, blk.ln1, x, i)
-                x = x + _ffn(blk, x, cfg)[0]
-    return _logits(params, cfg, x), {**state, "pos": pos + 1}
+                x = x + _ffn(blk, x, cfg, tp)[0]
+    return _logits(params, cfg, x, tp), {**state, "pos": pos + 1}
 
 
 def _place_kv(cache: torch.Tensor, kv: torch.Tensor) -> None:
@@ -589,6 +618,7 @@ def _place_kv(cache: torch.Tensor, kv: torch.Tensor) -> None:
     cache[:, :kv.shape[1]] = kv.to(cache.dtype)
 
 
+@torch.no_grad()
 def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Process a prompt, returning (logits, primed decode state).
@@ -596,17 +626,33 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
     Assumes prompt length <= cache capacity; a windowed cache keeps the
     prompt's last `window` positions. last_only=True computes logits ONLY
     for the final position: serving samples from it alone, and the (B, S,
-    V) logits go away.
+    V) logits go away. It runs without autograd (serving).
+
+    Under a serving plan (`tensor_parallel.current`) it runs as the train
+    step's split forward runs (heads or the context-parallel fallback, ff
+    and vocabulary columns, the residual sequence-parallel unless
+    `no_sp`), priming this rank's shard of the
+    decode state in the layout `decode_step` reads; a prompt whose length
+    does not split over the model axis is refused. The logits are then
+    the rank's vocabulary columns, as JAX's prefill leaves them
+    ("act_vocab"), and under SP `last_only`'s position comes from the
+    last rank.
     """
-    x = _embed_inputs(params, cfg, batch)
-    b, s, _ = x.shape
+    tp = tpm.current(cfg)
+    if tp is not None:
+        tp.seq_slice(torch.as_tensor(batch["tokens"]).shape[1])
+    x = _embed_inputs(params, cfg, batch, tp)
+    b, s = x.shape[:2]
+    if tp is not None and tp.sp:
+        s *= tp.size        # x is this rank's slice of the prompt
     positions = _positions(s, x.device)
     eps = cfg.norm_eps
-    state = init_decode_state(cfg, b, max_len, device=x.device)
+    state = init_decode_state(cfg, b, max_len, device=x.device, tp=tp)
 
     def attend(attn, ln, x, i):
         h, (k, v) = attention(attn, rmsnorm(ln, x, eps), cfg, positions,
-                              return_kv=True)
+                              return_kv=True, tp=tp,
+                              cache_slots=state["k"].shape[2])
         _place_kv(state["k"][i], k)
         _place_kv(state["v"][i], v)
         return x + h
@@ -639,8 +685,11 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
         for i, blk in enumerate(params.blocks):
             with gathered(blk):
                 x = attend(blk.attn, blk.ln1, x, i)
-                x = x + _ffn(blk, x, cfg)[0]
+                x = x + _ffn(blk, x, cfg, tp)[0]
     state["pos"] = s
     if last_only:
-        x = x[:, -1:]
-    return _logits(params, cfg, x), state
+        if tp is not None:
+            x, tp = tpm.last_position(x, tp), tp.whole()
+        else:
+            x = x[:, -1:]
+    return _logits(params, cfg, x, tp), state

@@ -1,5 +1,6 @@
 """Tensor-parallel compute on the "model" mesh axis for the attention-and-
-MLP families (dense, vlm, audio) in the sharded train step.
+MLP families (dense, vlm, audio): the sharded train step, and serving
+(prefill, the encoder forward, decode) under a serving plan.
 
 JAX has no module of this name. There the models call `constrain` with
 logical axis names (`src/repro/models/attention.py:55-65,153`,
@@ -42,11 +43,28 @@ and gold logit over the ranks' columns.
 `Plan` says what a unit splits and how each parameter's gradient sums over
 "model" (`Plan.mode`, read by `models/fsdp.py`). At a "model" axis of size
 1 there is no plan, and the step is the single-device step op for op.
+
+Serving (`make_plan(..., serving=True)`) splits prefill as the train step
+splits its forward, and decode as JAX's sharded `decode_step` lowers
+(`src/repro/launch/shardings.py:63-73`): the decode state is this rank's
+shard (`Plan.cache_shape`), its kv heads where they tile the axis
+(`Plan.heads`), else its slice of the cache's sequence (split-KV). A
+decode position is one token, so the residual is whole on every rank
+(`Plan.whole`: the `no_sp` regions); on split-KV each rank scores the
+new query against its slice and returns the partial softmax terms (m, l,
+o), which `combine_over_model` all-gathers and
+`combine_partials` merges. On the fallback the serving plan keeps the
+attention weights' "model" shards too ("local"): decode projects q, k
+and v column-parallel on them and all-gathers the columns, and prefill,
+which projects its slice of the sequence, gathers the weights whole.
+A dense, vlm or audio model under `ShardedParams` on a model axis larger
+than 1 without a plan is refused (`current`): it never repeats the
+compute on the model ranks.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -80,16 +98,19 @@ class Plan:
     sp: bool
     heads: bool
     vocab: bool
+    serving: bool = False
 
     def mode(self, name: str) -> str:
         """How parameter `name` is used over "model": "local" (the unit
         computes on its "model" shard, which is not gathered), "partial"
         (gathered whole; each rank's gradient is a partial sum over its
         part of the sequence, summed over "model") or "replica" (every
-        rank computes the same, as without a plan)."""
+        rank computes the same, as without a plan). Serving keeps the
+        fallback's attention weights "local" too (decode projects on
+        them)."""
         parts = name.split(".")
         if "attn" in parts:
-            return "local" if self.heads else "partial"
+            return "local" if self.heads or self.serving else "partial"
         if "mlp" in parts:
             return "local"
         if parts[0] in ("embed", "unembed"):
@@ -108,13 +129,31 @@ class Plan:
         n = s // self.size
         return self.rank * n, n
 
+    def whole(self) -> "Plan":
+        """The plan with the residual whole on every rank (a decode
+        position, a prefill's last one)."""
+        return replace(self, sp=False)
 
-def make_plan(cfg: ModelConfig, mesh) -> Plan | None:
+    def cache_shape(self, shape: tuple) -> tuple:
+        """This rank's shard of a (n, B, S_cache, Hk, Dh) cache: Hk/tp
+        heads, or S_cache/tp slots (a cache that does not split over the
+        axis is refused)."""
+        n, b, s, hk, dh = shape
+        if self.heads:
+            return (n, b, s, hk // self.size, dh)
+        if s % self.size:
+            raise ValueError(f"a cache of {s} slots does not split over a "
+                             f"model axis of {self.size}")
+        return (n, b, s // self.size, hk, dh)
+
+
+def make_plan(cfg: ModelConfig, mesh, serving: bool = False) -> Plan | None:
     """The plan of `cfg` on `mesh` under the installed sharding rules (call
     within `sharding_rules`); None where the "model" axis has size 1 or
     the family keeps a replicated compute. A d_ff that does not tile the
     axis is refused, as a sequence that does not split is (`seq_slice`):
-    every configuration's d_ff tiles 16."""
+    every configuration's d_ff tiles 16. `serving`: the plan of prefill
+    and decode (see the module note)."""
     size, rank = model_rank(mesh)
     if size == 1 or cfg.family not in TP_FAMILIES:
         return None
@@ -123,18 +162,28 @@ def make_plan(cfg: ModelConfig, mesh) -> Plan | None:
                          f"of {size}")
     return Plan(group=model_group(mesh), size=size, rank=rank,
                 sp=seq_parallel(), heads=cfg.num_kv_heads % size == 0,
-                vocab=cfg.padded_vocab % size == 0)
+                vocab=cfg.padded_vocab % size == 0, serving=serving)
 
 
-def current() -> Plan | None:
-    """The active `ShardedParams`' plan (`models/fsdp.py`); None outside
-    the sharded step or without one."""
+def current(cfg: ModelConfig) -> Plan | None:
+    """The active `ShardedParams`' plan (`models/fsdp.py`) for a model of
+    `cfg`; None outside the sharded step or without one. A model of
+    `TP_FAMILIES` on a model axis larger than 1 without a plan is refused:
+    it would repeat the whole compute on every model rank."""
     sp = fsdp.active()
-    return None if sp is None else sp.plan
+    if sp is None:
+        return None
+    size = dict((a, s) for a, s, _ in sp.axes).get("model", 1)
+    if sp.plan is None and size > 1 and cfg.family in TP_FAMILIES:
+        raise ValueError(f"a {cfg.family} model on a model axis of {size} "
+                         "needs its tensor-parallel plan (make_plan)")
+    return sp.plan
 
 
 # ------------------------------------------------------------ collectives
-def _all_gather(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    """The model ranks' blocks of `x` concatenated along `dim` in rank
+    order (no autograd: the train step's regions wrap it)."""
     moved = x.movedim(dim, 0).contiguous()
     out = moved.new_empty((plan.size * moved.shape[0], *moved.shape[1:]))
     all_gather_tensor(out, moved, group=plan.group)
@@ -166,7 +215,7 @@ class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, plan, split_grad):
         ctx.plan, ctx.split_grad = plan, split_grad
-        return _all_gather(x, plan, 1)
+        return all_gather(x, plan, 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -182,7 +231,7 @@ class _ScatterSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.plan, 1), None
+        return all_gather(g, ctx.plan, 1), None
 
 
 class _SplitSeq(torch.autograd.Function):
@@ -193,7 +242,7 @@ class _SplitSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.plan, 1), None
+        return all_gather(g, ctx.plan, 1), None
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -256,6 +305,38 @@ def enter_columns(x: torch.Tensor, plan: Plan) -> torch.Tensor:
 def leave_rows(x: torch.Tensor, plan: Plan) -> torch.Tensor:
     """A row-parallel projection's partial sums as the residual stream."""
     return scatter_seq(x, plan) if plan.sp else reduce_from_region(x, plan)
+
+
+# ---------------------------------------------------------------- serving
+def last_position(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """(B, 1, D): the residual's last position, on every rank; under SP
+    it is the last rank's last row (`src/repro/models/model.py:455`)."""
+    last = x[:, -1:]
+    return all_gather(last, plan, 1)[:, -1:] if plan.sp else last
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
+                     ) -> torch.Tensor:
+    """Softmax-weighted V over a sequence from its slices' partial terms,
+    stacked on a leading axis of R slices, float32: m (R, ...) a slice's
+    row max of the scores (-1e30 where none of its slots is valid), l (R,
+    ...) its sum of exp(s - m) over the valid slots (0 for an empty
+    slice), o (R, ..., Dh) its sum of exp(s - m)·v. A slice weighs
+    exp(m_r - max m), so an empty one adds nothing. Returns (..., Dh)."""
+    top = m.amax(0)
+    w = torch.exp(m - top)
+    total = (w * l).sum(0)
+    acc = (w[..., None] * o).sum(0)
+    return acc / torch.clamp(total, min=1e-30)[..., None]
+
+
+def combine_over_model(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                       plan: Plan) -> torch.Tensor:
+    """`combine_partials` of every model rank's (m, l, o), all-gathered in
+    one collective (2 + Dh floats a row and head)."""
+    packed = torch.cat([m[..., None], l[..., None], o], -1)
+    parts = all_gather(packed[None], plan, 0)
+    return combine_partials(parts[..., 0], parts[..., 1], parts[..., 2:])
 
 
 # ------------------------------------------------------------- vocabulary
