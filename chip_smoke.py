@@ -288,9 +288,12 @@ Phases:
                 80) bidirectional, and the context-parallel fallback's
                 2,048 queries against 32,768 gathered keys at q_offset
                 30,720 and 0, minicpm-2b's 36/36 heads at Dh 64 and
-                chameleon-34b's 64/8 at Dh 128: each against its plain
-                version at B=1 in float32 and bf16, then timed at B=2
-                beside the plain version, SDPA (the same mask) and the
+                chameleon-34b's 64/8 at Dh 128; the MoE families':
+                olmoe-1b-7b's heads (2, 32,768, 1/1, 128) and
+                granite-moe-1b-a400m's fallback, 2,048 queries of 16/8
+                heads at Dh 64 at q_offset 30,720 and 0: each against its
+                plain version at B=1 in float32 and bf16, then timed at
+                B=2 beside the plain version, SDPA (the same mask) and the
                 bound. (e) Split-KV decode at full width on the one card
                 (NCCL puts no two ranks on a device, so the 16 model ranks
                 are simulated): starcoder2-7b, 8 rows, a 32,768-slot cache
@@ -353,12 +356,29 @@ Phases:
                 hubert-xlarge (16, 4,096, 1/1, 80) bidirectional, and
                 chameleon-34b's context-parallel fallback, 256 queries of
                 64/8 heads at Dh 128 against 4,096 gathered keys at
-                q_offset 3,840 and 0: each against its plain version at
-                B=1 in float32 and bf16, then timed at B=16 beside the
-                plain versions, SDPA (the same mask) and the bound. The
-                ranks such a split needs cannot share the one card (NCCL
-                puts no two ranks on a device), so the cross-rank step is
-                held on the CPU (`tests/test_torch_tensor_parallel.py`).
+                q_offset 3,840 and 0, and the MoE families':
+                olmoe-1b-7b's heads (16, 4,096, 1/1, 128) and
+                granite-moe-1b-a400m's fallback, 256 queries of 16/8 heads
+                at Dh 64 at q_offset 3,840 and 0: each against its plain
+                version at B=1 in float32 and bf16, then timed at B=16
+                beside the plain versions, SDPA (the same mask) and the
+                bound. The ranks such a split needs cannot share the one
+                card (NCCL puts no two ranks on a device), so the
+                cross-rank step is held on the CPU
+                (`tests/test_torch_tensor_parallel.py`,
+                `tests/test_torch_moe_tp.py`). (g) olmoe-1b-7b's MoE layer
+                at its published width (64 experts, top 8, D 2,048, F
+                1,024, capacity 1.25, random weights from the seed) on one
+                16 x 16 train_4k rank's rows (16 x 4,096 tokens), its 16
+                model ranks simulated on the one card with the port's own
+                per-rank functions (`models/moe.py`): under global
+                dispatch one routing of every token and each rank's 4
+                experts (`_experts(..., first=...)`), the 16 partial
+                outputs summed against the unsplit layer; under manual
+                SPMD each rank's slab of 16 x 256 tokens (`_slabs`)
+                against the unsplit layer over the same 16 slabs; float32
+                max |err| <= 1e-5 of the largest |out|, bf16 printed; one
+                rank's ms beside the unsplit layer's.
                 Prints one `{"training_families": ...}` JSON line.
  16. roofline shares — each run once eagerly under
                 `roofline.op_analyzer.OpAnalyzer` (the ops' products and
@@ -4730,7 +4750,12 @@ TP_PREFILL_FLASH = (
     ("chameleon-34b, fallback, last rank", 2, 2048, 32768, 64, 8, 128, True,
      30720),
     ("chameleon-34b, fallback, first rank", 2, 2048, 32768, 64, 8, 128,
-     True, 0))
+     True, 0),
+    ("olmoe-1b-7b, heads", 2, 32768, 32768, 1, 1, 128, True, 0),
+    ("granite-moe-1b-a400m, fallback, last rank", 2, 2048, 32768, 16, 8, 64,
+     True, 30720),
+    ("granite-moe-1b-a400m, fallback, first rank", 2, 2048, 32768, 16, 8,
+     64, True, 0))
 
 
 def flash_at_tp_prefill_shapes() -> list:
@@ -4746,6 +4771,7 @@ def flash_at_tp_prefill_shapes() -> list:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     out = []
     for name, b, sq, skv, h, hk, dh, causal, off in TP_PREFILL_FLASH:
+        t_row = time.perf_counter()
         kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
                   block_kv=1024)
 
@@ -4781,7 +4807,8 @@ def flash_at_tp_prefill_shapes() -> list:
                         causal=causal, q_offset=off, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                         bound_by=b_by, max_abs_err=errs["bfloat16"],
-                        max_abs_err_f32=errs["float32"]))
+                        max_abs_err_f32=errs["float32"],
+                        seconds=time.perf_counter() - t_row))
         del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     return out
@@ -5007,7 +5034,19 @@ TP_FLASH = (("stablelm-1.6b, heads", 16, 4096, 4096, 2, 2, 64, True, 0),
             ("chameleon-34b, fallback, last rank", 16, 256, 4096, 64, 8, 128,
              True, 3840),
             ("chameleon-34b, fallback, first rank", 16, 256, 4096, 64, 8,
-             128, True, 0))
+             128, True, 0),
+            ("olmoe-1b-7b, heads", 16, 4096, 4096, 1, 1, 128, True, 0),
+            ("granite-moe-1b-a400m, fallback, last rank", 16, 256, 4096, 16,
+             8, 64, True, 3840),
+            ("granite-moe-1b-a400m, fallback, first rank", 16, 256, 4096,
+             16, 8, 64, True, 0))
+# phase 15 (g): olmoe-1b-7b's MoE layer at its published width, the 16
+# model ranks of a 16 x 16 train_4k rank simulated on the one card: the
+# rank's 16 rows of 4,096 tokens, uncut (the float32 unsplit layer peaks
+# near 30 GB); the float32 limit on max |err| over the largest |out|
+MOE_TP_ARCH, MOE_TP_RANKS, MOE_TP_ROWS, MOE_TP_SEQ = (
+    "olmoe-1b-7b", 16, 16, 4096)
+MOE_TP_F32_REL = 1e-5
 
 
 def flash_at_family_training_shapes() -> tuple[list, list]:
@@ -5113,6 +5152,7 @@ def flash_at_tp_local_shapes() -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     fwd, bwd = [], []
     for name, b, sq, skv, h, hk, dh, causal, off in TP_FLASH:
+        t_row = time.perf_counter()
         kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
                   block_kv=1024)
 
@@ -5163,7 +5203,8 @@ def flash_at_tp_local_shapes() -> tuple[list, list]:
             f"bound {b12:.4f} ms ({by12}); max |err| vs plain (B=1) "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
         common = dict(arch=name, shape=[b, sq, skv, h, hk, dh],
-                      causal=causal, q_offset=off)
+                      causal=causal, q_offset=off,
+                      seconds=time.perf_counter() - t_row)
         fwd.append(dict(common, ms=ms11, plain_ms=plain11, library_ms=lib11,
                         bound_ms=b11, bound_by=by11,
                         max_abs_err=errs["o_bfloat16"],
@@ -5175,6 +5216,103 @@ def flash_at_tp_local_shapes() -> tuple[list, list]:
         del q, k, v, do, o, lse, qh, kh, vh, oh, doh
     torch.cuda.empty_cache()
     return fwd, bwd
+
+
+def moe_ranks_simulated() -> dict:
+    """Phase 15 (g): olmoe-1b-7b's MoE layer (random weights from the
+    seed) on MOE_TP_ROWS x MOE_TP_SEQ tokens, its MOE_TP_RANKS model ranks
+    simulated with the per-rank functions the plan path runs after its
+    collectives (`models/moe.py`). Global dispatch: one routing of every
+    token (each rank routes the same gathered tokens), each rank's E/16
+    experts by `_experts(..., first=...)`, the partial outputs summed
+    against `_experts` over every expert. Manual SPMD: each rank's slab,
+    its slice of the sequence, by `_slabs`, against `_slabs` over the
+    whole sequence (every slab a chunk, the unsplit layer). float32 within
+    MOE_TP_F32_REL of the largest |out|, bf16 printed; one rank's ms
+    beside the unsplit layer's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_TP_ARCH)
+    r, b, s = MOE_TP_RANKS, MOE_TP_ROWS, MOE_TP_SEQ
+    e, sl = cfg.num_experts // r, s // r
+    rec = {"arch": MOE_TP_ARCH, "ranks": r, "rows": b, "seq": s}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        params = moe_mod.moe_init(torch.Generator(device="cuda").manual_seed(
+            SEED + 40), cfg, dtype)
+        x = torch.randn((b, s, cfg.d_model), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            SEED + 41)).to(dtype)
+        ranks = [moe_mod.MoE(params.router, *(w[i * e:(i + 1) * e] for w in (
+            params.w_gate, params.w_up, params.w_down))) for i in range(r)]
+        xt = x.reshape(1, b * s, cfg.d_model)
+        cap = moe_mod.capacity(cfg, b * s)
+        with torch.inference_mode():
+            routes = moe_mod._route(params, xt, cfg, cap)
+
+            def unsplit():
+                return moe_mod._experts(params, xt, routes, routes["pos"],
+                                        routes["keep"], cap)
+
+            def rank(i):
+                return moe_mod._experts(ranks[i], xt, routes, routes["pos"],
+                                        routes["keep"], cap, first=i * e)
+            whole = unsplit()
+            parts = rank(0)
+            for i in range(1, r):
+                parts += rank(i)
+            top = float(whole.float().abs().max())
+            err_g = float((parts.float() - whole.float()).abs().max()) / top
+            dropped = int((~routes["keep"]).sum())
+            del parts, whole
+            whole, _ = moe_mod._slabs(params, x, cfg, b, sl)
+            top_m = float(whole.float().abs().max())
+            err_m = 0.0
+            for i in range(r):
+                got, _ = moe_mod._slabs(params, x[:, i * sl:(i + 1) * sl]
+                                        .contiguous(), cfg, b, sl)
+                err_m = max(err_m, float((got.float() - whole[
+                    :, i * sl:(i + 1) * sl].float()).abs().max()) / top_m)
+            del whole, got
+            gc.collect()
+            torch.cuda.empty_cache()
+            ms = {"global_unsplit": cuda_ms(
+                      lambda: (moe_mod._route(params, xt, cfg, cap),
+                               unsplit()), 3),
+                  "global_rank": cuda_ms(
+                      lambda: (moe_mod._route(params, xt, cfg, cap),
+                               rank(0)), 3),
+                  "slabs_unsplit": cuda_ms(
+                      lambda: moe_mod._slabs(params, x, cfg, b, sl), 3)}
+            x0 = x[:, :sl].contiguous()
+            ms["slabs_rank"] = cuda_ms(
+                lambda: moe_mod._slabs(params, x0, cfg, b, sl), 3)
+        log(f"  (g) {MOE_TP_ARCH}'s MoE layer ({cfg.num_experts} experts, "
+            f"top {cfg.experts_per_token}, D {cfg.d_model}, F "
+            f"{cfg.moe_d_ff}, capacity {cfg.capacity_factor}) on {b} x {s} "
+            f"tokens over {r} simulated model ranks, {tag}: global dispatch "
+            f"(cap {cap}, {dropped} routes dropped) the ranks' {e}-expert "
+            f"partial outputs summed, max |err| {err_g:.3g} of the largest "
+            f"|out| {top:.4g}; manual SPMD each rank's {b} x {sl} slab, max "
+            f"|err| {err_m:.3g} of {top_m:.4g}; ms: global unsplit "
+            f"{ms['global_unsplit']:.3f}, a rank {ms['global_rank']:.3f} "
+            f"(routing every token included); slabs unsplit "
+            f"{ms['slabs_unsplit']:.3f}, a rank {ms['slabs_rank']:.3f}")
+        rec[tag] = {"global_rel_err": err_g, "slabs_rel_err": err_m,
+                    "dropped": dropped, "ms": ms}
+        if dtype == torch.float32:
+            check(err_g <= MOE_TP_F32_REL and err_m <= MOE_TP_F32_REL,
+                  f"phase 15 (g): the simulated model ranks' MoE output "
+                  f"against the unsplit layer, max |err| {err_g:.3g} "
+                  f"(global) / {err_m:.3g} (slabs) of the largest |out| "
+                  f"(limit {MOE_TP_F32_REL}, float32)")
+        del params, ranks, x, xt, routes, x0
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  (g) {rec['seconds']:.1f} s")
+    return rec
 
 
 class DepthCut:
@@ -5480,7 +5618,8 @@ def mesh_step_at_world_size_one(arch: str, batch: int, seq: int,
 def training_families() -> dict:
     """Phase 15; returns {"flash_fwd", "flash_bwd": #11's and #12's
     records at the training shapes, "models": one record a family, "dp",
-    "mesh", "launches": #11 and #12 on (b)'s path}."""
+    "mesh", "launches": #11 and #12 on (b)'s path, "tp_local": (f),
+    "moe_tp": (g)}."""
     import torch.distributed as dist
     t_phase = time.perf_counter()
     fwd, bwd = flash_at_family_training_shapes()
@@ -5496,12 +5635,13 @@ def training_families() -> dict:
     finally:
         dist.destroy_process_group()
     tp_fwd, tp_bwd = flash_at_tp_local_shapes()
+    moe_tp = moe_ranks_simulated()
     launches = {k: sum(m["launches"][k] for m in models)
                 for k in ("flash_attention_fwd", "flash_attention_bwd")}
     out = {"flash_fwd": fwd, "flash_bwd": bwd, "models": models, "dp": dp,
            "mesh": mesh, "moe_mesh": moe_mesh, "launches": launches,
            "tp_local": {"flash_fwd": tp_fwd, "flash_bwd": tp_bwd},
-           "seconds": time.perf_counter() - t_phase}
+           "moe_tp": moe_tp, "seconds": time.perf_counter() - t_phase}
     log(f"  phase 15: {out['seconds']:.1f} s; launches on (b)'s path: #11 "
         f"{launches['flash_attention_fwd']}, #12 "
         f"{launches['flash_attention_bwd']}")

@@ -12,25 +12,26 @@ For every runnable cell it runs the port's own step at full width:
     train      `training.dp_step.make_sharded_train_step` on the DTensor
                state at `launch/shardings.py`'s sanitised train-state
                shardings (float32 masters), the rank's rows of the global
-               batch; the attention-and-MLP families split their compute
-               over the model axis (`models/tensor_parallel.py`: heads or
-               the context-parallel fallback, ff and vocabulary columns, a
+               batch; the attention-and-MLP and MoE families split their
+               compute over the model axis (`models/tensor_parallel.py`:
+               heads or the context-parallel fallback, ff and vocabulary
+               columns, a MoE rank's experts or token slab, a
                sequence-parallel residual unless `--opt no_sp`);
     prefill    the model on the parameter shardings' local shards,
     decode     gathered a unit at a time as the sharded train step
                gathers them (`models/fsdp.py`), on the rank's rows of the
                batch (the whole batch where it does not split over the
                data axes), in the serving storage (bf16 matrices). The
-               attention-and-MLP families run under a serving plan
-               (`models/tensor_parallel.py`, ROADMAP A9.4b): prefill (the
-               encoder's forward too) split as the train step's forward,
-               decode on the rank's shard of the decode state, its kv
-               heads or, where they do not tile the model axis, its slice
-               of the cache's sequence (JAX's split-KV decode): the
-               shapes of `launch/shardings.py`'s
-               `local_decode_state_shapes`. The MoE, Mamba2 and xLSTM
-               families (A9.4c, A9.4d) gather and repeat the same compute
-               on the ranks of the model axis, with the whole state;
+               attention-and-MLP and MoE families run under a serving
+               plan (`models/tensor_parallel.py`): prefill (the encoder's
+               forward too) split as the train step's forward, decode on
+               the rank's shard of the decode state, its kv heads or,
+               where they do not tile the model axis, its slice of the
+               cache's sequence (JAX's split-KV decode): the shapes of
+               `launch/shardings.py`'s `local_decode_state_shapes`. The
+               Mamba2 and xLSTM families (A9.4d) gather and repeat the
+               same compute on the ranks of the model axis, with the whole
+               state;
 
 with `use_flash_kernel=True`, as the port's launchers run. Under
 `roofline/op_analyzer.py` the step's ops and each kernel function's
@@ -55,7 +56,8 @@ float32 the parameters' gathers and gradients, bf16 the activations' over
 the model axis). MoE cells run
 in both of JAX's modes: global dispatch (the configs' default) and, with
 `--opt moe_local`, a slab a device (`moe_dispatch_chunks = -1`, JAX's
-`_moe_shard_map`; `models/moe.py`). A cell that raises
+`_moe_shard_map`; `models/moe.py`), in training, prefill and decode under
+the plan: a model rank's experts (global dispatch) or its own token slab. A cell that raises
 NotImplementedError is recorded "unsupported" with the reason; any other
 exception is an "error", and the run exits 1.
 

@@ -19,28 +19,31 @@ of the modules' parameters for a full tensor for the block:
     gradient outlives it.
 
 The gather follows the compute on the "model" axis: with a tensor-parallel
-plan (`models/tensor_parallel.py`, the attention-and-MLP families) each
-parameter has a mode (`Plan.mode`):
+plan (`models/tensor_parallel.py`, the attention-and-MLP and MoE
+families) each parameter has a mode (`Plan.mode`):
 
   * "local": the unit computes on the parameter's "model" shard (q/k/v
-    and `wo` on this rank's heads, the MLP on its ff columns, the table
-    and the head on its vocabulary rows), so only the data axes are
-    gathered, and the gradient needs no "model" collective;
+    and `wo` on this rank's heads, the MLP on its ff columns, a MoE
+    block's experts on its E/tp under global dispatch, the table and the
+    head on its vocabulary rows), so only the data axes are gathered,
+    and the gradient needs no "model" collective;
   * "partial": the unit needs it whole, and each model rank's gradient is
-    a partial sum over its slice of the sequence (the norm scales and
-    the frames projection under sequence parallelism, the attention
-    weights of the context-parallel fallback): it is gathered over
-    "model" too, and its gradient summed over "model" like a data axis'
-    (reduce-scattered where `Shard`ed, all-reduced where `Replicate`d);
+    a partial sum over its slice of the sequence, its experts' routes or
+    its token slab (the norm scales and the frames projection under
+    sequence parallelism, the attention weights of the context-parallel
+    fallback, the MoE router, the experts under manual SPMD): it is
+    gathered over "model" too, and its gradient summed over "model" like
+    a data axis' (reduce-scattered where `Shard`ed, all-reduced where
+    `Replicate`d);
   * "replica": every model rank repeats the same compute (no plan: the
-    MoE, Mamba2 and xLSTM units), so this rank's slice is taken with no
+    Mamba2 and xLSTM units), so this rank's slice is taken with no
     collective.
 
 Serving runs under a serving plan (`make_plan(..., serving=True)`): the
 same modes without a gradient, the fallback's attention weights "local"
-too. A dense, vlm or audio model on a model axis larger than 1 is refused
-without a plan (`tensor_parallel.current`): it never repeats the compute
-on the model ranks.
+too. A dense, vlm, audio or MoE model on a model axis larger than 1 is
+refused without a plan (`tensor_parallel.current`): it never repeats the
+compute on the model ranks.
 
 The units are the model's remat units (`models/model.py` `_layers`: a
 block, an xLSTM pair, a Mamba2 group with the shared attention block),

@@ -21,9 +21,10 @@ or group in `torch.utils.checkpoint` under autograd, as `_maybe_remat`
 wraps the scan body. Each such unit, the embedding and the head run
 inside `models/fsdp.py`'s `gathered`, which in the sharded train step
 swaps in the unit's parameters gathered from their shards (a no-op
-elsewhere). There the attention-and-MLP families also split their compute
-over the model axis (`models/tensor_parallel.py`'s plan, JAX's
-`constrain` sites): the residual between units is this rank's slice of
+elsewhere). There the attention-and-MLP and MoE families also split their
+compute over the model axis (`models/tensor_parallel.py`'s plan, JAX's
+`constrain` sites; a MoE rank its experts or its token slab,
+`models/moe.py`): the residual between units is this rank's slice of
 the sequence, and the logits are this rank's vocabulary columns, which
 `loss_fn` reduces with the vocab-parallel cross-entropy.
 
@@ -284,7 +285,7 @@ def _ffn(blk: Block, x: torch.Tensor, cfg: ModelConfig,
     None)."""
     h = rmsnorm(blk.ln2, x, cfg.norm_eps)
     if blk.moe is not None:
-        return moe_with_aux(blk.moe, h, cfg)
+        return moe_with_aux(blk.moe, h, cfg, tp)
     return mlp(blk.mlp, h, cfg, tp), None
 
 
@@ -561,9 +562,10 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
     Under a serving plan (`tensor_parallel.current`) the state is this
     rank's shard (`init_decode_state`), the residual is whole on every rank
     (one position: JAX's `("batch", None, "act_embed")`,
-    `src/repro/models/attention.py:198`), the MLP and the head split their
-    ff and vocabulary columns (the `no_sp` regions), and the logits are the
-    rank's vocabulary columns, as in `prefill`."""
+    `src/repro/models/attention.py:198`), the MLP (a MoE block its experts
+    or its token slab) and the head split their ff and vocabulary columns
+    (the `no_sp` regions), and the logits are the rank's vocabulary
+    columns, as in `prefill`."""
     tp = tpm.current(cfg)
     tp = None if tp is None else tp.whole()
     x = _embed_inputs(params, cfg, {"tokens": tokens}, tp)

@@ -26,13 +26,33 @@ the JAX package:
     device, each with its own capacity from its own token count, by JAX's
     shape rules (seq over "model" when it divides and S > 1, else batch
     over data + model when that divides, else no batch split where the
-    batch does not split over data). The ranks of a model axis hold the
-    same rows here, so each rank runs every slab of its rows as a chunk
-    (the model axis repeats the compute, as in the rest of the port's
-    step). Without a mesh -1 is one chunk, as in JAX.
+    batch does not split over data). Without a mesh -1 is one chunk, as
+    in JAX.
+On a model axis > 1 the tensor-parallel plan (`models/tensor_parallel.py`,
+passed in as `tp`) splits the compute as JAX's rules do
+(`src/repro/models/sharding_ctx.py:65`, `moe.py:121-132,206-214`):
+  * global dispatch: the rank's rows enter as the MLP's column-parallel
+    projection enters (the sequence gathered under SP), every model rank
+    routes every token of them (the same bits through the same float32
+    product, so the same routes), scatters only the routes to its E/tp
+    experts ("expert" on "model") into an (E/tp, slots, D) buffer and
+    leaves with the partial sums of their weighted outputs (reduce-scatter
+    or all-reduce). JAX gives each (data, model) device whole chunks where
+    `moe_dispatch_chunks` tiles data x model; the port keeps the expert
+    split for every chunk count, which gives the same result;
+  * manual SPMD: under SP the rank's slice of the residual is its slab;
+    under `no_sp` it takes the slice (`split_seq`) and gathers the output
+    back. Where the sequence does not split (decode's S = 1) the rows go
+    over data + model where they divide, else every model rank repeats
+    the slab, as JAX does; its gradient then counts a tp-th a rank.
 The aux loss a rank returns under a mesh is its share: the shares of the
 data ranks add up to the global aux (global dispatch: E · Σ_e f_e · Σ_local
 p_e / T, from the global counts; manual SPMD: the mean over the slabs).
+Under a plan each model rank takes its part of that share (its sequence
+slice's p_e against the global f_e, or its slab's term of the mean), and
+`reduce_from_region` sums the parts over "model": the value is whole on
+every model rank, and the router's gradient, summed over "model", counts
+it once.
 
 Routing (`moe_routing`) is integer work that must equal the JAX
 package's bit for bit:
@@ -56,6 +76,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tensor_parallel as tpm
 from repro_torch.models.layers import _frozen, _init_linear, dense_init
 from repro_torch.models.sharding_ctx import (
     axis_sizes,
@@ -136,16 +157,19 @@ def moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return moe_with_aux(params, x, cfg)[0]
 
 
-def moe_with_aux(params: MoE, x: torch.Tensor, cfg: ModelConfig
+def moe_with_aux(params: MoE, x: torch.Tensor, cfg: ModelConfig,
+                 tp: "tpm.Plan | None" = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), the Switch load-balance loss
     E * mean over chunks of sum_e f_e * P_e, float32; under a mesh this
-    rank's share of it, see the module note)."""
+    rank's share of it, see the module note). Under a tensor-parallel
+    plan `tp` x is the residual as the plan carries it (this rank's slice
+    of the sequence under SP) and so is the output."""
     mesh = current_mesh()
     if mesh is not None and hasattr(mesh, "get_group"):
         if cfg.moe_dispatch_chunks == -1:
-            return _moe_slabs(params, x, cfg, mesh)
-        return _moe_global(params, x, cfg, mesh)
+            return _moe_slabs(params, x, cfg, mesh, tp)
+        return _moe_global(params, x, cfg, mesh, tp)
     b, s, d = x.shape
     t = b * s
     chunks = cfg.moe_dispatch_chunks
@@ -175,18 +199,23 @@ def _route(params: MoE, xt: torch.Tensor, cfg: ModelConfig, cap: int
 
 
 def _experts(params: MoE, xt: torch.Tensor, r: dict, pos: torch.Tensor,
-             keep: torch.Tensor, slots: int) -> torch.Tensor:
-    """The routes of (C, T, D) tokens through (C, E + 1, slots, D)
-    buffers at `pos` (each route's slot; dropped routes go to row E),
-    the batched expert SwiGLU and the weighted combine: (C, T, D)."""
+             keep: torch.Tensor, slots: int, first: int = 0) -> torch.Tensor:
+    """The routes of (C, T, D) tokens through (C, E' + 1, slots, D)
+    buffers at `pos` (each route's slot; dropped routes go to row E'),
+    the batched expert SwiGLU and the weighted combine: (C, T, D).
+    `params` holds E' experts, the global experts [first, first + E'):
+    the routes to the others are dropped here too (a model rank's experts
+    under global dispatch; every expert otherwise)."""
     chunks, t, d = xt.shape
     e = params.w_gate.shape[0]
     k = r["top_e"].shape[-1]
     dt = xt.dtype
-    expert = r["top_e"].reshape(chunks, t * k)
+    expert = r["top_e"].reshape(chunks, t * k) - first
+    mine = keep & (expert >= 0) & (expert < e)
+    expert = expert.clamp(0, e - 1)
     slot = torch.clamp(pos.long(), max=slots - 1)
     cidx = torch.arange(chunks, device=xt.device)[:, None].expand(-1, t * k)
-    row = torch.where(keep, expert, e)                        # drop -> row E
+    row = torch.where(mine, expert, e)                        # drop -> row E'
     src = torch.repeat_interleave(xt, k, dim=1)               # (C, T*k, D)
     buf = torch.zeros((chunks, e + 1, slots, d), dtype=dt, device=xt.device
                       ).index_put((cidx, row, slot), src)[:, :e]
@@ -197,15 +226,32 @@ def _experts(params: MoE, xt: torch.Tensor, r: dict, pos: torch.Tensor,
 
     # gather back and combine; dropped routes contribute zero
     gathered = out_buf[cidx, expert, slot]
-    gathered = torch.where(keep[..., None], gathered, 0)
+    gathered = torch.where(mine[..., None], gathered, 0)
     weights = r["top_p"].reshape(chunks, t * k).to(dt)
     return (gathered * weights[..., None]).reshape(chunks, t, k, d).sum(2)
 
 
-def _moe_global(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+def _own_tokens(b: int, s: int, tp: "tpm.Plan", device) -> torch.Tensor:
+    """(B, S) float32: 1 at the tokens whose aux term this model rank
+    takes, its slice of the sequence (all of them on rank 0 where the
+    sequence does not split), else 0."""
+    if s % tp.size:
+        return torch.full((b, s), float(tp.rank == 0), device=device)
+    start, n = tp.seq_slice(s)
+    pos = torch.arange(s, device=device)
+    return ((pos >= start) & (pos < start + n)).float().expand(b, s)
+
+
+def _moe_global(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh,
+                tp: "tpm.Plan | None" = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Global dispatch on this rank's rows: the single-device result over
-    the global batch (see the module note); returns (out, aux share)."""
+    the global batch (see the module note); returns (out, aux share).
+    Under a plan this rank's experts' part of it (see the module note)."""
+    if tp is not None:
+        # src/repro/models/moe.py:83: the tokens enter whole ("act_embed"
+        # replicated), as the MLP's column-parallel projection enters
+        x = tpm.enter_columns(x, tp)
     b, s, d = x.shape
     n, rank = data_rank(mesh)
     split = rows_split()
@@ -239,14 +285,26 @@ def _moe_global(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
         # the buffer holds this rank's routes only, at their local rank
         slots = min(cap, t)
     f_e = counts.float() / tc
-    # this rank's share: its tokens' probabilities over the chunk's tokens
-    # (factors of exactly 1 on one rank: the single-device arithmetic)
-    aux = cfg.num_experts * torch.mean(torch.sum(
-        f_e * (r["probs"].mean(1) * (t / tc)), dim=-1)) * (pieces / chunks)
+    if tp is None:
+        # this rank's share: its tokens' probabilities over the chunk's
+        # tokens (factors of exactly 1 on one rank: the single-device
+        # arithmetic)
+        p_e = r["probs"].mean(1) * (t / tc)
+    else:
+        # this model rank's part of it: its own tokens' probabilities
+        own = _own_tokens(b, s, tp, x.device).reshape(pieces, t, 1)
+        p_e = (r["probs"] * own).sum(1) / tc
+    aux = cfg.num_experts * torch.mean(torch.sum(f_e * p_e, dim=-1)) * (
+        pieces / chunks)
     if not split:
         aux = aux / n_all
-    out = _experts(params, xt, r, local, keep, slots)
-    return out.reshape(b, s, d), aux.float()
+    if tp is None:
+        out = _experts(params, xt, r, local, keep, slots)
+        return out.reshape(b, s, d), aux.float()
+    out = _experts(params, xt, r, local, keep, slots,
+                   first=tp.rank * params.w_gate.shape[0])
+    return (tpm.leave_rows(out.reshape(b, s, d), tp),
+            tpm.reduce_from_region(aux.float(), tp))
 
 
 def slab_shape(b: int, s: int, mesh) -> tuple[int, int]:
@@ -264,17 +322,51 @@ def slab_shape(b: int, s: int, mesh) -> tuple[int, int]:
     return rows, s
 
 
-def _moe_slabs(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh
+def _moe_slabs(params: MoE, x: torch.Tensor, cfg: ModelConfig, mesh,
+               tp: "tpm.Plan | None" = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """JAX's `_moe_shard_map` on this rank's rows: each slab of them a
     chunk with its own capacity; returns (out, aux share: the mean over
-    the slabs divided among the data shards)."""
+    the slabs divided among the data shards). Without a plan the rank
+    runs every slab of its rows; under one, its own (see the module
+    note)."""
     b, s, d = x.shape
     n = data_rank(mesh)[0]
-    bl, sl = slab_shape(b * n if rows_split() else b, s, mesh)
+    if tp is None:
+        bl, sl = slab_shape(b * n if rows_split() else b, s, mesh)
+        out, aux = _slabs(params, x, cfg, bl, sl)
+        return out, aux / n
+    s_all = s * tp.size if tp.sp else s
+    bl, sl = slab_shape(b * n if rows_split() else b, s_all, mesh)
+    if sl < s_all:
+        # the sequence over "model": the rank's slice is its slab
+        xs = x if tp.sp else tpm.split_seq(x, tp)
+        out, aux = _slabs(params, xs, cfg, bl, sl)
+        if not tp.sp:
+            out = tpm.gather_seq(out, tp, split_grad=True)
+    elif bl * tp.size <= b:
+        # the rows over data + model: this rank's block of its rows
+        xs = tpm.split_seq(x.transpose(0, 1), tp).transpose(0, 1)
+        out, aux = _slabs(params, xs, cfg, bl, sl)
+        out = tpm.gather_seq(out.transpose(0, 1), tp,
+                             split_grad=True).transpose(0, 1)
+    else:
+        # every model rank repeats the slabs (JAX's replicated slab): a
+        # tp-th of the gradient a rank, summed over "model" by the
+        # weights' mode and `copy_to_region`
+        out, aux = _slabs(params, tpm.copy_to_region(x, tp), cfg, bl, sl)
+        if out.requires_grad:
+            out = out.detach() + (out - out.detach()) / tp.size
+    return out, tpm.reduce_from_region(aux / (n * tp.size), tp)
+
+
+def _slabs(params: MoE, x: torch.Tensor, cfg: ModelConfig, bl: int,
+           sl: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) as (B/bl)·(S/sl) slabs of (bl, sl), each a chunk:
+    (out (B, S, D), the mean of the slabs' aux)."""
+    b, s, d = x.shape
     nb, ns = b // bl, s // sl
     slabs = x.reshape(nb, bl, ns, sl, d).transpose(1, 2).reshape(
         nb * ns, bl * sl, d)
     out, aux = _chunked(params, slabs, cfg)
-    out = out.reshape(nb, ns, bl, sl, d).transpose(1, 2).reshape(b, s, d)
-    return out, aux / n
+    return out.reshape(nb, ns, bl, sl, d).transpose(1, 2).reshape(b, s, d), aux

@@ -1,6 +1,7 @@
 """Tensor-parallel compute on the "model" mesh axis for the attention-and-
-MLP families (dense, vlm, audio): the sharded train step, and serving
-(prefill, the encoder forward, decode) under a serving plan.
+MLP families (dense, vlm, audio) and the MoE family: the sharded train
+step, and serving (prefill, the encoder forward, decode) under a serving
+plan.
 
 JAX has no module of this name. There the models call `constrain` with
 logical axis names (`src/repro/models/attention.py:55-65,153`,
@@ -40,6 +41,14 @@ rank's rows of the table (zeros elsewhere, then summed over the ranks), and
 `vocab_parallel_cross_entropy` takes each row's max, sum of exponentials
 and gold logit over the ranks' columns.
 
+A MoE block splits its attention as the other families do and its experts
+by JAX's two modes (`models/moe.py`): under global dispatch each rank runs
+its E/tp experts on every token of its rows (the expert weights "local",
+JAX's "expert" on "model"), under manual SPMD its own token slab with the
+experts gathered whole; the router is gathered whole in both, and each
+rank's share of the aux loss is summed over "model" (`reduce_from_region`)
+so that its gradient counts once.
+
 `Plan` says what a unit splits and how each parameter's gradient sums over
 "model" (`Plan.mode`, read by `models/fsdp.py`). At a "model" axis of size
 1 there is no plan, and the step is the single-device step op for op.
@@ -57,8 +66,8 @@ o), which `combine_over_model` all-gathers and
 attention weights' "model" shards too ("local"): decode projects q, k
 and v column-parallel on them and all-gathers the columns, and prefill,
 which projects its slice of the sequence, gathers the weights whole.
-A dense, vlm or audio model under `ShardedParams` on a model axis larger
-than 1 without a plan is refused (`current`): it never repeats the
+A dense, vlm, audio or MoE model under `ShardedParams` on a model axis
+larger than 1 without a plan is refused (`current`): it never repeats the
 compute on the model ranks.
 """
 
@@ -79,9 +88,9 @@ from repro_torch.models.sharding_ctx import (
     seq_parallel,
 )
 
-# the families whose blocks are attention plus an MLP; the MoE, Mamba2 and
-# xLSTM units keep a replicated compute on a model axis
-TP_FAMILIES = ("dense", "vlm", "audio")
+# the families whose blocks are attention plus an MLP or routed experts;
+# the Mamba2 and xLSTM units keep a replicated compute on a model axis
+TP_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 @dataclass(frozen=True)
@@ -89,8 +98,11 @@ class Plan:
     """The split of one sharded step over the "model" axis: its process
     group, size and this rank's coordinate; `sp`: the residual is
     sequence-parallel; `heads`: the kv heads tile the axis (else attention
-    is context parallel); `vocab`: the padded vocab tiles it (d_ff always
-    does: `make_plan` refuses a config whose d_ff does not)."""
+    is context parallel); `vocab`: the padded vocab tiles it (d_ff, or a
+    MoE config's expert count, always does: `make_plan` refuses a config
+    where it does not); `experts`: a MoE rank computes on its E/tp experts
+    (global dispatch) rather than its token slab with every expert
+    (manual SPMD)."""
 
     group: object
     size: int
@@ -99,6 +111,7 @@ class Plan:
     heads: bool
     vocab: bool
     serving: bool = False
+    experts: bool = False
 
     def mode(self, name: str) -> str:
         """How parameter `name` is used over "model": "local" (the unit
@@ -107,12 +120,16 @@ class Plan:
         part of the sequence, summed over "model") or "replica" (every
         rank computes the same, as without a plan). Serving keeps the
         fallback's attention weights "local" too (decode projects on
-        them)."""
+        them). The expert weights are "local" under global dispatch, else
+        "partial", as is the router."""
         parts = name.split(".")
         if "attn" in parts:
             return "local" if self.heads or self.serving else "partial"
         if "mlp" in parts:
             return "local"
+        if "moe" in parts:
+            return ("local" if self.experts and "router" not in parts
+                    else "partial")
         if parts[0] in ("embed", "unembed"):
             return "local" if self.vocab else "replica"
         # the norm scales and the frames projection
@@ -150,26 +167,31 @@ class Plan:
 def make_plan(cfg: ModelConfig, mesh, serving: bool = False) -> Plan | None:
     """The plan of `cfg` on `mesh` under the installed sharding rules (call
     within `sharding_rules`); None where the "model" axis has size 1 or
-    the family keeps a replicated compute. A d_ff that does not tile the
-    axis is refused, as a sequence that does not split is (`seq_slice`):
-    every configuration's d_ff tiles 16. `serving`: the plan of prefill
-    and decode (see the module note)."""
+    the family keeps a replicated compute. A d_ff (a MoE config's expert
+    count) that does not tile the axis is refused, as a sequence that does
+    not split is (`seq_slice`): every configuration's tiles 16. `serving`:
+    the plan of prefill and decode (see the module note)."""
     size, rank = model_rank(mesh)
     if size == 1 or cfg.family not in TP_FAMILIES:
         return None
-    if cfg.d_ff % size:
-        raise ValueError(f"d_ff {cfg.d_ff} does not split over a model axis "
+    moe = cfg.family == "moe"
+    what, n = (("the expert count", cfg.num_experts) if moe
+               else ("d_ff", cfg.d_ff))
+    if n % size:
+        raise ValueError(f"{what} {n} does not split over a model axis "
                          f"of {size}")
     return Plan(group=model_group(mesh), size=size, rank=rank,
                 sp=seq_parallel(), heads=cfg.num_kv_heads % size == 0,
-                vocab=cfg.padded_vocab % size == 0, serving=serving)
+                vocab=cfg.padded_vocab % size == 0, serving=serving,
+                experts=moe and cfg.moe_dispatch_chunks != -1)
 
 
 def current(cfg: ModelConfig) -> Plan | None:
     """The active `ShardedParams`' plan (`models/fsdp.py`) for a model of
     `cfg`; None outside the sharded step or without one. A model of
-    `TP_FAMILIES` on a model axis larger than 1 without a plan is refused:
-    it would repeat the whole compute on every model rank."""
+    `TP_FAMILIES` (MoE included) on a model axis larger than 1 without a
+    plan is refused: it would repeat the whole compute on every model
+    rank."""
     sp = fsdp.active()
     if sp is None:
         return None

@@ -104,18 +104,23 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
     first), so loss and gradients are one mean over the global
     microbatch's valid labels, as JAX's jitted step takes it, also when
     ranks hold unequal numbers of masked labels; a MoE block's aux loss
-    is already the rank's share of the global one (`models/moe.py`, both
-    dispatch modes). The labels are not split over the model axis (the
+    is already the data rank's share of the global one (`models/moe.py`,
+    both dispatch modes), the same on every model rank: each model rank
+    computes its part of it and the parts are summed over "model" with an
+    identity backward, so the router's gradient, summed over "model",
+    counts the aux once. The labels are not split over the model axis (the
     logits are gathered over the sequence), and the scalars are summed
-    over the data axes only: every model rank holds the same loss.
+    over the data axes only: every model rank holds the same loss and aux.
 
-    The attention-and-MLP families split their compute over the model
-    axis (`models/tensor_parallel.py`): a rank computes its h/tp heads (or,
-    where the kv heads do not tile the axis, its s/tp queries against the
-    gathered K/V), its d_ff/tp MLP columns and its padded-vocab/tp logits,
-    and carries its s/tp slice of the residual between units (whole under
-    `no_sp`). The MoE, Mamba2 and xLSTM units repeat the same compute on
-    the ranks of a model axis.
+    The attention-and-MLP and MoE families split their compute over the
+    model axis (`models/tensor_parallel.py`): a rank computes its h/tp
+    heads (or, where the kv heads do not tile the axis, its s/tp queries
+    against the gathered K/V), its d_ff/tp MLP columns, a MoE block's E/tp
+    experts on every token of its rows (global dispatch) or its own token
+    slab (manual SPMD), and its padded-vocab/tp logits, and carries its
+    s/tp slice of the residual between units (whole under `no_sp`). The
+    Mamba2 and xLSTM units repeat the same compute on the ranks of a model
+    axis (ROADMAP A9.4d).
 
     Cost: a rank holds its shards, one unit's gathered parameters and
     gradients at a time (two units' while a backward overlaps the next

@@ -34,11 +34,11 @@ Each multi-process run has a timeout and a 90 s collective timeout.
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
 import time
+import uuid
 
 import numpy as np
 import pytest
@@ -55,7 +55,10 @@ PREAMBLE = """
 import dataclasses, datetime, json, os, sys
 import numpy as np, torch, torch.distributed as dist
 torch.set_num_threads(1)
-dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=90))
+dist.init_process_group("gloo", init_method=os.environ["RENDEZVOUS"],
+                        rank=int(os.environ["RANK"]),
+                        world_size=int(os.environ["WORLD_SIZE"]),
+                        timeout=datetime.timedelta(seconds=90))
 RANK = dist.get_rank()
 OUT = os.environ["OUT_DIR"]
 from repro_torch.configs import get_config
@@ -79,24 +82,22 @@ def _env(**extra) -> dict:
     return env
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(script: str, out_dir, n: int = RANKS, timeout: float = 120,
               **extra) -> list[dict]:
     """Run `script` in n processes of one gloo group; returns each rank's
-    `report(...)`. A rank that fails ends the others."""
+    `report(...)`. A rank that fails ends the others. The ranks meet
+    through a file store in `out_dir` (a name of this run's own), so no
+    port is bound, released and bound again, which another process could
+    take in between."""
     path = os.path.join(out_dir, "ranks.py")
     with open(path, "w") as f:
         f.write(PREAMBLE + textwrap.dedent(script))
-    port = _free_port()
+    store = os.path.join(os.path.abspath(out_dir),
+                         f"rendezvous-{uuid.uuid4().hex}")
     procs = [subprocess.Popen(
         [sys.executable, path], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=_env(
-            RANK=r, WORLD_SIZE=n, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+            RANK=r, WORLD_SIZE=n, RENDEZVOUS=f"file://{store}",
             OUT_DIR=out_dir, **extra)) for r in range(n)]
     deadline = time.monotonic() + timeout
     try:

@@ -21,8 +21,8 @@ sequence, in `gloo` processes on the CPU:
   * (c) `combine_partials` against the unsplit softmax, with empty and
     single-slot slices;
   * (d) a rank's decode state shapes against JAX's `shard_shape`s of its
-    sanitised `decode_state_shardings` for every dense and vlm config at
-    decode_32k on 16 x 16;
+    sanitised `decode_state_shardings` for every dense, vlm and MoE
+    config at decode_32k on 16 x 16;
   * (e) the compute is split: a rank's counted operations in prefill and
     decode on a fake 1 x 2 mesh against the 1 x 1 run, on both ranks.
 
@@ -86,9 +86,11 @@ CASES = [
 AGAINST_JAX = [("heads", "stablelm-1.6b", {}),
                ("split_kv", "starcoder2-7b", FALLBACK)]
 # a model under ShardedParams on a model axis of 2 without a plan, and
-# whether it is refused: the attention-and-MLP families never repeat the
-# compute on the model ranks, the MoE families do (ROADMAP A9.4c)
-UNPLANNED = [("stablelm-1.6b", True), ("olmoe-1b-7b", False)]
+# whether it is refused: the attention-and-MLP and MoE families never
+# repeat the compute on the model ranks, the hybrid family still does
+# (ROADMAP A9.4d)
+UNPLANNED = [("stablelm-1.6b", True), ("olmoe-1b-7b", True),
+             ("zamba2-2.7b", False)]
 
 JAX_SERVE = """
 import dataclasses, json, os, sys
@@ -363,10 +365,10 @@ def test_a_prompt_that_does_not_split_is_refused(serving_ranks):
                          ids=[c[0] for c in UNPLANNED])
 def test_no_replicated_fallback_without_a_plan(serving_ranks, arch,
                                                refused):
-    """(b): a dense model's prefill under `ShardedParams` on a model axis
-    of 2 without its serving plan raises ValueError (it never gathers and
-    repeats the compute on the model ranks); a MoE model's runs, with its
-    replicated serving."""
+    """(b): a dense or MoE model's prefill under `ShardedParams` on a
+    model axis of 2 without its serving plan raises ValueError (it never
+    gathers and repeats the compute on the model ranks); a hybrid model's
+    runs, with its replicated serving."""
     for rep in serving_ranks["reports"]:
         msg = rep["unplanned"][arch]
         if refused:
@@ -415,8 +417,8 @@ def test_combine_matches_the_unsplit_softmax(sizes, pos):
         want.abs().max())
 
 
-DENSE_VLM = sorted(n for n, c in ARCHS.items() if c.family in ("dense",
-                                                              "vlm"))
+DECODE_ARCHS = sorted(n for n, c in ARCHS.items() if c.family in ("dense",
+                                                              "vlm", "moe"))
 
 
 def _jax_decode_shard_shapes(name: str) -> dict:
@@ -430,10 +432,11 @@ def _jax_decode_shard_shapes(name: str) -> dict:
     return {k: tuple(st_shd[k].shard_shape(state[k].shape)) for k in state}
 
 
-@pytest.mark.parametrize("name", DENSE_VLM)
+@pytest.mark.parametrize("name", DECODE_ARCHS)
 def test_decode_state_shards_equal_jax_shard_shapes(name):
     """(d): at decode_32k on 16 x 16 a rank's decode state under the
-    serving plan (`init_decode_state(..., tp=plan)` on its 8 rows) and
+    serving plan of a dense, vlm or MoE config (`init_decode_state(...,
+    tp=plan)` on its 8 rows) and
     `local_decode_state_shapes` equal JAX's `shard_shape`s of its
     sanitised `decode_state_shardings`: the kv heads over "model" where
     they tile it, else the cache's 32,768 slots."""
