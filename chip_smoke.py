@@ -291,10 +291,12 @@ Phases:
                 chameleon-34b's 64/8 at Dh 128; the MoE families':
                 olmoe-1b-7b's heads (2, 32,768, 1/1, 128) and
                 granite-moe-1b-a400m's fallback, 2,048 queries of 16/8
-                heads at Dh 64 at q_offset 30,720 and 0: each against its
-                plain version at B=1 in float32 and bf16, then timed at
-                B=2 beside the plain version, SDPA (the same mask) and the
-                bound. (e) Split-KV decode at full width on the one card
+                heads at Dh 64 at q_offset 30,720 and 0; zamba2-2.7b's
+                shared block on its heads (2, 32,768, 2/2, 80) within its
+                4,096-token window: each against its plain version at B=1
+                in float32 and bf16, then timed at B=2 beside the plain
+                version, SDPA (the same mask) and the bound. (e)
+                Split-KV decode at full width on the one card
                 (NCCL puts no two ranks on a device, so the 16 model ranks
                 are simulated): starcoder2-7b, 8 rows, a 32,768-slot cache
                 filled from the seed up to pos 20,000 (the slices past it
@@ -359,14 +361,17 @@ Phases:
                 q_offset 3,840 and 0, and the MoE families':
                 olmoe-1b-7b's heads (16, 4,096, 1/1, 128) and
                 granite-moe-1b-a400m's fallback, 256 queries of 16/8 heads
-                at Dh 64 at q_offset 3,840 and 0: each against its plain
+                at Dh 64 at q_offset 3,840 and 0, and zamba2-2.7b's shared
+                block on its heads (16, 4,096, 2/2, 80, window 4,096):
+                each against its plain
                 version at B=1 in float32 and bf16, then timed at B=16
                 beside the plain versions, SDPA (the same mask) and the
                 bound. The ranks such a split needs cannot share the one
                 card (NCCL puts no two ranks on a device), so the
                 cross-rank step is held on the CPU
                 (`tests/test_torch_tensor_parallel.py`,
-                `tests/test_torch_moe_tp.py`). (g) olmoe-1b-7b's MoE layer
+                `tests/test_torch_moe_tp.py`,
+                `tests/test_torch_ssm_tp.py`). (g) olmoe-1b-7b's MoE layer
                 at its published width (64 experts, top 8, D 2,048, F
                 1,024, capacity 1.25, random weights from the seed) on one
                 16 x 16 train_4k rank's rows (16 x 4,096 tokens), its 16
@@ -378,7 +383,20 @@ Phases:
                 SPMD each rank's slab of 16 x 256 tokens (`_slabs`)
                 against the unsplit layer over the same 16 slabs; float32
                 max |err| <= 1e-5 of the largest |out|, bf16 printed; one
-                rank's ms beside the unsplit layer's.
+                rank's ms beside the unsplit layer's. (h) zamba2-2.7b's
+                Mamba2 layer at its published width (D 2,560, d_inner
+                5,120, 80 heads of 64, N 64, random weights from the seed)
+                on the same rank's 16 x 4,096 tokens, its 16 model ranks
+                simulated with the port's per-rank functions
+                (`models/ssm.py`), each rank's parameters as `Plan.mode`
+                and the shardings give them: each rank's 5 heads
+                (`mamba2_gated`: its z, x and dt columns of the fused
+                `in_proj`, B and C whole),
+                the ranks' sums of squares summed for the gated norm, their
+                `out_proj` partials (`mamba2_project`) summed against the
+                unsplit layer; float32 max |err| <= 1e-5 of the largest
+                |out|, bf16 printed; one rank's ms beside the unsplit
+                layer's.
                 Prints one `{"training_families": ...}` JSON line.
  16. roofline shares — each run once eagerly under
                 `roofline.op_analyzer.OpAnalyzer` (the ops' products and
@@ -4736,26 +4754,29 @@ def family_model(arch: str, prompt: int, n_flash: int, profiled: int
 
 # #10 at the shapes a rank of the 16 x 16 prefill_32k cells gives it under
 # the serving plan (`models/tensor_parallel.py`): name, B (32 rows over 16
-# data ranks), Sq, Skv, H, Hk, Dh, causal, q_offset. On the heads path a
-# rank's h/16 q and hk/16 kv heads over the whole prompt; on the
+# data ranks), Sq, Skv, H, Hk, Dh, causal, q_offset, window. On the heads
+# path a rank's h/16 q and hk/16 kv heads over the whole prompt; on the
 # context-parallel fallback its 32,768/16 queries against the gathered K/V
-# from its slice's start (the last rank's, 30,720, and the first's, 0)
+# from its slice's start (the last rank's, 30,720, and the first's, 0);
+# zamba2's shared block within its 4,096-token window
 TP_PREFILL_FLASH = (
-    ("stablelm-1.6b, heads", 2, 32768, 32768, 2, 2, 64, True, 0),
-    ("hubert-xlarge, heads", 2, 32768, 32768, 1, 1, 80, False, 0),
+    ("stablelm-1.6b, heads", 2, 32768, 32768, 2, 2, 64, True, 0, 0),
+    ("hubert-xlarge, heads", 2, 32768, 32768, 1, 1, 80, False, 0, 0),
     ("minicpm-2b, fallback, last rank", 2, 2048, 32768, 36, 36, 64, True,
-     30720),
+     30720, 0),
     ("minicpm-2b, fallback, first rank", 2, 2048, 32768, 36, 36, 64, True,
-     0),
+     0, 0),
     ("chameleon-34b, fallback, last rank", 2, 2048, 32768, 64, 8, 128, True,
-     30720),
+     30720, 0),
     ("chameleon-34b, fallback, first rank", 2, 2048, 32768, 64, 8, 128,
-     True, 0),
-    ("olmoe-1b-7b, heads", 2, 32768, 32768, 1, 1, 128, True, 0),
+     True, 0, 0),
+    ("olmoe-1b-7b, heads", 2, 32768, 32768, 1, 1, 128, True, 0, 0),
     ("granite-moe-1b-a400m, fallback, last rank", 2, 2048, 32768, 16, 8, 64,
-     True, 30720),
+     True, 30720, 0),
     ("granite-moe-1b-a400m, fallback, first rank", 2, 2048, 32768, 16, 8,
-     64, True, 0))
+     64, True, 0, 0),
+    ("zamba2-2.7b, heads, window", 2, 32768, 32768, 2, 2, 80, True, 0,
+     4096))
 
 
 def flash_at_tp_prefill_shapes() -> list:
@@ -4770,9 +4791,9 @@ def flash_at_tp_prefill_shapes() -> list:
     from repro_torch.roofline import kernel_costs as kc
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     out = []
-    for name, b, sq, skv, h, hk, dh, causal, off in TP_PREFILL_FLASH:
+    for name, b, sq, skv, h, hk, dh, causal, off, win in TP_PREFILL_FLASH:
         t_row = time.perf_counter()
-        kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
+        kw = dict(causal=causal, window=win, q_offset=off, block_q=256,
                   block_kv=1024)
 
         def qkv(batch, dtype):
@@ -4791,20 +4812,23 @@ def flash_at_tp_prefill_shapes() -> list:
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 5)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 1)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = dict(_sdpa_mask(sq, skv, causal, off), enable_gqa=h != hk)
+        sdpa = dict(_sdpa_mask(sq, skv, causal, off, win),
+                    enable_gqa=h != hk)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, **sdpa), 5)
+        del sdpa
         b_ms, b_by = kc.flash_attention(b, sq, skv, h, hk, dh, causal=causal,
-                                        q_offset=off).bound()
+                                        q_offset=off, window=win).bound()
         log(f"  (d) #10 at the TP-local prefill_32k shape of {name} (B={b}, "
             f"Sq={sq}, Skv={skv}, H={h}, Hk={hk}, Dh={dh}, "
-            f"{'causal' if causal else 'bidirectional'}, q_offset {off}) "
+            f"{'causal' if causal else 'bidirectional'}, q_offset {off}"
+            f"{f', window {win}' if win else ''}) "
             f"bf16: {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
             f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); max |err| vs "
             f"plain (B=1) float32 {errs['float32']:.3g}, bf16 "
             f"{errs['bfloat16']:.3g}")
         out.append(dict(arch=name, shape=[b, sq, skv, h, hk, dh],
-                        causal=causal, q_offset=off, ms=ms,
+                        causal=causal, q_offset=off, window=win, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                         bound_by=b_by, max_abs_err=errs["bfloat16"],
                         max_abs_err_f32=errs["float32"],
@@ -5024,22 +5048,25 @@ MOE_MESH_ARCH, MOE_MESH_BATCH, MOE_MESH_SEQ, MOE_MESH_STEPS = (
     "granite-moe-1b-a400m", 2, 2048, 3)
 # phase 15 (f): #11 and #12 at the shapes a rank of the 16 x 16 train_4k
 # step gives them (`models/tensor_parallel.py`; 16 rows a rank): name, B,
-# Sq, Skv, H, Hk, Dh, causal, q_offset. On the heads path a rank runs h/16
-# q and hk/16 kv heads over the whole sequence; on chameleon-34b's
-# context-parallel fallback its 4,096/16 queries against the gathered K/V
-# from its slice's start (the last rank's, 3,840, sees the most keys; the
-# first's, 0, the fewest)
-TP_FLASH = (("stablelm-1.6b, heads", 16, 4096, 4096, 2, 2, 64, True, 0),
-            ("hubert-xlarge, heads", 16, 4096, 4096, 1, 1, 80, False, 0),
+# Sq, Skv, H, Hk, Dh, causal, q_offset, window. On the heads path a rank
+# runs h/16 q and hk/16 kv heads over the whole sequence; on
+# chameleon-34b's context-parallel fallback its 4,096/16 queries against
+# the gathered K/V from its slice's start (the last rank's, 3,840, sees
+# the most keys; the first's, 0, the fewest); zamba2's shared block at its
+# 4,096-token window
+TP_FLASH = (("stablelm-1.6b, heads", 16, 4096, 4096, 2, 2, 64, True, 0, 0),
+            ("hubert-xlarge, heads", 16, 4096, 4096, 1, 1, 80, False, 0, 0),
             ("chameleon-34b, fallback, last rank", 16, 256, 4096, 64, 8, 128,
-             True, 3840),
+             True, 3840, 0),
             ("chameleon-34b, fallback, first rank", 16, 256, 4096, 64, 8,
-             128, True, 0),
-            ("olmoe-1b-7b, heads", 16, 4096, 4096, 1, 1, 128, True, 0),
+             128, True, 0, 0),
+            ("olmoe-1b-7b, heads", 16, 4096, 4096, 1, 1, 128, True, 0, 0),
             ("granite-moe-1b-a400m, fallback, last rank", 16, 256, 4096, 16,
-             8, 64, True, 3840),
+             8, 64, True, 3840, 0),
             ("granite-moe-1b-a400m, fallback, first rank", 16, 256, 4096,
-             16, 8, 64, True, 0))
+             16, 8, 64, True, 0, 0),
+            ("zamba2-2.7b, heads, window", 16, 4096, 4096, 2, 2, 80, True, 0,
+             4096))
 # phase 15 (g): olmoe-1b-7b's MoE layer at its published width, the 16
 # model ranks of a 16 x 16 train_4k rank simulated on the one card: the
 # rank's 16 rows of 4,096 tokens, uncut (the float32 unsplit layer peaks
@@ -5047,6 +5074,13 @@ TP_FLASH = (("stablelm-1.6b, heads", 16, 4096, 4096, 2, 2, 64, True, 0),
 MOE_TP_ARCH, MOE_TP_RANKS, MOE_TP_ROWS, MOE_TP_SEQ = (
     "olmoe-1b-7b", 16, 16, 4096)
 MOE_TP_F32_REL = 1e-5
+# phase 15 (h): zamba2-2.7b's Mamba2 layer at its published width (d 2,560,
+# d_inner 5,120, 80 heads, N 64), the 16 model ranks of a 16 x 16
+# train_4k rank simulated on the one card on its 16 rows of 4,096 tokens;
+# the float32 limit on max |err| over the largest |out|
+MAMBA_TP_ARCH, MAMBA_TP_RANKS, MAMBA_TP_ROWS, MAMBA_TP_SEQ = (
+    "zamba2-2.7b", 16, 16, 4096)
+MAMBA_TP_F32_REL = 1e-5
 
 
 def flash_at_family_training_shapes() -> tuple[list, list]:
@@ -5122,12 +5156,18 @@ def flash_at_family_training_shapes() -> tuple[list, list]:
     return fwd, bwd
 
 
-def _sdpa_mask(sq: int, skv: int, causal: bool, q_offset: int) -> dict:
+def _sdpa_mask(sq: int, skv: int, causal: bool, q_offset: int,
+               window: int = 0) -> dict:
     """SDPA's arguments for the kernels' mask at `q_offset`: top-left
     causal at 0, bottom-right (`causal_lower_right`) at Skv - Sq, else an
-    explicit boolean mask."""
+    explicit boolean mask (a window shorter than the keys always: a key
+    sees the last `window` positions up to its query's)."""
     if not causal:
         return dict(is_causal=False)
+    if window and window < skv:
+        rows = torch.arange(sq, device="cuda")[:, None] + q_offset
+        keys = torch.arange(skv, device="cuda")[None, :]
+        return dict(attn_mask=(keys <= rows) & (keys > rows - window))
     if q_offset == 0:
         return dict(is_causal=True)
     if q_offset == skv - sq:
@@ -5151,9 +5191,9 @@ def flash_at_tp_local_shapes() -> tuple[list, list]:
     from repro_torch.roofline import kernel_costs as kc
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     fwd, bwd = [], []
-    for name, b, sq, skv, h, hk, dh, causal, off in TP_FLASH:
+    for name, b, sq, skv, h, hk, dh, causal, off, win in TP_FLASH:
         t_row = time.perf_counter()
-        kw = dict(causal=causal, window=0, q_offset=off, block_q=256,
+        kw = dict(causal=causal, window=win, q_offset=off, block_q=256,
                   block_kv=1024)
 
         def qkv(batch, dtype):
@@ -5182,28 +5222,30 @@ def flash_at_tp_local_shapes() -> tuple[list, list]:
             q, k, v, o, lse, do, **kw), 2)
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        sdpa = dict(_sdpa_mask(sq, skv, causal, off), enable_gqa=h != hk)
+        sdpa = dict(_sdpa_mask(sq, skv, causal, off, win),
+                    enable_gqa=h != hk)
         lib11 = cuda_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, **sdpa), 5)
         oh = F.scaled_dot_product_attention(qh, kh, vh, **sdpa)
         doh = do.transpose(1, 2).contiguous()
         lib12 = cuda_ms(lambda: torch.autograd.grad(
             oh, (qh, kh, vh), doh, retain_graph=True), 5)
-        costs = dict(causal=causal, q_offset=off)
+        costs = dict(causal=causal, q_offset=off, window=win)
         b11, by11 = kc.flash_attention_fwd(b, sq, skv, h, hk, dh,
                                            **costs).bound()
         b12, by12 = kc.flash_attention_bwd(b, sq, skv, h, hk, dh,
                                            **costs).bound()
         log(f"  (f) flash at the TP-local shape of {name} (B={b}, "
             f"Sq={sq}, Skv={skv}, H={h}, Hk={hk}, Dh={dh}, "
-            f"{'causal' if causal else 'bidirectional'}, q_offset {off}) "
-            f"bf16: #11 {ms11:.4f} ms, plain {plain11:.3f} ms, SDPA "
+            f"{'causal' if causal else 'bidirectional'}, q_offset {off}"
+            f"{f', window {win}' if win else ''}) bf16: #11 {ms11:.4f} "
+            f"ms, plain {plain11:.3f} ms, SDPA "
             f"{lib11:.4f} ms, bound {b11:.4f} ms ({by11}); #12 {ms12:.4f} "
             f"ms, plain {plain12:.3f} ms, SDPA backward {lib12:.4f} ms, "
             f"bound {b12:.4f} ms ({by12}); max |err| vs plain (B=1) "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
         common = dict(arch=name, shape=[b, sq, skv, h, hk, dh],
-                      causal=causal, q_offset=off,
+                      causal=causal, q_offset=off, window=win,
                       seconds=time.perf_counter() - t_row)
         fwd.append(dict(common, ms=ms11, plain_ms=plain11, library_ms=lib11,
                         bound_ms=b11, bound_by=by11,
@@ -5312,6 +5354,120 @@ def moe_ranks_simulated() -> dict:
         torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t0
     log(f"  (g) {rec['seconds']:.1f} s")
+    return rec
+
+
+def _rank_mamba2s(params, cfg, size: int) -> list:
+    """Each of `size` model ranks' Mamba2 block (zamba2's first) as the
+    plan path holds it: a parameter whose mode (`Plan.mode`) is "local"
+    its contiguous "model" shard at its sharding
+    (`launch/shardings.py`), every other whole."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shardings import param_shardings
+    from repro_torch.models import ssm
+    from repro_torch.models import tensor_parallel as tpm
+    from repro_torch.models.layers import RMSNorm, linear
+    from repro_torch.models.sharding_ctx import sharding_rules
+    prefix = "mamba_groups.0.0.mamba."
+    with dryrun.fake_world((1, size), ("data", "model")) as mesh:
+        with sharding_rules(mesh):
+            plan = tpm.make_plan(cfg, mesh)
+        specs = param_shardings(mesh, cfg)
+
+    def held(leaf, rank):
+        t = params.get_parameter(leaf)
+        if plan.mode(prefix + leaf) != "local":
+            return t
+        spec = specs[prefix + leaf].spec
+        dim = next(d for d, v in enumerate(spec)
+                   if v == "model" or (isinstance(v, tuple) and "model" in v))
+        return t.chunk(size, dim)[rank]
+
+    def block(i):
+        got = ssm.Mamba2(
+            linear(held("in_proj.weight", i)), held("conv_w", i),
+            held("conv_b", i), held("a_log", i), held("d_skip", i),
+            held("dt_bias", i), RMSNorm(held("norm.scale", i)),
+            linear(held("out_proj.weight", i)))
+        assert ({n for n, _ in got.named_parameters()}
+                == {n for n, _ in params.named_parameters()})
+        return got
+    return [block(i) for i in range(size)]
+
+
+def mamba_ranks_simulated() -> dict:
+    """Phase 15 (h): zamba2-2.7b's Mamba2 layer (random weights from the
+    seed) on MAMBA_TP_ROWS x MAMBA_TP_SEQ tokens, its MAMBA_TP_RANKS
+    model ranks simulated with the functions the plan path runs between
+    its collectives (`models/ssm.py`): each rank's block as the plan holds
+    it (`_rank_mamba2s`: `Plan.mode` and the shardings on a fake 1 x 16
+    mesh), its heads' gated SSD output (`mamba2_gated`: its z, x and dt
+    columns of the fused `in_proj`, B and C whole), the ranks' sums of
+    squares summed (`layers.sum_of_squares`, the norm's all-reduce), each
+    rank's `out_proj` partial sums (`mamba2_project`, the norm's reduce
+    returning that sum) summed (the reduce-scatter), against the unsplit
+    `mamba2_forward`. float32 within MAMBA_TP_F32_REL of the largest
+    |out|, bf16 printed; one rank's ms beside the unsplit layer's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import sum_of_squares
+    t0 = time.perf_counter()
+    cfg = get_config(MAMBA_TP_ARCH)
+    r, b, s = MAMBA_TP_RANKS, MAMBA_TP_ROWS, MAMBA_TP_SEQ
+    rec = {"arch": MAMBA_TP_ARCH, "ranks": r, "rows": b, "seq": s,
+           "heads": cfg.n_ssm_heads, "d_inner": cfg.d_inner}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+        params = ssm.mamba2_init(gen, cfg, dtype)
+        x = torch.randn((b, s, cfg.d_model), device="cuda",
+                        generator=gen).to(dtype)
+        ranks = _rank_mamba2s(params, cfg, r)
+        with torch.inference_mode():
+            whole = ssm.mamba2_forward(params, x, cfg)
+            gated = [ssm.mamba2_gated(ranks[i], x, cfg, i, r)[0]
+                     for i in range(r)]
+            ss = sum_of_squares(gated[0])
+            for g in gated[1:]:
+                ss += sum_of_squares(g)
+
+            def summed(_):
+                return ss
+            parts = ssm.mamba2_project(ranks[0], gated[0], cfg,
+                                       summed).float()
+            for i in range(1, r):
+                parts += ssm.mamba2_project(ranks[i], gated[i], cfg, summed)
+            top = float(whole.float().abs().max())
+            err = float((parts - whole.float()).abs().max()) / top
+            del whole, gated, parts
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def rank0():
+                g, _ = ssm.mamba2_gated(ranks[0], x, cfg, 0, r)
+                return ssm.mamba2_project(ranks[0], g, cfg, lambda t: t)
+            ms = {"unsplit": cuda_ms(lambda: ssm.mamba2_forward(
+                      params, x, cfg), 3),
+                  "rank": cuda_ms(rank0, 3)}
+        log(f"  (h) {MAMBA_TP_ARCH}'s Mamba2 layer (D {cfg.d_model}, "
+            f"d_inner {cfg.d_inner}, {cfg.n_ssm_heads} heads, N "
+            f"{cfg.ssm_state_dim}) on {b} x {s} tokens over {r} simulated "
+            f"model ranks, {tag}: the ranks' out_proj partials summed (the "
+            f"norm's sums of squares summed), max |err| {err:.3g} of the "
+            f"largest |out| {top:.4g}; ms: unsplit {ms['unsplit']:.3f}, a "
+            f"rank {ms['rank']:.3f} (its {cfg.n_ssm_heads // r} heads, B "
+            f"and C whole)")
+        rec[tag] = {"rel_err": err, "ms": ms}
+        if dtype == torch.float32:
+            check(err <= MAMBA_TP_F32_REL,
+                  f"phase 15 (h): the simulated model ranks' Mamba2 output "
+                  f"against the unsplit layer, max |err| {err:.3g} of the "
+                  f"largest |out| (limit {MAMBA_TP_F32_REL}, float32)")
+        del params, ranks, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  (h) {rec['seconds']:.1f} s")
     return rec
 
 
@@ -5619,7 +5775,7 @@ def training_families() -> dict:
     """Phase 15; returns {"flash_fwd", "flash_bwd": #11's and #12's
     records at the training shapes, "models": one record a family, "dp",
     "mesh", "launches": #11 and #12 on (b)'s path, "tp_local": (f),
-    "moe_tp": (g)}."""
+    "moe_tp": (g), "mamba_tp": (h)}."""
     import torch.distributed as dist
     t_phase = time.perf_counter()
     fwd, bwd = flash_at_family_training_shapes()
@@ -5636,12 +5792,14 @@ def training_families() -> dict:
         dist.destroy_process_group()
     tp_fwd, tp_bwd = flash_at_tp_local_shapes()
     moe_tp = moe_ranks_simulated()
+    mamba_tp = mamba_ranks_simulated()
     launches = {k: sum(m["launches"][k] for m in models)
                 for k in ("flash_attention_fwd", "flash_attention_bwd")}
     out = {"flash_fwd": fwd, "flash_bwd": bwd, "models": models, "dp": dp,
            "mesh": mesh, "moe_mesh": moe_mesh, "launches": launches,
            "tp_local": {"flash_fwd": tp_fwd, "flash_bwd": tp_bwd},
-           "moe_tp": moe_tp, "seconds": time.perf_counter() - t_phase}
+           "moe_tp": moe_tp, "mamba_tp": mamba_tp,
+           "seconds": time.perf_counter() - t_phase}
     log(f"  phase 15: {out['seconds']:.1f} s; launches on (b)'s path: #11 "
         f"{launches['flash_attention_fwd']}, #12 "
         f"{launches['flash_attention_bwd']}")

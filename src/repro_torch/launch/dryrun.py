@@ -12,26 +12,26 @@ For every runnable cell it runs the port's own step at full width:
     train      `training.dp_step.make_sharded_train_step` on the DTensor
                state at `launch/shardings.py`'s sanitised train-state
                shardings (float32 masters), the rank's rows of the global
-               batch; the attention-and-MLP and MoE families split their
-               compute over the model axis (`models/tensor_parallel.py`:
-               heads or the context-parallel fallback, ff and vocabulary
-               columns, a MoE rank's experts or token slab, a
-               sequence-parallel residual unless `--opt no_sp`);
+               batch; every family splits its compute over the model
+               axis (`models/tensor_parallel.py`: heads or the
+               context-parallel fallback, ff and vocabulary columns, a
+               MoE rank's experts or token slab, an SSM block's heads or
+               channels, a sequence-parallel residual unless `--opt
+               no_sp`);
     prefill    the model on the parameter shardings' local shards,
     decode     gathered a unit at a time as the sharded train step
                gathers them (`models/fsdp.py`), on the rank's rows of the
                batch (the whole batch where it does not split over the
-               data axes), in the serving storage (bf16 matrices). The
-               attention-and-MLP and MoE families run under a serving
-               plan (`models/tensor_parallel.py`): prefill (the encoder's
+               data axes), in the serving storage (bf16 matrices). Every
+               family runs under a serving plan
+               (`models/tensor_parallel.py`): prefill (the encoder's
                forward too) split as the train step's forward, decode on
                the rank's shard of the decode state, its kv heads or,
                where they do not tile the model axis, its slice of the
-               cache's sequence (JAX's split-KV decode): the shapes of
-               `launch/shardings.py`'s `local_decode_state_shapes`. The
-               Mamba2 and xLSTM families (A9.4d) gather and repeat the
-               same compute on the ranks of the model axis, with the whole
-               state;
+               cache's sequence (JAX's split-KV decode), its SSM heads
+               and channels: JAX's shard shapes of its
+               `decode_state_shardings` but for the Mamba2 conv buffer
+               (`models/model.py` `state_specs`);
 
 with `use_flash_kernel=True`, as the port's launchers run. Under
 `roofline/op_analyzer.py` the step's ops and each kernel function's

@@ -26,11 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.convert import named_specs
-from repro_torch.models.model import (
-    decode_state_shapes,
-    param_specs,
-    state_specs,
-)
+from repro_torch.models.model import param_specs, state_specs
 from repro_torch.models.sharding_ctx import (
     DEFAULT_RULES,
     axes_size,
@@ -116,26 +112,6 @@ def decode_state_shardings(mesh, cfg: ModelConfig,
         # the kv heads can't tile it
         rules = {**rules, "kv_heads": None, "kv_seq": "model"}
     return _to_named(mesh, rules, state_specs(cfg))
-
-
-def local_decode_state_shapes(mesh, cfg: ModelConfig, batch: int,
-                              max_len: int, overrides: dict | None = None
-                              ) -> dict:
-    """A rank's shapes of the decode state of `batch` global rows and a
-    cache of `max_len`: `jax.sharding.NamedSharding.shard_shape` of each
-    entry of `init_decode_state`'s tree at the sanitised
-    `decode_state_shardings` (the kv heads or, split-KV, the cache's
-    sequence over "model"; the rows over the data axes)."""
-    shapes = decode_state_shapes(cfg, batch, max_len)
-    shd = sanitize_shardings(decode_state_shardings(mesh, cfg, overrides),
-                             shapes, mesh)
-    sizes = axis_sizes(mesh)
-
-    def local(sh: NamedSharding, shape: tuple) -> tuple:
-        spec = list(sh.spec) + [None] * (len(shape) - len(sh.spec))
-        return tuple(d // axes_size(v, sizes) for d, v in zip(shape, spec))
-
-    return _tree_map(local, shd, shapes)
 
 
 def batch_shardings(mesh, cfg: ModelConfig,

@@ -37,13 +37,13 @@ the embedding, the head; `models/fsdp.py`) and reduce-scatters each
 gradient onto its shard as the backward leaves the unit, so it holds its
 shards, a unit's float32 parameters and gradients, and its activations.
 No DTensor reaches a hand-written kernel (the flash ops have no DTensor
-sharding rule). The dense, vlm, audio and MoE families split their
-compute over the model axis as JAX's rules split it
-(`models/tensor_parallel.py`): a rank computes its heads (its slice of
-the queries against the gathered K/V where the kv heads do not tile the
-axis), its ff and vocabulary columns, a MoE block's experts or token
-slab, and carries its slice of the residual sequence; the SSM and hybrid
-families' units repeat their compute on the model ranks (ROADMAP A9.4d).
+sharding rule). Every family splits its compute over the model axis as
+JAX's rules split it (`models/tensor_parallel.py`): a rank computes its
+heads (its slice of the queries against the gathered K/V where the kv
+heads do not tile the axis), its ff and vocabulary columns, a MoE
+block's experts or token slab, a Mamba2 block's heads, an mLSTM block's
+channels and heads, an sLSTM block's feed-forward columns (the
+recurrence whole), and carries its slice of the residual sequence.
 A MoE architecture trains in either dispatch mode
 (`--moe-dispatch-chunks`; -1 is JAX's `_moe_shard_map`, a slab a
 device), with the single-device result of its global dispatch

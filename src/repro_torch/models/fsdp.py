@@ -19,31 +19,35 @@ of the modules' parameters for a full tensor for the block:
     gradient outlives it.
 
 The gather follows the compute on the "model" axis: with a tensor-parallel
-plan (`models/tensor_parallel.py`, the attention-and-MLP and MoE
-families) each parameter has a mode (`Plan.mode`):
+plan (`models/tensor_parallel.py`, every family) each parameter has a mode
+(`Plan.mode`):
 
   * "local": the unit computes on the parameter's "model" shard (q/k/v
     and `wo` on this rank's heads, the MLP on its ff columns, a MoE
-    block's experts on its E/tp under global dispatch, the table and the
-    head on its vocabulary rows), so only the data axes are gathered,
-    and the gradient needs no "model" collective;
+    block's experts on its E/tp under global dispatch, a Mamba2 block's
+    per-head vectors, norm and `out_proj` on its heads, the mLSTM's
+    projections on its channels, the sLSTM's feed-forward on its
+    columns, the table and the head on its vocabulary rows), so only the
+    data axes are gathered, and the gradient needs no "model" collective;
   * "partial": the unit needs it whole, and each model rank's gradient is
-    a partial sum over its slice of the sequence, its experts' routes or
-    its token slab (the norm scales and the frames projection under
-    sequence parallelism, the attention weights of the context-parallel
-    fallback, the MoE router, the experts under manual SPMD): it is
-    gathered over "model" too, and its gradient summed over "model" like
-    a data axis' (reduce-scattered where `Shard`ed, all-reduced where
-    `Replicate`d);
-  * "replica": every model rank repeats the same compute (no plan: the
-    Mamba2 and xLSTM units), so this rank's slice is taken with no
+    a partial sum over its slice of the sequence, its experts' routes,
+    its token slab or its heads (the norm scales and the frames
+    projection under sequence parallelism, the attention weights of the
+    context-parallel fallback, the MoE router, the experts under manual
+    SPMD, Mamba2's fused `in_proj` and conv, the mLSTM's forget bias where
+    its cell splits by heads): it is gathered over "model" too, and its
+    gradient summed over "model" like a data axis' (reduce-scattered
+    where `Shard`ed, all-reduced where `Replicate`d);
+  * "replica": every model rank repeats the same compute and sees the
+    same gradient (no plan; the sLSTM recurrence, an mLSTM cell whose
+    heads do not tile the axis), so this rank's slice is taken with no
     collective.
 
 Serving runs under a serving plan (`make_plan(..., serving=True)`): the
 same modes without a gradient, the fallback's attention weights "local"
-too. A dense, vlm, audio or MoE model on a model axis larger than 1 is
-refused without a plan (`tensor_parallel.current`): it never repeats the
-compute on the model ranks.
+too. A model of any family on a model axis larger than 1 is refused
+without a plan (`tensor_parallel.current`): it never repeats the compute
+on the model ranks.
 
 The units are the model's remat units (`models/model.py` `_layers`: a
 block, an xLSTM pair, a Mamba2 group with the shared attention block),

@@ -88,20 +88,33 @@ def rmsnorm_spec(cfg: ModelConfig, dim_name: str = "embed") -> dict:
     return {"scale": (dim_name,)}
 
 
-def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """float32 statistics and scale, cast back to x's dtype. Under
-    autograd `_RMSNorm` (the same forward ops, a leaner backward); without
-    it the ops themselves, with no Function's overhead a call (decode is
-    host-bound)."""
+def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float,
+            reduce=None, width: int | None = None) -> torch.Tensor:
+    """float32 statistics and scale, cast back to x's dtype. With `reduce`
+    x holds a model rank's channels of a `width`-channel norm, and
+    `reduce` sums a (..., 1) channel sum over the ranks that hold the
+    others (`tensor_parallel.channel_sum`): the forward's sum of squares
+    and the backward's sum of dy·x. Under autograd `_RMSNorm` (the same
+    forward ops, a leaner backward); without it the ops themselves, with
+    no Function's overhead a call (decode is host-bound)."""
     if torch.is_grad_enabled():
-        return _RMSNorm.apply(x, params.scale, eps)
-    return _rmsnorm_ops(x, params.scale, eps)[0]
+        return _RMSNorm.apply(x, params.scale, eps, reduce, width)
+    return _rmsnorm_ops(x, params.scale, eps, reduce, width)[0]
 
 
-def _rmsnorm_ops(x, scale, eps):
+def sum_of_squares(x: torch.Tensor) -> torch.Tensor:
+    """(..., 1) float32: the sum of squares of x over its channels."""
+    xf = x.float()
+    return (xf * xf).sum(-1, keepdim=True)
+
+
+def _rmsnorm_ops(x, scale, eps, reduce=None, width=None):
     """(the normed x in x's dtype, the inverse norms (..., 1))."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if reduce is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = reduce(sum_of_squares(xf)) / width
     r = torch.rsqrt(var + eps)
     return (xf * r * scale).to(x.dtype), r
 
@@ -113,12 +126,14 @@ class _RMSNorm(torch.autograd.Function):
     training shape is a residual's worth four times over. The forward is
     the plain formula's ops; the backward recomputes x.float() and sums
     the same terms (the gradient through the norm and through the
-    statistics)."""
+    statistics, whose channel sum `reduce` sums over the ranks of a split
+    width: each rank scales its own channels by the statistics)."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
-        out, r = _rmsnorm_ops(x, scale, eps)
+    def forward(ctx, x, scale, eps, reduce, width):
+        out, r = _rmsnorm_ops(x, scale, eps, reduce, width)
         ctx.save_for_backward(x, r, scale)
+        ctx.reduce, ctx.width = reduce, width or x.shape[-1]
         return out
 
     @staticmethod
@@ -131,10 +146,13 @@ class _RMSNorm(torch.autograd.Function):
             dscale = (g32 * (xf * r)).reshape(-1, xf.shape[-1]).sum(0)
         dy = g32 * scale
         # d var through rsqrt, then the mean over the channels
-        dvar = (dy * xf).sum(-1, keepdim=True) * (-0.5 * r.pow(3))
-        dsq = dvar / xf.shape[-1]
+        dsum = (dy * xf).sum(-1, keepdim=True)
+        if ctx.reduce is not None:
+            dsum = ctx.reduce(dsum)
+        dvar = dsum * (-0.5 * r.pow(3))
+        dsq = dvar / ctx.width
         dx = dy * r + dsq * xf + dsq * xf
-        return dx.to(x.dtype), dscale, None
+        return dx.to(x.dtype), dscale, None, None, None
 
 
 # --------------------------------------------------------------------- RoPE

@@ -21,12 +21,12 @@ or group in `torch.utils.checkpoint` under autograd, as `_maybe_remat`
 wraps the scan body. Each such unit, the embedding and the head run
 inside `models/fsdp.py`'s `gathered`, which in the sharded train step
 swaps in the unit's parameters gathered from their shards (a no-op
-elsewhere). There the attention-and-MLP and MoE families also split their
-compute over the model axis (`models/tensor_parallel.py`'s plan, JAX's
-`constrain` sites; a MoE rank its experts or its token slab,
-`models/moe.py`): the residual between units is this rank's slice of
-the sequence, and the logits are this rank's vocabulary columns, which
-`loss_fn` reduces with the vocab-parallel cross-entropy.
+elsewhere). There every family also splits its compute over the model
+axis (`models/tensor_parallel.py`'s plan, JAX's `constrain` sites; a MoE
+rank its experts or its token slab, `models/moe.py`; an SSM block its
+heads or channels, `models/ssm.py`): the residual between units is this
+rank's slice of the sequence, and the logits are this rank's vocabulary
+columns, which `loss_fn` reduces with the vocab-parallel cross-entropy.
 
 Decode threads an explicit state dict, the JAX package's: {"k", "v": (L,
 B, S_cache, Hk, Dh) caches in `cfg.dtype`, "pos": int} for the attention
@@ -300,8 +300,10 @@ def _block(blk: Block, x, cfg: ModelConfig, positions, tp=None):
 
 def _pair(pair: Pair, x, cfg: ModelConfig, positions, tp=None):
     eps = cfg.norm_eps
-    x = x + ssm_mod.mlstm_forward(pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg)
-    x = x + ssm_mod.slstm_forward(pair.slstm, rmsnorm(pair.ln2, x, eps), cfg)
+    x = x + ssm_mod.mlstm_forward(pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg,
+                                  tp=tp)
+    x = x + ssm_mod.slstm_forward(pair.slstm, rmsnorm(pair.ln2, x, eps), cfg,
+                                  tp=tp)
     return x, None
 
 
@@ -310,8 +312,9 @@ def _group(group: nn.ModuleList, shared: SharedAttention, x,
     eps = cfg.norm_eps
     for layer in group:
         x = x + ssm_mod.mamba2_forward(layer.mamba, rmsnorm(layer.ln, x, eps),
-                                       cfg)
-    x = x + attention(shared.attn, rmsnorm(shared.ln, x, eps), cfg, positions)
+                                       cfg, tp=tp)
+    x = x + attention(shared.attn, rmsnorm(shared.ln, x, eps), cfg, positions,
+                      tp=tp)
     return x, None
 
 
@@ -479,8 +482,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """The family's zero decode state at pos 0: KV caches (n, B, S_cache,
     Hk, Dh) in cfg.dtype, recurrent states float32. Under a serving plan
     (`tp`; None: the active one, `tensor_parallel.current`) only this
-    rank's shard of the caches: Hk/tp heads or S_cache/tp slots
-    (`Plan.cache_shape`); `batch` is the rows the rank runs."""
+    rank's shard: Hk/tp heads or S_cache/tp slots of the caches
+    (`Plan.cache_shape`), its heads and channels of the SSM states
+    (`Plan.ssm_state_shape`); `batch` is the rows the rank runs."""
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode state")
     if cfg.family not in FAMILIES:
@@ -499,17 +503,25 @@ def _decode_state(cfg: ModelConfig, batch: int, max_len: int, dev,
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
 
+    def ssm(block, init, *lead):
+        one = init(cfg, batch, dev)
+        if tp is not None:
+            # the rank's shard: a leaf's initial values are uniform, so its
+            # leading block will do
+            one = {k: v[tuple(map(slice, tp.ssm_state_shape(cfg, block, k,
+                                                            v.shape)))]
+                   for k, v in one.items()}
+        return _stacked(one, *lead)
+
     if cfg.family == "ssm":
         n = cfg.num_layers // 2
-        return {"mlstm": _stacked(ssm_mod.mlstm_state_init(cfg, batch, dev),
-                                  n),
-                "slstm": _stacked(ssm_mod.slstm_state_init(cfg, batch, dev),
-                                  n),
+        return {"mlstm": ssm("mlstm", ssm_mod.mlstm_state_init, n),
+                "slstm": ssm("slstm", ssm_mod.slstm_state_init, n),
                 "pos": 0}
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.attn_every
-        return {"mamba": _stacked(ssm_mod.mamba2_state_init(cfg, batch, dev),
-                                  groups, cfg.attn_every),
+        return {"mamba": ssm("mamba", ssm_mod.mamba2_state_init, groups,
+                             cfg.attn_every),
                 **kv(groups), "pos": 0}
     return {**kv(cfg.num_layers), "pos": 0}
 
@@ -530,7 +542,12 @@ def state_specs(cfg: ModelConfig) -> dict:
     """Logical sharding names of the decode state (`init_decode_state`'s
     tree, the JAX package's): `repro.models.state_specs`. The cache
     sequence axis is "kv_seq", remapped to the model axis by
-    `launch/shardings.py` where the kv heads do not tile it (split-KV)."""
+    `launch/shardings.py` where the kv heads do not tile it (split-KV).
+    Under a serving plan a rank's state is these specs' shard for every
+    leaf but the Mamba2 conv buffer's: its "ssm_inner" axis holds the
+    di/tp + 2n channels the rank convolves (its x channels, then B and C
+    whole), not the contiguous (di + 2n)/tp that JAX's sharding gives
+    (`tensor_parallel.Plan.ssm_state_shape`)."""
     fam = cfg.family
     kv = (None, "batch", "kv_seq", "kv_heads", None)
     if fam in ("dense", "vlm", "moe"):
@@ -563,9 +580,9 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
     rank's shard (`init_decode_state`), the residual is whole on every rank
     (one position: JAX's `("batch", None, "act_embed")`,
     `src/repro/models/attention.py:198`), the MLP (a MoE block its experts
-    or its token slab) and the head split their ff and vocabulary columns
-    (the `no_sp` regions), and the logits are the rank's vocabulary
-    columns, as in `prefill`."""
+    or its token slab, an SSM block its heads or channels) and the head
+    split their ff and vocabulary columns (the `no_sp` regions), and the
+    logits are the rank's vocabulary columns, as in `prefill`."""
     tp = tpm.current(cfg)
     tp = None if tp is None else tp.whole()
     x = _embed_inputs(params, cfg, {"tokens": tokens}, tp)
@@ -584,12 +601,12 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
             with gathered(pair):
                 h, new = ssm_mod.mlstm_step(
                     pair.mlstm, rmsnorm(pair.ln1, x, eps),
-                    {k: v[i] for k, v in ml.items()}, cfg)
+                    {k: v[i] for k, v in ml.items()}, cfg, tp)
                 _store(ml, (i,), new)
                 x = x + h
                 h, new = ssm_mod.slstm_step(
                     pair.slstm, rmsnorm(pair.ln2, x, eps),
-                    {k: v[i] for k, v in sl.items()}, cfg)
+                    {k: v[i] for k, v in sl.items()}, cfg, tp)
                 _store(sl, (i,), new)
                 x = x + h
     elif params.mamba_groups is not None:
@@ -599,7 +616,7 @@ def decode_step(params: Model, cfg: ModelConfig, state: dict,
                 for j, layer in enumerate(group):
                     h, new = ssm_mod.mamba2_step(
                         layer.mamba, rmsnorm(layer.ln, x, eps),
-                        {k: v[g, j] for k, v in mam.items()}, cfg)
+                        {k: v[g, j] for k, v in mam.items()}, cfg, tp)
                     _store(mam, (g, j), new)
                     x = x + h
                 x = attend(shared.attn, shared.ln, x, g)
@@ -632,8 +649,9 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
 
     Under a serving plan (`tensor_parallel.current`) it runs as the train
     step's split forward runs (heads or the context-parallel fallback, ff
-    and vocabulary columns, the residual sequence-parallel unless
-    `no_sp`), priming this rank's shard of the
+    and vocabulary columns, an SSM block's heads or channels, the
+    residual sequence-parallel unless `no_sp`), priming this rank's shard
+    of the
     decode state in the layout `decode_step` reads; a prompt whose length
     does not split over the model axis is refused. The logits are then
     the rank's vocabulary columns, as JAX's prefill leaves them
@@ -664,12 +682,12 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
             with gathered(pair):
                 h, new = ssm_mod.mlstm_forward(
                     pair.mlstm, rmsnorm(pair.ln1, x, eps), cfg,
-                    return_state=True)
+                    return_state=True, tp=tp)
                 _store(state["mlstm"], (i,), new)
                 x = x + h
                 h, new = ssm_mod.slstm_forward(
                     pair.slstm, rmsnorm(pair.ln2, x, eps), cfg,
-                    return_state=True)
+                    return_state=True, tp=tp)
                 _store(state["slstm"], (i,), new)
                 x = x + h
     elif params.mamba_groups is not None:
@@ -679,7 +697,7 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, max_len: int,
                 for j, layer in enumerate(group):
                     h, new = ssm_mod.mamba2_forward(
                         layer.mamba, rmsnorm(layer.ln, x, eps), cfg,
-                        return_state=True)
+                        return_state=True, tp=tp)
                     _store(state["mamba"], (g, j), new)
                     x = x + h
                 x = attend(shared.attn, shared.ln, x, g)

@@ -13,6 +13,20 @@ Every block has a full-sequence forward (optionally returning the decode
 state), a single step carrying that state, and init / state-init. Decode
 states are float32, as in the JAX package.
 
+Under a tensor-parallel plan (`models/tensor_parallel.py`, the sharded
+train step and serving on a model axis) every forward and step takes
+`tp` and computes this rank's share, as JAX's rules split the blocks
+("ssm_inner", "act_ssm" on "model"): a Mamba2 block its heads (the z, x
+and dt columns of the fused `in_proj`, with B and C whole), an mLSTM
+block its di/tp channels of the projections and its heads of the cell
+(the whole cell where the heads do not tile the axis), an sLSTM block its
+feed-forward columns with the recurrence whole. The split width's gated
+RMSNorm sums the ranks' sums of squares (`layers.rmsnorm` with
+`tensor_parallel.channel_sum`). Mamba2's two pieces between the
+collectives (`mamba2_gated`, `mamba2_project`) take a rank and a size, or
+the norm's reduce, and no process group, so a single process can run
+each rank's share and sum them.
+
 Storage: projections are bias-free `nn.Linear`s in the parameter dtype
 (`layers.py`); what the JAX package reads in float32 somewhere (the conv
 kernels, whose decode step is float32, the gate and decay vectors, the
@@ -27,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tensor_parallel as tpm
 from repro_torch.models.layers import (
     RMSNorm,
     _frozen,
@@ -187,37 +202,96 @@ def mamba2_spec(cfg: ModelConfig) -> dict:
             "norm_scale": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
 
 
-def _mamba2_pre(params: Mamba2, x: torch.Tensor, cfg: ModelConfig):
+def mamba2_columns(params: Mamba2, cfg: ModelConfig, rank: int = 0,
+                   size: int = 1) -> tuple:
+    """(in_proj's weight rows, conv_w, conv_b) that model rank `rank` of
+    `size` computes with, from the whole `in_proj` and conv: its z, x and
+    dt columns (its H/size heads) and the B and C columns whole, in the
+    whole layout's order [z | x | B | C | dt]; the conv's channels [x | B
+    | C] to match. The whole tensors at size 1."""
+    if size == 1:
+        return params.in_proj.weight, params.conv_w, params.conv_b
     di, n, h = cfg.d_inner, cfg.ssm_state_dim, cfg.n_ssm_heads
-    zxbcdt = dense(x, params.in_proj)
+    c, hh = di // size, h // size
+    chans = ((rank * c, c), (di, 2 * n))                 # in [x | B | C]
+    rows = ((rank * c, c), *((di + a, k) for a, k in chans),
+            (2 * di + 2 * n + rank * hh, hh))
+    return (torch.cat([params.in_proj.weight.narrow(0, a, k)
+                       for a, k in rows]),
+            torch.cat([params.conv_w.narrow(1, a, k) for a, k in chans], 1),
+            torch.cat([params.conv_b.narrow(0, a, k) for a, k in chans]))
+
+
+def _mamba2_split(zxbcdt: torch.Tensor, di: int, n: int, h: int):
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
             zxbcdt[..., -h:])
 
 
-def _mamba2_post(params: Mamba2, y, x_in, z, shape) -> torch.Tensor:
-    """The skip, the SiLU gate, the norm and the out projection."""
+def _mamba2_gate(params: Mamba2, y, x_in, z, shape) -> torch.Tensor:
+    """The skip and the SiLU gate: the norm's input."""
     y = y.float() + params.d_skip[:, None] * x_in.float()
-    y = y.reshape(shape).to(z.dtype) * F.silu(z)
-    return dense(rmsnorm(params.norm, y, 1e-5), params.out_proj)
+    return y.reshape(shape).to(z.dtype) * F.silu(z)
 
 
-def mamba2_forward(params: Mamba2, x: torch.Tensor, cfg: ModelConfig,
-                   return_state: bool = False):
-    """x: (B, S, D) -> (B, S, D) [, decode state {"h", "conv"}]."""
+def mamba2_project(params: Mamba2, g: torch.Tensor, cfg: ModelConfig,
+                   reduce=None) -> torch.Tensor:
+    """`out_proj` of the gated RMSNorm of g, the norm's input: the layer's
+    output where g is whole; a model rank's partial sums where g holds its
+    channels and `reduce` sums a channel sum over the ranks
+    (`tensor_parallel.channel_sum`)."""
+    return dense(rmsnorm(params.norm, g, 1e-5, reduce, cfg.d_inner),
+                 params.out_proj)
+
+
+def _mamba2_out(params: Mamba2, g, cfg: ModelConfig,
+                tp: "tpm.Plan | None") -> torch.Tensor:
+    out = mamba2_project(params, g, cfg, tpm.channel_sum(tp))
+    return out if tp is None else tpm.leave_rows(out, tp)
+
+
+def _share(tp: "tpm.Plan | None") -> tuple[int, int]:
+    return (0, 1) if tp is None else (tp.rank, tp.size)
+
+
+def mamba2_gated(params: Mamba2, x: torch.Tensor, cfg: ModelConfig,
+                 rank: int = 0, size: int = 1, return_state: bool = False):
+    """Model rank `rank` of `size`'s part of the block on the whole
+    sequence x (B, S, D), with `params` as the rank holds them under a
+    plan (`in_proj` and the conv whole, the per-head vectors, the norm
+    scale and `out_proj` their contiguous shards, which are its heads):
+    its heads' gated SSD output (B, S, d_inner/size), the norm's input
+    [, its decode state {"h": its heads, "conv": the channels it
+    convolves}]."""
     b, s, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state_dim, cfg.n_ssm_heads
-    z, xbc_raw, dt_pre = _mamba2_pre(params, x, cfg)
-    xbc = F.silu(causal_conv1d(xbc_raw, params.conv_w, params.conv_b))
+    di, n, h = cfg.d_inner // size, cfg.ssm_state_dim, cfg.n_ssm_heads // size
+    w, conv_w, conv_b = mamba2_columns(params, cfg, rank, size)
+    z, xbc_raw, dt_pre = _mamba2_split(F.linear(x, w.to(x.dtype)), di, n, h)
+    xbc = F.silu(causal_conv1d(xbc_raw, conv_w, conv_b))
     x_in = xbc[..., :di].reshape(b, s, h, di // h)
     dt = F.softplus(dt_pre.float() + params.dt_bias)
     y, h_final = ssd_scan(x_in, dt, params.a_log, xbc[..., di:di + n],
                           xbc[..., di + n:], _fit_chunk(s, cfg.ssm_chunk))
-    out = _mamba2_post(params, y, x_in, z, (b, s, di))
+    g = _mamba2_gate(params, y, x_in, z, (b, s, di))
     if not return_state:
-        return out
+        return g, None
     # the conv state holds the last K-1 PRE-conv inputs
-    return out, {"h": h_final,
-                 "conv": _left_tail(xbc_raw, cfg.ssm_conv_dim - 1)}
+    return g, {"h": h_final,
+               "conv": _left_tail(xbc_raw, cfg.ssm_conv_dim - 1)}
+
+
+def mamba2_forward(params: Mamba2, x: torch.Tensor, cfg: ModelConfig,
+                   return_state: bool = False,
+                   tp: "tpm.Plan | None" = None):
+    """x: (B, S, D) -> (B, S, D) [, decode state {"h", "conv"}]. Under a
+    plan x and the result are the residual as the plan carries it; the
+    rank computes its heads on the whole sequence (`mamba2_gated`) and
+    its `out_proj` rows (`src/repro/models/ssm.py:187,195,197`:
+    "act_ssm", "res_seq")."""
+    if tp is not None:
+        x = tpm.enter_columns(x, tp)
+    g, state = mamba2_gated(params, x, cfg, *_share(tp), return_state)
+    out = _mamba2_out(params, g, cfg, tp)
+    return (out, state) if return_state else out
 
 
 def mamba2_state_init(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -228,20 +302,26 @@ def mamba2_state_init(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def mamba2_step(params: Mamba2, x_t: torch.Tensor, state: dict,
-                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """x_t: (B, 1, D) -> (y (B, 1, D), state')."""
+                cfg: ModelConfig, tp: "tpm.Plan | None" = None
+                ) -> tuple[torch.Tensor, dict]:
+    """x_t: (B, 1, D) -> (y (B, 1, D), state'). Under a serving plan (the
+    residual whole) the state is the rank's shard and it computes its
+    heads."""
     b = x_t.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state_dim, cfg.n_ssm_heads
-    z, xbc, dt_pre = _mamba2_pre(params, x_t, cfg)
-    xbc_t, conv = conv_step(xbc[:, 0], state["conv"], params.conv_w,
-                            params.conv_b)
+    rank, size = _share(tp)
+    di, n, h = cfg.d_inner // size, cfg.ssm_state_dim, cfg.n_ssm_heads // size
+    if tp is not None:
+        x_t = tpm.enter_columns(x_t, tp)
+    w, conv_w, conv_b = mamba2_columns(params, cfg, rank, size)
+    z, xbc, dt_pre = _mamba2_split(F.linear(x_t, w.to(x_t.dtype)), di, n, h)
+    xbc_t, conv = conv_step(xbc[:, 0], state["conv"], conv_w, conv_b)
     xbc_t = F.silu(xbc_t)
     x_in = xbc_t[..., :di].reshape(b, h, di // h)
     dt = F.softplus(dt_pre[:, 0].float() + params.dt_bias)
     y, h_new = ssd_step(x_in, dt, params.a_log, xbc_t[..., di:di + n],
                         xbc_t[..., di + n:], state["h"])
-    return (_mamba2_post(params, y, x_in, z, (b, 1, di)),
-            {"h": h_new, "conv": conv})
+    g = _mamba2_gate(params, y, x_in, z, (b, 1, di))
+    return _mamba2_out(params, g, cfg, tp), {"h": h_new, "conv": conv}
 
 
 # =================================================================== mLSTM
@@ -354,25 +434,63 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(q.dtype), (c_p, n_p, m_p)
 
 
-def mlstm_forward(params: MLSTM, x: torch.Tensor, cfg: ModelConfig,
-                  return_state: bool = False):
-    """x: (B, S, D) -> (B, S, D) [, decode state {"c", "n", "m",
-    "conv"}]."""
-    b, s, _ = x.shape
+def _mlstm_heads(params: MLSTM, u: torch.Tensor, uc: torch.Tensor,
+                 cfg: ModelConfig, tp: "tpm.Plan | None"):
+    """q, k, v (..., H, dk) and the gate pre-activations i, f (..., H)
+    from the up-projection u and its conv uc. Under a plan u and uc are
+    the rank's channels and the row-parallel products partial sums,
+    reduce-scattered onto its heads where they tile the axis, else summed
+    whole on every rank (H then the rank's heads or all of them)."""
     h = cfg.n_ssm_heads
+    dk = 2 * cfg.d_model // h
+    q, k = dense(uc, params.w_q), dense(uc, params.w_k)
+    v = dense(u, params.w_v)
+    i_pre, f_pre = dense(uc, params.w_i), dense(uc, params.w_f)
+    bias = params.f_bias
+    if tp is not None:
+        qkv, gates = torch.stack([q, k, v]), torch.stack([i_pre, f_pre])
+        if tp.ssm_heads:
+            qkv = tpm.reduce_scatter(qkv, tp, -1)
+            gates = tpm.reduce_scatter(gates, tp, -1)
+            h //= tp.size
+            bias = bias.narrow(0, tp.rank * h, h)
+        else:
+            qkv = tpm.reduce_from_region(qkv, tp)
+            gates = tpm.reduce_from_region(gates, tp)
+        (q, k, v), (i_pre, f_pre) = qkv.unbind(0), gates.unbind(0)
+    lead = q.shape[:-1]
+    return (q.reshape(*lead, h, dk), k.reshape(*lead, h, dk),
+            v.reshape(*lead, h, dk), i_pre, f_pre + bias)
+
+
+def _mlstm_out(params: MLSTM, x: torch.Tensor, y: torch.Tensor,
+               cfg: ModelConfig, tp: "tpm.Plan | None") -> torch.Tensor:
+    """The norm over the whole 2·D width, the output gate and `w_down`
+    on the cell's output y (..., H·dk); under a plan on the rank's
+    channels (taken from a whole cell's y by `split`), the partial sums
+    back onto the residual."""
+    if tp is not None and not tp.ssm_heads:
+        y = tpm.split(y, tp, -1)
+    y = rmsnorm(params.norm, y, 1e-5, tpm.channel_sum(tp), 2 * cfg.d_model)
+    out = dense(y * torch.sigmoid(dense(x, params.w_o_gate)), params.w_down)
+    return out if tp is None else tpm.leave_rows(out, tp)
+
+
+def mlstm_forward(params: MLSTM, x: torch.Tensor, cfg: ModelConfig,
+                  return_state: bool = False, tp: "tpm.Plan | None" = None):
+    """x: (B, S, D) -> (B, S, D) [, decode state {"c", "n", "m",
+    "conv"}]. Under a plan x and the result are the residual as the plan
+    carries it, and the state is the rank's shard (its heads or all of
+    them, its conv channels)."""
+    if tp is not None:
+        x = tpm.enter_columns(x, tp)
+    b, s, _ = x.shape
     u = dense(x, params.w_up)                                 # (B, S, 2D)
     uc = F.silu(causal_conv1d(u, params.conv_w, params.conv_b))
-    di = u.shape[-1]
-    dk = di // h
-    q = dense(uc, params.w_q).reshape(b, s, h, dk)
-    k = dense(uc, params.w_k).reshape(b, s, h, dk)
-    v = dense(u, params.w_v).reshape(b, s, h, dk)
-    i_pre = dense(uc, params.w_i)
-    f_pre = dense(uc, params.w_f) + params.f_bias
+    q, k, v, i_pre, f_pre = _mlstm_heads(params, u, uc, cfg, tp)
     y, (c_f, n_f, m_f) = mlstm_chunked(q, k, v, i_pre, f_pre,
                                        _fit_chunk(s, cfg.ssm_chunk))
-    y = rmsnorm(params.norm, y.reshape(b, s, di), 1e-5)
-    out = dense(y * torch.sigmoid(dense(x, params.w_o_gate)), params.w_down)
+    out = _mlstm_out(params, x, y.reshape(b, s, -1), cfg, tp)
     if not return_state:
         return out
     return out, {"c": c_f, "n": n_f, "m": m_f,
@@ -390,21 +508,21 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def mlstm_step(params: MLSTM, x_t: torch.Tensor, state: dict,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """x_t: (B, 1, D) -> (y (B, 1, D), state')."""
+               cfg: ModelConfig, tp: "tpm.Plan | None" = None
+               ) -> tuple[torch.Tensor, dict]:
+    """x_t: (B, 1, D) -> (y (B, 1, D), state'). Under a serving plan (the
+    residual whole) the state is the rank's shard."""
     b = x_t.shape[0]
-    h = cfg.n_ssm_heads
+    if tp is not None:
+        x_t = tpm.enter_columns(x_t, tp)
     u = dense(x_t, params.w_up)
-    di = u.shape[-1]
-    dk = di // h
     uc_t, conv = conv_step(u[:, 0], state["conv"], params.conv_w,
                            params.conv_b)
     uc_t = F.silu(uc_t)
-    q = dense(uc_t, params.w_q).reshape(b, h, dk).float() * dk ** -0.5
-    k = dense(uc_t, params.w_k).reshape(b, h, dk).float()
-    v = dense(u[:, 0], params.w_v).reshape(b, h, dk).float()
-    itil = dense(uc_t, params.w_i).float()
-    logf = F.logsigmoid((dense(uc_t, params.w_f) + params.f_bias).float())
+    q, k, v, itil, ftil = _mlstm_heads(params, u[:, 0], uc_t, cfg, tp)
+    q = q.float() * q.shape[-1] ** -0.5
+    k, v, itil = k.float(), v.float(), itil.float()
+    logf = F.logsigmoid(ftil.float())
     m_new = torch.maximum(state["m"] + logf, itil)
     fw = torch.exp(state["m"] + logf - m_new)
     iw = torch.exp(itil - m_new)
@@ -414,9 +532,8 @@ def mlstm_step(params: MLSTM, x_t: torch.Tensor, state: dict,
     qn = torch.einsum("bhk,bhk->bh", q, n)
     denom = torch.maximum(torch.abs(qn), torch.exp(-m_new)) + 1e-30
     y = torch.einsum("bhk,bhkd->bhd", q, c) / denom[..., None]
-    y = rmsnorm(params.norm, y.reshape(b, 1, di).to(x_t.dtype), 1e-5)
-    out = dense(y * torch.sigmoid(dense(x_t, params.w_o_gate)),
-                params.w_down)
+    out = _mlstm_out(params, x_t, y.reshape(b, 1, -1).to(x_t.dtype), cfg,
+                     tp)
     return out, {"c": c, "n": n, "m": m_new, "conv": conv}
 
 
@@ -437,11 +554,16 @@ class SLSTM(nn.Module):
         self.w_ff_up, self.w_ff_down = w_ff_up, w_ff_down
 
 
+def slstm_ff_width(cfg: ModelConfig) -> int:
+    """The sLSTM block's feed-forward width (4/3 of D, a multiple of 8)."""
+    return max(8, int(cfg.d_model * 4 / 3) // 8 * 8)
+
+
 def slstm_init(generator, cfg: ModelConfig,
                dtype: torch.dtype | None = None) -> SLSTM:
     d = cfg.d_model
     dh = d // SLSTM_HEADS
-    ff = max(8, int(d * 4 / 3) // 8 * 8)
+    ff = slstm_ff_width(cfg)
     bias = torch.zeros((4 * d,), device=generator.device)
     bias[d:2 * d] = 3.0                                   # forget-gate bias
     return SLSTM(_init_linear(generator, cfg, d, 4 * d, dtype),
@@ -473,13 +595,27 @@ def _slstm_cell(params: SLSTM, g_x: torch.Tensor, carry: tuple, d: int):
     return (c_new, n_new, h_new, m_new), h_new
 
 
-def _slstm_ff(params: SLSTM, y: torch.Tensor) -> torch.Tensor:
-    return dense(F.silu(dense(y, params.w_ff_up)), params.w_ff_down)
+def _slstm_ff(params: SLSTM, y: torch.Tensor,
+              tp: "tpm.Plan | None" = None) -> torch.Tensor:
+    """The feed-forward on the recurrence's output y. Under a plan y is
+    whole on every rank and the rank runs its ff columns: `copy_to_region`
+    sums their gradients, so the whole recurrence sees the same gradient
+    on every rank; the partial sums go back onto the residual."""
+    if tp is not None:
+        y = tpm.copy_to_region(y, tp)
+    out = dense(F.silu(dense(y, params.w_ff_up)), params.w_ff_down)
+    return out if tp is None else tpm.leave_rows(out, tp)
 
 
 def slstm_forward(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
-                  return_state: bool = False):
-    """x: (B, S, D) -> (B, S, D) [, decode state {"c", "n", "h", "m"}]."""
+                  return_state: bool = False, tp: "tpm.Plan | None" = None):
+    """x: (B, S, D) -> (B, S, D) [, decode state {"c", "n", "h", "m"}].
+    Under a plan x and the result are the residual as the plan carries
+    it; the recurrence runs on the whole sequence on every rank
+    (`gather_seq` with a split gradient under SP: every rank's gradient
+    is whole)."""
+    if tp is not None and tp.sp:
+        x = tpm.gather_seq(x, tp, split_grad=True)
     b, s, d = x.shape
     g_all = dense(x, params.w_in)                             # (B, S, 4D)
     zero = torch.zeros((b, d), device=x.device)
@@ -488,7 +624,7 @@ def slstm_forward(params: SLSTM, x: torch.Tensor, cfg: ModelConfig,
     for t in range(s):
         carry, h_t = _slstm_cell(params, g_all[:, t], carry, d)
         hs.append(h_t)
-    out = _slstm_ff(params, torch.stack(hs, dim=1).to(x.dtype))
+    out = _slstm_ff(params, torch.stack(hs, dim=1).to(x.dtype), tp)
     if not return_state:
         return out
     return out, dict(zip(("c", "n", "h", "m"), carry))
@@ -500,10 +636,12 @@ def slstm_state_init(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def slstm_step(params: SLSTM, x_t: torch.Tensor, state: dict,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """x_t: (B, 1, D) -> (y (B, 1, D), state')."""
+               cfg: ModelConfig, tp: "tpm.Plan | None" = None
+               ) -> tuple[torch.Tensor, dict]:
+    """x_t: (B, 1, D) -> (y (B, 1, D), state'); the state is whole under
+    a serving plan too."""
     carry = (state["c"], state["n"], state["h"], state["m"])
     carry, h_out = _slstm_cell(params, dense(x_t[:, 0], params.w_in), carry,
                                cfg.d_model)
-    out = _slstm_ff(params, h_out[:, None, :].to(x_t.dtype))
+    out = _slstm_ff(params, h_out[:, None, :].to(x_t.dtype), tp)
     return out, dict(zip(("c", "n", "h", "m"), carry))

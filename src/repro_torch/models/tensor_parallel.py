@@ -1,7 +1,8 @@
-"""Tensor-parallel compute on the "model" mesh axis for the attention-and-
-MLP families (dense, vlm, audio) and the MoE family: the sharded train
-step, and serving (prefill, the encoder forward, decode) under a serving
-plan.
+"""Tensor-parallel compute on the "model" mesh axis for every family: the
+attention-and-MLP families (dense, vlm, audio), the MoE family and the
+SSM and hybrid families (xLSTM, Mamba2 with zamba2's shared attention):
+the sharded train step, and serving (prefill, the encoder forward,
+decode) under a serving plan.
 
 JAX has no module of this name. There the models call `constrain` with
 logical axis names (`src/repro/models/attention.py:55-65,153`,
@@ -49,6 +50,35 @@ experts gathered whole; the router is gathered whole in both, and each
 rank's share of the aux loss is summed over "model" (`reduce_from_region`)
 so that its gradient counts once.
 
+The SSM blocks split their inner width as JAX's rules split it
+("ssm_inner" and "act_ssm" on "model", `src/repro/models/ssm.py:152-162,
+264-273`), on the whole sequence (all-gathered under SP, since the
+causal conv and the scans read all of it):
+
+  * Mamba2: a rank computes its H/tp heads, i.e. its z, x and dt columns
+    of the fused `in_proj`, plus the B and C columns that every head
+    reads, whole; `in_proj` and the conv are gathered whole ("partial":
+    their contiguous "model" shards are not a set of heads), the per-head
+    vectors, the norm scale and `out_proj` stay on the rank's shard,
+    which is exactly its heads ("local");
+  * mLSTM: `w_up`, the conv and `w_o_gate` column-parallel on the rank's
+    di/tp channels, `w_q`, `w_k`, `w_v`, `w_i` and `w_f` row-parallel:
+    their partial sums reduce-scatter onto the rank's heads where the
+    heads tile the axis (`Plan.ssm_heads`), else they are all-reduced and
+    the cell runs whole on every rank, as JAX's `sanitize_shardings`
+    leaves it (4 heads on 16), the rank then taking its di/tp channels of
+    the cell's output (`split`, whose backward all-gathers, so the whole
+    region sees the same gradient on every rank);
+  * sLSTM: the recurrence whole on every rank (JAX: `("embed", None)`),
+    its feed-forward column/row-parallel on the rank's ff/tp columns,
+    entered with `copy_to_region`, so the recurrence's gradient is the
+    summed one on every rank and its parameters are "replica".
+
+The gated RMSNorm after a split cell covers all di channels: each rank's
+sum of squares over its channels is summed over "model"
+(`layers.rmsnorm` with `channel_sum`), and so is its backward's sum over
+the channels (every rank's output reads the statistic).
+
 `Plan` says what a unit splits and how each parameter's gradient sums over
 "model" (`Plan.mode`, read by `models/fsdp.py`). At a "model" axis of size
 1 there is no plan, and the step is the single-device step op for op.
@@ -66,14 +96,19 @@ o), which `combine_over_model` all-gathers and
 attention weights' "model" shards too ("local"): decode projects q, k
 and v column-parallel on them and all-gathers the columns, and prefill,
 which projects its slice of the sequence, gathers the weights whole.
-A dense, vlm, audio or MoE model under `ShardedParams` on a model axis
-larger than 1 without a plan is refused (`current`): it never repeats the
-compute on the model ranks.
+The decode state is the rank's shard (`Plan.ssm_state_shape`): its
+Mamba2 heads, its mLSTM heads where they tile the axis, its channels of
+the mLSTM conv; a Mamba2 conv state holds the channels the rank
+convolves (its di/tp of x, then B and C whole), not JAX's contiguous
+(di + 2n)/tp. A model of any family under `ShardedParams` on a model
+axis larger than 1 without a plan is refused (`current`): it never
+repeats the compute on the model ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 
 import torch
 import torch.distributed as dist
@@ -88,9 +123,8 @@ from repro_torch.models.sharding_ctx import (
     seq_parallel,
 )
 
-# the families whose blocks are attention plus an MLP or routed experts;
-# the Mamba2 and xLSTM units keep a replicated compute on a model axis
-TP_FAMILIES = ("dense", "vlm", "audio", "moe")
+# the families whose units split their compute over the model axis: all
+TP_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -102,7 +136,9 @@ class Plan:
     MoE config's expert count, always does: `make_plan` refuses a config
     where it does not); `experts`: a MoE rank computes on its E/tp experts
     (global dispatch) rather than its token slab with every expert
-    (manual SPMD)."""
+    (manual SPMD); `ssm_heads`: the SSM heads tile the axis, so a Mamba2
+    or mLSTM cell runs on the rank's heads (an mLSTM cell whose heads do
+    not runs whole on every rank; a Mamba2 one always tiles)."""
 
     group: object
     size: int
@@ -112,6 +148,7 @@ class Plan:
     vocab: bool
     serving: bool = False
     experts: bool = False
+    ssm_heads: bool = False
 
     def mode(self, name: str) -> str:
         """How parameter `name` is used over "model": "local" (the unit
@@ -121,7 +158,11 @@ class Plan:
         rank computes the same, as without a plan). Serving keeps the
         fallback's attention weights "local" too (decode projects on
         them). The expert weights are "local" under global dispatch, else
-        "partial", as is the router."""
+        "partial", as is the router. Mamba2's fused `in_proj` and its conv
+        are "partial" (their shards are not heads), its other parameters
+        "local"; the mLSTM's are "local" but for `f_bias`, "partial" where
+        the cell splits by heads and "replica" where it runs whole; the
+        sLSTM's recurrence is "replica", its feed-forward "local"."""
         parts = name.split(".")
         if "attn" in parts:
             return "local" if self.heads or self.serving else "partial"
@@ -130,6 +171,16 @@ class Plan:
         if "moe" in parts:
             return ("local" if self.experts and "router" not in parts
                     else "partial")
+        if "mamba" in parts:
+            return ("partial" if {"in_proj", "conv_w", "conv_b"} & set(parts)
+                    else "local")
+        if "mlstm" in parts:
+            if "f_bias" in parts:
+                return "partial" if self.ssm_heads else "replica"
+            return "local"
+        if "slstm" in parts:
+            return ("local" if {"w_ff_up", "w_ff_down"} & set(parts)
+                    else "replica")
         if parts[0] in ("embed", "unembed"):
             return "local" if self.vocab else "replica"
         # the norm scales and the frames projection
@@ -163,35 +214,72 @@ class Plan:
                              f"model axis of {self.size}")
         return (n, b, s // self.size, hk, dh)
 
+    def ssm_state_shape(self, cfg: ModelConfig, block: str, key: str,
+                        shape: tuple) -> tuple:
+        """This rank's shard of one layer's decode state leaf `key` of an
+        SSM `block` ("mamba", "mlstm", "slstm"), rows first: Mamba2's "h"
+        (B, H, N, P) its H/tp heads; its "conv" (B, K-1, di + 2n) the
+        channels it convolves, di/tp + 2n (its x channels, then B and C
+        whole: JAX's contiguous (di + 2n)/tp are not heads); the mLSTM's
+        "c", "n", "m" (B, H, ...) its H/tp heads where they tile the axis,
+        else whole; its "conv" (B, 3, di) its di/tp channels; the sLSTM's
+        whole."""
+        if block == "slstm":
+            return shape
+        if key == "conv":
+            ch = shape[-1]
+            whole = 2 * cfg.ssm_state_dim if block == "mamba" else 0
+            return (*shape[:-1], (ch - whole) // self.size + whole)
+        if block == "mamba" or self.ssm_heads:
+            return (shape[0], shape[1] // self.size, *shape[2:])
+        return shape
+
+
+def _tiles(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """The widths the family's plan splits over the model axis."""
+    if cfg.family == "moe":
+        return [("the expert count", cfg.num_experts)]
+    if cfg.family == "hybrid":
+        return [("the SSM head count", cfg.n_ssm_heads),
+                ("d_inner", cfg.d_inner),
+                ("the kv head count", cfg.num_kv_heads)]
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import slstm_ff_width
+        return [("the mLSTM width", 2 * cfg.d_model),
+                ("the sLSTM feed-forward width", slstm_ff_width(cfg))]
+    return [("d_ff", cfg.d_ff)]
+
 
 def make_plan(cfg: ModelConfig, mesh, serving: bool = False) -> Plan | None:
     """The plan of `cfg` on `mesh` under the installed sharding rules (call
     within `sharding_rules`); None where the "model" axis has size 1 or
-    the family keeps a replicated compute. A d_ff (a MoE config's expert
-    count) that does not tile the axis is refused, as a sequence that does
-    not split is (`seq_slice`): every configuration's tiles 16. `serving`:
-    the plan of prefill and decode (see the module note)."""
+    the family is not split. A width the family splits that does not tile
+    the axis is refused, as a sequence that does not split is
+    (`seq_slice`): d_ff; a MoE config's expert count; zamba2's SSM heads,
+    d_inner and the shared block's kv heads; xLSTM's mLSTM width (2·D)
+    and sLSTM feed-forward width. Every configuration's tile 16.
+    `serving`: the plan of prefill and decode (see the module note)."""
     size, rank = model_rank(mesh)
     if size == 1 or cfg.family not in TP_FAMILIES:
         return None
-    moe = cfg.family == "moe"
-    what, n = (("the expert count", cfg.num_experts) if moe
-               else ("d_ff", cfg.d_ff))
-    if n % size:
-        raise ValueError(f"{what} {n} does not split over a model axis "
-                         f"of {size}")
+    for what, n in _tiles(cfg):
+        if n % size:
+            raise ValueError(f"{what} {n} does not split over a model axis "
+                             f"of {size}")
     return Plan(group=model_group(mesh), size=size, rank=rank,
                 sp=seq_parallel(), heads=cfg.num_kv_heads % size == 0,
                 vocab=cfg.padded_vocab % size == 0, serving=serving,
-                experts=moe and cfg.moe_dispatch_chunks != -1)
+                experts=(cfg.family == "moe"
+                         and cfg.moe_dispatch_chunks != -1),
+                ssm_heads=(cfg.family in ("ssm", "hybrid")
+                           and cfg.n_ssm_heads % size == 0))
 
 
 def current(cfg: ModelConfig) -> Plan | None:
     """The active `ShardedParams`' plan (`models/fsdp.py`) for a model of
-    `cfg`; None outside the sharded step or without one. A model of
-    `TP_FAMILIES` (MoE included) on a model axis larger than 1 without a
-    plan is refused: it would repeat the whole compute on every model
-    rank."""
+    `cfg`; None outside the sharded step or without one. A model of any
+    family (`TP_FAMILIES`) on a model axis larger than 1 without a plan is
+    refused: it would repeat the whole compute on every model rank."""
     sp = fsdp.active()
     if sp is None:
         return None
@@ -227,10 +315,17 @@ def _slice(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
     return x.narrow(dim, start, n).contiguous()
 
 
-def _all_reduce(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """x summed over the model ranks, a copy (no autograd)."""
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=plan.group)
     return out
+
+
+def channel_sum(plan: Plan | None):
+    """`layers.rmsnorm`'s `reduce` for a width split over "model": a
+    channel sum summed over the model ranks; None without a plan."""
+    return None if plan is None else partial(all_reduce, plan=plan)
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -245,26 +340,26 @@ class _GatherSeq(torch.autograd.Function):
         return op(g, ctx.plan, 1), None, None
 
 
-class _ScatterSeq(torch.autograd.Function):
+class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan):
-        ctx.plan = plan
-        return _reduce_scatter(x, plan, 1)
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim = plan, dim
+        return _reduce_scatter(x, plan, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.plan, 1), None
+        return all_gather(g, ctx.plan, ctx.dim), None, None
 
 
-class _SplitSeq(torch.autograd.Function):
+class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, plan):
-        ctx.plan = plan
-        return _slice(x, plan, 1)
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim = plan, dim
+        return _slice(x, plan, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.plan, 1), None
+        return all_gather(g, ctx.plan, ctx.dim), None, None
 
 
 class _CopyToRegion(torch.autograd.Function):
@@ -275,13 +370,13 @@ class _CopyToRegion(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.plan), None
+        return all_reduce(g, ctx.plan), None
 
 
 class _ReduceFromRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, plan):
-        return _all_reduce(x, plan)
+        return all_reduce(x, plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -299,13 +394,26 @@ def gather_seq(x: torch.Tensor, plan: Plan, split_grad: bool = False
 def scatter_seq(x: torch.Tensor, plan: Plan) -> torch.Tensor:
     """(B, S, ...) partial sums -> (B, S/tp, ...): reduce-scattered over
     "model"; the backward all-gathers."""
-    return _ScatterSeq.apply(x, plan)
+    return reduce_scatter(x, plan, 1)
+
+
+def reduce_scatter(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    """Partial sums -> this rank's block of their sum over "model" along
+    `dim`; the backward all-gathers."""
+    return _ReduceScatter.apply(x, plan, dim)
 
 
 def split_seq(x: torch.Tensor, plan: Plan) -> torch.Tensor:
     """(B, S, ...) whole on every rank -> this rank's (B, S/tp, ...) slice;
     the backward all-gathers."""
-    return _SplitSeq.apply(x, plan)
+    return split(x, plan, 1)
+
+
+def split(x: torch.Tensor, plan: Plan, dim: int) -> torch.Tensor:
+    """A tensor whole on every rank -> this rank's block along `dim`; the
+    backward all-gathers, so the region that computed it whole sees the
+    same (whole) gradient on every rank."""
+    return _Split.apply(x, plan, dim)
 
 
 def copy_to_region(x: torch.Tensor, plan: Plan) -> torch.Tensor:

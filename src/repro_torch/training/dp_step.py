@@ -112,15 +112,16 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizerConfig, mesh,
     logits are gathered over the sequence), and the scalars are summed
     over the data axes only: every model rank holds the same loss and aux.
 
-    The attention-and-MLP and MoE families split their compute over the
-    model axis (`models/tensor_parallel.py`): a rank computes its h/tp
-    heads (or, where the kv heads do not tile the axis, its s/tp queries
-    against the gathered K/V), its d_ff/tp MLP columns, a MoE block's E/tp
-    experts on every token of its rows (global dispatch) or its own token
-    slab (manual SPMD), and its padded-vocab/tp logits, and carries its
-    s/tp slice of the residual between units (whole under `no_sp`). The
-    Mamba2 and xLSTM units repeat the same compute on the ranks of a model
-    axis (ROADMAP A9.4d).
+    Every family splits its compute over the model axis
+    (`models/tensor_parallel.py`): a rank computes its h/tp heads (or,
+    where the kv heads do not tile the axis, its s/tp queries against the
+    gathered K/V), its d_ff/tp MLP columns, a MoE block's E/tp experts on
+    every token of its rows (global dispatch) or its own token slab
+    (manual SPMD), a Mamba2 block's H/tp heads, an mLSTM block's di/tp
+    channels and its heads (its cell whole where they do not tile), an
+    sLSTM block's ff/tp columns beside the whole recurrence, and its
+    padded-vocab/tp logits, and carries its s/tp slice of the residual
+    between units (whole under `no_sp`).
 
     Cost: a rank holds its shards, one unit's gathered parameters and
     gradients at a time (two units' while a backward overlaps the next

@@ -12,7 +12,19 @@ CPU, against the single-device step:
     shards within 1e-5 of the single-device gradients, relative to each
     parameter's largest (AdamW's eps can move an element whose gradient is
     rounding noise by a fifth of the learning rate, so the parameters
-    alone tell a right split from a slightly wrong one poorly);
+    alone tell a right split from a slightly wrong one poorly). zamba2
+    splits its Mamba2 heads over "model" (its tensor-parallel plan), and
+    its float32 step on a split sits on a floor that these bounds do not
+    clear, which JAX's own step shows at this config
+    (`tests/test_torch_ssm_tp.py`'s witness: JAX's 2 x 2 sharded step
+    against its unsplit one, 5.2-6.4e-4 apart in the parameters after two
+    steps and 2.0-4.8e-5 in the first step's gradients of a layer's
+    a_log): a reordered sum moves the near-zero gradient elements, whose
+    AdamW updates are then set by the noise. So zamba2 is held by
+    `_check_floor`: the parameters within 2e-4 where their first-step
+    gradient exceeds FLOOR_MASK (100 x AdamW's eps), the gradient shards
+    within FLOOR_GRAD of each parameter's largest, the second step's grad
+    norm within 1e-4 relative, all else as `_check`;
   * eight ranks on 2 x 2 x 2 ("pod", "data", "model"), where the gather
     order over two data axes shows;
   * the backward on another thread than the forward, as CUDA runs it;
@@ -35,8 +47,12 @@ pytestmark = pytest.mark.multidevice
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "xlstm-125m")
 CASES = [(f"{a}/{acc}/{remat}", a, acc, remat)
          for a in ARCHS for acc in (1, 2) for remat in ("none", "full")]
+# zamba2's float32 step on a model axis (see the module note): the first
+# step's gradient shards relative to each parameter's largest, and the
+# |gradient| above which a parameter element is held after two steps
+FLOOR_GRAD, FLOOR_MASK = 1e-4, 1e-6
 
-STEP = """
+STEP = f"FLOOR_MASK = {FLOOR_MASK!r}\n" + """
 from repro_torch.configs import get_config
 from repro_torch.launch import train as ltrain
 from repro_torch.models.model import init_params
@@ -90,10 +106,14 @@ def compare(mesh, arch, accum, remat, n_data, overrides=None, **extra):
     full = dict(state.params.named_parameters())
     err = max(float((full[n].full_tensor() - p).abs().max())
               for n, p in ref.params.named_parameters())
+    # the elements whose first-step gradient is above AdamW's eps scale
+    masked = max(float(((full[n].full_tensor() - p).abs()
+                        * (rg[n].abs() > FLOOR_MASK)).max())
+                 for n, p in ref.params.named_parameters())
     merr = max(float((state.opt_state[k][n].full_tensor()
                       - ref.opt_state[k][n]).abs().max())
                for k in ("m", "v") for n in ref.opt_state[k])
-    return dict(err=err, merr=merr, gerr=gerr, metrics=out,
+    return dict(err=err, masked=masked, merr=merr, gerr=gerr, metrics=out,
                 step=state.opt_state["step"])
 """
 
@@ -105,6 +125,19 @@ def _check(got):
     for loss, ce, gn, rloss, rce, rgn in got["metrics"]:
         assert abs(loss - rloss) < 1e-5 and abs(ce - rce) < 1e-5, got
         assert abs(gn - rgn) <= 1e-5 * rgn, got
+
+
+def _check_floor(got):
+    """`_check` for a step on zamba2's float32 floor (see the module
+    note)."""
+    assert got["masked"] < 2e-4 and got["merr"] < 2e-4, got
+    assert got["gerr"] < FLOOR_GRAD, got
+    assert got["step"] == 2
+    for t, (loss, ce, gn, rloss, rce, rgn) in enumerate(got["metrics"]):
+        assert abs(loss - rloss) < 1e-5 and abs(ce - rce) < 1e-5, got
+        # the second step's gradient comes after an AdamW update on the
+        # floor
+        assert abs(gn - rgn) <= (1e-5 if t == 0 else 1e-4) * rgn, got
 
 
 @pytest.fixture(scope="module")
@@ -121,8 +154,9 @@ report(**{name: compare(mesh, a, acc, remat, 2)
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_per_unit_step_matches_single_device(four_ranks, case):
+    check = _check_floor if case[1] == "zamba2-2.7b" else _check
     for rep in four_ranks:
-        _check(rep[case[0]])
+        check(rep[case[0]])
 
 
 def test_pod_data_model_mesh(tmp_path):

@@ -502,6 +502,17 @@ TABLE = [
     ("#12 at chameleon's first rank", kc.flash_attention_bwd(
         16, 256, 4096, 64, 8, 128, causal=True, q_offset=0), 0.1656,
      "bytes"),
+    # zamba2's shared block on a rank's 2 of 32 heads (TP_PREFILL_FLASH,
+    # TP_FLASH): prefill_32k within its 4,096-token window, train_4k
+    ("#10 at zamba2's heads", kc.flash_attention(
+        2, 32768, 32768, 2, 2, 80, causal=True, window=4096), 0.1629,
+     "operations"),
+    ("#11 at zamba2's heads", kc.flash_attention_fwd(
+        16, 4096, 4096, 2, 2, 80, causal=True, window=4096), 0.0869,
+     "operations"),
+    ("#12 at zamba2's heads", kc.flash_attention_bwd(
+        16, 4096, 4096, 2, 2, 80, causal=True, window=4096), 0.2171,
+     "operations"),
 ]
 
 

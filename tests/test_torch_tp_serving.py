@@ -21,8 +21,9 @@ sequence, in `gloo` processes on the CPU:
   * (c) `combine_partials` against the unsplit softmax, with empty and
     single-slot slices;
   * (d) a rank's decode state shapes against JAX's `shard_shape`s of its
-    sanitised `decode_state_shardings` for every dense, vlm and MoE
-    config at decode_32k on 16 x 16;
+    sanitised `decode_state_shardings` for every dense, vlm, MoE, SSM and
+    hybrid config at decode_32k on 16 x 16 (zamba2's Mamba2 conv buffer
+    against the port's stated layout);
   * (e) the compute is split: a rank's counted operations in prefill and
     decode on a fake 1 x 2 mesh against the 1 x 1 run, on both ranks.
 
@@ -49,7 +50,6 @@ from repro.models import model as jm
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch import shardings as shd
 from repro_torch.launch.mesh import production_layout
 from repro_torch.models import tensor_parallel as tpm
 from repro_torch.models.attention import _decode_core, decode_partials
@@ -86,11 +86,9 @@ CASES = [
 AGAINST_JAX = [("heads", "stablelm-1.6b", {}),
                ("split_kv", "starcoder2-7b", FALLBACK)]
 # a model under ShardedParams on a model axis of 2 without a plan, and
-# whether it is refused: the attention-and-MLP and MoE families never
-# repeat the compute on the model ranks, the hybrid family still does
-# (ROADMAP A9.4d)
+# whether it is refused: no family repeats the compute on the model ranks
 UNPLANNED = [("stablelm-1.6b", True), ("olmoe-1b-7b", True),
-             ("zamba2-2.7b", False)]
+             ("zamba2-2.7b", True)]
 
 JAX_SERVE = """
 import dataclasses, json, os, sys
@@ -365,10 +363,9 @@ def test_a_prompt_that_does_not_split_is_refused(serving_ranks):
                          ids=[c[0] for c in UNPLANNED])
 def test_no_replicated_fallback_without_a_plan(serving_ranks, arch,
                                                refused):
-    """(b): a dense or MoE model's prefill under `ShardedParams` on a
-    model axis of 2 without its serving plan raises ValueError (it never
-    gathers and repeats the compute on the model ranks); a hybrid model's
-    runs, with its replicated serving."""
+    """(b): a dense, MoE or hybrid model's prefill under `ShardedParams`
+    on a model axis of 2 without its serving plan raises ValueError (no
+    family gathers and repeats the compute on the model ranks)."""
     for rep in serving_ranks["reports"]:
         msg = rep["unplanned"][arch]
         if refused:
@@ -417,8 +414,19 @@ def test_combine_matches_the_unsplit_softmax(sizes, pos):
         want.abs().max())
 
 
-DECODE_ARCHS = sorted(n for n, c in ARCHS.items() if c.family in ("dense",
-                                                              "vlm", "moe"))
+DECODE_ARCHS = sorted(n for n, c in ARCHS.items() if c.family in (
+    "dense", "vlm", "moe", "ssm", "hybrid"))
+
+
+def _flat(tree, prefix=""):
+    """{"a/b": leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def _jax_decode_shard_shapes(name: str) -> dict:
@@ -429,17 +437,23 @@ def _jax_decode_shard_shapes(name: str) -> dict:
         jcfg, shape.global_batch, shape.seq_len))
     st_shd = jshd.sanitize_shardings(jshd.decode_state_shardings(amesh, jcfg),
                                      state, amesh)
-    return {k: tuple(st_shd[k].shard_shape(state[k].shape)) for k in state}
+    shd_flat, st_flat = _flat(st_shd), _flat(state)
+    return {k: tuple(shd_flat[k].shard_shape(st_flat[k].shape))
+            for k in st_flat}
 
 
 @pytest.mark.parametrize("name", DECODE_ARCHS)
 def test_decode_state_shards_equal_jax_shard_shapes(name):
     """(d): at decode_32k on 16 x 16 a rank's decode state under the
-    serving plan of a dense, vlm or MoE config (`init_decode_state(...,
-    tp=plan)` on its 8 rows) and
-    `local_decode_state_shapes` equal JAX's `shard_shape`s of its
-    sanitised `decode_state_shardings`: the kv heads over "model" where
-    they tile it, else the cache's 32,768 slots."""
+    serving plan (`init_decode_state(..., tp=plan)` on its 8 rows)
+    equals JAX's `shard_shape`s of its sanitised
+    `decode_state_shardings`: the kv heads over "model" where
+    they tile it, else the cache's 32,768 slots; the Mamba2 heads, the
+    mLSTM heads where they tile (xlstm-125m's 4 do not: whole) and its
+    conv channels; the sLSTM states whole. The one leaf whose layout is
+    the port's own is zamba2's Mamba2 conv buffer: the di/16 + 2n = 448
+    channels a rank convolves (its x channels, then B and C whole), where
+    JAX's contiguous shard is (di + 2n)/16 = 328 (`state_specs`)."""
     cfg = get_config(name)
     shape = SHAPES["decode_32k"]
     want = _jax_decode_shard_shapes(name)
@@ -447,13 +461,18 @@ def test_decode_state_shards_equal_jax_shard_shapes(name):
         with sharding_rules(mesh):
             plan = tpm.make_plan(cfg, mesh, serving=True)
         assert plan.heads == (cfg.num_kv_heads % 16 == 0)
-        helper = shd.local_decode_state_shapes(mesh, cfg, shape.global_batch,
-                                               shape.seq_len)
         with FakeTensorMode(allow_non_fake_inputs=True):
             state = init_decode_state(cfg, shape.global_batch // 16,
                                       shape.seq_len, device="cpu", tp=plan)
-    got = {k: () if k == "pos" else tuple(t.shape) for k, t in state.items()}
-    assert got == want and helper == want, (got, helper, want)
+    got = {k: () if k == "pos" else tuple(t.shape)
+           for k, t in _flat(state).items()}
+    if cfg.family == "hybrid":
+        n, di = cfg.ssm_state_dim, cfg.d_inner
+        conv = got.pop("mamba/conv")
+        assert want.pop("mamba/conv")[-1] == (di + 2 * n) // 16
+        assert conv == (*want["mamba/h"][:3], cfg.ssm_conv_dim - 1,
+                        di // 16 + 2 * n), conv
+    assert got == want, (got, want)
 
 
 @pytest.mark.parametrize("arch, extra, kind", [
