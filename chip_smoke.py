@@ -413,6 +413,30 @@ Phases:
                 with 6·N·T beside the counted flops; (c) in phase 8, a
                 starcoder2-7b decode step (no kernel) against generate's
                 mean step. Prints one `{"roofline": ...}` JSON line.
+ 17. the examples — runs after phase 15, each example of
+                `repro_torch.examples` in-process on the card with its own
+                assertions: quickstart at its sizes; the seven
+                streaming_updates modes (grow, churn, --sharded and
+                --reshard on eight positions of the card, serve, tenants,
+                tiered) at their full sizes, serve at --quick (its eager
+                lanes hold the host ~40 ms a search, so the scheduler
+                coalesces nothing and the full sizes take ~4 minutes on
+                an H100), then
+                churn and serve with --trace, each trace read by
+                `scripts/obs_report.py` (exit 0); churn again through the
+                main path's spec (megakernel, exact rerank on the card): #1
+                and #2 once a search and no other kernel, the plain churn's
+                ticks, recall@10 within 0.01 of the plain churn's and of the
+                JAX script's each tick (whose first reads 0.845); rag_serve at its
+                reduced size, then at stablelm-1.6b's published width in
+                float32 through #10 (one launch a layer a forward, no
+                blockwise call) and again blockwise on the same weights:
+                equal hits; train_lm --full (xlstm-125m, 64 x 1,024) for 2
+                steps into a fresh directory and 1 more resumed from its
+                checkpoint: the "resumed from step 2" line, finite losses,
+                the first cross-entropy in [ln V - 0.5, ln V + 3]. Prints
+                each example's seconds and one `{"examples": ...}` JSON
+                line.
 
 Prints the serving, host-tier, sharded, families and roofline JSON lines,
 the kernel JSON line (with each search kernel's launches a host-tier search
@@ -421,12 +445,15 @@ of its lane as `launches_host_tier` and a sharded search as
 `launches_families` and its times at phase 14's shapes as
 `at_family_shapes` and at (d)'s as `at_tp_prefill_shapes`; #11's and #12's launches in phase 15 (b) by family as
 `launches_families`, added to `launches`, their times at phase 15's
-shapes as `at_family_shapes` and at (f)'s as `at_tp_local_shapes`), the
+shapes as `at_family_shapes` and at (f)'s as `at_tp_local_shapes`; #1's,
+#2's and #10's launches in phase 17 as `launches_examples`, added to
+`launches`), the
 card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
 printing no result, if there is no CUDA device, a kernel fails to build,
 launch or agree, a path skips its kernel, recall misses its floor, or a
-churn or serving check fails, or a training or family check fails.
+churn or serving check fails, a training or family check fails, or an
+example's check fails.
 """
 
 from __future__ import annotations
@@ -5806,6 +5833,240 @@ def training_families() -> dict:
     return out
 
 
+# ------------------------------------------------- the examples (phase 17)
+# streaming_updates' seven modes by the flags a user gives, at their full
+# sizes but serve's; --sharded and --reshard on eight positions of the
+# card. serve runs at --quick: its lanes are eager (SERVE_SPEC has no
+# kernel), ~40 ms of host time a search on the card, and the scheduler
+# coalesces nothing behind a dispatch that holds the host, so every batch
+# is one query (25 q/s) and the full sizes' 6,000 arrivals took 238 s
+# (NVIDIA H100 80GB HBM3, 700 W)
+EXAMPLE_MODES = (("grow", []), ("churn", ["--churn"]),
+                 ("sharded", ["--churn", "--sharded"]),
+                 ("reshard", ["--reshard"]),
+                 ("serve --quick", ["--serve", "--quick"]),
+                 ("tenants", ["--tenants"]), ("tiered", ["--tiered"]))
+EXAMPLE_TRACED = (("churn", ["--churn"]), ("serve", ["--serve", "--quick"]))
+EXAMPLE_DIR = Path(__file__).resolve().parent / "build" / "phase17"
+EXAMPLE_CHURN = dict(n0=6000, rounds=6, batch=500, dims=64, quick=False)
+# recall@10 a tick of the JAX script's `--churn` (the same scenario; JAX on
+# the CPU): the kernel churn stays within RECALL_SLACK of it and of the
+# plain lanes' churn. The reference's first tick reads 0.845, under
+# RECALL_FLOOR, so the floor itself does not apply to this scenario
+JAX_CHURN_RECALL = (0.845, 0.864, 0.850, 0.863, 0.858, 0.865)
+EXAMPLE_RAG_ARCH = "stablelm-1.6b"
+# the forwards of rag_serve: the first ingest, two retrieves, the streamed
+# ingest, and generate's prefill (a decode step launches no #10)
+EXAMPLE_RAG_FORWARDS = 5
+# the full-width run is float32: its hits are compared with the blockwise
+# path's, and the two paths differ by summation order alone there
+EXAMPLE_RAG_DTYPE = "float32"
+EXAMPLE_TRAIN_STEPS = 2        # train_lm --full, then one step resumed
+
+
+class Tee:
+    """A stdout that prints and keeps what was printed."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s: str) -> int:
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def timed_example(name: str, fn, seconds: dict):
+    """fn() with the card synchronised before and after; its seconds
+    under `name`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    log(f"  {name}: {seconds[name]:.2f} s on {torch.cuda.get_device_name(0)}")
+    return out
+
+
+def example_streaming(seconds: dict) -> dict:
+    """Every streaming_updates mode, then churn and serve with --trace,
+    each trace read by scripts/obs_report.py."""
+    from repro_torch.examples import streaming_updates as su
+    out = {}
+    for name, flags in EXAMPLE_MODES:
+        log(f"  streaming_updates {' '.join(flags) or '(grow)'}")
+        res = timed_example(name, lambda: su.main(flags), seconds)
+        out[name] = {k: v for k, v in res.items() if k in ("rows", "r4",
+                                                          "r2", "n_plans")}
+    churn = out["churn"]["rows"]
+    check(len(churn) == EXAMPLE_CHURN["rounds"] and all(
+        r["size"] == EXAMPLE_CHURN["n0"] for r in churn),
+        f"churn's sizes {[r['size'] for r in churn]}")
+    check(sum(r["reused"] for r in out["sharded"]["rows"]) > 0,
+          "sharded churn reused no slot")
+    EXAMPLE_DIR.mkdir(parents=True, exist_ok=True)
+    report = Path(__file__).resolve().parent / "scripts" / "obs_report.py"
+    for mode, flags in EXAMPLE_TRACED:
+        path = EXAMPLE_DIR / f"{mode}.json"
+        path.unlink(missing_ok=True)
+        res = timed_example(f"{' '.join(flags)} --trace", lambda: su.main(
+            flags + ["--trace", str(path)]), seconds)
+        check(bool(res["metrics"]), f"traced {mode} returned no metrics")
+        done = subprocess.run([sys.executable, str(report), str(path)],
+                              capture_output=True, text=True, timeout=300)
+        log(f"    obs_report.py {path.name}: exit {done.returncode}; "
+            + " | ".join(done.stdout.strip().splitlines()[-2:]))
+        check(done.returncode == 0, f"obs_report.py on the {mode} trace "
+              f"exited {done.returncode}: {done.stderr[-500:]}")
+        out[f"{mode}_trace_events"] = len(json.loads(path.read_text())[
+            "traceEvents"])
+    return out
+
+
+def example_kernel_churn(seconds: dict, plain: list) -> dict:
+    """churn at its full sizes through the main path's spec: #1 and #2
+    once a search and no other kernel; the plain lanes' churn (`plain`,
+    its tick rows) tick for tick in the book-keeping's integers; recall@10
+    within RECALL_SLACK of the plain lanes' and of the JAX script's."""
+    from repro_torch.core.search_spec import Searcher
+    from repro_torch.examples import streaming_updates as su
+    spec = su.SERVE_SPEC.with_(use_kernels=True, fusion="megakernel",
+                               rerank_source="device")
+    with CountCalls(Searcher, "_dispatch") as searches:
+        res, secs, launched = counted(lambda: su.run_churn(
+            **EXAMPLE_CHURN, spec=spec))
+    seconds["churn, kernels"] = secs
+    n = searches.n
+    recall = [r["recall"] for r in res["rows"]]
+    log(f"  churn through {spec.fusion} + exact rerank: {secs:.2f} s, "
+        f"{n} searches, launches {launched}, recall@10 "
+        f"{[round(r, 4) for r in recall]}")
+    check(n == 2 * EXAMPLE_CHURN["rounds"] + 2, f"{n} searches")
+    check(launched == counts(fused_search=n, gather_l2=n),
+          f"kernel churn launched {launched} over {n} searches")
+    keys = ("size", "deleted", "inserted", "reused", "generation")
+    check([[r[k] for k in keys] for r in res["rows"]]
+          == [[r[k] for k in keys] for r in plain],
+          "kernel churn's ticks differ from the plain lanes' churn")
+    for got, lane, ref in zip(recall, plain, JAX_CHURN_RECALL):
+        check(got >= lane["recall"] - RECALL_SLACK
+              and got >= ref - RECALL_SLACK,
+              f"kernel churn recall {recall}: plain lanes "
+              f"{[r['recall'] for r in plain]}, JAX {JAX_CHURN_RECALL}")
+    return {"rows": res["rows"], "searches": n, "launches": launched}
+
+
+def example_rag(seconds: dict) -> dict:
+    """rag_serve at its reduced size, then at the published width with
+    #10 (its launches counted) and again blockwise on the same weights:
+    the hits must be equal."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config
+    from repro_torch.examples import rag_serve
+    from repro_torch.models.model import init_params
+    small = timed_example("rag_serve", rag_serve.main, seconds)
+    cfg = dataclasses.replace(get_config(EXAMPLE_RAG_ARCH),
+                              dtype=EXAMPLE_RAG_DTYPE, use_flash_kernel=True)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    with CountCalls(attention_mod, "blockwise_attention") as bw:
+        flash, secs, launched = counted(lambda: rag_serve.serve(params, cfg))
+    seconds["rag_serve, full width, #10"] = secs
+    want = counts(flash_attention=EXAMPLE_RAG_FORWARDS * cfg.num_layers)
+    log(f"  rag_serve at {cfg.name}'s width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype}) through #10: {secs:.2f} s, "
+        f"launches {launched}, blockwise calls {bw.n}")
+    check(launched == want and bw.n == 0, f"full-width rag_serve launched "
+          f"{launched} (blockwise {bw.n}), expected {want}")
+    block = timed_example("rag_serve, full width, blockwise",
+                          lambda: rag_serve.serve(params, dataclasses.replace(
+                              cfg, use_flash_kernel=False)), seconds)
+    log(f"    hits #10 {flash['hits']}; blockwise {block['hits']}")
+    check(flash["hits"] == block["hits"], "full-width rag_serve: #10's hits "
+          "differ from the blockwise path's")
+    check(flash["size"] == block["size"] == 768, "rag_serve index size")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"reduced": small, "full": {"hits": flash["hits"],
+                                       "generated": flash["generated"],
+                                       "cache": flash["cache"]},
+            "launches": launched}
+
+
+def example_train_lm(seconds: dict) -> dict:
+    """train_lm --full (xlstm-125m at its width, 64 x 1,024) for
+    EXAMPLE_TRAIN_STEPS steps into a fresh directory, then one more
+    resumed from its checkpoint."""
+    import contextlib
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_lm
+    ckpt = EXAMPLE_DIR / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = EXAMPLE_TRAIN_STEPS
+    tee = Tee(sys.stdout)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(tee):
+        first, s1, l1 = counted(lambda: train_lm.main(
+            ["--full", "--steps", str(steps)], ckpt_dir=str(ckpt)))
+        again, s2, l2 = counted(lambda: train_lm.main(
+            ["--full", "--steps", str(steps + 1)], ckpt_dir=str(ckpt)))
+    seconds["train_lm --full"] = s1
+    seconds["train_lm --full, resumed"] = s2
+    peak = torch.cuda.max_memory_allocated()
+    hist = first["history"] + again["history"]
+    ce = [h["ce"] for h in hist]
+    ln_v = float(np.log(get_config("xlstm-125m").vocab_size))
+    log(f"  train_lm --full: {steps} steps in {s1:.2f} s, one resumed in "
+        f"{s2:.2f} s (with init and checkpoints); seconds a step "
+        f"{[round(h['seconds'], 3) for h in hist]}; cross-entropy "
+        f"{[round(c, 4) for c in ce]} (ln V = {ln_v:.4f}); max memory "
+        f"allocated {peak / 1e9:.2f} GB")
+    check(f"resumed from step {steps}" in tee.text(),
+          "train_lm did not resume from its checkpoint")
+    check(first["steps"] == steps and again["steps"] == steps + 1
+          and len(hist) == steps + 1, "train_lm's step counts")
+    check(all(np.isfinite([h[k] for h in hist for k in ("loss", "ce",
+                                                         "grad_norm")])),
+          "train_lm: a loss or grad norm is not finite")
+    check(ln_v - 0.5 <= ce[0] <= ln_v + 3, f"train_lm: first cross-entropy "
+          f"{ce[0]:.4f} outside [ln V - 0.5, ln V + 3]")
+    check(l1 == l2 == counts(), f"train_lm launched {l1}, {l2}: xlstm has "
+          "no attention")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"ce": ce, "step_s": [h["seconds"] for h in hist],
+            "peak_memory_gb": peak / 1e9}
+
+
+def run_examples() -> dict:
+    """Phase 17: each example in-process on the card, its own assertions
+    kept; returns the seconds of each, the kernel churn's and full-width
+    rag_serve's launches."""
+    from repro_torch.examples import quickstart
+    t_phase = time.perf_counter()
+    seconds: dict = {}
+    out = {"device": torch.cuda.get_device_name(0)}
+    qs = timed_example("quickstart", quickstart.main, seconds)
+    check(qs["roundtrip"] and qs["size"] == 9000, "quickstart")
+    out["quickstart"] = {k: qs[k] for k in ("recall", "cache", "graph",
+                                            "session_qps", "mean_hops")}
+    out["streaming"] = example_streaming(seconds)
+    out["kernel_churn"] = example_kernel_churn(
+        seconds, out["streaming"]["churn"]["rows"])
+    out["rag"] = example_rag(seconds)
+    out["train_lm"] = example_train_lm(seconds)
+    out["seconds"] = seconds
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {out['phase_seconds']:.1f} s on {out['device']}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -5978,6 +6239,23 @@ def main() -> int:
                                       for m in tf["models"]},
                    at_family_shapes=tf[key],
                    at_tp_local_shapes=tf["tp_local"][key])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[17] the examples on the card: quickstart, the seven "
+        "streaming_updates modes and two traces, churn through the kernels, "
+        f"rag_serve reduced and at {EXAMPLE_RAG_ARCH}'s width, train_lm "
+        "--full with a resume")
+    ex = run_examples()
+    print(json.dumps({"examples": ex}, default=float))
+    ex_launches = {"fused_search": ex["kernel_churn"]["launches"],
+                   "gather_l2": ex["kernel_churn"]["launches"],
+                   "flash_attention": ex["rag"]["launches"]}
+    for rec in records:
+        got = ex_launches.get(rec["name"])
+        if got is not None:
+            rec["launches_examples"] = got[rec["name"]]
+            rec["launches"] += got[rec["name"]]
 
     check(set(ROOFLINE) == {"search", "train_step", "decode_step"},
           f"phase 16 measured {sorted(ROOFLINE)}")

@@ -35,3 +35,11 @@ def on_device(device):
     no-op on the CPU."""
     dev = torch.device(device)
     return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work when `device` is a card; a no-op on
+    the CPU (where every op has finished when it returns)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

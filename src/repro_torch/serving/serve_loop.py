@@ -14,6 +14,7 @@ import time
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import synchronize
 from repro_torch.models.model import Model, decode_step, prefill
 
 
@@ -24,11 +25,6 @@ def make_serve_step(cfg: ModelConfig):
         return decode_step(params, cfg, state, tokens)
 
     return serve_step
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 @torch.inference_mode()
@@ -52,7 +48,7 @@ def generate(params: Model, cfg: ModelConfig, prompts, *,
     step = make_serve_step(cfg)
     cur = _sample(logits[:, -1], temperature, gen)
     if timings is not None:
-        _sync(dev)
+        synchronize(dev)
         t1 = time.perf_counter()
         timings["prefill_s"] = t1 - t0
     out = [prompts, cur]
@@ -61,7 +57,7 @@ def generate(params: Model, cfg: ModelConfig, prompts, *,
         cur = _sample(logits[:, -1], temperature, gen)
         out.append(cur)
     if timings is not None:
-        _sync(dev)
+        synchronize(dev)
         timings["decode_s"] = time.perf_counter() - t1
     return torch.cat(out, dim=1)
 

@@ -2062,3 +2062,38 @@ def test_wrappers_refuse_operands_on_two_devices(cuda_device):
                  (("w", gather_l2), ("p", pairwise_l2), ("t", topk),
                   ("r", rabitq_distance))}
         assert before == after, name
+
+
+# ------------------------------------------------------------ the examples
+@pytest.mark.cuda
+def test_example_churn_launches_the_search_kernels(cuda_device,
+                                                   monkeypatch):
+    """streaming_updates' churn at its --quick sizes on the card with the
+    main path's spec: the megakernel (#1) and the exact rerank (#2) once a
+    search and no other kernel; the example itself asserts zero tombstoned
+    ids each tick; recall@10 >= 0.85."""
+    from repro_torch.core.plans import launch_counters
+    from repro_torch.core.search_spec import Searcher
+    from repro_torch.examples import streaming_updates as su
+    spec = su.SERVE_SPEC.with_(use_kernels=True, fusion="megakernel",
+                               rerank_source="device")
+    searches = []
+    dispatch = Searcher._dispatch
+
+    def counted(self, queries):
+        searches.append(self.resolved)
+        return dispatch(self, queries)
+    monkeypatch.setattr(Searcher, "_dispatch", counted)
+    counters = launch_counters()
+    for w in counters.values():
+        w.launches = 0
+    out = su.run_churn(n0=600, rounds=3, batch=60, dims=64, quick=True,
+                       device=cuda_device, spec=spec)
+    torch.cuda.synchronize()
+    launched = {n: w.launches for n, w in counters.items()}
+    n = len(searches)
+    assert n == 2 * 3 + 2
+    assert launched == {name: (n if name in ("fused_search", "gather_l2")
+                               else 0) for name in counters}, launched
+    assert all(r["recall"] >= 0.85 for r in out["rows"]), out["rows"]
+    assert [r["size"] for r in out["rows"]] == [600] * 3

@@ -61,7 +61,9 @@ def test_package_has_the_slice_modules():
                  "core.distributed", "core.resharding", "launch.mesh",
                  "models.moe", "models.ssm", "models.sharding_ctx",
                  "launch.shardings", "training.compression",
-                 "training.dp_step"):
+                 "training.dp_step", "examples.quickstart",
+                 "examples.streaming_updates", "examples.rag_serve",
+                 "examples.train_lm"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -238,6 +240,39 @@ def test_training_entry_points_raise_without_gpu(monkeypatch):
         train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
     args.device = "cpu"
     assert train.run(args)["steps"] == 1
+
+
+def test_examples_raise_without_gpu(monkeypatch, tmp_path):
+    """Each example's `main`: the card, or the CPU only when asked for."""
+    from repro_torch.examples import (quickstart, rag_serve,
+                                      streaming_updates, train_lm)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main(n=64, dims=8, n_queries=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.cli([])
+    for mode in (["--churn", "--quick"], ["--churn", "--quick",
+                                          "--sharded"],
+                 ["--reshard", "--quick"], ["--serve", "--quick"],
+                 ["--tenants", "--quick"], ["--tiered", "--quick"],
+                 ["--quick"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            streaming_updates.main(mode)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        streaming_updates.mesh_devices()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rag_serve.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rag_serve.cli([])
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"], ckpt_dir=ckpt)
+    # asked for the CPU, they run there
+    out = quickstart.main(n=300, dims=16, n_queries=8, device="cpu")
+    assert out["device"] == "cpu" and out["size"] == 1300
+    assert streaming_updates.mesh_devices("cpu") == ["cpu"] * 8
+    assert train_lm.main(["--steps", "1", "--device", "cpu"],
+                         ckpt_dir=ckpt)["steps"] == 1
 
 
 def test_kernel_build_refuses_without_gpu(monkeypatch):
